@@ -19,6 +19,8 @@ import torch
 
 from slam_eslam_tpu_torch.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu_torch.filter.pose_estimator import PoseEstimatorState
+from slam_eslam_tpu_torch.filter.streaming import StreamingState
+from slam_eslam_tpu_torch.mapping.map_pool import MapPool
 from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid, PackedLookup
 from slam_eslam_tpu_torch.models.odometry import FootContactOdometry
 
@@ -69,6 +71,30 @@ def pose_estimator_state_from(d, device=None,
         max_weight=_tensor(d["max_weight"], device),
         step=_tensor(d["step"], device),
         generator=generator or torch.Generator(device),
+    )
+
+
+def map_pool_from(d, device=None) -> MapPool:
+    """A JAX ``MapPool`` dict (``color`` None for a colourless pool)."""
+    return _from(MapPool, d, device, resolution=float(d["resolution"]),
+                 nx=int(d["nx"]), ny=int(d["ny"]), k=int(d["k"]),
+                 color=(None if d["color"] is None
+                        else _tensor(d["color"], device)))
+
+
+def streaming_state_from(d, device=None, generator=None) -> StreamingState:
+    """A JAX ``StreamingState`` dict.  The motion-gate anchors become
+    host float32 arrays and ``update_idx`` a Python int, as the port's
+    host-side gates keep them."""
+    anchor = lambda name: np.array(d[name], np.float32)
+    return StreamingState(
+        filter=pose_estimator_state_from(d["filter"], device, generator),
+        pool=map_pool_from(d["pool"], device),
+        ud_pos=anchor("ud_pos"), ud_q=anchor("ud_q"),
+        map_pos=anchor("map_pos"), map_q=anchor("map_q"),
+        cam_pos=anchor("cam_pos"), cam_q=anchor("cam_q"),
+        update_idx=int(d["update_idx"]),
+        alloc_failed=_tensor(d["alloc_failed"], device),
     )
 
 

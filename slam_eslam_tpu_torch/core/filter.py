@@ -67,6 +67,13 @@ def resample_multinomial(weights, u):
     return resample_from_positions(weights, u)
 
 
+def best_particle_index(weights):
+    """Index of the largest weight, the first on ties
+    (``ParticleFilter.hpp:160-173``); a 0-d int64 tensor on the weights'
+    device."""
+    return torch.argmax(weights)
+
+
 def take(particles, idx):
     """Gather every per-particle field by index (the SoA analogue of
     copying ``Particle`` structs, ``ParticleFilter.hpp:104``)."""

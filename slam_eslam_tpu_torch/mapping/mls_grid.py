@@ -1,10 +1,14 @@
-"""Multi-Level Surface grids, read side.
+"""Multi-Level Surface grids.
 
-Port of the lookup half of ``slam_eslam_tpu.mapping.mls_grid``: the
+Port of ``slam_eslam_tpu.mapping.mls_grid``.  Read side: the
 ``[nx, ny, K]`` SoA grid, its packed single-gather view and the z-window
 patch select (``MLSMap::getPatch`` with the reference's 3.0 m window,
-``PoseEstimator.hpp:97-105``).  The write side (patch fusion, merges)
-belongs to the per-particle-map slice.
+``PoseEstimator.hpp:97-105``).  Write side: the ``PatchCloud`` a scan
+projects to, the row-wise same-cell fusion ``_dedup_fuse_rows`` and the
+envire slot rules ``fuse_slot_rows`` -- the plain version the block-merge
+kernel (``ops.block_merge``) is held against.  The single-grid writers
+(``merge_points``, ``merge_cloud``, ``match_cloud``,
+``apply_negative_points``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +34,18 @@ class MLSGrid:
     color: torch.Tensor       # [nx, ny, K, 3] float32
     origin: torch.Tensor      # [2] float32
     resolution: float
+
+    @property
+    def nx(self):
+        return self.mean.shape[0]
+
+    @property
+    def ny(self):
+        return self.mean.shape[1]
+
+    @property
+    def k(self):
+        return self.mean.shape[2]
 
     @staticmethod
     def create(nx, ny, resolution, origin=(0.0, 0.0), k=4, device=None,
@@ -123,3 +139,156 @@ def get_patch_packed(packed: PackedLookup, points, z_window=3.0):
     color = torch.zeros(points.shape[:-1] + (3,), dtype=mean.dtype,
                         device=mean.device)
     return found, mean, stdev, color
+
+
+# --------------------------------------------------------------------------
+# Write side: patch clouds and slot fusion
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PatchCloud:
+    """Fixed-size list of surface patches in the yaw-compensated body
+    frame (the reference's intermediate ``scanMap``,
+    ``EmbodiedSlamFilter.cpp:137-160``); ``color`` is zeros when
+    untextured."""
+
+    xy: torch.Tensor     # [P, 2] float32
+    z: torch.Tensor      # [P] float32
+    stdev: torch.Tensor  # [P] float32
+    valid: torch.Tensor  # [P] bool
+    color: torch.Tensor  # [P, 3] float32
+
+    @property
+    def p(self):
+        return self.xy.shape[0]
+
+    @staticmethod
+    def create(xy, z, stdev, valid, color=None):
+        if color is None:
+            color = torch.zeros(xy.shape[:-1] + (3,), dtype=xy.dtype,
+                                device=xy.device)
+        return PatchCloud(xy=xy, z=z, stdev=stdev, valid=valid, color=color)
+
+
+# the pool's slot flags, packed into one int32 word per slot
+META_VALID = 1          # bit 0
+META_HORIZONTAL = 2     # bit 1
+META_UIDX_SHIFT = 2     # bits 2.. = update_idx
+
+
+def pack_meta(valid, horizontal, update_idx):
+    """Encode (valid, horizontal, update_idx) into one int32 word."""
+    return ((valid.to(torch.int32) & 1)
+            | ((horizontal.to(torch.int32) & 1) << 1)
+            | (update_idx.to(torch.int32) << META_UIDX_SHIFT))
+
+
+def run_sums_rows(lin, w, wz, color=None):
+    """Per row: sort the entries by cell id ``lin [N, P]`` (stable, so
+    equal cells keep point order) and sum ``w``, ``wz`` (and ``w *
+    color``) over each run of equal cells, adding in point order.
+
+    Returns ``(lin_s, order, first, wsum, wzsum, csum)``: the sorted ids,
+    the permutation, a mark on the first entry of each run, and the run
+    sums broadcast back to every entry of the run (``csum`` is None
+    without ``color [N, P, 3]``)."""
+    n, p = lin.shape
+    lin_s, order = torch.sort(lin, dim=1, stable=True)
+    first = torch.ones_like(lin_s, dtype=torch.bool)
+    first[:, 1:] = lin_s[:, 1:] != lin_s[:, :-1]
+    seg = torch.cumsum(first.to(torch.int64), dim=1) - 1          # [N, P]
+
+    def run_sum(v):
+        out = torch.zeros_like(v).scatter_add_(1, seg, v)
+        return torch.gather(out, 1, seg)
+
+    w_s = torch.gather(w, 1, order)
+    wsum = run_sum(w_s)
+    wzsum = run_sum(torch.gather(wz, 1, order))
+    csum = None
+    if color is not None:
+        idx3 = order[..., None].expand(n, p, 3)
+        wc = w_s[..., None] * torch.gather(color, 1, idx3)
+        seg3 = seg[..., None].expand(n, p, 3)
+        csum = torch.gather(torch.zeros_like(wc).scatter_add_(1, seg3, wc),
+                            1, seg3)
+    return lin_s, order, first, wsum, wzsum, csum
+
+
+def _dedup_fuse_rows(lin, z, var, mask, sentinel, color=None):
+    """Row-independent Gaussian fusion of same-cell points
+    (``mls_grid._dedup_fuse_rows``): rows are particles, so cells of
+    different rows never collide.  Returns ``(lin_sorted, fused_z,
+    fused_var, keep, fused_color)`` with the entries reordered within
+    rows and ``keep`` marking one survivor per occupied cell."""
+    lin_m = torch.where(mask, lin, torch.full_like(lin, sentinel))
+    w = torch.where(mask, 1.0 / var.clamp(min=1e-12), torch.zeros_like(var))
+    lin_s, order, first, wsum, wzsum, csum = run_sums_rows(
+        lin_m, w, w * z, color)
+    fused_z = wzsum / wsum.clamp(min=1e-30)
+    fused_var = 1.0 / wsum.clamp(min=1e-30)
+    fused_color = (None if csum is None
+                   else csum / wsum.clamp(min=1e-30)[..., None])
+    keep = first & torch.gather(mask, 1, order)
+    return lin_s, fused_z, fused_var, keep, fused_color
+
+
+def fuse_slot_rows(means, stdevs, heights, valids, horiz, uidx,
+                   z, var, keep, update_idx,
+                   patch_thickness=0.1, gap_size=1.5):
+    """The envire ``MLSGrid::updateCell`` rules for one measurement
+    ``(z [M], var [M])`` against its cell's ``[M, K]`` slot rows
+    (``mls_grid.fuse_slot_rows``): (a) Kalman-fuse with the nearest
+    horizontal patch within ``patch_thickness``; (b) else extend the
+    nearest patch within ``gap_size`` vertically; (c) else insert into
+    the lowest free slot, or evict the highest-stdev patch.  The lowest
+    slot wins every tie.  Only rows with ``keep`` write.  Returns the
+    updated rows and the written-slot mask ``upd [M, K]``."""
+    k = means.shape[-1]
+    dist = (means - z[:, None]).abs()
+    inf = torch.full_like(dist, float("inf"))
+
+    fuse_cand = valids & horiz & (dist <= patch_thickness)
+    fuse_slot = torch.argmin(torch.where(fuse_cand, dist, inf), dim=-1)
+    can_fuse = fuse_cand.any(dim=-1)
+
+    gap_cand = valids & (dist <= gap_size)
+    gap_slot = torch.argmin(torch.where(gap_cand, dist, inf), dim=-1)
+    can_gap = gap_cand.any(dim=-1) & ~can_fuse
+
+    free_slot = torch.argmax((~valids).to(torch.int32), dim=-1)
+    has_free = (~valids).any(dim=-1)
+    evict_slot = torch.argmax(torch.where(valids, stdevs, -inf), dim=-1)
+    ins_slot = torch.where(has_free, free_slot, evict_slot)
+
+    slot = torch.where(can_fuse, fuse_slot,
+                       torch.where(can_gap, gap_slot, ins_slot))
+    onehot = slot[:, None] == torch.arange(k, device=slot.device)[None, :]
+    sel = lambda a: torch.gather(a, 1, slot[:, None])[:, 0]
+    m0, s0, h0 = sel(means), sel(stdevs), sel(heights)
+
+    w1 = 1.0 / (s0 * s0).clamp(min=1e-12)
+    w2 = 1.0 / var.clamp(min=1e-12)
+    fuse_mean = (m0 * w1 + z * w2) / (w1 + w2)
+    fuse_stdev = torch.sqrt(1.0 / (w1 + w2))
+    top = torch.maximum(m0, z)
+    bottom = torch.minimum(m0 - h0, z)
+    sq_var = torch.sqrt(var)
+
+    new_mean = torch.where(can_fuse, fuse_mean, torch.where(can_gap, top, z))
+    new_stdev = torch.where(can_fuse, fuse_stdev,
+                            torch.where(can_gap, torch.minimum(s0, sq_var),
+                                        sq_var))
+    new_height = torch.where(can_fuse, h0,
+                             torch.where(can_gap, top - bottom,
+                                         torch.zeros_like(top)))
+    new_horiz = can_fuse | ~can_gap
+
+    upd = onehot & keep[:, None]
+    means = torch.where(upd, new_mean[:, None], means)
+    stdevs = torch.where(upd, new_stdev[:, None], stdevs)
+    heights = torch.where(upd, new_height[:, None], heights)
+    valids = valids | upd
+    horiz = torch.where(upd, new_horiz[:, None], horiz)
+    uidx = torch.where(upd, torch.full_like(uidx, int(update_idx)), uidx)
+    return means, stdevs, heights, valids, horiz, uidx, upd

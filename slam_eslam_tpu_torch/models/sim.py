@@ -2,7 +2,7 @@
 
 A jax-free copy of ``slam_eslam_tpu.models.sim`` (``terrain_grid``,
 ``conformal_contact_state``, ``TrajectorySim``) with the Asguard wheel
-geometry of ``slam_eslam_tpu.models.asguard``, so the benchmark
+geometry of ``models.asguard``, so the benchmark
 trajectory can be rebuilt where JAX is not installed.  The grid is
 filled with the same float32 arithmetic as the JAX ``merge_points`` of
 one measurement into each empty cell.
@@ -10,32 +10,14 @@ one measurement into each empty cell.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid
+from slam_eslam_tpu_torch.models.asguard import (
+    FEET_PER_WHEEL, NUM_FEET, NUM_WHEELS, AsguardConfig)
 from slam_eslam_tpu_torch.utils import tree
-
-NUM_WHEELS = 4
-FEET_PER_WHEEL = 5
-NUM_FEET = NUM_WHEELS * FEET_PER_WHEEL
-
-
-@dataclasses.dataclass
-class AsguardConfig:
-    wheel_radius: float = 0.16
-    # wheel centre offsets (x lateral, y longitudinal)
-    track_width: float = 0.5
-    wheel_base: float = 0.6
-
-    def wheel_centers(self):
-        hx, hy = self.track_width / 2.0, self.wheel_base / 2.0
-        return np.array(
-            [[-hx, -hy, 0.0], [hx, -hy, 0.0], [-hx, hy, 0.0], [hx, hy, 0.0]]
-        )
 
 
 def terrain_grid(terrain, nx, ny, resolution, origin, stdev=0.02, k=4,
@@ -120,3 +102,84 @@ class TrajectorySim:
         return conformal_contact_state(
             self.position, self.yaw, self.terrain, noise=noise, rng=self.rng
         )
+
+
+def random_pool(n, num_blocks, nx, ny, k=4, resolution=0.25, chain_len=3,
+                seed=0, device=None):
+    """A seeded ``MapPool`` for kernel checks, made on ``device``: every
+    cell holds a uniform random share of valid slots (half full on
+    average, one cell in five full), slot means near 0.3 m (fusable),
+    0.5-1.3 m above (gap extension) or 2-3 m above (neither), random
+    horizontal bits and update stamps; block origins on a lattice of
+    block sizes; unique chain heads and tails of random blocks, a quarter
+    of them empty (-1)."""
+    from slam_eslam_tpu_torch.mapping.map_pool import MapPool
+
+    gen = torch.Generator(device or "cpu").manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    rand = lambda *s: torch.rand(s, generator=gen, **f32)
+    randint = lambda lo, hi, *s: torch.randint(
+        lo, hi, s, generator=gen, device=device)
+    b, shape = num_blocks, (num_blocks, nx, ny * k)
+    kind = rand(*shape)
+    mean = 0.3 + torch.where(
+        kind < 0.3, 0.03 * torch.randn(shape, generator=gen, **f32),
+        torch.where(kind < 0.5, 0.5 + 0.8 * rand(*shape),
+                    2.0 + rand(*shape)))
+    level = rand(b, nx, ny, 1)
+    valid = (rand(b, nx, ny, k) < level).reshape(shape)
+    meta = (valid.to(torch.int32) | (rand(*shape) < 0.8).to(torch.int32) << 1
+            | randint(0, 5, *shape).to(torch.int32) << 2)
+    size = torch.tensor([nx * resolution, ny * resolution], **f32)
+    origin = randint(-8, 8, b, 2).to(torch.float32) * size - size / 2
+    chain = randint(0, b, n, chain_len).to(torch.int32)
+    chain[rand(n, chain_len) < 0.25] = -1
+    chain[:, 0] = torch.randperm(b, generator=gen, device=device)[:n].to(
+        torch.int32)
+    pool = MapPool(
+        mean=mean, stdev=0.01 + 0.19 * rand(*shape),
+        height=0.3 * rand(*shape) * (rand(*shape) < 0.3), meta=meta,
+        color=None, origin=origin,
+        allocated=torch.zeros(b, dtype=torch.bool, device=device),
+        chain=chain, resolution=float(resolution), nx=nx, ny=ny, k=k)
+    pool.allocated = pool.refcounts() > 0
+    return pool
+
+
+def poses_on_heads(pool, spread, seed=0):
+    """Particle poses ``(xy [N, 2], yaw, z, z_sigma)`` around the centres
+    of their head blocks."""
+    device = pool.mean.device
+    gen = torch.Generator(device).manual_seed(seed)
+    n = pool.n
+    rand = lambda *s: torch.rand(s, generator=gen, device=device)
+    half = torch.tensor([pool.nx * pool.resolution / 2,
+                         pool.ny * pool.resolution / 2], device=device)
+    centre = pool.origin.index_select(0, pool.active().long()) + half
+    xy = centre + spread * (2 * rand(n, 2) - 1)
+    return (xy, (2 * rand(n) - 1) * np.pi,
+            0.02 * torch.randn(n, generator=gen, device=device),
+            0.05 * rand(n))
+
+
+def chain_queries(pool, c, seed=0):
+    """SoA ``[N, C]`` lookup queries: each near a random level of the
+    particle's chain (its head where the level is empty), a band around
+    every block reaching past its edges, heights near the slot means or
+    far from them."""
+    device = pool.mean.device
+    gen = torch.Generator(device).manual_seed(seed)
+    n, levels = pool.chain.shape
+    rand = lambda *s: torch.rand(s, generator=gen, device=device)
+    level = torch.randint(0, levels, (n, c), generator=gen, device=device)
+    blk = torch.gather(pool.chain, 1, level)
+    blk = torch.where(blk >= 0, blk, pool.chain[:, :1]).long()
+    org = pool.origin[blk]                                     # [N, C, 2]
+    size = pool.nx * pool.resolution
+    x = org[..., 0] - 0.3 + (size + 0.6) * rand(n, c)
+    y = org[..., 1] - 0.3 + (size + 0.6) * rand(n, c)
+    offsets = torch.tensor([0.0, 0.9, 2.5, -1.0], device=device)
+    z = (0.3 + offsets[torch.randint(0, 4, (n, c), generator=gen,
+                                     device=device)]
+         + 0.05 * torch.randn((n, c), generator=gen, device=device))
+    return x.contiguous(), y.contiguous(), z.contiguous()

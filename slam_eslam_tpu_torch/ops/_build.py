@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and bind the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library at
@@ -10,13 +10,17 @@ is reused.  Nothing here runs at import time.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -43,12 +47,14 @@ def nvcc_path():
 
 
 def library_path(name):
-    """Where the library built from the current ``csrc/<name>.cu`` goes."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library built from the current ``csrc/<name>.cu`` goes
+    (named by a hash of the source, the shared ``csrc/*.cuh`` headers
+    and the flags)."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 @functools.cache
@@ -73,6 +79,41 @@ def load(name):
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     return ctypes.CDLL(str(lib))
+
+
+def load_all(names):
+    """``load`` every kernel in ``names`` with one ``nvcc`` each, all
+    started together.  Returns ``{name: seconds}``, each build's wall
+    time (0 for a library that was already built)."""
+    def timed(name):
+        t0 = time.perf_counter()
+        load(name)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(timed, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def check_operand(name, t, shape, dtype, device, align=None):
+    """Raise unless ``t`` lies on ``device`` with ``dtype`` and ``shape``,
+    C-contiguous (and ``align``-byte aligned): what a launcher needs
+    before it hands ``t.data_ptr()`` to a kernel."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        if t.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"{name} is bfloat16: the CUDA kernels read float32 "
+                "(bf16 pool storage is not ported yet)")
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def build_log(name):

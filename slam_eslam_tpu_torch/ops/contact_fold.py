@@ -26,6 +26,7 @@ import functools
 import torch
 
 from slam_eslam_tpu_torch.mapping import mls_grid
+from slam_eslam_tpu_torch.ops import _build
 
 MILLS_U0 = -3.0
 MILLS_CF_DEPTH = 8
@@ -121,25 +122,11 @@ def contact_fold_reference(packed: mls_grid.PackedLookup, queries, act_col,
 
 @functools.cache
 def _launcher():
-    from slam_eslam_tpu_torch.ops import _build
-
     fn = _build.load("contact_fold").contact_fold_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [ptr] * 9 + [i32] * 5 + [f32] * 3 + [ptr]
     fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def contact_fold(packed: mls_grid.PackedLookup, queries, act_col, mv, *,
@@ -167,7 +154,7 @@ def contact_fold(packed: mls_grid.PackedLookup, queries, act_col, mv, *,
                            ("mv", mv, (1, n)),
                            ("packed.data", packed.data, (nx, ny, k2)),
                            ("packed.origin", packed.origin, (2,))):
-        _check(name, t, shape, f32, device)
+        _build.check_operand(name, t, shape, f32, device)
     if onehot.device != device or onehot.dim() != 2 or onehot.shape[0] != c:
         raise ValueError(f"onehot must be [C={c}, S] on {device}")
     seg = onehot.argmax(dim=1).to(torch.int32)

@@ -1,6 +1,10 @@
-"""CUDA kernel K1 (``csrc/contact_fold.cu``) against its plain PyTorch
-version on the card.  Marked ``cuda``; without a CUDA device every test
-skips.  This file imports no JAX, so it also runs where JAX is absent:
+"""CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``)
+and K3 (``csrc/block_merge.cu``) against their plain PyTorch versions on
+the card, and short GPU-vs-CPU runs of the localisation and SLAM paths.
+K2 must match bit for bit; K3 bit for bit on cells one point hits and
+within rtol 1e-6 elsewhere (the plain version sums with atomics on the
+card).  Marked ``cuda``; without a CUDA device every test skips.  This
+file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -15,9 +19,15 @@ from slam_eslam_tpu_torch import Config, ContactModelConfig
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.filter import step as steplib
+from slam_eslam_tpu_torch.filter import streaming
+from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+from slam_eslam_tpu_torch.mapping import map_pool as mp
 from slam_eslam_tpu_torch.mapping.lookup import make_lookup
-from slam_eslam_tpu_torch.mapping.mls_grid import PackedLookup
+from slam_eslam_tpu_torch.mapping.mls_grid import PackedLookup, PatchCloud
 from slam_eslam_tpu_torch.models import sim
+from slam_eslam_tpu_torch.models.asguard import AsguardSim
+from slam_eslam_tpu_torch.ops import block_merge as bm
+from slam_eslam_tpu_torch.ops import chain_lookup as cl
 from slam_eslam_tpu_torch.ops import contact_fold as cf
 from slam_eslam_tpu_torch.utils import tree
 
@@ -129,3 +139,183 @@ def test_steps_match_cpu_port(dev):
         cents[str(d)] = c.cpu()
     torch.testing.assert_close(cents[str(dev)], cents["cpu"], rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("n,c,nx", [(4096, 8, 40), (1001, 5, 12)])
+def test_chain_lookup_matches_plain(dev, n, c, nx):
+    pool = sim.random_pool(n, 4 * n, nx, nx, seed=n, device=dev)
+    q = sim.chain_queries(pool, c, seed=n)
+    args = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            pool.chain, q)
+    before = cl.chain_lookup.launches
+    got = cl.chain_lookup(*args, k=4, z_window=1.0)
+    assert cl.chain_lookup.launches == before + 1
+    ref = cl.chain_lookup_reference(*args, k=4, z_window=1.0)
+    torch.cuda.synchronize()
+    assert 0.1 < float(ref[0].float().mean()) < 0.9
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def merge_setup(n, p, nx, dev, seed):
+    pool = sim.random_pool(n, 4 * n, nx, nx, seed=seed, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    ang = torch.linspace(-np.pi / 2, np.pi / 2, p, device=dev)
+    r = 0.5 + 2.0 * torch.rand(p, generator=gen, device=dev)
+    cloud = PatchCloud.create(
+        xy=torch.stack([r * torch.cos(ang), r * torch.sin(ang)], -1),
+        z=0.3 + 0.02 * torch.randn(p, generator=gen, device=dev),
+        stdev=0.01 + 0.04 * torch.rand(p, generator=gen, device=dev),
+        valid=torch.rand(p, generator=gen, device=dev) < 0.9)
+    ops = mp.merge_operands(pool, *sim.poses_on_heads(pool, 1.0, seed),
+                            cloud)
+    return pool, ops
+
+
+def one_point_slots(pool, blk, lx, ly):
+    """Slots of cells that exactly one masked-in point hits."""
+    inb = (lx < pool.nx) & (ly < pool.ny)
+    cell = (blk.long()[:, None] * pool.nx + lx.long()) * pool.ny + ly.long()
+    counts = torch.zeros(pool.b * pool.nx * pool.ny, dtype=torch.int32,
+                         device=blk.device)
+    counts.index_add_(0, cell[inb], torch.ones_like(cell[inb],
+                                                    dtype=torch.int32))
+    return (counts == 1).reshape(pool.b, pool.nx, pool.ny, 1).expand(
+        -1, -1, -1, pool.k).reshape(pool.mean.shape)
+
+
+@pytest.mark.parametrize("n,p,nx", [(4096, 64, 40), (777, 300, 12)])
+def test_block_merge_matches_plain(dev, n, p, nx):
+    pool, (blk, lx, ly, w, wz) = merge_setup(n, p, nx, dev, seed=n)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    kern = [f.clone() for f in fields]
+    plain = [f.clone() for f in fields]
+    before = bm.block_merge.launches
+    bm.block_merge(*kern, None, blk, lx, ly, w, wz, 5, k=4)
+    assert bm.block_merge.launches == before + 1
+    bm.block_merge_reference(*plain, None, blk, lx, ly, w, wz, 5, k=4)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3], plain[3])
+    changed = kern[3] != fields[3]
+    assert int(changed.sum()) > n
+    one = one_point_slots(pool, blk, lx, ly)
+    for a, b in zip(kern[:3], plain[:3]):
+        assert torch.equal(a[one], b[one])
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_block_merge_many_points_match_cpu(dev):
+    """A camera-sized cloud (P = 8,192: 64 KB of sort keys, above the
+    default 48 KB of shared memory) against the plain version on the
+    CPU, whose sums run in point order as the kernel's do: mean, height
+    and meta bit for bit, many-point cells included; stdev within 1 ulp,
+    because PyTorch's vectorised CPU ``sqrt`` is not correctly rounded
+    (about 0.7 % of float32 inputs come out 1 ulp off) and the card's
+    is."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(64, 8192, 40, dev, seed=9)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    kern = [f.clone() for f in fields]
+    cpu = [f.cpu() for f in fields]
+    bm.block_merge(*kern, None, blk, lx, ly, w, wz, 3, k=4)
+    bm.block_merge_reference(*cpu, None, blk.cpu(), lx.cpu(), ly.cpu(),
+                             w.cpu(), wz.cpu(), 3, k=4)
+    torch.cuda.synchronize()
+    assert int((kern[3] != fields[3]).sum()) > 64
+    for i in (0, 2, 3):
+        assert torch.equal(kern[i].cpu(), cpu[i])
+    ulps = (kern[1].cpu().view(torch.int32).long()
+            - cpu[1].view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1
+
+
+def test_block_merge_colour_pool(dev):
+    pool, (blk, lx, ly, w, wz) = merge_setup(500, 64, 12, dev, seed=3)
+    gen = torch.Generator(dev).manual_seed(3)
+    color = torch.rand(pool.mean.shape[:2] + (pool.mean.shape[2] * 3,),
+                       generator=gen, device=dev)
+    pcolor = torch.rand((64, 3), generator=gen, device=dev)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta, color]
+    kern = [f.clone() for f in fields]
+    plain = [f.clone() for f in fields]
+    bm.block_merge(*kern, blk, lx, ly, w, wz, 2, pcolor, k=4)
+    bm.block_merge_reference(*plain, blk, lx, ly, w, wz, 2, pcolor, k=4)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3], plain[3])
+    for a, b in zip(kern, plain):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_kernels_reject_bad_operands(dev):
+    pool, (blk, lx, ly, w, wz) = merge_setup(64, 16, 12, dev, seed=4)
+    q = sim.chain_queries(pool, 4)
+    with pytest.raises(NotImplementedError):     # bf16 pool storage
+        cl.chain_lookup(pool.mean.bfloat16(), pool.stdev, pool.meta,
+                        pool.origin, 0.25, pool.chain, q, k=4)
+    with pytest.raises(ValueError):              # chain on the host
+        cl.chain_lookup(pool.mean, pool.stdev, pool.meta, pool.origin,
+                        0.25, pool.chain.cpu(), q, k=4)
+    with pytest.raises(TypeError):               # int64 cells
+        bm.block_merge(pool.mean, pool.stdev, pool.height, pool.meta, None,
+                       blk, lx.long(), ly, w, wz, 1, k=4)
+
+
+def test_slam_steps_match_cpu_port(dev):
+    """A short per-particle SLAM run on the card against the CPU port on
+    the same draws; K2 and K3 launch once per gated frame."""
+    n, steps = 512, 4
+    cfg = dataclasses.replace(
+        Config(), particle_count=n, min_effective=n // 2, grid_size=4.0,
+        grid_resolution=0.25, map_pool_blocks=4 * n, map_chain_length=3,
+        map_pool_color=False,
+        contact_model=ContactModelConfig(contact_point_radius=0.0,
+                                         min_contacts=2))
+    asg = AsguardSim(terrain=terrain)
+    z0 = float(asg.position[2])
+    frames, full = [], []
+
+    def cb(s):
+        cs = s.contact_state()
+        full.append(cs)
+        frames.append([cs.compact(8), s.orientation,
+                       s.position.astype(np.float32),
+                       np.full(32, 2.0, np.float32),
+                       (-np.pi / 2, np.pi / 32), False])
+
+    for _ in range(steps):
+        asg.step(wheel_delta=0.6, on_substep=cb)
+        frames[-1][5] = True
+    stacked = streaming.stack_frames(frames)
+    qs = torch.stack([torch.as_tensor(f[1]) for f in frames])
+    gen = torch.Generator().manual_seed(0)
+    normals = (torch.randn((n, 2), generator=gen),
+               torch.randn((n,), generator=gen))
+    draws = [steplib.StepDraws(pe.ProjectDraws.sample(n, gen, "cpu"),
+                               torch.rand(n, generator=gen))
+             for _ in frames]
+    out = {}
+    for d in ("cpu", dev):
+        f = EmbodiedSlamFilter(config=cfg, device=d).init(
+            pose=(np.array([0.0, 0.0, z0]), 0.0), use_shared_map=False,
+            num_contact_points=20, normal_xy=normals[0].to(d),
+            normal_yaw=normals[1].to(d))
+        odos = streaming.precompute_odometry(20, tree.to(tree.stack(full), d),
+                                             qs.to(d), cfg=cfg)
+        run = streaming.make_slam_scan_runner(
+            cfg, laser2body=(np.eye(3), np.zeros(3)), external_odometry=True)
+        k2, k3 = cl.chain_lookup.launches, bm.block_merge.launches
+        carry, aux = run(streaming.StreamingState.create(f.state, f.pool),
+                         tree.to(stacked, d), odos,
+                         [tree.to(x, d) for x in draws])
+        k2, k3 = cl.chain_lookup.launches - k2, bm.block_merge.launches - k3
+        if d == dev:
+            assert (k2, k3) == (aux["updated"].sum(), aux["mapped"].sum())
+        else:
+            assert (k2, k3) == (0, 0)
+        out[str(d)] = (aux, int(carry.pool.valid.sum()))
+    (a_cpu, n_cpu), (a_gpu, n_gpu) = out["cpu"], out[str(dev)]
+    assert (a_gpu["updated"] == a_cpu["updated"]).all()
+    assert (a_gpu["mapped"] == a_cpu["mapped"]).all()
+    assert a_gpu["mapped"].sum() == steps
+    torch.testing.assert_close(a_gpu["centroid"].cpu(), a_cpu["centroid"],
+                               rtol=0, atol=1e-3)
+    assert abs(n_gpu - n_cpu) <= 1e-3 * n_cpu

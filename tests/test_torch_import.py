@@ -11,14 +11,21 @@ MODULES = [
     "slam_eslam_tpu_torch.convert",
     "slam_eslam_tpu_torch.core.filter",
     "slam_eslam_tpu_torch.core.state",
+    "slam_eslam_tpu_torch.filter.eslam_filter",
     "slam_eslam_tpu_torch.filter.pose_estimator",
     "slam_eslam_tpu_torch.filter.step",
+    "slam_eslam_tpu_torch.filter.streaming",
     "slam_eslam_tpu_torch.mapping.lookup",
+    "slam_eslam_tpu_torch.mapping.map_pool",
     "slam_eslam_tpu_torch.mapping.mls_grid",
+    "slam_eslam_tpu_torch.mapping.projection",
+    "slam_eslam_tpu_torch.models.asguard",
     "slam_eslam_tpu_torch.models.contact_model",
     "slam_eslam_tpu_torch.models.odometry",
     "slam_eslam_tpu_torch.models.sim",
     "slam_eslam_tpu_torch.ops._build",
+    "slam_eslam_tpu_torch.ops.block_merge",
+    "slam_eslam_tpu_torch.ops.chain_lookup",
     "slam_eslam_tpu_torch.ops.contact_fold",
     "slam_eslam_tpu_torch.utils.geometry",
     "slam_eslam_tpu_torch.utils.tree",

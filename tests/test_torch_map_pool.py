@@ -1,0 +1,450 @@
+"""The port's copy-on-write map pool against the JAX package.
+
+Bookkeeping (``from_template``, ``refcounts``, ``resample``,
+``_allocate`` with exhaustion, ``ensure_unique_active``, ``rollover``)
+must agree exactly.  The chain lookup's plain version (kernel K2's
+oracle) must agree bit for bit with JAX ``chain_lookup`` and with the
+Pallas ``chain_lookup_blocks`` in interpret mode.  ``merge_cloud_all``'s
+plain version (kernel K3's oracle) is held against JAX ``kernel="xla"``,
+``kernel="pallas"`` (interpret mode) and ``merge_blocks_grouped`` with
+``group=4``: ``meta`` identical, float fields within 2 ulps on cells
+that one point hits and within rtol 2e-6 on cells that several points
+hit (f32 sums in another order).  The ulps are XLA's: its CPU compiler
+contracts ``a*b + c*d`` (the point variance, then the Kalman fuse) into
+fused multiply-adds, one rounding each, while the port rounds every
+operation, as the CUDA kernel does, so that kernel and plain version
+agree bit for bit (``tests/test_torch_cuda.py``).
+``apply_negative_cloud_all`` must agree exactly, ``match_cloud_all``
+within rtol 1e-5.  Every JAX function runs
+under ``jax.jit``; the grids are at 0.25 m, whose reciprocal is exact.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam_eslam_tpu.mapping import map_pool as jmp
+from slam_eslam_tpu.mapping import mls_grid as jmls
+from slam_eslam_tpu.ops import pallas_chain, pallas_merge
+from slam_eslam_tpu_torch import convert
+from slam_eslam_tpu_torch.mapping import map_pool as tmp
+from slam_eslam_tpu_torch.mapping import mls_grid as tmls
+
+torch.set_num_threads(2)
+
+N, L, K = 32, 3, 4
+NX = NY = 12           # 3 m at 0.25 m
+RES = 0.25
+SIZE = NX * RES
+
+
+def as_dict(pytree):
+    return jax.tree_util.tree_map(np.asarray, dataclasses.asdict(pytree))
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def port_pool(jpool):
+    return convert.map_pool_from(as_dict(jpool))
+
+
+def random_pool(seed, n=N, b=4 * N, with_color=False, unique_heads=True):
+    """A JAX ``MapPool`` with seeded content: each cell holds 0..K valid
+    slots (half full on average), slot means near 0.3 m (fusable),
+    0.5-1.3 m above (gap extension) or 2-3 m above (neither), random
+    horizontal bits and update stamps, block origins on a 3 m lattice,
+    and chains whose tails hold -1 entries."""
+    rng = np.random.default_rng(seed)
+    shape = (b, NX, NY * K)
+    kind = rng.choice(3, shape, p=[0.3, 0.2, 0.5])
+    mean = np.where(kind == 0, 0.3 + rng.normal(0, 0.03, shape),
+                    np.where(kind == 1, 0.3 + rng.uniform(0.5, 1.3, shape),
+                             0.3 + rng.uniform(2.0, 3.0, shape)))
+    count = rng.integers(0, K + 1, (b, NX, NY, 1))
+    rank = np.argsort(rng.random((b, NX, NY, K)), axis=-1)
+    valid = (rank < count).reshape(shape)
+    meta = (valid.astype(np.int32) | (rng.random(shape) < 0.8) << 1
+            | rng.integers(0, 5, shape) << 2).astype(np.int32)
+    origin = (rng.integers(-2, 2, (b, 2)) * SIZE - SIZE / 2).astype(
+        np.float32)
+    if unique_heads:
+        heads = rng.permutation(b)[:n]
+    else:
+        heads = rng.integers(0, b, n)
+    chain = np.concatenate([heads[:, None], rng.integers(0, b, (n, L - 1))],
+                           axis=1)
+    chain[rng.random((n, L)) < 0.25] = -1
+    chain[:, 0] = heads
+    f = lambda a: jnp.asarray(a, jnp.float32)
+    return jmp.MapPool(
+        mean=f(mean), stdev=f(rng.uniform(0.01, 0.2, shape)),
+        height=f(rng.uniform(0, 0.3, shape) * (rng.random(shape) < 0.3)),
+        meta=jnp.asarray(meta),
+        color=(f(rng.uniform(0, 1, (b, NX, NY * K * 3))) if with_color
+               else None),
+        origin=jnp.asarray(origin),
+        allocated=jnp.asarray(np.isin(np.arange(b), chain)),
+        chain=jnp.asarray(chain.astype(np.int32)),
+        resolution=RES, nx=NX, ny=NY, k=K)
+
+
+def assert_pool_equal(got, ref):
+    g, r = convert.to_numpy(got), as_dict(ref)
+    for name in ("mean", "stdev", "height", "meta", "color", "origin",
+                 "allocated", "chain"):
+        if r[name] is None:
+            assert g[name] is None, name
+        else:
+            np.testing.assert_array_equal(g[name], r[name], err_msg=name)
+
+
+def particles_near_heads(jpool, seed, spread=0.6):
+    """Particle xy around the centre of each head block, yaw, z, z_sigma."""
+    rng = np.random.default_rng(seed)
+    heads = np.asarray(jpool.chain)[:, 0]
+    centre = np.asarray(jpool.origin)[heads] + SIZE / 2
+    n = heads.shape[0]
+    xy = (centre + rng.uniform(-spread, spread, (n, 2))).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    z = rng.normal(0.0, 0.02, n).astype(np.float32)
+    zs = rng.uniform(0.0, 0.05, n).astype(np.float32)
+    return xy, yaw, z, zs
+
+
+# ------------------------------------------------------------ bookkeeping
+
+class TestBookkeeping:
+    @pytest.mark.parametrize("with_color", [False, True])
+    def test_from_template(self, with_color):
+        rng = np.random.default_rng(0)
+        grid = jmls.MLSGrid.create(NX, NY, RES, (-1.5, 2.0), k=K)
+        grid = dataclasses.replace(
+            grid, mean=jnp.asarray(rng.normal(0, 1, (NX, NY, K)), jnp.float32),
+            valid=jnp.asarray(rng.random((NX, NY, K)) < 0.4),
+            update_idx=jnp.asarray(rng.integers(0, 9, (NX, NY, K)),
+                                   jnp.int32))
+        ref = jmp.MapPool.from_template(grid, N, 3 * N, L,
+                                        with_color=with_color)
+        got = tmp.MapPool.from_template(convert.mls_grid_from(as_dict(grid)),
+                                        N, 3 * N, L, with_color=with_color)
+        assert_pool_equal(got, ref)
+        assert (got.nx, got.ny, got.k, got.resolution) == (NX, NY, K, RES)
+
+    def test_refcounts_and_resample(self):
+        jpool = random_pool(1, unique_heads=False)
+        pool = port_pool(jpool)
+        np.testing.assert_array_equal(pool.refcounts().numpy(),
+                                      np.asarray(jpool.refcounts()))
+        idx = np.random.default_rng(1).integers(0, N, N)
+        np.testing.assert_array_equal(
+            pool.resample(t(idx)).chain.numpy(),
+            np.asarray(jpool.resample(jnp.asarray(idx)).chain))
+
+    @pytest.mark.parametrize("b,p_want", [(4 * N, 0.5), (N + 6, 0.9)])
+    def test_allocate(self, b, p_want):
+        """The second case wants more blocks than are free."""
+        jpool = random_pool(2, b=b, unique_heads=False)
+        want = np.random.default_rng(2).random(N) < p_want
+        ref_blk, ref_failed = jax.jit(jmp._allocate)(jpool, jnp.asarray(want))
+        blk, failed = tmp._allocate(port_pool(jpool), t(want))
+        np.testing.assert_array_equal(blk.numpy(), np.asarray(ref_blk))
+        assert int(failed) == int(ref_failed)
+        if b < 2 * N:
+            assert int(ref_failed) > 0
+
+    @pytest.mark.parametrize("b", [4 * N, N + 4])
+    def test_ensure_unique_active(self, b):
+        """Resampled chains share heads; a small pool runs out."""
+        jpool = random_pool(3, b=b, with_color=b > N + 4)
+        idx = np.sort(np.random.default_rng(3).integers(0, N, N))
+        jpool = jpool.resample(jnp.asarray(idx))
+        ref, ref_failed = jax.jit(jmp.ensure_unique_active)(jpool)
+        got, failed = tmp.ensure_unique_active(port_pool(jpool))
+        assert_pool_equal(got, ref)
+        assert int(failed) == int(ref_failed)
+        heads = np.asarray(ref.chain)[:, 0]
+        if b > N + 4:
+            assert len(set(heads.tolist())) == N
+        else:
+            assert int(ref_failed) > 0
+
+    def test_rollover(self):
+        jpool = random_pool(4)
+        xy, *_ = particles_near_heads(jpool, 4, spread=1.2)
+        ref, ref_failed = jax.jit(jmp.rollover, static_argnums=2)(
+            jpool, jnp.asarray(xy), 0.75)
+        got, failed = tmp.rollover(port_pool(jpool), t(xy), 0.75)
+        assert_pool_equal(got, ref)
+        assert int(failed) == int(ref_failed) == 0
+        moved = np.asarray(ref.chain)[:, 0] != np.asarray(jpool.chain)[:, 0]
+        assert 0 < moved.sum() < N
+
+
+# ------------------------------------------------------------ chain lookup
+
+def lookup_queries(jpool, seed, c=8):
+    """[N, C, 3] world points around each particle's chain blocks, some
+    outside every block, heights around the slot means."""
+    rng = np.random.default_rng(seed)
+    chain = np.asarray(jpool.chain)
+    org = np.asarray(jpool.origin)[np.maximum(chain, 0)]         # [N, L, 2]
+    pick = rng.integers(0, L, (N, c))
+    base = np.take_along_axis(org, pick[..., None], axis=1)      # [N, C, 2]
+    xy = base + rng.uniform(-0.3, SIZE + 0.3, (N, c, 2))
+    z = 0.3 + rng.choice([0.0, 0.9, 2.5, -1.0], (N, c)) + rng.normal(
+        0, 0.05, (N, c))
+    return np.concatenate([xy, z[..., None]], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_chain_lookup_bitwise(seed):
+    jpool = random_pool(seed, unique_heads=False)
+    pts = lookup_queries(jpool, seed)
+    zw = 1.0
+    lookup = jmp.chain_lookup(jpool, z_window=zw)
+    ref = jax.jit(lambda p: jax.vmap(lookup)(jnp.arange(N), p))(pts)
+    ref_k = pallas_chain.chain_lookup_blocks(
+        jpool.mean, jpool.stdev, jpool.meta, jpool.chain, jpool.origin, RES,
+        jnp.asarray(pts), k=K, z_window=zw, interpret=True)
+    # on CPU tensors the lookup runs kernel K2's plain version
+    got = tmp.make_chain_lookup(port_pool(jpool), zw)(
+        torch.arange(N), tuple(t(pts[..., i]) for i in range(3)))
+    found = np.asarray(ref[0])
+    assert 0.1 < found.mean() < 0.9
+    assert (np.asarray(jpool.chain) < 0).any()
+    for r in (ref[:3], ref_k):
+        for a, b_ in zip(got, r):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+
+
+# ------------------------------------------------------------ merge
+
+def merge_case(seed, p, spread, with_color=False):
+    rng = np.random.default_rng(seed)
+    jpool = random_pool(seed, with_color=with_color)
+    xy, yaw, z, zs = particles_near_heads(jpool, seed)
+    cxy = rng.uniform(-spread, spread, (p, 2)).astype(np.float32)
+    cloud = jmls.PatchCloud.create(
+        xy=jnp.asarray(cxy),
+        z=jnp.asarray(rng.uniform(0.25, 0.35, p), jnp.float32),
+        stdev=jnp.asarray(rng.uniform(0.01, 0.05, p), jnp.float32),
+        valid=jnp.asarray(rng.random(p) < 0.9),
+        color=jnp.asarray(rng.uniform(0, 1, (p, 3)), jnp.float32))
+    return jpool, (xy, yaw, z, zs), cloud
+
+
+def port_cloud(cloud):
+    return tmls.PatchCloud(**{k: t(v) for k, v in as_dict(cloud).items()})
+
+
+def port_merge(jpool, parts, cloud, update_idx):
+    pool = port_pool(jpool)
+    tmp.merge_cloud_all(pool, *(t(a) for a in parts), port_cloud(cloud),
+                        update_idx)
+    return pool
+
+
+def jax_merge(jpool, parts, cloud, update_idx, **kw):
+    fn = jax.jit(functools.partial(jmp.merge_cloud_all, **kw),
+                 static_argnums=6)
+    return fn(jpool, *(jnp.asarray(a) for a in parts), cloud, update_idx)
+
+
+def cell_hits(jpool, parts, cloud):
+    """Per slot of the pool: how many masked-in points hit its cell."""
+    xy, yaw, _, _ = parts
+    c, s = np.cos(yaw), np.sin(yaw)
+    px, py = np.asarray(cloud.xy[:, 0]), np.asarray(cloud.xy[:, 1])
+    wx = c[:, None] * px - s[:, None] * py + xy[:, 0:1]
+    wy = s[:, None] * px + c[:, None] * py + xy[:, 1:2]
+    heads = np.asarray(jpool.chain)[:, 0]
+    org = np.asarray(jpool.origin)[heads]
+    ix = np.floor((wx - org[:, 0:1]) * 4).astype(int)
+    iy = np.floor((wy - org[:, 1:2]) * 4).astype(int)
+    ok = ((ix >= 0) & (ix < NX) & (iy >= 0) & (iy < NY)
+          & np.asarray(cloud.valid)[None])
+    hits = np.zeros((jpool.b, NX, NY), int)
+    np.add.at(hits, (np.broadcast_to(heads[:, None], ix.shape)[ok], ix[ok],
+                     iy[ok]), 1)
+    return np.repeat(hits, K, axis=2)
+
+
+def assert_ulps(got, ref, ulps, err_msg):
+    """Finite float32 arrays of one sign pattern within ``ulps`` units in
+    the last place."""
+    assert np.array_equal(np.signbit(got), np.signbit(ref)), err_msg
+    gap = np.abs(got.view(np.int32).astype(np.int64)
+                 - ref.view(np.int32).astype(np.int64))
+    assert gap.max(initial=0) <= ulps, (err_msg, gap.max())
+
+
+def assert_merge_matches(got, ref, hits, label):
+    g, r = convert.to_numpy(got), as_dict(ref)
+    np.testing.assert_array_equal(g["meta"], r["meta"], err_msg=label)
+    one = hits == 1
+    for name in ("mean", "stdev"):
+        assert_ulps(g[name][one], r[name][one], 2,
+                    f"{label} {name} (1 point)")
+        np.testing.assert_allclose(g[name], r[name], rtol=2e-6, atol=0,
+                                   err_msg=f"{label} {name}")
+    # a gap-extended height is a difference of two heights: its error is
+    # absolute, 2 ulps of the ~1 m means (single point), or of their
+    # multi-point sums
+    np.testing.assert_allclose(g["height"][one], r["height"][one], rtol=0,
+                               atol=2.4e-7, err_msg=f"{label} height")
+    np.testing.assert_allclose(g["height"], r["height"], rtol=0, atol=1e-6,
+                               err_msg=f"{label} height")
+    if r["color"] is not None:
+        np.testing.assert_allclose(g["color"], r["color"], rtol=2e-6,
+                                   atol=1e-7, err_msg=label)
+
+
+def rule_counts(jpool, ref, hits):
+    """Which envire rule wrote each hit cell, read off the merge: a new
+    meta stamp (update_idx 7) at a slot that was valid and horizontal with
+    the new horizontal bit set = fuse, valid and now vertical = gap
+    extension, invalid = insert, valid with neither = eviction."""
+    before, after = np.asarray(jpool.meta), np.asarray(ref.meta)
+    written = (after >> 2 == 7) & (hits > 0)
+    valid, horiz = before & 1, after >> 1 & 1
+    mean_b, mean_a = np.asarray(jpool.mean), np.asarray(ref.mean)
+    fused = written & (valid == 1) & (horiz == 1) & (
+        np.abs(mean_b - mean_a) <= 0.1)
+    gapped = written & (valid == 1) & (horiz == 0)
+    inserted = written & (valid == 0)
+    evicted = written & (valid == 1) & ~fused & ~gapped
+    return fused.sum(), gapped.sum(), inserted.sum(), evicted.sum()
+
+
+@pytest.mark.parametrize("p,spread", [(24, 1.4), (48, 0.6)])
+def test_merge_matches_jax_xla(p, spread):
+    """Sparse (mostly one point per cell) and dense (multi-point) clouds
+    over a half-full pool."""
+    jpool, parts, cloud = merge_case(7 + p, p, spread)
+    ref = jax_merge(jpool, parts, cloud, 7, kernel="xla")
+    got = port_merge(jpool, parts, cloud, 7)
+    hits = cell_hits(jpool, parts, cloud)
+    assert (hits == 1).any() and (hits > 1).any()
+    assert_merge_matches(got, ref, hits, "xla")
+    fused, gapped, inserted, evicted = rule_counts(jpool, ref, hits)
+    assert min(fused, gapped, inserted, evicted) > 0, (
+        fused, gapped, inserted, evicted)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_merge_matches_pallas(group):
+    """``merge_blocks`` (group 1) and ``merge_blocks_grouped`` (group 4),
+    interpret mode."""
+    jpool, parts, cloud = merge_case(11, 40, 0.9)
+    ref = jax_merge(jpool, parts, cloud, 7, kernel="pallas", group=group)
+    got = port_merge(jpool, parts, cloud, 7)
+    assert_merge_matches(got, ref, cell_hits(jpool, parts, cloud),
+                         f"pallas group={group}")
+
+
+def test_merge_colour_pool():
+    jpool, parts, cloud = merge_case(13, 40, 0.9, with_color=True)
+    ref = jax_merge(jpool, parts, cloud, 7, kernel="xla")
+    got = port_merge(jpool, parts, cloud, 7)
+    assert_merge_matches(got, ref, cell_hits(jpool, parts, cloud), "colour")
+
+
+def test_merge_operands_plain_vs_pallas_body():
+    """``block_merge_reference`` on the kernel operands against
+    ``pallas_merge.merge_blocks`` called directly (interpret mode)."""
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+
+    jpool, parts, cloud = merge_case(17, 40, 0.9)
+    rng = np.random.default_rng(17)
+    heads = np.asarray(jpool.chain)[:, 0].astype(np.int32)
+    lx = rng.integers(-1, NX + 1, (N, 40)).astype(np.int32)
+    ly = rng.integers(0, NY, (N, 40)).astype(np.int32)
+    w = rng.uniform(10, 1000, (N, 40)).astype(np.float32)
+    wz = (w * rng.uniform(0.2, 0.4, (N, 40))).astype(np.float32)
+    ref = jax.jit(functools.partial(
+        pallas_merge.merge_blocks, k=K, interpret=True))(
+        jpool.mean, jpool.stdev, jpool.height, jpool.meta, heads, lx, ly, w,
+        wz, 3)
+    pool = port_pool(jpool)
+    bm.block_merge_reference(pool.mean, pool.stdev, pool.height, pool.meta,
+                             None, t(heads), t(lx), t(ly), t(w), t(wz), 3,
+                             k=K)
+    np.testing.assert_array_equal(pool.meta.numpy(), np.asarray(ref[3]))
+    for got, r in zip((pool.mean, pool.stdev, pool.height), ref[:3]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(r), rtol=1e-6)
+
+
+# ------------------------------------------------------------ negative, match
+
+def test_apply_negative_cloud_all():
+    jpool, parts, _ = merge_case(19, 8, 1.0)
+    xy, yaw, z, _ = parts
+    rng = np.random.default_rng(19)
+    pts = np.concatenate([rng.uniform(-1.2, 1.2, (30, 2)),
+                          rng.uniform(0.2, 0.4, (30, 1))], -1).astype(
+        np.float32)
+    mask = rng.random(30) < 0.8
+    ref = jax.jit(jmp.apply_negative_cloud_all)(
+        jpool, *(jnp.asarray(a) for a in (xy, yaw, z, pts, mask)))
+    got = tmp.apply_negative_cloud_all(port_pool(jpool), t(xy), t(yaw), t(z),
+                                       t(pts), t(mask))
+    assert_pool_equal(got, ref)
+    cleared = (np.asarray(jpool.meta) & 1) & ~(np.asarray(ref.meta) & 1)
+    assert cleared.sum() > 0
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+def test_match_cloud_all(kernel):
+    jpool, parts, cloud = merge_case(23, 60, 1.2)
+    ref = jax.jit(functools.partial(jmp.match_cloud_all, kernel=kernel))(
+        jpool, *(jnp.asarray(a) for a in parts), cloud)
+    got = tmp.match_cloud_all(port_pool(jpool), *(t(a) for a in parts),
+                              port_cloud(cloud))
+    assert np.asarray(ref).max() > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-7)
+
+
+# ------------------------------------------------------------ write side
+
+def test_dedup_fuse_rows_and_fuse_slot_rows():
+    rng = np.random.default_rng(29)
+    n, p = 6, 20
+    lin = rng.integers(0, 8, (n, p)).astype(np.int32)
+    z = rng.uniform(0, 1, (n, p)).astype(np.float32)
+    var = rng.uniform(1e-4, 1e-2, (n, p)).astype(np.float32)
+    mask = rng.random((n, p)) < 0.8
+    color = rng.uniform(0, 1, (n, p, 3)).astype(np.float32)
+    ref = jax.jit(functools.partial(jmls._dedup_fuse_rows, sentinel=100))(
+        lin, z, var, mask, color=color)
+    got = tmls._dedup_fuse_rows(t(lin), t(z), t(var), t(mask), 100,
+                                color=t(color))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    keep = np.asarray(ref[3])
+    for a, b_ in zip((got[1], got[2], got[4]), (ref[1], ref[2], ref[4])):
+        np.testing.assert_allclose(a.numpy()[keep], np.asarray(b_)[keep],
+                                   rtol=1e-6)
+
+    m = 40
+    means = rng.uniform(0, 2, (m, K)).astype(np.float32)
+    stdevs = rng.uniform(0.01, 0.2, (m, K)).astype(np.float32)
+    heights = rng.uniform(0, 0.3, (m, K)).astype(np.float32)
+    valids = rng.random((m, K)) < 0.6
+    horiz = rng.random((m, K)) < 0.7
+    uidx = rng.integers(0, 5, (m, K)).astype(np.int32)
+    zq = rng.uniform(0, 2, m).astype(np.float32)
+    vq = rng.uniform(1e-4, 1e-2, m).astype(np.float32)
+    keepq = rng.random(m) < 0.9
+    args = (means, stdevs, heights, valids, horiz, uidx, zq, vq, keepq)
+    ref = jax.jit(jmls.fuse_slot_rows, static_argnums=9)(*args, 9)
+    got = tmls.fuse_slot_rows(*(t(a) for a in args), 9)
+    for a, b_ in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
