@@ -27,12 +27,24 @@ Phases (any failure raises and exits non-zero):
    make_slam_scan_runner`` on the card with host syncs forbidden; count
    K2 and K3 launches against the measurement and mapping gates, check
    that centroids, weights and the pool are finite, and hold the first
-   60 frames against the CPU port fed the same random draws.
+   60 frames against the CPU port fed the same random draws;
+7. check the unfolded lookup's select (K5) against its plain version,
+   bit for bit, at 800,000 queries (100k particles x 8 contacts) on the
+   400x400x4 grid, at a ragged count and on a spread cloud with
+   out-of-grid queries, and time both; then drive the application API,
+   ``EmbodiedSlamFilter.update_contact`` in shared-map mode with
+   ``log_debug`` and the surface hash (global init, reinjection), at
+   100k particles over the 150 frames of the localisation trajectory
+   with host syncs forbidden in every measurement update and the
+   distribution exported every 50 frames; count K5 launches (one per
+   measurement update, K1 none), run 20 frames with Chitta weighting
+   and 20 with the slip update on terrain labels, and hold the first 20
+   frames against the CPU port fed the same random draws.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
-``torch.profiler`` tables and traces of 10 localisation steps and of 50
-SLAM frames to DIR.
+``torch.profiler`` tables and traces of 10 localisation steps, of 50
+SLAM frames and of 20 application frames to DIR.
 """
 
 from __future__ import annotations
@@ -79,7 +91,16 @@ MERGE_HEIGHT_ATOL = 1e-6
 # move a point across a cell edge or a resampling ancestor by one; each
 # changes a count by a few patches
 PATCH_COUNT_RTOL = 1e-3
-KERNELS = ("contact_fold", "chain_lookup", "block_merge")
+# the application path (phase 7): EmbodiedSlamFilter.update_contact on
+# the localisation bench's grid, the distribution exported every 50
+# frames, 20-frame runs of the Chitta weighting and the slip update
+APP_FRAMES = 150
+APP_SHORT_FRAMES = 20
+APP_LOG_PERIOD = 50
+APP_PROFILE_FRAMES = 20
+APP_HASH_PERIOD = 5      # steps between hash reinjections
+CP_OK_RTOL = 1e-3        # cp_ok counts per update, GPU vs CPU port
+KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells")
 
 
 def slam_terrain(x, y):
@@ -610,6 +631,373 @@ def slam_path(dev, profile):
                 n_meas=n_meas, n_map=n_map)
 
 
+# ---------------------------------------------------------------- phase 7
+
+def check_select_cells(dev, cfg):
+    """K5 against its plain version on the phase-3 grid and queries, flat:
+    every output bit for bit, misses included; the int32-cell entry
+    against the world entry; both timed in turns."""
+    from slam_eslam_tpu_torch.mapping import mls_grid
+    from slam_eslam_tpu_torch.ops import select_cells as sc
+
+    z_window = cfg.mls_z_window
+    max_err, timing = 0.0, None
+    for name, n, spread in (("bench", N_BENCH, False),
+                            ("ragged", N_RAGGED, False),
+                            ("spread", N_BENCH, True)):
+        packed, q, *_ = fold_inputs(n, spread, dev, seed=n + 7)
+        q = tuple(a.reshape(-1).contiguous() for a in q)
+        got = sc.select_cells(packed, q, z_window)
+        ref = sc.select_cells_reference(packed, q, z_window)
+        ix, iy = mls_grid.cells(packed, q[0], q[1])
+        by_cell = sc.select_cells(packed, (ix, iy, q[2]), z_window)
+        torch.cuda.synchronize()
+        if got[0].shape != (8 * n,):
+            raise RuntimeError(f"select_cells[{name}]: bad output shape")
+        for what, out in (("plain version", ref), ("cell entry", by_cell)):
+            if not all(torch.equal(a, b) for a, b in zip(got, out)):
+                bad = int((got[0] != out[0]).sum())
+                raise RuntimeError(f"select_cells[{name}]: differs from the "
+                                   f"{what} ({bad} found flags)")
+        max_err = max(max_err, *(float((a - b).abs().max())
+                                 for a, b in zip(got[1:], ref[1:])))
+        inside = (ix >= 0) & (ix < packed.data.shape[0]) & (iy >= 0) & (
+            iy < packed.data.shape[1])
+        print(f"select_cells[{name}] Q={8 * n}: bitwise equal, found "
+              f"{float(got[0].float().mean()):.4f}, outside the grid "
+              f"{float((~inside).float().mean()):.4f}")
+        if name == "bench":
+            k_ms, p_ms, runs = alternate(
+                lambda: sc.select_cells(packed, q, z_window),
+                lambda: sc.select_cells_reference(packed, q, z_window),
+                n_kern=50, n_plain=20)
+            timing = (k_ms, p_ms)
+            print(f"select_cells[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
+                  f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
+                  f"{runs[3]:.4f})")
+    return max_err, timing
+
+
+def app_config(**contact):
+    from slam_eslam_tpu_torch import Config, ContactModelConfig
+
+    return dataclasses.replace(
+        Config(), particle_count=N_BENCH, min_effective=N_BENCH // 5,
+        contact_model=ContactModelConfig(contact_point_radius=0.0, **contact),
+        log_debug=not contact, log_particle_period=APP_LOG_PERIOD)
+
+
+def app_classes(x, y):
+    """Terrain-class colours of the slip run: class 0 west of x = 0,
+    class 1 east of it."""
+    east = np.asarray(x) > 0.0
+    return np.stack([~east, east, np.zeros_like(east)], -1)
+
+
+def app_labels(frame):
+    """Per-wheel terrain labels of the slip run: wheels 0 and 1 on class
+    0, wheel 3 on class 1 from frame 10."""
+    out = [(0, [0.8, 0.1, 0.1]), (1, [0.7, 0.2, 0.1])]
+    if frame >= 10:
+        out.append((3, [0.1, 0.8, 0.1]))
+    return out
+
+
+def app_setup():
+    """The localisation bench's trajectory for ``update_contact``: the
+    host poses ``(quaternion, position)`` the motion gate reads, and the
+    contact states (compacted to 8) and orientations, stacked."""
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.utils import geometry, tree
+
+    trajectory = sim.TrajectorySim(bench_terrain, speed=0.05)
+    z0 = float(trajectory.position[2])
+    poses, css, qs = [], [], []
+    for _ in range(APP_FRAMES):
+        (pos, yaw), _ = trajectory.step()
+        q = geometry.quat_from_yaw(torch.tensor(yaw, dtype=torch.float32))
+        css.append(trajectory.contact_state(noise=0.005).compact(CONTACT_CAP))
+        qs.append(q)
+        poses.append((q.numpy(), pos))
+    return z0, poses, tree.stack(css), torch.stack(qs)
+
+
+def app_filter(cfg, grid, z0, dev, hash_config=None, particles=None):
+    from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+    from slam_eslam_tpu_torch.utils import tree
+
+    f = EmbodiedSlamFilter(config=cfg, device=dev).init(
+        pose=(np.array([0.0, 0.0, z0]), 0.0), shared_grid=grid,
+        hash_config=hash_config, num_contact_points=CONTACT_CAP)
+    if particles is not None:
+        f.state = dataclasses.replace(f.state,
+                                      particles=tree.to(particles, dev))
+    return f
+
+
+def app_drive(f, poses, css, qs, frames, labels=None, spans=None,
+              exports=None):
+    """``update_contact`` over the first ``frames`` frames (contact
+    states and orientations already on the filter's device), host syncs
+    forbidden in each call.  ``spans`` collects, per call, CUDA events
+    around it and its host milliseconds (the time to launch its work),
+    ``exports`` the period-gated distributions.  Returns the gate
+    decisions."""
+    gates = []
+    for i in range(frames):
+        if spans is not None:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gates.append(f.update_contact(
+                poses[i], css[i], None if labels is None else labels(i),
+                orientation=qs[i]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if spans is not None:
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev[1].record()
+            spans.append((*ev, host_ms))
+        if exports is not None:
+            dist = f.maybe_log_distribution()
+            if dist is not None:
+                exports.append((i, dist))
+    return gates
+
+
+def check_app_state(f, name):
+    p = f.state.particles
+    cent, quat = f.get_centroid()
+    if not (bool(torch.isfinite(p.weight).all())
+            and bool(torch.isfinite(cent).all())
+            and bool(torch.isfinite(quat).all())):
+        raise RuntimeError(f"application path[{name}]: non-finite state")
+    return cent
+
+
+def app_compare(dev, cfg, hcfg, grid, z0, poses, css, qs):
+    """The card against the CPU port on identical draws.  The global
+    initialisation: equal hash tables (no bucket flips) and equal
+    particles from equal integer draws.  Then the first CHECK_STEPS
+    frames from one Gaussian start cloud, with the same odometry noise,
+    resampling uniforms and in-bucket reinjection draws.  (From the
+    hash's map-wide cloud a one-ulp difference of a weight moves a
+    resampling ancestor by metres, not by the centimetres the tolerance
+    is made for.)"""
+    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    from slam_eslam_tpu_torch.filter.eslam_filter import ContactDraws
+    from slam_eslam_tpu_torch.utils import tree
+
+    f_cpu = app_filter(cfg, grid, z0, "cpu", hcfg)
+    f_gpu = app_filter(cfg, tree.to(grid, dev), z0, dev, hcfg)
+    h = f_cpu.hash
+    flips = int((f_gpu.hash.bucket_id.cpu() != h.bucket_id).sum())
+    gen = torch.Generator().manual_seed(2)
+    n = cfg.particle_count
+    u = torch.randint(0, int(h.n_valid), (n,), generator=gen)
+    p_cpu = h.sample_particles(n, u)
+    p_gpu = f_gpu.hash.sample_particles(n, u.to(dev))
+    if flips or not all(torch.equal(getattr(p_cpu, f.name),
+                                    getattr(p_gpu, f.name).cpu())
+                        for f in dataclasses.fields(p_cpu)):
+        raise RuntimeError(f"application path: the hash differs on the card "
+                           f"({flips} bucket flips)")
+
+    start = pe.init_gaussian(
+        n, (0.0, 0.0), 0.0, cfg.initial_translation_error[:2],
+        cfg.initial_rotation_error[2], z0,
+        cfg.initial_translation_error[2] + 1e-3, generator=gen)
+    for f in (f_cpu, f_gpu):
+        f.state = dataclasses.replace(
+            f.state, particles=tree.to(start, f.device))
+    dev_err, cp_err, gates = 0.0, 0.0, []
+    for i in range(CHECK_STEPS):
+        cs, q = tree.index(css, i), qs[i]
+        count = int(h._at_bucket(h.bucket_count,
+                                 h.bucket(*h.signature(cs, q))))
+        draws = ContactDraws(
+            pe.ProjectDraws.sample(n, gen, "cpu"),
+            torch.rand(n, generator=gen),
+            (torch.rand(n, generator=gen, dtype=torch.float64)
+             * max(count, 1)).long())
+        g_cpu = f_cpu.update_contact(poses[i], cs, draws=draws, orientation=q)
+        g_gpu = f_gpu.update_contact(poses[i], tree.to(cs, dev),
+                                     draws=tree.to(draws, dev),
+                                     orientation=q.to(dev))
+        if g_cpu != g_gpu:
+            raise RuntimeError(f"application path: gates differ at frame {i}")
+        gates.append(g_gpu)
+        c_cpu, c_gpu = f_cpu.get_centroid()[0], f_gpu.get_centroid()[0]
+        dev_err = max(dev_err, float((c_gpu.cpu() - c_cpu).abs().max()))
+        if g_gpu:
+            n_cpu = int(f_cpu.last_eval.cp_ok.sum())
+            n_gpu = int(f_gpu.last_eval.cp_ok.sum())
+            cp_err = max(cp_err, abs(n_gpu - n_cpu) / max(n_cpu, 1))
+    rein = app_reinjections(gates, hcfg)
+    print(f"application path: GPU vs CPU port, hash of "
+          f"{h.bucket_id.numel()} candidates with {flips} bucket flips and "
+          f"equal global-init particles; over {CHECK_STEPS} frames "
+          f"({sum(gates)} measurement updates, {rein} reinjections): max "
+          f"centroid difference {dev_err:.3e} m, cp_ok counts within "
+          f"{cp_err:.3e}")
+    if not dev_err <= CENTROID_ATOL:
+        raise RuntimeError(f"application path: GPU and CPU centroids differ "
+                           f"by {dev_err} m")
+    if not cp_err <= CP_OK_RTOL:
+        raise RuntimeError(f"application path: cp_ok counts differ by "
+                           f"{cp_err}")
+    return dev_err, cp_err, flips
+
+
+def app_reinjections(gates, hcfg):
+    """Hash reinjections in a run: measurement updates on a step count
+    that is a multiple of the period."""
+    return sum(1 for i, g in enumerate(gates)
+               if g and (i + 1) % max(1, hcfg.period) == 0)
+
+
+def app_path(dev, profile):
+    from slam_eslam_tpu_torch import SurfaceHashConfig
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.ops import contact_fold as cf
+    from slam_eslam_tpu_torch.ops import select_cells as sc
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = app_config()
+    # the gate fires on every second frame, at odd step counts, so the
+    # default period of 10 steps would never reinject
+    hcfg = SurfaceHashConfig(use_hash=True, period=APP_HASH_PERIOD)
+    grid = sim.terrain_grid(bench_terrain, **GRID)
+    grid_d = tree.to(grid, dev)
+    z0, poses, css, qs = app_setup()
+    css_d, qs_d = tree.to(css, dev), qs.to(dev)
+    frames = [tree.index(css_d, i) for i in range(APP_FRAMES)]
+    qs_l = [qs_d[i] for i in range(APP_FRAMES)]
+
+    app_drive(app_filter(cfg, grid_d, z0, dev, hcfg), poses, frames, qs_l,
+              10)                                               # warm-up
+    t0 = time.perf_counter()
+    f = app_filter(cfg, grid_d, z0, dev, hcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spans, exports = [], []
+    cf.contact_fold.launches = 0
+    sc.select_cells.launches = 0
+    t0 = time.perf_counter()
+    gates = app_drive(f, poses, frames, qs_l, APP_FRAMES, spans=spans,
+                      exports=exports)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"select_cells": sc.select_cells.launches,
+                "contact_fold": cf.contact_fold.launches}
+    n_meas = sum(gates)
+    if launches != {"select_cells": n_meas, "contact_fold": 0} or not n_meas:
+        raise RuntimeError(f"application path: launches {launches} for "
+                           f"{n_meas} measurement updates")
+    check_app_state(f, "log_debug+hash")
+    ev = f.last_eval
+    if not bool(ev.cp_ok.any()) or not bool(
+            (ev.cp_point[ev.cp_ok].abs().sum(-1) > 0).all()):
+        raise RuntimeError("application path: no debug contact points")
+    if [i for i, _ in exports] != [i for i in range(APP_FRAMES)
+                                   if (i + 1) % APP_LOG_PERIOD == 0]:
+        raise RuntimeError(f"application path: exports at frames "
+                           f"{[i for i, _ in exports]}")
+    for _, dist in exports:
+        if not (bool(torch.isfinite(dist.gmm_means).all())
+                and bool(torch.isfinite(dist.gmm_covs).all())
+                and dist.cpoints.shape == ev.cp_point.shape):
+            raise RuntimeError("application path: bad distribution export")
+    def mean_ms(which, gated):
+        ms = [which(span) for span, g in zip(spans, gates) if g == gated]
+        return sum(ms) / max(len(ms), 1)
+
+    device_ms = lambda span: span[0].elapsed_time(span[1])
+    host_ms = lambda span: span[2]
+    ms_meas, ms_plain = mean_ms(device_ms, True), mean_ms(device_ms, False)
+    host_meas, host_plain = mean_ms(host_ms, True), mean_ms(host_ms, False)
+    print(f"application path: {APP_FRAMES} frames x {N_BENCH} particles in "
+          f"{elapsed:.4f} s = {APP_FRAMES / elapsed:.2f} frames/s; "
+          f"{n_meas} measurement updates at {ms_meas:.4f} ms each (CUDA "
+          f"events; {host_meas:.4f} ms on the host), other frames "
+          f"{ms_plain:.4f} ms ({host_plain:.4f} ms); launches {launches}; "
+          f"{len(exports)} distribution exports, "
+          f"{app_reinjections(gates, hcfg)} hash reinjections; hash "
+          f"{f.hash.cand_xy.shape[0]} candidates, {int(f.hash.n_valid)} "
+          f"valid, init {init_s:.4f} s")
+    del f, spans, exports
+
+    short = {}
+    for name, contact, grid_s, labels in (
+            ("chitta", dict(weighting="chitta"), grid_d, None),
+            ("slip", dict(use_slip_update=True),
+             tree.to(sim.terrain_grid(bench_terrain, **GRID,
+                                      color=app_classes), dev),
+             app_labels)):
+        cfg_s = app_config(**contact)
+        f_s = app_filter(cfg_s, grid_s, z0, dev)
+        sc.select_cells.launches = 0
+        cf.contact_fold.launches = 0
+        g = app_drive(f_s, poses, frames, qs_l, APP_SHORT_FRAMES,
+                      labels=labels)
+        k5 = sc.select_cells.launches
+        want = sum(g) if name == "chitta" else 0
+        if k5 != want or cf.contact_fold.launches or not sum(g):
+            raise RuntimeError(f"application path[{name}]: select_cells "
+                               f"launched {k5} times, contact_fold "
+                               f"{cf.contact_fold.launches}, for {sum(g)} "
+                               f"updates")
+        cent = check_app_state(f_s, name)
+        short[name] = (sum(g), k5)
+        print(f"application path[{name}]: {APP_SHORT_FRAMES} frames, "
+              f"{sum(g)} measurement updates, select_cells launches {k5}, "
+              f"centroid {cent.cpu().numpy()}")
+        del f_s
+
+    dev_err, cp_err, flips = app_compare(dev, cfg, hcfg, grid, z0, poses,
+                                         css, qs)
+    if profile:
+        profile_app(cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev,
+                    Path(profile))
+    return dict(elapsed=elapsed, launches=launches, n_meas=n_meas,
+                ms_meas=ms_meas, ms_plain=ms_plain, host_meas=host_meas,
+                host_plain=host_plain, dev_err=dev_err,
+                cp_err=cp_err, flips=flips, short=short)
+
+
+def profile_app(cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev, out):
+    from torch.profiler import ProfilerActivity, profile
+
+    f = app_filter(cfg, grid_d, z0, dev, hcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gates = app_drive(f, poses, frames, qs_l, APP_PROFILE_FRAMES)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in avg)
+    launch_calls = sum(e.count for e in avg
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                    "cudaLaunchKernelExC"))
+    table = avg.table(sort_by="cuda_time_total", row_limit=50)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "chip_smoke_app_profile.txt").write_text(table)
+    prof.export_chrome_trace(str(out / "chip_smoke_app_trace.json"))
+    print(f"application profile: {APP_PROFILE_FRAMES} frames "
+          f"({sum(gates)} measurement updates) in {wall:.4f} s traced, "
+          f"device busy {device_us / 1e3:.3f} ms "
+          f"({device_us / 1e4 / wall:.2f} %), "
+          f"{launch_calls / APP_PROFILE_FRAMES:.1f} launch calls per frame")
+    print(table[:6000])
+
+
 def profile_slam(run, cfg, z0, frames_d, odos, dev, out):
     from torch.profiler import ProfilerActivity, profile
 
@@ -664,7 +1052,8 @@ def profile_steps(run, cfg, particles, css_d, qs_d, dev, out, steps=10):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile 10 main-path steps into DIR")
+                    help="also profile the localisation, SLAM and "
+                         "application paths into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: "
@@ -706,6 +1095,13 @@ def main():
           f"{k2_plain * 1e3:.2f} us), block_merge {k3_ms * 1e3:.2f} us "
           f"(plain {k3_plain * 1e3:.2f} us) [{card}]")
 
+    k5_err, (k5_ms, k5_plain) = check_select_cells(dev, Config())
+    app = app_path(dev, args.profile)
+    print(f"application path: {APP_FRAMES / app['elapsed']:.2f} frames/s at "
+          f"{N_BENCH} particles, {app['ms_meas']:.4f} ms per measurement "
+          f"update ({app['n_meas']} updates); select_cells "
+          f"{k5_ms * 1e3:.2f} us (plain {k5_plain * 1e3:.2f} us) [{card}]")
+
     rows = (
         ("contact_fold", "slam_eslam_tpu/ops/pallas_gather.py:578",
          res["launches"], max_err, k_ms, p_ms),
@@ -713,6 +1109,8 @@ def main():
          slam["launches"]["chain_lookup"], k2_err, k2_ms, k2_plain),
         ("block_merge", "slam_eslam_tpu/ops/pallas_merge.py:211",
          slam["launches"]["block_merge"], k3_err, k3_ms, k3_plain),
+        ("select_cells", "slam_eslam_tpu/ops/pallas_gather.py:277",
+         app["launches"]["select_cells"], k5_err, k5_ms, k5_plain),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

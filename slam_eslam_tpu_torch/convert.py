@@ -20,6 +20,7 @@ import torch
 from slam_eslam_tpu_torch.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu_torch.filter.pose_estimator import PoseEstimatorState
 from slam_eslam_tpu_torch.filter.streaming import StreamingState
+from slam_eslam_tpu_torch.filter.surface_hash import SurfaceHash
 from slam_eslam_tpu_torch.mapping.map_pool import MapPool
 from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid, PackedLookup
 from slam_eslam_tpu_torch.models.odometry import FootContactOdometry
@@ -96,6 +97,12 @@ def streaming_state_from(d, device=None, generator=None) -> StreamingState:
         update_idx=int(d["update_idx"]),
         alloc_failed=_tensor(d["alloc_failed"], device),
     )
+
+
+def surface_hash_from(d, config, device=None) -> SurfaceHash:
+    """A JAX ``SurfaceHash`` dict; ``config`` is its (static)
+    ``SurfaceHashConfig``."""
+    return _from(SurfaceHash, d, device, config=config)
 
 
 def to_numpy(obj):

@@ -14,6 +14,11 @@ import dataclasses
 import torch
 
 
+def weights_avg(weights):
+    """Mean weight (``ParticleFilter.hpp:41-44``)."""
+    return weights.mean()
+
+
 def normalize_weights(weights):
     """Normalise; return ``(normalized, ess)`` (``ParticleFilter.hpp:
     46-70``).  A total weight that is <= 0 or non-finite resets every

@@ -113,12 +113,14 @@ def weighting_function(x, alpha=0.1, beta=0.9, gamma=0.05):
 
 
 def project(state: PoseEstimatorState, orientation, cfg: Config,
-            draws: ProjectDraws | None = None):
+            draws: ProjectDraws | None = None, use_hash=False):
     """Propagate particles with a sampled odometry delta
     (``PoseEstimator::project``, ``PoseEstimator.cpp:184-242``): noisy
     2-D delta, y-slip with probability ``slip_factor``, x0.7 weight
-    outside ``max_yaw_deviation`` of the IMU heading, z propagation and
-    recovery spreading when the max weight collapsed."""
+    outside ``max_yaw_deviation`` of the IMU heading, z propagation and,
+    when no surface hash is in use (``use_hash``), recovery spreading
+    when the max weight collapsed.  The draws of the spreading are taken
+    either way."""
     p = state.particles
     if draws is None:
         draws = ProjectDraws.sample(p.n, state.generator, p.x.device)
@@ -149,7 +151,7 @@ def project(state: PoseEstimatorState, orientation, cfg: Config,
     z = p.z + z_delta
     z_sigma = torch.sqrt(p.z_sigma ** 2 + z_var)
 
-    if cfg.spread_threshold > 0.0:
+    if not use_hash and cfg.spread_threshold > 0.0:
         # recovery spreading (PoseEstimator.cpp:224-236), scaled by how
         # far the max weight has collapsed
         spread = weighting_function(state.max_weight, 0.0,
@@ -180,7 +182,7 @@ def bind_lookup(map_lookup, map_id):
 
 
 def update_weights(state: PoseEstimatorState, contact_state: BodyContactState,
-                   orientation, map_lookup, cfg: Config):
+                   orientation, map_lookup, cfg: Config, terrain_prob=None):
     """Contact-likelihood weighting of all particles
     (``PoseEstimator::updateWeights``, ``PoseEstimator.cpp:257-352``).
 
@@ -189,7 +191,9 @@ def update_weights(state: PoseEstimatorState, contact_state: BodyContactState,
     the group-count discount ``(discount * floating_weight)^(4 - #cp)``
     applies to every particle; ``max_weight`` decays by
     ``discount_factor`` when no particle saw a contact point.
-    Returns ``(new_state, ContactEvalResult)``.
+    ``terrain_prob`` feeds the slip update (``evaluate_pose_batch``) and
+    ``cfg.log_debug`` asks for the debug contact points, which take the
+    unfolded lookup.  Returns ``(new_state, ContactEvalResult)``.
     """
     cstate = cm.set_contact_points(contact_state, orientation)
     p = state.particles
@@ -197,7 +201,8 @@ def update_weights(state: PoseEstimatorState, contact_state: BodyContactState,
     meas_var = p.z_sigma ** 2 + cfg.measurement_error ** 2
     res = cm.evaluate_pose_batch(
         cstate, rot, trans, meas_var, bind_lookup(map_lookup, p.map_id),
-        cfg.contact_model,
+        cfg.contact_model, terrain_prob=terrain_prob,
+        with_debug_points=cfg.log_debug,
     )
     valid = res.measurement_valid
 
@@ -242,7 +247,8 @@ def update_weights(state: PoseEstimatorState, contact_state: BodyContactState,
 
 
 def update(state: PoseEstimatorState, contact_state: BodyContactState,
-           orientation, map_lookup, cfg: Config, resample_u=None):
+           orientation, map_lookup, cfg: Config, resample_u=None,
+           terrain_prob=None):
     """Measurement update and ESS-gated stratified resampling
     (``PoseEstimator::update``, ``PoseEstimator.cpp:244-255``).
 
@@ -250,10 +256,12 @@ def update(state: PoseEstimatorState, contact_state: BodyContactState,
     ``state.generator`` when not given.  Resampling copies the
     normalised weights with the particles (``ParticleFilter.hpp:104``)
     and is a device-side select: ``idx = where(ess < min_effective,
-    ancestors, arange)`` and one gather.  Returns ``(state, aux)``.
+    ancestors, arange)`` and one gather.  ``terrain_prob`` feeds the
+    slip update.  Returns ``(state, aux)``; ``aux["eval"]`` is the
+    ``ContactEvalResult`` (the ``log_debug`` payload).
     """
     state, res = update_weights(state, contact_state, orientation,
-                                map_lookup, cfg)
+                                map_lookup, cfg, terrain_prob)
     p = state.particles
     weight, ess = pf.normalize_weights(p.weight)
     if resample_u is None:

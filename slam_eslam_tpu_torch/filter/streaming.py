@@ -161,7 +161,8 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, mesh=None,
         if value is not None:
             raise NotImplementedError(
                 f"make_slam_step({name}=...) is not ported yet (ROADMAP.md "
-                "queue 1: the surface hash, the camera path, multi-GPU)")
+                "queue 1: in-loop hash reinjection, the camera path, "
+                "multi-GPU)")
     match = cfg.use_visual_update
     odo_cfg = cfg_odo(cfg)
     threshold = cfg.grid_size / 2.0 * cfg.grid_threshold

@@ -22,8 +22,9 @@ Differences from the JAX package, all for the GPU:
   O(B), and there is no host sync.
 * The chain lookup and the merge run kernels K2 (``ops.chain_lookup``)
   and K3 (``ops.block_merge``) on CUDA tensors, their plain versions on
-  CPU tensors.  Lookups are SoA and carry no colour (the slip update's
-  colour lookup is not ported); ``shards > 1`` and ``mesh`` belong to
+  CPU tensors.  Lookups are SoA and carry no colour (the colour chain
+  lookup of the per-particle slip update is not ported yet);
+  ``shards > 1`` and ``mesh`` belong to
   the multi-GPU slice and raise ``NotImplementedError``.
 """
 

@@ -1,8 +1,9 @@
 """Multi-Level Surface grids.
 
 Port of ``slam_eslam_tpu.mapping.mls_grid``.  Read side: the
-``[nx, ny, K]`` SoA grid, its packed single-gather view and the z-window
-patch select (``MLSMap::getPatch`` with the reference's 3.0 m window,
+``[nx, ny, K]`` SoA grid with ``to_grid``/``from_grid``, the colour-carrying
+``get_patch``, the packed single-gather view and the z-window patch select
+(``MLSMap::getPatch`` with the reference's 3.0 m window,
 ``PoseEstimator.hpp:97-105``).  Write side: the ``PatchCloud`` a scan
 projects to, the row-wise same-cell fusion ``_dedup_fuse_rows`` and the
 envire slot rules ``fuse_slot_rows`` -- the plain version the block-merge
@@ -63,6 +64,20 @@ class MLSGrid:
             resolution=float(resolution),
         )
 
+    def to_grid(self, xy):
+        """World ``xy [..., 2]`` -> ``(ix, iy, in_bounds)``, cells
+        floor-indexed as ``cells`` computes them."""
+        inv = inverse_resolution(self.resolution)
+        ix = torch.floor((xy[..., 0] - self.origin[0]) * inv).to(torch.int32)
+        iy = torch.floor((xy[..., 1] - self.origin[1]) * inv).to(torch.int32)
+        inb = (ix >= 0) & (ix < self.nx) & (iy >= 0) & (iy < self.ny)
+        return ix, iy, inb
+
+    def from_grid(self, ix, iy):
+        """Cell index -> world xy ``[..., 2]`` of the cell centre."""
+        cell = torch.stack([ix, iy], dim=-1).to(self.mean.dtype)
+        return (cell + 0.5) * self.resolution + self.origin
+
 
 @dataclasses.dataclass
 class PackedLookup:
@@ -104,6 +119,30 @@ def cells(packed: PackedLookup, x, y):
     ix = torch.floor((x - packed.origin[0]) * inv)
     iy = torch.floor((y - packed.origin[1]) * inv)
     return ix.to(torch.int32), iy.to(torch.int32)
+
+
+def get_patch(grid: MLSGrid, points, z_window=3.0):
+    """Colour-carrying lookup of ``[..., 3]`` points in the unpacked grid
+    (``mls_grid.get_patch``), a plain gather as in the JAX package, which
+    computes it in XLA.  Returns ``(found, mean, stdev, color [..., 3])``.
+    Unlike the packed lookup, ``stdev`` is the slot's raw value and the
+    means of invalid slots are not masked; a miss carries slot 0 of its
+    cell (of cell (0, 0) outside the grid)."""
+    ix, iy, inb = grid.to_grid(points[..., :2])
+    zero = torch.zeros_like(ix)
+    cix = torch.where(inb, ix, zero).long()
+    ciy = torch.where(inb, iy, zero).long()
+    means = grid.mean[cix, ciy]                                # [..., K]
+    dist = (means - points[..., 2:3]).abs()
+    cand = grid.valid[cix, ciy] & (dist <= z_window)
+    best = torch.argmin(torch.where(cand, dist,
+                                    torch.full_like(dist, float("inf"))),
+                        dim=-1, keepdim=True)
+    found = inb & cand.any(dim=-1)
+    take = lambda a: torch.gather(a, -1, best)[..., 0]
+    color = torch.gather(grid.color[cix, ciy], -2,
+                         best[..., None].expand(best.shape + (3,)))[..., 0, :]
+    return found, take(means), take(grid.stdev[cix, ciy]), color
 
 
 def get_patch_packed_cells(packed: PackedLookup, ix, iy, z, z_window=3.0):

@@ -21,10 +21,11 @@ from slam_eslam_tpu_torch.utils import tree
 
 
 def terrain_grid(terrain, nx, ny, resolution, origin, stdev=0.02, k=4,
-                 device=None):
+                 device=None, color=None):
     """An ``MLSGrid`` holding one patch per cell (slot 0) at
     ``terrain(x, y)`` of the cell centre, with standard deviation
-    ``stdev``."""
+    ``stdev``; ``color(x, y) -> [P, 3]`` paints every slot of each cell
+    (a terrain-class RGB for the slip update, ``models.terrain``)."""
     f32 = np.float32
     ix, iy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
     cells = np.stack([ix.ravel(), iy.ravel()], -1).astype(f32)
@@ -41,6 +42,9 @@ def terrain_grid(terrain, nx, ny, resolution, origin, stdev=0.02, k=4,
     g.mean[..., 0] = torch.from_numpy(fused_z.reshape(nx, ny))
     g.stdev[..., 0] = torch.from_numpy(fused_sd.reshape(nx, ny))
     g.valid[..., 0] = True
+    if color is not None:
+        rgb = np.asarray(color(xy[:, 0], xy[:, 1]), f32).reshape(nx, ny, 1, 3)
+        g.color[:] = torch.from_numpy(rgb)
     return g if device is None else tree.to(g, device)
 
 

@@ -23,6 +23,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# every kernel of the port, one ``csrc/<name>.cu`` each
+KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
@@ -81,10 +83,10 @@ def load(name):
     return ctypes.CDLL(str(lib))
 
 
-def load_all(names):
-    """``load`` every kernel in ``names`` with one ``nvcc`` each, all
-    started together.  Returns ``{name: seconds}``, each build's wall
-    time (0 for a library that was already built)."""
+def load_all(names=KERNELS):
+    """``load`` every kernel in ``names`` (default: all of them) with one
+    ``nvcc`` each, all started together.  Returns ``{name: seconds}``,
+    each build's wall time (0 for a library that was already built)."""
     def timed(name):
         t0 = time.perf_counter()
         load(name)

@@ -1,10 +1,11 @@
-"""CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``)
-and K3 (``csrc/block_merge.cu``) against their plain PyTorch versions on
-the card, and short GPU-vs-CPU runs of the localisation and SLAM paths.
-K2 must match bit for bit; K3 bit for bit on cells one point hits and
-within rtol 1e-6 elsewhere (the plain version sums with atomics on the
-card).  Marked ``cuda``; without a CUDA device every test skips.  This
-file imports no JAX, so it also runs where JAX is absent:
+"""CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``),
+K3 (``csrc/block_merge.cu``) and K5 (``csrc/select_cells.cu``) against
+their plain PyTorch versions on the card, and short GPU-vs-CPU runs of
+the localisation and SLAM paths and of the application API's contact
+update.  K2 and K5 must match bit for bit; K3 bit for bit on cells one
+point hits and within rtol 1e-6 elsewhere (the plain version sums with
+atomics on the card).  Marked ``cuda``; without a CUDA device every test
+skips.  This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -15,13 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from slam_eslam_tpu_torch import Config, ContactModelConfig
+from slam_eslam_tpu_torch import Config, ContactModelConfig, SurfaceHashConfig
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.filter import step as steplib
 from slam_eslam_tpu_torch.filter import streaming
-from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+from slam_eslam_tpu_torch.filter.eslam_filter import (ContactDraws,
+                                                      EmbodiedSlamFilter)
 from slam_eslam_tpu_torch.mapping import map_pool as mp
+from slam_eslam_tpu_torch.mapping import mls_grid
 from slam_eslam_tpu_torch.mapping.lookup import make_lookup
 from slam_eslam_tpu_torch.mapping.mls_grid import PackedLookup, PatchCloud
 from slam_eslam_tpu_torch.models import sim
@@ -29,6 +32,7 @@ from slam_eslam_tpu_torch.models.asguard import AsguardSim
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
 from slam_eslam_tpu_torch.ops import contact_fold as cf
+from slam_eslam_tpu_torch.ops import select_cells as sc
 from slam_eslam_tpu_torch.utils import tree
 
 pytestmark = pytest.mark.cuda
@@ -319,3 +323,99 @@ def test_slam_steps_match_cpu_port(dev):
     torch.testing.assert_close(a_gpu["centroid"].cpu(), a_cpu["centroid"],
                                rtol=0, atol=1e-3)
     assert abs(n_gpu - n_cpu) <= 1e-3 * n_cpu
+
+
+@pytest.mark.parametrize("n,spread,k,nx", [
+    (100_000, 1.0, 4, 400),      # Q = 800,000 on the 400 x 400 x 4 grid
+    (100_003, 1.0, 4, 400),      # a ragged Q
+    (100_000, 15.0, 4, 400),     # spread, most queries outside the grid
+    (3001, 2.0, 2, 200),
+    (2999, 2.0, 1, 200)], ids=["bench", "ragged", "spread", "k2", "k1"])
+def test_select_cells_matches_plain(dev, n, spread, k, nx):
+    packed, q, *_ = fold_case(n, spread, n, dev, nx=nx, ny=nx, k=k)
+    q = tuple(a.reshape(-1).contiguous() for a in q)
+    before = sc.select_cells.launches
+    got = sc.select_cells(packed, q, 3.0)
+    ix, iy = mls_grid.cells(packed, q[0], q[1])
+    by_cell = sc.select_cells(packed, (ix, iy, q[2]), 3.0)
+    assert sc.select_cells.launches == before + 2
+    ref = sc.select_cells_reference(packed, q, 3.0)
+    torch.cuda.synchronize()
+    assert got[0].shape == (8 * n,)
+    assert 0.0 < float(ref[0].float().mean()) < 1.0
+    for a, b, c in zip(got, ref, by_cell):      # misses included
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_select_cells_rejects_bad_operands(dev):
+    packed, (qx, qy, qz), *_ = fold_case(64, 1.0, 0, dev)
+    with pytest.raises(ValueError):   # shapes differ
+        sc.select_cells(packed, (qx, qy[:4], qz))
+    with pytest.raises(TypeError):    # float64
+        sc.select_cells(packed, (qx.double(), qy, qz))
+    with pytest.raises(ValueError):   # queries on the host
+        sc.select_cells(packed, (qx.cpu(), qy, qz))
+    with pytest.raises(TypeError):    # int64 cells
+        sc.select_cells(packed, (qx.long(), qy.long(), qz))
+
+
+def test_update_contact_matches_cpu_port(dev):
+    """``EmbodiedSlamFilter.update_contact`` with ``log_debug`` and the
+    surface hash on the card, host syncs forbidden, against the CPU port
+    on the same draws; K5 launches once per measurement update.  The hash
+    and its global sampling must be equal; the run starts both from one
+    Gaussian cloud, where a one-ulp weight difference can move a
+    resampling ancestor by centimetres (from the map-wide hash cloud, by
+    metres)."""
+    n, frames = 4096, 12
+    cfg = dataclasses.replace(
+        Config(), particle_count=n, min_effective=n // 5, log_debug=True,
+        contact_model=ContactModelConfig(contact_point_radius=0.0))
+    hcfg = SurfaceHashConfig(use_hash=True, period=4)
+    grid = sim.terrain_grid(terrain, nx=160, ny=160, resolution=0.05,
+                            origin=(-4.0, -4.0))
+    traj = sim.TrajectorySim(terrain, speed=0.05, yaw_rate=0.02)
+    z0 = float(traj.position[2])
+    gen = torch.Generator().manual_seed(0)
+    filters = {d: EmbodiedSlamFilter(config=cfg, device=d).init(
+        (np.array([0.0, 0.0, z0]), 0.0), shared_grid=grid, hash_config=hcfg,
+        num_contact_points=8) for d in ("cpu", dev)}
+    fc, fg = filters["cpu"], filters[dev]
+    assert torch.equal(fg.hash.bucket_id.cpu(), fc.hash.bucket_id)
+    u = torch.randint(0, int(fc.hash.n_valid), (n,), generator=gen)
+    sampled = (fc.hash.sample_particles(n, u),
+               fg.hash.sample_particles(n, u.to(dev)))
+    for f in dataclasses.fields(sampled[0]):
+        assert torch.equal(getattr(sampled[1], f.name).cpu(),
+                           getattr(sampled[0], f.name))
+    start = pe.init_gaussian(n, (0.0, 0.0), 0.0, (0.1, 0.1), 0.1, z0, 0.3,
+                             generator=gen)
+    for f in (fc, fg):
+        f.state = dataclasses.replace(f.state,
+                                      particles=tree.to(start, f.device))
+    n_meas, before = 0, sc.select_cells.launches
+    for _ in range(frames):
+        (pos, yaw), _ = traj.step()
+        cs = traj.contact_state(noise=0.005).compact(8)
+        q = torch.tensor([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)],
+                         dtype=torch.float32)
+        count = int(fc.hash.bucket_count[fc.hash.bucket(
+            *fc.hash.signature(cs, q))])
+        draws = ContactDraws(
+            pe.ProjectDraws.sample(n, gen, "cpu"), torch.rand(n, generator=gen),
+            torch.randint(0, max(count, 1), (n,), generator=gen))
+        pose = (q.numpy(), pos)
+        got_c = fc.update_contact(pose, cs, draws=draws, orientation=q)
+        cs_d, draws_d, q_d = tree.to(cs, dev), tree.to(draws, dev), q.to(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_g = fg.update_contact(pose, cs_d, draws=draws_d,
+                                      orientation=q_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert got_g == got_c
+        n_meas += got_g
+        torch.testing.assert_close(fg.get_centroid()[0].cpu(),
+                                   fc.get_centroid()[0], rtol=0, atol=1e-3)
+    assert sc.select_cells.launches - before == n_meas > 0
+    assert torch.equal(fg.last_eval.cp_ok.cpu(), fc.last_eval.cp_ok)

@@ -9,12 +9,15 @@ REPO = Path(__file__).resolve().parent.parent
 MODULES = [
     "slam_eslam_tpu_torch",
     "slam_eslam_tpu_torch.convert",
+    "slam_eslam_tpu_torch.core.distribution",
     "slam_eslam_tpu_torch.core.filter",
+    "slam_eslam_tpu_torch.core.gmm",
     "slam_eslam_tpu_torch.core.state",
     "slam_eslam_tpu_torch.filter.eslam_filter",
     "slam_eslam_tpu_torch.filter.pose_estimator",
     "slam_eslam_tpu_torch.filter.step",
     "slam_eslam_tpu_torch.filter.streaming",
+    "slam_eslam_tpu_torch.filter.surface_hash",
     "slam_eslam_tpu_torch.mapping.lookup",
     "slam_eslam_tpu_torch.mapping.map_pool",
     "slam_eslam_tpu_torch.mapping.mls_grid",
@@ -23,10 +26,12 @@ MODULES = [
     "slam_eslam_tpu_torch.models.contact_model",
     "slam_eslam_tpu_torch.models.odometry",
     "slam_eslam_tpu_torch.models.sim",
+    "slam_eslam_tpu_torch.models.terrain",
     "slam_eslam_tpu_torch.ops._build",
     "slam_eslam_tpu_torch.ops.block_merge",
     "slam_eslam_tpu_torch.ops.chain_lookup",
     "slam_eslam_tpu_torch.ops.contact_fold",
+    "slam_eslam_tpu_torch.ops.select_cells",
     "slam_eslam_tpu_torch.utils.geometry",
     "slam_eslam_tpu_torch.utils.tree",
 ]

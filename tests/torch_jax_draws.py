@@ -1,0 +1,54 @@
+"""Shared helpers of the port's parity tests: JAX pytrees as numpy dicts,
+numpy to torch, and the JAX package's random draws rebuilt by repeating
+its key splits, so the port can be fed the same numbers."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from slam_eslam_tpu_torch.filter import pose_estimator as tpe
+
+
+def as_dict(pytree):
+    return jax.tree_util.tree_map(np.asarray, dataclasses.asdict(pytree))
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def project_draws(key, n):
+    """``pose_estimator.project``'s draws (``pose_estimator.py:113-115,
+    123-124,154-157``, ``odometry.py:160-166``); returns the next key."""
+    key, k_delta, k_slip1, k_slip2, k_sxy, k_syaw = jax.random.split(key, 6)
+    kxy, kyaw = jax.random.split(k_delta)
+    normal = lambda k, s: t(jax.random.normal(k, s, jnp.float32))
+    uniform = lambda k, s: t(jax.random.uniform(k, s, jnp.float32))
+    return key, tpe.ProjectDraws(
+        delta_xy=normal(kxy, (n, 2)), delta_yaw=normal(kyaw, (n,)),
+        slip=uniform(k_slip1, (n,)), shrink=uniform(k_slip2, (n,)),
+        spread_xy=normal(k_sxy, (n, 2)), spread_yaw=normal(k_syaw, (n,)),
+    )
+
+
+def resample_draws(key, n):
+    """``update``'s stratum uniforms (``pose_estimator.py:305``,
+    ``core/filter.py:132``); returns the next key."""
+    key, k_rs = jax.random.split(key)
+    return key, t(jax.random.uniform(k_rs, (n,), jnp.float32))
+
+
+def gaussian_normals(key, n):
+    """``init_gaussian``'s standard normals ``(xy [n, 2], yaw [n])``."""
+    kxy, kyaw = jax.random.split(key)
+    return (t(jax.random.normal(kxy, (n, 2))),
+            t(jax.random.normal(kyaw, (n,))))
+
+
+def randint_draws(key, n, count):
+    """``jax.random.randint(key, (n,), 0, max(count, 1))``: the hash's
+    integer draws (``surface_hash.py:218-219,237``)."""
+    return t(jax.random.randint(key, (n,), 0, jnp.maximum(count, 1)))
