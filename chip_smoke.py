@@ -39,9 +39,31 @@ Phases (any failure raises and exits non-zero):
    distribution exported every 50 frames; count K5 launches (one per
    measurement update, K1 none), run 20 frames with Chitta weighting
    and 20 with the slip update on terrain labels, and hold the first 20
-   frames against the CPU port fed the same random draws.
+   frames against the CPU port fed the same random draws;
+8. check the block copy (K7) against its plain version, bit for bit, at
+   the merge benchmark's shape (N = 4,096 particles, P = 64 points,
+   blocks of 40x128 slots, a pool of N + 64 blocks) and at a ragged N,
+   on float32 and bfloat16 fields, whole blocks and hit cells (sorted
+   as the merge visits them, and unsorted), in place and into a second
+   pool, and time it beside its plain version, the library call and the
+   block merge; check K2 and K3 on a pool stored in bfloat16 at phase
+   5's shapes, and at the 100,000-particle run's shape (a bfloat16 pool
+   of 400,000 blocks, element offsets past 2^31); then run the benchmark
+   ``slam_eslam_tpu_torch.bench`` in process: filter mode at its defaults
+   (100k particles, 150 steps; K1 launches, the fold and merge rooflines
+   with K7), filter mode with ``--fold off`` (K5, no K1), SLAM mode at
+   4,096 particles on a bfloat16 pool (200 frames) and SLAM mode at
+   100,000 particles on a bfloat16 pool of 400,000 blocks (50 frames);
+   and hold the first 60 SLAM frames on a bfloat16 pool against the CPU
+   port and against the float32 pool, fed the same random draws.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Every kernel's time stands beside its bound: the bytes the call must move
+(each input read once, each output written once, counted from this run's
+inputs) over the card's published memory rate, or its operations over
+the published float32 rate, whichever takes longer.
+
+The third line from the end is ``{"kernels": [...]}``, then the card's
+name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
 ``torch.profiler`` tables and traces of 10 localisation steps, of 50
 SLAM frames and of 20 application frames to DIR.
@@ -77,7 +99,7 @@ SLAM_N_RAGGED = 4093
 SLAM_POOL = dict(nx=40, ny=40, k=4, resolution=0.25, chain_len=3)
 SLAM_C = 8
 SLAM_RAYS = 64
-SLAM_STEPS, SLAM_SUBSTEPS = 20, 10
+SLAM_STEPS = 20            # scans, 10 contact frames each
 SLAM_CHECK_FRAMES = 60
 SLAM_PROFILE_FRAMES = 50
 # K3 against its plain version: bitwise on cells one point hits; the
@@ -100,12 +122,21 @@ APP_LOG_PERIOD = 50
 APP_PROFILE_FRAMES = 20
 APP_HASH_PERIOD = 5      # steps between hash reinjections
 CP_OK_RTOL = 1e-3        # cp_ok counts per update, GPU vs CPU port
-KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells")
-
-
-def slam_terrain(x, y):
-    return 0.15 * np.sin(0.7 * np.asarray(x)) + 0.12 * np.cos(
-        0.5 * np.asarray(y))
+KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
+           "block_copy")
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): memory rate, and float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS_F32 = 67e12
+# the merge benchmark's shape (utils.kernel_eff.merge_floor_fraction)
+COPY_N, COPY_N_RAGGED, COPY_P = 4096, 4093, 64
+COPY_BLOCK = dict(nx=40, ny=32, k=4)
+# the merge's twin does a subset of the merge's work: a floor fraction
+# above this means the twin is at fault
+FLOOR_FRACTION_MAX = 1.05
+BIG_N, BIG_STEPS = 100_000, 5     # 100k-particle SLAM: 50 frames
+BIG_PARTS = 16    # the 400,000-block check pool is drawn 25,000 at a time
+INT32_ELEMENTS = 2 ** 31  # element offsets from here on need 64 bits
 
 
 def bench_terrain(x, y):
@@ -132,6 +163,32 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes, flops=0.0):
+    """``(bound_ms, bound_by)``: the least time the card could take for
+    ``nbytes`` of traffic and ``flops`` float32 operations."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def distinct(cells):
+    """Number of distinct values in an integer tensor."""
+    return int(torch.unique(cells).numel())
+
+
+def grid_query_bytes(packed, xq, yq, per_query):
+    """Bytes a lookup of world queries into a packed grid must move:
+    ``per_query`` bytes of queries and results each, plus one slot row
+    (2K float32) per distinct cell the queries touch."""
+    from slam_eslam_tpu_torch.mapping import mls_grid
+
+    nx, ny, c2 = packed.data.shape
+    ix, iy = mls_grid.cells(packed, xq, yq)
+    inside = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    touched = distinct((ix.long() * ny + iy.long())[inside])
+    return xq.numel() * per_query + touched * c2 * 4
 
 
 # ---------------------------------------------------------------- phase 3
@@ -193,6 +250,11 @@ def check_contact_fold(dev, cfg):
                             ("spread", N_BENCH, True)):
         packed, q, act, mv, onehot = fold_inputs(n, spread, dev, seed=n)
         kw = dict(onehot=onehot, correction=correction, z_window=z_window)
+        if name == "bench":
+            # x, y, z per query, mv and 8 output rows per particle, the
+            # touched slot rows; ~60 float32 operations per query
+            k1_bound = bound(grid_query_bytes(packed, q[0], q[1], 12)
+                             + 9 * n * 4, 60.0 * q[0].numel())
         out_k = cf.contact_fold(packed, q, act, mv, **kw)
         out_p = cf.contact_fold_reference(packed, q, act, mv, **kw)
         torch.cuda.synchronize()
@@ -221,52 +283,35 @@ def check_contact_fold(dev, cfg):
             # alternate plain, kernel, kernel, plain
             p1, k1, k2, p2 = (cuda_ms(plain, 20), cuda_ms(kern, 50),
                               cuda_ms(kern, 50), cuda_ms(plain, 20))
-            timing = ((k1 + k2) / 2, (p1 + p2) / 2)
+            timing = ((k1 + k2) / 2, (p1 + p2) / 2, *k1_bound)
             print(f"contact_fold[bench] kernel {timing[0]:.4f} ms "
                   f"({k1:.4f}, {k2:.4f}), plain {timing[1]:.4f} ms "
-                  f"({p1:.4f}, {p2:.4f})")
+                  f"({p1:.4f}, {p2:.4f}), bound {k1_bound[0]:.4f} ms "
+                  f"({k1_bound[1]})")
     return max_err, timing
 
 
 # ---------------------------------------------------------------- phase 4
 
 def bench_setup(n, steps):
-    """The benchmark configuration, map, trajectory and initial state
-    (``bench.py`` filter mode, rebuilt with the port's NumPy sim)."""
-    from slam_eslam_tpu_torch import Config, ContactModelConfig
-    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    """The benchmark configuration, map, trajectory and initial state of
+    ``slam_eslam_tpu_torch.bench`` in filter mode, on the host."""
+    from slam_eslam_tpu_torch import bench
     from slam_eslam_tpu_torch.models import sim
-    from slam_eslam_tpu_torch.utils import geometry, tree
 
-    cfg = dataclasses.replace(
-        Config(), particle_count=n, min_effective=n // 5,
-        contact_model=ContactModelConfig(contact_point_radius=0.0),
-        lookup_mode="auto",
-    )
-    grid = sim.terrain_grid(bench_terrain, **GRID)
-    trajectory = sim.TrajectorySim(bench_terrain, speed=0.05)
-    css, qs, truth = [], [], []
-    for _ in range(steps):
-        (pos, yaw), _ = trajectory.step()
-        css.append(trajectory.contact_state(noise=0.005).compact(
-            CONTACT_CAP))
-        qs.append(geometry.quat_from_yaw(torch.tensor(yaw,
-                                                      dtype=torch.float32)))
-        truth.append(pos[:2])
-    particles = pe.init_gaussian(
-        n, (0.0, 0.0), 0.0, (0.3, 0.3), 0.05, 0.2, 0.3,
-        generator=torch.Generator().manual_seed(0),
-    )
-    return (cfg, grid, tree.stack(css), torch.stack(qs), np.array(truth),
-            particles)
+    args = bench.parser().parse_args(
+        ["--particles", str(n), "--steps", str(steps), "--contact-cap",
+         str(CONTACT_CAP)])
+    css, qs, truth, _ = bench.filter_trajectory(steps, CONTACT_CAP)
+    return (bench.filter_config(args),
+            sim.terrain_grid(bench.filter_terrain, **bench.FILTER_GRID),
+            css, qs, truth, bench.filter_particles(n))
 
 
 def fresh_state(cfg, particles, dev):
-    from slam_eslam_tpu_torch.filter import pose_estimator as pe
-    from slam_eslam_tpu_torch.utils import tree
+    from slam_eslam_tpu_torch import bench
 
-    state = pe.PoseEstimatorState.create(cfg, CONTACT_CAP, device=dev)
-    return dataclasses.replace(state, particles=tree.to(particles, dev))
+    return bench.filter_state(cfg, particles, CONTACT_CAP, dev)
 
 
 def main_path(dev, profile):
@@ -333,15 +378,55 @@ def main_path(dev, profile):
 
 # ---------------------------------------------------------------- phase 5
 
+def in_turns(fns, iters):
+    """Mean ms per call of each function of ``fns`` (a dict), timed after
+    a warm-up in the dict's order and then in its reverse, so that every
+    function is measured early and late."""
+    for f in fns.values():
+        cuda_ms(f, 2)
+    names = list(fns)
+    first = {k: cuda_ms(fns[k], iters[k]) for k in names}
+    second = {k: cuda_ms(fns[k], iters[k]) for k in reversed(names)}
+    return {k: (first[k] + second[k]) / 2 for k in names}, first, second
+
+
 def alternate(kern, plain, n_kern=50, n_plain=5):
     """Mean ms per call of ``kern`` and ``plain``, timed in turns (plain,
     kernel, kernel, plain) after a warm-up; returns ``(kernel_ms,
     plain_ms, the four runs)``."""
-    for f in (kern, plain):
-        cuda_ms(f, 2)
-    runs = (cuda_ms(plain, n_plain), cuda_ms(kern, n_kern),
-            cuda_ms(kern, n_kern), cuda_ms(plain, n_plain))
-    return (runs[1] + runs[2]) / 2, (runs[0] + runs[3]) / 2, runs
+    ms, first, second = in_turns({"plain": plain, "kern": kern},
+                                 {"plain": n_plain, "kern": n_kern})
+    return ms["kern"], ms["plain"], (first["plain"], first["kern"],
+                                     second["kern"], second["plain"])
+
+
+def chain_lookup_bytes(pool, chain, queries, z_window):
+    """Bytes one chain lookup must move for these inputs: per query its
+    x, y, z and the three outputs; the chain; and per level a query
+    reaches (the walk ends at the first hit) the block's origin and the
+    cell's mean and meta rows, plus the stdev row where it hits."""
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    xq, yq, zq = queries
+    size = pool.mean.element_size()
+    nbytes = xq.numel() * (12 + 9) + chain.numel() * 4
+    found = torch.zeros_like(xq, dtype=torch.bool)
+    size_x, size_y = pool.nx * pool.resolution, pool.ny * pool.resolution
+    for level in range(chain.shape[1]):
+        b = chain[:, level]
+        ok = (b >= 0)[:, None] & ~found
+        org = pool.origin.index_select(0, b.clamp(min=0).long())
+        inside = ((xq >= org[:, 0:1]) & (xq < org[:, 0:1] + size_x)
+                  & (yq >= org[:, 1:2]) & (yq < org[:, 1:2] + size_y))
+        hit, _, _ = cl.block_get_patch(
+            pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            b.clamp(min=0), xq, yq, zq, k=pool.k, z_window=z_window)
+        hit = hit & ok
+        nbytes += int(ok.sum()) * 8
+        nbytes += int((ok & inside).sum()) * pool.k * (size + 4)
+        nbytes += int(hit.sum()) * pool.k * size
+        found |= hit
+    return nbytes
 
 
 def check_chain_lookup(dev, pool, z_window):
@@ -368,17 +453,19 @@ def check_chain_lookup(dev, pool, z_window):
                                  for a, b in zip(got[1:], ref[1:])))
         empty = float((pool.chain[:n] < 0).float().mean())
         print(f"chain_lookup[{name}] N={n} C={SLAM_C} L="
-              f"{pool.chain.shape[1]}: bitwise equal, found "
+              f"{pool.chain.shape[1]} {pool.mean.dtype}: bitwise equal, found "
               f"{float(got[0].float().mean()):.4f}, empty chain entries "
               f"{empty:.4f}")
         if name == "bench":
             k_ms, p_ms, runs = alternate(lambda: cl.chain_lookup(*args, **kw),
                                          lambda: cl.chain_lookup_reference(
                                              *args, **kw))
-            timing = (k_ms, p_ms)
+            b_ms, b_by = bound(chain_lookup_bytes(pool, args[5], args[6],
+                                                  z_window))
+            timing = (k_ms, p_ms, b_ms, b_by)
             print(f"chain_lookup[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
                   f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-                  f"{runs[3]:.4f})")
+                  f"{runs[3]:.4f}), bound {b_ms:.5f} ms ({b_by})")
     return max_err, timing
 
 
@@ -410,6 +497,35 @@ def bench_cloud(dev):
                                      torch.zeros(3, device=dev), q)
 
 
+def hit_cells(blk, lx, ly, b, nx, ny):
+    """``(in-range points, distinct hit cells)`` of merge operands."""
+    from slam_eslam_tpu_torch.ops.block_copy import hit_rows
+
+    rows = hit_rows(blk, lx, ly, b, nx, ny)
+    return int(rows.numel()), distinct(rows)
+
+
+def block_merge_bytes(pool, blk, lx, ly):
+    """Bytes one block merge must move for these operands: the block ids
+    and the four point rows; per distinct hit cell the K slots of the
+    four fields read and one slot of each written.  The operations (two
+    sums per point, about 50 per cell for the slot rules, the sort's
+    P log^2 P compares per particle) are counted for the other bound."""
+    n, p = lx.shape
+    size = pool.mean.element_size()
+    _, cells = hit_cells(blk, lx, ly, pool.b, pool.nx, pool.ny)
+    nbytes = (n * 4 + 4 * n * p * 4
+              + cells * (pool.k * (3 * size + 4) + 3 * size + 4))
+    p_pad = 1 << (p - 1).bit_length()
+    flops = n * p_pad * (p_pad.bit_length() ** 2) / 2 + 2 * n * p + 50 * cells
+    return nbytes, flops
+
+
+def bf16_steps(a, b):
+    """Per-element distance, in bfloat16 steps, of two bfloat16 tensors."""
+    return (a.view(torch.int16).long() - b.view(torch.int16).long()).abs()
+
+
 def check_block_merge(dev, pool, cfg):
     from slam_eslam_tpu_torch.mapping import map_pool as mp
     from slam_eslam_tpu_torch.models import sim
@@ -433,19 +549,26 @@ def check_block_merge(dev, pool, cfg):
             raise RuntimeError(f"block_merge[{name}]: meta differs in {bad} "
                                f"slots")
         one = one_point_slots(pool, blk, lx, ly)
+        bf16 = pool.mean.dtype == torch.bfloat16
         for fname, a, b in zip(("mean", "stdev", "height"), kern, plain):
             if not torch.equal(a[one], b[one]):
                 raise RuntimeError(f"block_merge[{name}] {fname}: one-point "
                                    f"cells not bitwise equal")
-            tol = (MERGE_HEIGHT_ATOL if fname == "height"
-                   else MERGE_RTOL * b.abs())
-            if bool(((a - b).abs() > tol).any()):
+            if bf16:
+                # float32 sums in another order, then one rounding
+                outside = bf16_steps(a, b) > 1
+            else:
+                outside = (a - b).abs() > (
+                    MERGE_HEIGHT_ATOL if fname == "height"
+                    else MERGE_RTOL * b.abs())
+            if bool(outside.any()):
                 raise RuntimeError(f"block_merge[{name}] {fname}: outside "
                                    f"tolerance")
-            max_err = max(max_err, float((a - b).abs().max()))
+            max_err = max(max_err, float((a.float() - b.float()).abs().max()))
         written = int((kern[3] != pool.meta).sum())
         multi = int(((kern[3] != pool.meta) & ~one).sum())
-        print(f"block_merge[{name}] N={n} P={lx.shape[1]}: {written} slots "
+        print(f"block_merge[{name}] N={n} P={lx.shape[1]} "
+              f"{pool.mean.dtype}: {written} slots "
               f"written ({multi} from multi-point cells), meta equal, "
               f"max_abs_err={max_err:.3e}")
         if name == "bench":
@@ -454,22 +577,23 @@ def check_block_merge(dev, pool, cfg):
                                        **kw),
                 lambda: bm.block_merge_reference(*plain, None, blk, lx, ly,
                                                  w, wz, 7, **kw))
-            timing = (k_ms, p_ms)
+            b_ms, b_by = bound(*block_merge_bytes(pool, blk, lx, ly))
+            timing = (k_ms, p_ms, b_ms, b_by)
             print(f"block_merge[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
                   f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-                  f"{runs[3]:.4f})")
+                  f"{runs[3]:.4f}), bound {b_ms:.5f} ms ({b_by})")
         del kern, plain
     return max_err, timing
 
 
-def check_slam_kernels(dev, cfg):
+def check_slam_kernels(dev, cfg, dtype=torch.float32):
     from slam_eslam_tpu_torch.models import sim
 
     pool = sim.random_pool(SLAM_N, cfg.map_pool_blocks, **SLAM_POOL,
-                           seed=3, device=dev)
-    gb = sum(getattr(pool, f).numel() * 4 for f in pool.data_fields()) / 1e9
-    print(f"SLAM pool: {pool.b} blocks of {pool.nx}x{pool.ny}x{pool.k}, "
-          f"{gb:.3f} GB, {float(pool.valid.float().mean()):.4f} of slots "
+                           seed=3, device=dev, dtype=dtype)
+    print(f"SLAM pool: {pool.b} blocks of {pool.nx}x{pool.ny}x{pool.k} "
+          f"{dtype}, {pool.storage_bytes() / 1e9:.3f} GB, "
+          f"{int(pool.count_valid()) / pool.meta.numel():.4f} of slots "
           f"valid")
     k2 = check_chain_lookup(dev, pool, cfg.mls_z_window)
     k3 = check_block_merge(dev, pool, cfg)
@@ -478,64 +602,108 @@ def check_slam_kernels(dev, cfg):
 
 # ---------------------------------------------------------------- phase 6
 
-def slam_config():
-    from slam_eslam_tpu_torch import Config, ContactModelConfig
+def slam_args(n=None, steps=None, dtype="float32", extra=()):
+    """The command line of ``slam_eslam_tpu_torch.bench`` in SLAM mode
+    (default: phase 6's particle count and scans)."""
+    n, steps = n or SLAM_N, steps or SLAM_STEPS
+    return ["--mode", "slam", "--particles", str(n), "--steps", str(steps),
+            "--contact-cap", str(CONTACT_CAP), "--pool-dtype", dtype, *extra]
 
-    return dataclasses.replace(
-        Config(), particle_count=SLAM_N, min_effective=SLAM_N // 2,
-        grid_size=10.0, grid_resolution=0.25, map_pool_blocks=4 * SLAM_N,
-        map_chain_length=3, map_pool_color=False, map_pool_dtype="float32",
-        contact_model=ContactModelConfig(contact_point_radius=0.0,
-                                         min_contacts=2))
+
+def slam_config(dtype="float32"):
+    from slam_eslam_tpu_torch import bench
+
+    return bench.slam_config(bench.parser().parse_args(slam_args(dtype=dtype)))
 
 
 def slam_setup():
-    """The SLAM benchmark trajectory (``bench.py::bench_slam``): the
-    Asguard rolling 0.3 rad per step over a sine terrain, 10 substeps per
-    step, one 64-ray scan at 2 m on each step's last substep, contacts
-    compacted to 8 for the measurement and the odometry from the full 20.
-    Returns ``(z0, frames, full contact states, orientations)``."""
-    from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.models.asguard import AsguardSim
-    from slam_eslam_tpu_torch.utils import tree
+    """The SLAM benchmark trajectory of ``slam_eslam_tpu_torch.bench``:
+    ``(z0, frames, full contact states, orientations)``, on the host."""
+    from slam_eslam_tpu_torch import bench
 
-    asg = AsguardSim(terrain=slam_terrain)
-    z0 = float(asg.position[2])
-    q = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
-    meta = (np.float32(-np.pi / 2), np.float32(np.pi / SLAM_RAYS))
-    frames, full = [], []
-
-    def on_substep(s):
-        cs = s.contact_state()
-        full.append(cs)
-        frames.append([cs.compact(CONTACT_CAP), q,
-                       s.position.astype(np.float32),
-                       np.full(SLAM_RAYS, 2.0, np.float32), meta, False])
-
-    for _ in range(SLAM_STEPS):
-        asg.step(wheel_delta=0.3, substeps=SLAM_SUBSTEPS,
-                 on_substep=on_substep)
-        frames[-1][5] = True
-    qs = torch.tensor(np.stack([f[1] for f in frames]))
-    return z0, streaming.stack_frames(frames), tree.stack(full), qs
+    return bench.slam_trajectory(SLAM_STEPS, CONTACT_CAP)
 
 
 def slam_carry(cfg, z0, dev, normals=None):
-    from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+    from slam_eslam_tpu_torch import bench
 
-    f = EmbodiedSlamFilter(config=cfg, device=dev).init(
-        pose=(np.array([0.0, 0.0, z0]), 0.0), use_shared_map=False,
-        num_contact_points=20,
-        normal_xy=None if normals is None else normals[0].to(dev),
-        normal_yaw=None if normals is None else normals[1].to(dev))
-    return streaming.StreamingState.create(f.state, f.pool)
+    return bench.slam_carry(cfg, z0, dev, normals)
+
+
+def slam_draws(n_frames):
+    """Seeded start normals and per-frame draws, on the host."""
+    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    from slam_eslam_tpu_torch.filter.step import StepDraws
+
+    gen = torch.Generator().manual_seed(1)
+    normals = (torch.randn((SLAM_N, 2), generator=gen),
+               torch.randn((SLAM_N,), generator=gen))
+    draws = [StepDraws(pe.ProjectDraws.sample(SLAM_N, gen, "cpu"),
+                       torch.rand(SLAM_N, generator=gen))
+             for _ in range(n_frames)]
+    return normals, draws
+
+
+def slam_compare(run, cfg, z0, frames, full, qs, dev, label):
+    """The first SLAM_CHECK_FRAMES frames on the card against the CPU
+    port on identical draws: equal gates, centroids within CENTROID_ATOL,
+    patch counts within PATCH_COUNT_RTOL.  Returns ``(largest centroid
+    difference, the card's centroids [T, 3])``."""
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.utils import tree
+
+    sub = slice(0, SLAM_CHECK_FRAMES)
+    normals, draws = slam_draws(SLAM_CHECK_FRAMES)
+    out = {}
+    for d in ("cpu", dev):
+        odos = streaming.precompute_odometry(
+            20, tree.to(full, d), qs.to(d), cfg=cfg)
+        carry, aux = run(slam_carry(cfg, z0, d, normals),
+                         tree.to(frames, d).at(sub), tree.index(odos, sub),
+                         [tree.to(x, d) for x in draws])
+        out[str(d)] = (aux, int(carry.pool.count_valid()))
+        del carry
+    (a_cpu, p_cpu), (a_gpu, p_gpu) = out["cpu"], out[str(dev)]
+    if not ((a_gpu["updated"] == a_cpu["updated"]).all()
+            and (a_gpu["mapped"] == a_cpu["mapped"]).all()):
+        raise RuntimeError(f"{label}: GPU and CPU gates differ")
+    dev_err = float((a_gpu["centroid"].cpu() - a_cpu["centroid"]).abs().max())
+    print(f"{label}: GPU vs CPU port over {SLAM_CHECK_FRAMES} frames, max "
+          f"centroid difference {dev_err:.3e} m, patches {p_gpu} vs {p_cpu}")
+    if not dev_err <= CENTROID_ATOL:
+        raise RuntimeError(f"{label}: GPU and CPU centroids differ by "
+                           f"{dev_err} m")
+    if abs(p_gpu - p_cpu) > PATCH_COUNT_RTOL * p_cpu:
+        raise RuntimeError(f"{label}: patch counts {p_gpu} (GPU) and "
+                           f"{p_cpu} (CPU) differ")
+    return dev_err, a_gpu["centroid"]
+
+
+def check_slam_state(carry, aux, n_frames, label):
+    """Finite centroids, weights and pool, some patches merged; returns
+    ``(patches, alloc_failed)``.  The pool is scanned in chunks of blocks
+    (a pool-sized temporary would not fit beside a 25 GB pool)."""
+    if aux["centroid"].shape != (n_frames, 3) or not bool(
+            torch.isfinite(aux["centroid"]).all()):
+        raise RuntimeError(f"{label}: non-finite or misshaped centroids")
+    if not bool(torch.isfinite(carry.filter.particles.weight).all()):
+        raise RuntimeError(f"{label}: non-finite particle weights")
+    pool = carry.pool
+    for name in ("mean", "stdev", "height"):
+        finite = torch.ones((), dtype=torch.bool, device=pool.meta.device)
+        for part in getattr(pool, name).split(16384):
+            finite &= torch.isfinite(part).all()
+        if not bool(finite):
+            raise RuntimeError(f"{label}: non-finite pool {name}")
+    patches = int(pool.count_valid())
+    if patches <= 0:
+        raise RuntimeError(f"{label}: no patches were merged")
+    return patches, int(carry.alloc_failed)
 
 
 def slam_path(dev, profile):
-    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    from slam_eslam_tpu_torch import bench
     from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.filter.step import StepDraws
     from slam_eslam_tpu_torch.ops import block_merge as bm
     from slam_eslam_tpu_torch.ops import chain_lookup as cl
     from slam_eslam_tpu_torch.ops import contact_fold as cf
@@ -547,8 +715,7 @@ def slam_path(dev, profile):
     frames_d = tree.to(frames, dev)
     odos = streaming.precompute_odometry(20, tree.to(full, dev), qs.to(dev),
                                          cfg=cfg)
-    run = streaming.make_slam_scan_runner(
-        cfg, laser2body=(np.eye(3), np.zeros(3)), external_odometry=True)
+    run = bench.make_slam_runner(cfg)
     warm = slice(0, 30)
     run(slam_carry(cfg, z0, dev), frames_d.at(warm), tree.index(odos, warm))
     carry0 = slam_carry(cfg, z0, dev)
@@ -577,52 +744,16 @@ def slam_path(dev, profile):
     if launches != want or not n_meas or not n_map:
         raise RuntimeError(f"SLAM path: launches {launches}, gates want "
                            f"{want}")
-    if aux["centroid"].shape != (n_frames, 3) or not bool(
-            torch.isfinite(aux["centroid"]).all()):
-        raise RuntimeError("SLAM path: non-finite or misshaped centroids")
-    if not bool(torch.isfinite(carry.filter.particles.weight).all()):
-        raise RuntimeError("SLAM path: non-finite particle weights")
-    pool = carry.pool
-    for name in ("mean", "stdev", "height"):
-        if not bool(torch.isfinite(getattr(pool, name)).all()):
-            raise RuntimeError(f"SLAM path: non-finite pool {name}")
-    patches = int(pool.valid.sum())
-    failed = int(carry.alloc_failed)
-    if patches <= 0:
-        raise RuntimeError("SLAM path: no patches were merged")
+    patches, failed = check_slam_state(carry, aux, n_frames, "SLAM path")
     print(f"SLAM path: {n_frames} frames x {SLAM_N} particles in "
           f"{elapsed:.4f} s = {n_frames / elapsed:.2f} frames/s; "
           f"{n_meas} measurement and {n_map} mapping frames; launches "
           f"{launches}; patches {patches}, alloc_failed {failed}")
-    del carry, pool
+    del carry
 
     # the first frames against the CPU port on the same draws
-    sub = slice(0, SLAM_CHECK_FRAMES)
-    gen = torch.Generator().manual_seed(1)
-    normals = (torch.randn((SLAM_N, 2), generator=gen),
-               torch.randn((SLAM_N,), generator=gen))
-    draws = [StepDraws(pe.ProjectDraws.sample(SLAM_N, gen, "cpu"),
-                       torch.rand(SLAM_N, generator=gen))
-             for _ in range(SLAM_CHECK_FRAMES)]
-    odos_cpu = streaming.precompute_odometry(20, full, qs, cfg=cfg)
-    c_cpu, a_cpu = run(slam_carry(cfg, z0, "cpu", normals), frames.at(sub),
-                       tree.index(odos_cpu, sub), draws)
-    c_gpu, a_gpu = run(slam_carry(cfg, z0, dev, normals), frames_d.at(sub),
-                       tree.index(odos, sub), [tree.to(d, dev) for d in draws])
-    if not ((a_gpu["updated"] == a_cpu["updated"]).all()
-            and (a_gpu["mapped"] == a_cpu["mapped"]).all()):
-        raise RuntimeError("SLAM path: GPU and CPU gates differ")
-    dev_err = float((a_gpu["centroid"].cpu() - a_cpu["centroid"]).abs().max())
-    p_gpu, p_cpu = int(c_gpu.pool.valid.sum()), int(c_cpu.pool.valid.sum())
-    print(f"SLAM path: GPU vs CPU port over {SLAM_CHECK_FRAMES} frames, max "
-          f"centroid difference {dev_err:.3e} m, patches {p_gpu} vs {p_cpu}")
-    if not dev_err <= CENTROID_ATOL:
-        raise RuntimeError(f"SLAM path: GPU and CPU centroids differ by "
-                           f"{dev_err} m")
-    if abs(p_gpu - p_cpu) > PATCH_COUNT_RTOL * p_cpu:
-        raise RuntimeError(f"SLAM path: patch counts {p_gpu} (GPU) and "
-                           f"{p_cpu} (CPU) differ")
-    del c_gpu, c_cpu
+    dev_err, _ = slam_compare(run, cfg, z0, frames, full, qs, dev,
+                              "SLAM path")
 
     if profile:
         profile_slam(run, cfg, z0, frames_d, odos, dev, Path(profile))
@@ -671,10 +802,13 @@ def check_select_cells(dev, cfg):
                 lambda: sc.select_cells(packed, q, z_window),
                 lambda: sc.select_cells_reference(packed, q, z_window),
                 n_kern=50, n_plain=20)
-            timing = (k_ms, p_ms)
+            # x, y, z read and found, mean, stdev written per query, and
+            # the touched slot rows
+            b_ms, b_by = bound(grid_query_bytes(packed, q[0], q[1], 12 + 9))
+            timing = (k_ms, p_ms, b_ms, b_by)
             print(f"select_cells[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
                   f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-                  f"{runs[3]:.4f})")
+                  f"{runs[3]:.4f}), bound {b_ms:.4f} ms ({b_by})")
     return max_err, timing
 
 
@@ -968,6 +1102,459 @@ def app_path(dev, profile):
                 cp_err=cp_err, flips=flips, short=short)
 
 
+# ---------------------------------------------------------------- phase 8
+
+def max_abs_diff(got, ref):
+    """Largest |got - ref| over pairs of tensors, in float32."""
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, ref))
+
+
+def block_copy_bytes(fields, blk, points, mode):
+    """Bytes one block copy must move: in whole mode every field's block
+    read and written and the four point rows read; in cells mode lx and
+    ly of every point, w and wz of the in-range ones, and per distinct
+    hit cell the K slots of every field read and written."""
+    b, nx, nyk = fields[0].shape
+    n, p = points[0].shape
+    sizes = sum(f.element_size() for f in fields)
+    if mode == "whole":
+        return n * (4 + 2 * nx * nyk * sizes + 4 * p * 4)
+    k = COPY_BLOCK["k"]
+    inb, cells = hit_cells(blk, points[0], points[1], b, nx, nyk // k)
+    return n * 4 + n * p * 8 + inb * 8 + cells * 2 * k * sizes
+
+
+def check_block_copy(dev, cfg):
+    """K7 against its plain version, bit for bit: every mode, float32 and
+    bfloat16 fields, in place and into a second pool, at the merge
+    benchmark's N and a ragged one; then K7, its plain version, the
+    library call and the merge (K3) on the same operands in turns.
+    Returns ``(largest |kernel - plain| of all comparisons, timings)``."""
+    from slam_eslam_tpu_torch.ops import block_copy as bc
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.utils import kernel_eff
+
+    # the operands that the benchmark's merge_floor_fraction times
+    copy_inputs = lambda n, dtype, seed: kernel_eff.merge_benchmark_operands(
+        n, COPY_P, **COPY_BLOCK, device=dev, dtype=dtype, seed=seed)
+    k = COPY_BLOCK["k"]
+    same = lambda a, b: torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    max_err = 0.0
+    for name, n in (("bench", COPY_N), ("ragged", COPY_N_RAGGED)):
+        for dtype in (torch.float32, torch.bfloat16):
+            fields, blk, points = copy_inputs(n, dtype, n)
+            # a second pool with other content in every block
+            other = [f.roll(1, 0) for f in fields]
+            unused = torch.ones(fields[0].shape[0], dtype=torch.bool,
+                                device=dev)
+            unused[blk.long()] = False
+            for mode in bc.MODES:
+                for in_place in (True, False):
+                    src = [f.clone() for f in fields]
+                    out = None if in_place else [f.clone() for f in other]
+                    ref_out = None if in_place else [f.clone() for f in other]
+                    got = bc.block_copy(src, blk, points, out=out, mode=mode,
+                                        k=k)
+                    ref = bc.block_copy_reference(
+                        [f.clone() for f in fields], blk, points,
+                        out=ref_out, mode=mode, k=k)
+                    torch.cuda.synchronize()
+                    where = (f"block_copy[{name}] {mode} {dtype} "
+                             f"{'in place' if in_place else 'out of place'}")
+                    max_err = max(max_err, max_abs_diff(got, ref))
+                    if not all(same(a, b) for a, b in zip(got, ref)):
+                        raise RuntimeError(f"{where}: differs from its plain "
+                                           f"version")
+                    if not all(same(a, b) for a, b in zip(src, fields)):
+                        raise RuntimeError(f"{where}: the input changed")
+                    if not in_place and not all(
+                            same(a[unused], b[unused])
+                            for a, b in zip(got, other)):
+                        raise RuntimeError(f"{where}: a block outside blk "
+                                           f"changed")
+                    if not in_place and all(same(a, b)
+                                            for a, b in zip(got, other)):
+                        raise RuntimeError(f"{where}: nothing was copied")
+            print(f"block_copy[{name}] N={n} P={COPY_P} {dtype}: "
+                  f"{', '.join(bc.MODES)}, in place and out of place, "
+                  f"bitwise equal")
+    # no point operands, and one packed image of 4 * nx rows
+    fields, blk, points = copy_inputs(COPY_N_RAGGED, torch.float32, 11)
+    packed = torch.cat(fields[:3] + (fields[3].view(torch.float32),), dim=1)
+    for label, src in (("no points", fields), ("packed image", (packed,))):
+        got = bc.block_copy(src, blk, out=[torch.zeros_like(f) for f in src])
+        ref = bc.block_copy_reference(src, blk,
+                                      out=[torch.zeros_like(f) for f in src])
+        torch.cuda.synchronize()
+        max_err = max(max_err, max_abs_diff(got, ref))
+        if not all(same(a, b) for a, b in zip(got, ref)):
+            raise RuntimeError(f"block_copy[{label}]: differs from its "
+                               f"plain version")
+    print("block_copy: without point operands and on one packed image of "
+          f"{packed.shape[1]} rows, bitwise equal; max_abs_err of all "
+          f"comparisons {max_err:.3e}")
+
+    timing = {}
+    for tag, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        fields, blk, points = copy_inputs(COPY_N, dtype, 1)
+        lblk = blk.long()
+        kw = dict(k=k, patch_thickness=cfg.grid_patch_thickness,
+                  gap_size=cfg.grid_gap_size)
+
+        def library():
+            for f in fields:
+                f.index_copy_(0, lblk, f.index_select(0, lblk))
+
+        ms, first, second = in_turns({
+            "plain": lambda: bc.block_copy_reference(fields, blk, points,
+                                                     mode="whole", k=k),
+            "library": library,
+            "whole": lambda: bc.block_copy(fields, blk, points, mode="whole",
+                                           k=k),
+            "plain_cells": lambda: bc.block_copy_reference(
+                fields, blk, points, mode="cells", k=k),
+            "cells": lambda: bc.block_copy(fields, blk, points, mode="cells",
+                                           k=k),
+            "points": lambda: bc.block_copy(fields, blk, points,
+                                            mode="points", k=k),
+            "merge": lambda: bm.block_merge(*fields, None, blk, *points, 3,
+                                            **kw),
+        }, dict(plain=10, library=10, whole=20, plain_cells=10, cells=50,
+                points=50, merge=50))
+        b_whole = bound(block_copy_bytes(fields, blk, points, "whole"))
+        b_cells = bound(block_copy_bytes(fields, blk, points, "cells"))
+        timing[tag] = dict(ms, bound_whole=b_whole, bound_cells=b_cells)
+        spread = ", ".join(f"{name} {first[name]:.4f}/{second[name]:.4f}"
+                           for name in ms)
+        print(f"block_copy[bench] {dtype}: whole {ms['whole']:.4f} ms (plain "
+              f"{ms['plain']:.4f}, library {ms['library']:.4f}, bound "
+              f"{b_whole[0]:.4f} ms by {b_whole[1]}), cells "
+              f"{ms['cells']:.4f} ms (plain {ms['plain_cells']:.4f}, bound "
+              f"{b_cells[0]:.5f} ms), the same rows unsorted (points) "
+              f"{ms['points']:.4f} ms, merge {ms['merge']:.4f} ms; cells / "
+              f"merge {ms['cells'] / ms['merge']:.3f}, points / merge "
+              f"{ms['points'] / ms['merge']:.3f} [{spread}]")
+        if ms["whole"] < b_whole[0]:
+            raise RuntimeError(
+                f"block_copy whole mode took {ms['whole']} ms, less than the "
+                f"card needs for its bytes ({b_whole[0]} ms): the loads or "
+                f"stores are gone")
+    return max_err, timing
+
+
+def compare_pool_dtypes(dev, cfg):
+    """K2 and K3 on the float32 pool of phase 5 and on the same pool
+    rounded to bfloat16, same queries and merge operands, timed in turns
+    within one phase (two phases of a run may find the card in different
+    states).  Returns ``{name: ms}``."""
+    from slam_eslam_tpu_torch.mapping import map_pool as mp
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    fns, keep = {}, []
+    kw = dict(patch_thickness=cfg.grid_patch_thickness,
+              gap_size=cfg.grid_gap_size)
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        pool = sim.random_pool(SLAM_N, cfg.map_pool_blocks, **SLAM_POOL,
+                               seed=3, device=dev, dtype=dtype)
+        queries = sim.chain_queries(pool, SLAM_C, seed=5)
+        ops = mp.merge_operands(pool, *sim.poses_on_heads(pool, 3.0, seed=7),
+                                bench_cloud(dev))
+        keep.append((pool, queries, ops))
+        fns[f"chain_lookup_{tag}"] = (
+            lambda pool=pool, queries=queries: cl.chain_lookup(
+                pool.mean, pool.stdev, pool.meta, pool.origin,
+                pool.resolution, pool.chain, queries, k=pool.k,
+                z_window=cfg.mls_z_window))
+        fns[f"block_merge_{tag}"] = (
+            lambda pool=pool, ops=ops: bm.block_merge(
+                pool.mean, pool.stdev, pool.height, pool.meta, None, *ops, 7,
+                k=pool.k, **kw))
+    ms, first, second = in_turns(fns, dict.fromkeys(fns, 50))
+    print("pool storage, in turns: " + ", ".join(
+        f"{name} {ms[name]:.4f} ms ({first[name]:.4f}, {second[name]:.4f})"
+        for name in fns))
+    return ms
+
+
+def check_big_kernels(dev, cfg):
+    """K2 and K3 against their plain versions at the shape the
+    100,000-particle run gives them: a bfloat16 pool of 400,000 blocks of
+    40x40x4 slots (25.6 GB), whose element offsets pass 2^31 from block
+    335,545 on.  K2 bit for bit; K3 in place on the pool against the
+    plain version on a copy of it, compared 25,000 blocks at a time over
+    the whole pool: meta equal, fields bitwise equal outside cells that
+    several points hit (so every block outside ``blk`` too) and within
+    one bfloat16 step inside them.  Both timed against their plain
+    versions.  Returns ``((max_abs_err, timing), (max_abs_err,
+    timing))``."""
+    from slam_eslam_tpu_torch.mapping import map_pool as mp
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.ops import block_copy as bc
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    torch.cuda.reset_peak_memory_stats()
+    pool = sim.random_pool(BIG_N, 4 * BIG_N, **SLAM_POOL, seed=13, device=dev,
+                           dtype=torch.bfloat16, parts=BIG_PARTS)
+    per_block = pool.nx * pool.ny * pool.k
+    far = INT32_ELEMENTS // per_block + 1   # blocks from here lie past 2^31
+    far_heads = pool.active() >= far
+    far_tails = int((pool.chain[:, 1:] >= far).sum())
+    print(f"100k pool: {pool.b} blocks of {pool.nx}x{pool.ny}x{pool.k} "
+          f"bfloat16, {pool.storage_bytes() / 1e9:.2f} GB; "
+          f"{int(far_heads.sum())} heads and {far_tails} chain tails at "
+          f"block {far} or above (element offsets past 2^31)")
+    if not (int(far_heads.sum()) and far_tails):
+        raise RuntimeError("100k pool: no chain entry past 2^31 elements")
+
+    # K2
+    queries = sim.chain_queries(pool, SLAM_C, seed=5)
+    args = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            pool.chain, queries)
+    kw = dict(k=pool.k, z_window=cfg.mls_z_window)
+    got = cl.chain_lookup(*args, **kw)
+    ref = cl.chain_lookup_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        bad = int((got[0] != ref[0]).sum())
+        raise RuntimeError(f"chain_lookup[100k]: differs from its plain "
+                           f"version ({bad} found flags)")
+    found_far = float(got[0][far_heads].float().mean())
+    if not found_far > 0:
+        raise RuntimeError("chain_lookup[100k]: no hit past 2^31 elements")
+    k2_err = max_abs_diff(got[1:], ref[1:])
+    k_ms, p_ms, runs = alternate(lambda: cl.chain_lookup(*args, **kw),
+                                 lambda: cl.chain_lookup_reference(*args,
+                                                                   **kw),
+                                 n_kern=20, n_plain=3)
+    b_ms, b_by = bound(chain_lookup_bytes(pool, pool.chain, queries,
+                                          cfg.mls_z_window))
+    print(f"chain_lookup[100k] N={BIG_N} C={SLAM_C} L={pool.chain.shape[1]}: "
+          f"bitwise equal, found {float(got[0].float().mean()):.4f} "
+          f"({found_far:.4f} for heads past 2^31); kernel {k_ms:.4f} ms "
+          f"({runs[1]:.4f}, {runs[2]:.4f}), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    k2 = (k2_err, (k_ms, p_ms, b_ms, b_by))
+    del got, ref, args
+
+    # K3
+    ops = mp.merge_operands(pool, *sim.poses_on_heads(pool, 3.0, seed=7),
+                            bench_cloud(dev))
+    blk, lx, ly = ops[:3]
+    kw = dict(k=pool.k, patch_thickness=cfg.grid_patch_thickness,
+              gap_size=cfg.grid_gap_size)
+    kern = [pool.mean, pool.stdev, pool.height, pool.meta]
+    plain = [f.clone() for f in kern]
+    far_meta = pool.meta[far:].clone()
+    bm.block_merge(*kern, None, *ops, 7, **kw)
+    bm.block_merge_reference(*plain, None, *ops, 7, **kw)
+    torch.cuda.synchronize()
+    far_written = int((kern[3][far:] != far_meta).sum())
+    if not far_written:
+        raise RuntimeError("block_merge[100k]: nothing written past 2^31 "
+                           "elements")
+    del far_meta
+    hits = torch.zeros(pool.b * pool.nx * pool.ny, dtype=torch.int32,
+                       device=dev)
+    rows = bc.hit_rows(blk, lx, ly, pool.b, pool.nx, pool.ny)
+    hits.index_add_(0, rows, torch.ones_like(rows, dtype=torch.int32))
+    hits = hits.reshape(pool.b, pool.nx, pool.ny, 1)
+    k3_err, multi_cells = 0.0, int((hits > 1).sum())
+    step = pool.b // BIG_PARTS
+    for lo in range(0, pool.b, step):
+        part = slice(lo, lo + step)
+        if not torch.equal(kern[3][part], plain[3][part]):
+            raise RuntimeError(f"block_merge[100k]: meta differs in blocks "
+                               f"{lo}..{lo + step}")
+        multi = (hits[part] > 1).expand(-1, -1, -1, pool.k).reshape(
+            kern[0][part].shape)
+        for fname, a, b in zip(("mean", "stdev", "height"), kern, plain):
+            steps = bf16_steps(a[part], b[part])
+            if int(steps.max()) > 1 or int((steps * ~multi).max()) > 0:
+                raise RuntimeError(
+                    f"block_merge[100k] {fname}: blocks {lo}..{lo + step} "
+                    f"differ from the plain version outside tolerance")
+            k3_err = max(k3_err, float(
+                (a[part].float() - b[part].float()).abs().max()))
+            del steps
+    k_ms, p_ms, runs = alternate(
+        lambda: bm.block_merge(*kern, None, *ops, 7, **kw),
+        lambda: bm.block_merge_reference(*plain, None, *ops, 7, **kw),
+        n_kern=20, n_plain=3)
+    b_ms, b_by = bound(*block_merge_bytes(pool, blk, lx, ly))
+    print(f"block_merge[100k] N={BIG_N} P={lx.shape[1]}: meta equal over "
+          f"{pool.b} blocks, fields bitwise equal outside the "
+          f"{multi_cells} multi-point cells and within one bfloat16 step "
+          f"inside, max_abs_err={k3_err:.3e}; {far_written} slots written "
+          f"past 2^31 elements; kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
+          f"{runs[2]:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}); peak allocated in this check "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return k2, (k3_err, (k_ms, p_ms, b_ms, b_by))
+
+
+def run_bench(argv, label):
+    """``slam_eslam_tpu_torch.bench.main(argv)`` in process with every
+    launch count at 0 before; returns ``(result, detail, launch counts,
+    seconds)``."""
+    from slam_eslam_tpu_torch import bench, ops
+
+    detail = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    print(f"bench[{label}]: bench {' '.join(argv)}")
+    sys.stdout.flush()
+    result = bench.main(list(argv), detail)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return result, detail, ops.launch_counts(), seconds
+
+
+def expect(cond, label, message):
+    if not cond:
+        raise RuntimeError(f"bench[{label}]: {message}")
+
+
+def bench_filter_runs(card):
+    """Filter mode at its defaults, then with ``--fold off``."""
+    from slam_eslam_tpu_torch.ops import block_copy
+
+    repeats, roofline_iters = 3, (4 * 10 + 10) * (1 + 3)
+    result, detail, launches, secs = run_bench([], "filter")
+    runs = STEPS * (1 + repeats)
+    for key in ("merge_dma_floor_fraction", "merge_us_per_block",
+                "merge_unsorted_twin_us_per_block", "fold_kernel_us", "fold_roofline_fraction", "copy_gbps",
+                "sol_fraction", "ns_per_query"):
+        expect(result[key] is not None and np.isfinite(result[key])
+               and result[key] > 0, "filter", f"{key} is {result[key]}")
+    expect(result["metric"] == "particle_updates_per_sec_per_chip"
+           and result["card"] == card and result["fold_mfu"] is None
+           and result["fold_tier"] == [GRID["nx"], GRID["ny"]], "filter",
+           f"unexpected result {result}")
+    floor = detail["merge"]["floor_fraction"]
+    expect(0 < floor <= FLOOR_FRACTION_MAX, "filter",
+           f"merge floor fraction {floor}: the merge's twin (K7, cells "
+           f"mode) must not take longer than the merge")
+    want = dict.fromkeys(KERNELS, 0)
+    expect(detail["run_launches"] == dict(want, contact_fold=runs), "filter",
+           f"launches in the timed runs {detail['run_launches']}")
+    merge_iters = (4 * 20 + 20) * (1 + 3)
+    want.update(contact_fold=runs + roofline_iters, block_merge=merge_iters,
+                block_copy=len(block_copy.MODES) * merge_iters)
+    expect(launches == want, "filter", f"launches {launches}, want {want}")
+    cents = detail["centroids"]
+    expect(cents.shape == (STEPS, 3) and bool(torch.isfinite(cents).all())
+           and bool(torch.isfinite(detail["state"].particles.weight).all()),
+           "filter", "non-finite centroids or weights")
+    print(f"bench[filter]: {result['value']} particle-updates/s, "
+          f"sol_fraction {result['sol_fraction']}, K1 "
+          f"{detail['fold']['us']:.2f} us against a bound of "
+          f"{detail['fold']['bound_us']:.2f} us (fraction "
+          f"{detail['fold']['fraction']:.4f}); merge "
+          f"{detail['merge']['merge_us_per_block'] * 1e3:.2f} ns/block, its "
+          f"twin {detail['merge']['copy_us_per_block'] * 1e3:.2f} ns/block "
+          f"(floor fraction {floor:.4f}), the twin unsorted "
+          f"{detail['merge']['unsorted_us_per_block'] * 1e3:.2f} ns/block, "
+          f"whole-block copy "
+          f"{detail['merge']['whole_us_per_block'] * 1e3:.2f} ns/block = "
+          f"{detail['merge']['copy_gbps']:.1f} GB/s; launches {launches}; "
+          f"{secs:.1f} s [{card}]")
+    out = dict(result=result, launches=launches, merge=detail["merge"],
+               fold=detail["fold"])
+
+    steps = 20
+    result, detail, launches, secs = run_bench(
+        ["--fold", "off", "--steps", str(steps)], "fold off")
+    want = dict.fromkeys(KERNELS, 0)
+    expect(detail["run_launches"] == dict(
+        want, select_cells=steps * (1 + repeats)), "fold off",
+        f"launches in the timed runs {detail['run_launches']}")
+    expect(launches["select_cells"] == steps * (1 + repeats)
+           and launches["contact_fold"] == roofline_iters, "fold off",
+           f"launches {launches}")
+    expect(bool(torch.isfinite(detail["centroids"]).all()), "fold off",
+           "non-finite centroids")
+    print(f"bench[fold off]: {result['value']} particle-updates/s over "
+          f"{steps} steps; launches in the runs {detail['run_launches']} "
+          f"(K1 only in its own roofline: {launches['contact_fold']}); "
+          f"{secs:.1f} s [{card}]")
+    out["fold_off"] = dict(result=result, launches=launches)
+    return out
+
+
+def bench_slam_run(card, n, steps, extra, label):
+    """SLAM mode on a bfloat16 pool; every run starts from a fresh filter,
+    so each fires the same gates."""
+    import gc
+
+    argv = slam_args(n, steps, "bfloat16", extra)
+    repeats = int(extra[extra.index("--repeats") + 1]) if extra else 3
+    torch.cuda.reset_peak_memory_stats()
+    result, detail, launches, secs = run_bench(argv, label)
+    peak = torch.cuda.max_memory_allocated()
+    carry, aux = detail.pop("carry"), detail["aux"]
+    pool = carry.pool
+    expect(result["metric"] == "slam_frames_per_sec"
+           and result["pool_dtype"] == "bfloat16" and result["card"] == card
+           and pool.mean.dtype == torch.bfloat16 and pool.b == 4 * n
+           and pool.n == n, label, f"unexpected result {result}")
+    n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(chain_lookup=n_meas * (1 + repeats),
+                block_merge=n_map * (1 + repeats))
+    expect(launches == want and n_meas and n_map, label,
+           f"launches {launches}, gates want {want}")
+    patches, failed = check_slam_state(carry, aux, detail["frames"],
+                                       f"bench[{label}]")
+    expect(failed == 0 and patches == detail["patches"], label,
+           f"alloc_failed {failed}, patches {patches}")
+    gb = pool.storage_bytes() / 1e9
+    print(f"bench[{label}]: {result['value']} frames/s at {n} particles "
+          f"over {detail['frames']} frames ({n_meas} measurement, {n_map} "
+          f"mapping); pool {pool.b} blocks of {pool.nx}x{pool.ny}x{pool.k} "
+          f"bfloat16 = {gb:.2f} GB, peak allocated {peak / 1e9:.2f} GB; "
+          f"launches {launches}; patches {patches}, alloc_failed {failed}; "
+          f"{secs:.1f} s [{card}]")
+    del carry, pool, detail
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(result=result, launches=launches, peak=peak, patches=patches,
+                n_meas=n_meas, n_map=n_map, pool_gb=gb)
+
+
+def bf16_path(dev):
+    """60 frames at 4,096 particles on a bfloat16 pool: the card against
+    the CPU port, and against the float32 pool on the card, on identical
+    draws."""
+    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg16, cfg32 = slam_config("bfloat16"), slam_config()
+    z0, frames, full, qs = slam_setup()
+    run = bench.make_slam_runner(cfg16)
+    dev_err, cents16 = slam_compare(run, cfg16, z0, frames, full, qs, dev,
+                                    "bfloat16 pool")
+    sub = slice(0, SLAM_CHECK_FRAMES)
+    normals, draws = slam_draws(SLAM_CHECK_FRAMES)
+    odos = streaming.precompute_odometry(20, tree.to(full, dev), qs.to(dev),
+                                         cfg=cfg32)
+    carry, aux = run(slam_carry(cfg32, z0, dev, normals),
+                     tree.to(frames, dev).at(sub), tree.index(odos, sub),
+                     [tree.to(x, dev) for x in draws])
+    if carry.pool.mean.dtype != torch.float32:
+        raise RuntimeError("bfloat16 pool: the float32 run is not float32")
+    diff = float((aux["centroid"] - cents16).abs().max())
+    print(f"bfloat16 pool: against the float32 pool on the card over "
+          f"{SLAM_CHECK_FRAMES} frames, largest centroid difference "
+          f"{diff:.3e} m (no limit: a finding)")
+    return dev_err, diff
+
+
 def profile_app(cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev, out):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1077,7 +1664,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    max_err, (k_ms, p_ms) = check_contact_fold(dev, Config())
+    max_err, (k_ms, p_ms, *k1_bound) = check_contact_fold(dev, Config())
     res = main_path(dev, args.profile)
     ms_step = res["elapsed"] / STEPS * 1e3
     print(f"main path: {ms_step:.4f} ms/step, "
@@ -1086,8 +1673,9 @@ def main():
           f"{p_ms * 1e3:.2f} us), final-10 xy error "
           f"{res['final10']:.4f} m [{card}]")
 
-    (k2_err, (k2_ms, k2_plain)), (k3_err, (k3_ms, k3_plain)) = (
-        check_slam_kernels(dev, slam_config()))
+    (k2_err, (k2_ms, k2_plain, *k2_bound)), (
+        k3_err, (k3_ms, k3_plain, *k3_bound)) = check_slam_kernels(
+            dev, slam_config())
     slam = slam_path(dev, args.profile)
     print(f"SLAM path: {slam['frames'] / slam['elapsed']:.2f} frames/s at "
           f"{SLAM_N} particles, {slam['elapsed'] / slam['frames'] * 1e3:.4f}"
@@ -1095,29 +1683,90 @@ def main():
           f"{k2_plain * 1e3:.2f} us), block_merge {k3_ms * 1e3:.2f} us "
           f"(plain {k3_plain * 1e3:.2f} us) [{card}]")
 
-    k5_err, (k5_ms, k5_plain) = check_select_cells(dev, Config())
+    k5_err, (k5_ms, k5_plain, *k5_bound) = check_select_cells(dev, Config())
     app = app_path(dev, args.profile)
     print(f"application path: {APP_FRAMES / app['elapsed']:.2f} frames/s at "
           f"{N_BENCH} particles, {app['ms_meas']:.4f} ms per measurement "
           f"update ({app['n_meas']} updates); select_cells "
           f"{k5_ms * 1e3:.2f} us (plain {k5_plain * 1e3:.2f} us) [{card}]")
 
+    # phase 8
+    import gc
+
+    k7_err, k7 = check_block_copy(dev, slam_config())
+    (k2b_err, k2b), (k3b_err, k3b) = check_slam_kernels(
+        dev, slam_config("bfloat16"), torch.bfloat16)
+    print(f"bfloat16 pool: chain_lookup {k2b[0] * 1e3:.2f} us (plain "
+          f"{k2b[1] * 1e3:.2f} us, float32 pool {k2_ms * 1e3:.2f} us), "
+          f"block_merge {k3b[0] * 1e3:.2f} us (plain {k3b[1] * 1e3:.2f} us, "
+          f"float32 pool {k3_ms * 1e3:.2f} us), max_abs_err {k2b_err:.3e} / "
+          f"{k3b_err:.3e} [{card}]")
+    by_dtype = compare_pool_dtypes(dev, slam_config())
+    gc.collect()
+    torch.cuda.empty_cache()
+    drv = bench_filter_runs(card)
+    drv["slam"] = bench_slam_run(card, SLAM_N, SLAM_STEPS, (), "slam bf16")
+    bf16_err, bf16_diff = bf16_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (k2c_err, k2c), (k3c_err, k3c) = check_big_kernels(
+        dev, slam_config("bfloat16"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    drv["big"] = bench_slam_run(card, BIG_N, BIG_STEPS, ("--repeats", "1"),
+                             "slam 100k bf16")
+    print(f"bench: filter {drv['result']['value']} particle-updates/s; "
+          f"SLAM bf16 {drv['slam']['result']['value']} frames/s at {SLAM_N} "
+          f"and {drv['big']['result']['value']} frames/s at {BIG_N} "
+          f"particles (pool {drv['big']['pool_gb']:.2f} GB, peak "
+          f"{drv['big']['peak'] / 1e9:.2f} GB); bf16 vs CPU "
+          f"{bf16_err:.3e} m, vs float32 {bf16_diff:.3e} m [{card}]")
+
+    f32c, bf16c = k7[""], k7["_bf16"]
     rows = (
         ("contact_fold", "slam_eslam_tpu/ops/pallas_gather.py:578",
-         res["launches"], max_err, k_ms, p_ms),
+         res["launches"], max_err, k_ms, p_ms, k1_bound, None, {}),
         ("chain_lookup", "slam_eslam_tpu/ops/pallas_chain.py:36",
-         slam["launches"]["chain_lookup"], k2_err, k2_ms, k2_plain),
+         slam["launches"]["chain_lookup"], k2_err, k2_ms, k2_plain, k2_bound,
+         None, {"ms_bf16": k2b[0], "plain_ms_bf16": k2b[1],
+                "bound_ms_bf16": k2b[2], "max_abs_err_bf16": k2b_err,
+                "ms_in_turns": by_dtype["chain_lookup_f32"],
+                "ms_bf16_in_turns": by_dtype["chain_lookup_bf16"],
+                "launches_100k": drv["big"]["launches"]["chain_lookup"],
+                "ms_100k": k2c[0], "plain_ms_100k": k2c[1],
+                "bound_ms_100k": k2c[2], "max_abs_err_100k": k2c_err}),
         ("block_merge", "slam_eslam_tpu/ops/pallas_merge.py:211",
-         slam["launches"]["block_merge"], k3_err, k3_ms, k3_plain),
+         slam["launches"]["block_merge"], k3_err, k3_ms, k3_plain, k3_bound,
+         None, {"ms_bf16": k3b[0], "plain_ms_bf16": k3b[1],
+                "bound_ms_bf16": k3b[2], "max_abs_err_bf16": k3b_err,
+                "ms_in_turns": by_dtype["block_merge_f32"],
+                "ms_bf16_in_turns": by_dtype["block_merge_bf16"],
+                "launches_100k": drv["big"]["launches"]["block_merge"],
+                "ms_100k": k3c[0], "plain_ms_100k": k3c[1],
+                "bound_ms_100k": k3c[2], "max_abs_err_100k": k3c_err}),
         ("select_cells", "slam_eslam_tpu/ops/pallas_gather.py:277",
-         app["launches"]["select_cells"], k5_err, k5_ms, k5_plain),
+         app["launches"]["select_cells"], k5_err, k5_ms, k5_plain, k5_bound,
+         None, {}),
+        # whole-block mode (what the TPU kernel computes); the cells mode
+        # (the merge's twin on this card) beside it
+        ("block_copy", "slam_eslam_tpu/utils/kernel_eff.py:177",
+         drv["launches"]["block_copy"], k7_err, f32c["whole"], f32c["plain"],
+         f32c["bound_whole"], f32c["library"],
+         {"ms_cells": f32c["cells"], "plain_ms_cells": f32c["plain_cells"],
+          "bound_ms_cells": f32c["bound_cells"][0],
+          "ms_points": f32c["points"], "merge_ms": f32c["merge"], "ms_bf16": bf16c["whole"],
+          "ms_cells_bf16": bf16c["cells"], "merge_ms_bf16": bf16c["merge"],
+          "library_ms_bf16": bf16c["library"],
+          "bound_ms_bf16": bf16c["bound_whole"][0]}),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"slam_eslam_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-    } for name, replaces, launches, err, ms, plain_ms in rows]}))
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+        "bound_by": bnd[1], "library_ms": library_ms, **more,
+    } for (name, replaces, launches, err, ms, plain_ms, bnd, library_ms,
+           more) in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,15 +8,19 @@ per-particle-map SLAM on the laser path (``filter.streaming``), on plain
 ``torch`` tensors with hand-written CUDA kernels under ``ops``.  Module
 names mirror ``slam_eslam_tpu``.
 
-The configuration dataclasses are shared with the JAX package
-(``slam_eslam_tpu.config`` is jax-free); this package never imports
-``jax``.  The window/Pallas knobs of ``Config`` (``lookup_window``,
-``lookup_tiers``, ``merge_group``, ...) are accepted and ignored: the
-port gathers straight from the full grid.
+The configuration dataclasses (``config``) are the port's own copy of
+the JAX package's, field for field; this package imports neither ``jax``
+nor anything of ``slam_eslam_tpu``.  The window/Pallas knobs of
+``Config`` (``lookup_window``, ``lookup_tiers``, ``merge_group``, ...)
+are accepted and ignored: the port gathers straight from the full grid.
+Entry points (``EmbodiedSlamFilter``, ``PoseEstimatorState.create``,
+``bench``) run on the CUDA device unless the caller asks for
+``device="cpu"``.
 """
 
-from slam_eslam_tpu.config import (Config, ContactModelConfig, OdometryConfig,
-                                   SurfaceHashConfig)
+from slam_eslam_tpu_torch.config import (Config, ContactModelConfig,
+                                         OdometryConfig, SurfaceHashConfig,
+                                         UpdateThreshold)
 
 __all__ = ["Config", "ContactModelConfig", "OdometryConfig",
-           "SurfaceHashConfig"]
+           "SurfaceHashConfig", "UpdateThreshold"]

@@ -8,6 +8,12 @@ functions build the port's dataclasses of tensors on ``device``;
 ``PoseEstimatorState`` has no counterpart (the port's state carries a
 ``torch.Generator``), and ``PackedLookup.data_t`` (the TPU kernel's
 pre-transposed table) is not carried.
+
+NumPy has no bfloat16 of its own.  A bfloat16 JAX array arrives as a
+NumPy array of the extension dtype named ``bfloat16`` (or as ``uint16``
+bit patterns with the owner saying so, ``bf16_from_bits``); its 16-bit
+patterns are reinterpreted as ``torch.bfloat16``, bit for bit.
+``to_numpy`` gives a bfloat16 tensor back as float32 (exact).
 """
 
 from __future__ import annotations
@@ -26,8 +32,18 @@ from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid, PackedLookup
 from slam_eslam_tpu_torch.models.odometry import FootContactOdometry
 
 
+def bf16_from_bits(bits, device=None):
+    """``uint16`` bit patterns -> a ``torch.bfloat16`` tensor (bit exact)."""
+    bits = np.ascontiguousarray(bits, dtype=np.uint16)
+    return torch.from_numpy(bits.view(np.int16).copy()).view(
+        torch.bfloat16).to(device)
+
+
 def _tensor(value, device):
-    return torch.from_numpy(np.array(value, copy=True)).to(device)
+    value = np.array(value, copy=True)
+    if value.dtype.name == "bfloat16":
+        return bf16_from_bits(value.view(np.uint16), device)
+    return torch.from_numpy(value).to(device)
 
 
 def _from(cls, d, device, **static):
@@ -76,7 +92,8 @@ def pose_estimator_state_from(d, device=None,
 
 
 def map_pool_from(d, device=None) -> MapPool:
-    """A JAX ``MapPool`` dict (``color`` None for a colourless pool)."""
+    """A JAX ``MapPool`` dict (``color`` None for a colourless pool).  A
+    pool stored in bfloat16 comes across bit for bit (module docstring)."""
     return _from(MapPool, d, device, resolution=float(d["resolution"]),
                  nx=int(d["nx"]), ny=int(d["ny"]), k=int(d["k"]),
                  color=(None if d["color"] is None
@@ -112,7 +129,10 @@ def to_numpy(obj):
     for f in dataclasses.fields(obj):
         val = getattr(obj, f.name)
         if isinstance(val, torch.Tensor):
-            out[f.name] = val.detach().cpu().numpy()
+            val = val.detach().cpu()
+            if val.dtype == torch.bfloat16:
+                val = val.float()
+            out[f.name] = val.numpy()
         elif dataclasses.is_dataclass(val):
             out[f.name] = to_numpy(val)
         elif not isinstance(val, torch.Generator):

@@ -31,14 +31,20 @@
 // Design: one CTA per particle.  Heads are unique after
 // ensure_unique_active, so CTAs write disjoint blocks and no atomics are
 // needed.  The CTA deduplicates its P points by cell with a bitonic sort
-// of (cell << 32 | point) keys in shared memory: O(P log^2 P) work, so a
-// camera cloud of thousands of points stays cheap; P is bounded by the
-// shared memory of one CTA (kMaxPoints keys of 8 bytes; the launcher
-// refuses more, and a caller chunks the cloud).  The first entry of each
-// run of equal cells then owns that cell: it sums the run's points in
-// point-index order (deterministic, no atomics on values, the order of the
-// plain version's stable sort), reads the cell's K slots, applies the
-// rules, and writes one slot back.
+// of (cell << 32 | point) keys in shared memory (cell_sort.cuh): O(P
+// log^2 P) work, so a camera cloud of thousands of points stays cheap; P
+// is bounded by the shared memory of one CTA (kMaxPoints keys of 8 bytes;
+// the launcher refuses more, and a caller chunks the cloud).  The first
+// entry of each run of equal cells then owns that cell: it sums the run's
+// points in point-index order (deterministic, no atomics on values, the
+// order of the plain version's stable sort), reads the cell's K slots,
+// applies the rules, and writes one slot back.
+//
+// The float fields (mean, stdev, height, colour) are stored as float32 or
+// as bfloat16 (the kernel is templated on the storage type S): slots are
+// read up to float32 exactly, the sums and the slot rules run in float32
+// as below, and the written slot is rounded once, to nearest even, at the
+// store, as the plain version's `.to(dtype)` does.
 //
 // Arithmetic follows the plain version op for op: the fusion formula is
 // written with __fmul_rn / __fadd_rn / __fdiv_rn so that nvcc does not
@@ -48,40 +54,21 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cell_sort.cuh"
 #include "slot_select.cuh"
 
 namespace {
 
+using cell_sort::kEmpty;
+using cell_sort::kMaxPoints;
+
 constexpr int kThreads = 128;
-constexpr int kMaxPoints = 16384;  // 128 KB of sort keys
-constexpr unsigned long long kEmpty = ~0ull;
 
-__device__ __forceinline__ void bitonic_sort(unsigned long long* keys,
-                                             int count) {
-  // count is a power of two; ascending
-  for (int size = 2; size <= count; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < count / 2; t += blockDim.x) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool ascending = (lo & size) == 0;
-        const unsigned long long a = keys[lo];
-        const unsigned long long b = keys[hi];
-        if ((a > b) == ascending) {
-          keys[lo] = b;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <int K>
+template <int K, typename S>
 __global__ void __launch_bounds__(kThreads)
-block_merge_kernel(float* __restrict__ pool_mean, float* __restrict__ pool_stdev,
-                   float* __restrict__ pool_height, int* __restrict__ pool_meta,
-                   float* __restrict__ pool_color,
+block_merge_kernel(S* __restrict__ pool_mean, S* __restrict__ pool_stdev,
+                   S* __restrict__ pool_height, int* __restrict__ pool_meta,
+                   S* __restrict__ pool_color,
                    const int* __restrict__ blk, const int* __restrict__ lx,
                    const int* __restrict__ ly, const float* __restrict__ w,
                    const float* __restrict__ wz,
@@ -94,33 +81,18 @@ block_merge_kernel(float* __restrict__ pool_mean, float* __restrict__ pool_stdev
   if (b < 0 || b >= num_blocks) return;  // uniform across the CTA
   const size_t row = (size_t)n * p;
 
-  for (int j = threadIdx.x; j < p_pad; j += blockDim.x) {
-    unsigned long long key = kEmpty;
-    if (j < p) {
-      const int x = __ldg(lx + row + j);
-      const int y = __ldg(ly + row + j);
-      if (x >= 0 && x < nx && y >= 0 && y < ny) {
-        key = ((unsigned long long)((unsigned)x * (unsigned)ny + (unsigned)y)
-               << 32) | (unsigned)j;
-      }
-    }
-    keys[j] = key;
-  }
-  __syncthreads();
-  bitonic_sort(keys, p_pad);
+  cell_sort::sorted_keys(keys, lx, ly, row, p, p_pad, nx, ny);
 
   for (int j = threadIdx.x; j < p; j += blockDim.x) {
-    const unsigned long long key = keys[j];
-    if (key == kEmpty) continue;
-    const unsigned cell = (unsigned)(key >> 32);
-    if (j > 0 && (unsigned)(keys[j - 1] >> 32) == cell) continue;
+    if (!cell_sort::owns_cell(keys, j)) continue;
+    const unsigned cell = cell_sort::cell_of(keys[j]);
 
     // this thread owns the cell: sums over its run, in point order
     float ws = 0.0f, wzs = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
     for (int r = j; r < p; ++r) {
       const unsigned long long kr = keys[r];
-      if (kr == kEmpty || (unsigned)(kr >> 32) != cell) break;
-      const unsigned q = (unsigned)(kr & 0xffffffffu);
+      if (kr == kEmpty || cell_sort::cell_of(kr) != cell) break;
+      const unsigned q = cell_sort::point_of(kr);
       const float wq = __ldg(w + row + q);
       ws = __fadd_rn(ws, wq);
       wzs = __fadd_rn(wzs, __ldg(wz + row + q));
@@ -139,9 +111,9 @@ block_merge_kernel(float* __restrict__ pool_mean, float* __restrict__ pool_stdev
     const size_t base = (((size_t)b * nx + ix) * ny + iy) * K;
     float m[K], s[K], h[K];
     int meta[K];
-    slot_select::load_slots<K>(pool_mean + base, m);
-    slot_select::load_slots<K>(pool_stdev + base, s);
-    slot_select::load_slots<K>(pool_height + base, h);
+    slot_select::load_values<K>(pool_mean + base, m);
+    slot_select::load_values<K>(pool_stdev + base, s);
+    slot_select::load_values<K>(pool_height + base, h);
     slot_select::load_slots<K>(pool_meta + base, meta);
 
     int fslot = -1, gslot = -1, free_slot = -1, eslot = 0;
@@ -198,65 +170,80 @@ block_merge_kernel(float* __restrict__ pool_mean, float* __restrict__ pool_stdev
     }
     const int horizontal = (can_fuse || !can_gap) ? 1 : 0;
     const size_t at = base + slot;
-    pool_mean[at] = new_mean;
-    pool_stdev[at] = new_stdev;
-    pool_height[at] = new_height;
+    slot_select::store_value(pool_mean + at, new_mean);
+    slot_select::store_value(pool_stdev + at, new_stdev);
+    slot_select::store_value(pool_height + at, new_height);
     pool_meta[at] = 1 | (horizontal << 1) | (update_idx << 2);
     if (pool_color != nullptr) {
-      pool_color[3 * at] = __fdiv_rn(cr, wsafe);
-      pool_color[3 * at + 1] = __fdiv_rn(cg, wsafe);
-      pool_color[3 * at + 2] = __fdiv_rn(cb, wsafe);
+      slot_select::store_value(pool_color + 3 * at, __fdiv_rn(cr, wsafe));
+      slot_select::store_value(pool_color + 3 * at + 1, __fdiv_rn(cg, wsafe));
+      slot_select::store_value(pool_color + 3 * at + 2, __fdiv_rn(cb, wsafe));
     }
   }
 }
 
-template <int K>
-int launch(float* pool_mean, float* pool_stdev, float* pool_height,
-           int* pool_meta, float* pool_color, const int* blk, const int* lx,
+template <int K, typename S>
+int launch(void* pool_mean, void* pool_stdev, void* pool_height,
+           int* pool_meta, void* pool_color, const int* blk, const int* lx,
            const int* ly, const float* w, const float* wz,
            const float* point_color, int n, int p, int num_blocks, int nx,
            int ny, int update_idx, float patch_thickness, float gap_size,
            cudaStream_t stream) {
-  int p_pad = 1;
-  while (p_pad < p) p_pad <<= 1;
+  const int p_pad = cell_sort::padded(p);
   const size_t smem = (size_t)p_pad * sizeof(unsigned long long);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        block_merge_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        block_merge_kernel<K, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  block_merge_kernel<K><<<n, kThreads, smem, stream>>>(
-      pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly,
-      w, wz, point_color, p, p_pad, num_blocks, nx, ny, update_idx,
-      patch_thickness, gap_size);
+  block_merge_kernel<K, S><<<n, kThreads, smem, stream>>>(
+      static_cast<S*>(pool_mean), static_cast<S*>(pool_stdev),
+      static_cast<S*>(pool_height), pool_meta, static_cast<S*>(pool_color),
+      blk, lx, ly, w, wz, point_color, p, p_pad, num_blocks, nx, ny,
+      update_idx, patch_thickness, gap_size);
   return (int)cudaGetLastError();
+}
+
+template <typename S>
+int dispatch(void* pool_mean, void* pool_stdev, void* pool_height,
+             int* pool_meta, void* pool_color, const int* blk, const int* lx,
+             const int* ly, const float* w, const float* wz,
+             const float* point_color, int n, int p, int num_blocks, int nx,
+             int ny, int k, int update_idx, float patch_thickness,
+             float gap_size, cudaStream_t st) {
+  switch (k) {
+    case 1: return launch<1, S>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
+    case 2: return launch<2, S>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
+    case 4: return launch<4, S>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Pool fields are
-// [num_blocks, nx, ny*k] (float32 mean/stdev/height, int32 meta) and, when
-// pool_color is not null, [num_blocks, nx, ny*k*3] float32 colour with
-// point_color [p, 3]; blk [n] int32; lx, ly [n, p] int32; w, wz [n, p]
-// float32.  Updates the pool in place on `stream` and returns
+// [num_blocks, nx, ny*k] (mean/stdev/height float32, or bfloat16 when
+// `bf16` is not 0; int32 meta) and, when pool_color is not null,
+// [num_blocks, nx, ny*k*3] colour of the same storage type with
+// point_color [p, 3] float32; blk [n] int32; lx, ly [n, p] int32; w, wz
+// [n, p] float32.  Updates the pool in place on `stream` and returns
 // cudaGetLastError(); cudaErrorInvalidValue for a k other than 1, 2 or 4
 // or for more than kMaxPoints points.
-extern "C" int block_merge_launch(float* pool_mean, float* pool_stdev,
-                                  float* pool_height, int* pool_meta,
-                                  float* pool_color, const int* blk,
+extern "C" int block_merge_launch(void* pool_mean, void* pool_stdev,
+                                  void* pool_height, int* pool_meta,
+                                  void* pool_color, const int* blk,
                                   const int* lx, const int* ly, const float* w,
                                   const float* wz, const float* point_color,
                                   int n, int p, int num_blocks, int nx, int ny,
-                                  int k, int update_idx, float patch_thickness,
-                                  float gap_size, void* stream) {
+                                  int k, int bf16, int update_idx,
+                                  float patch_thickness, float gap_size,
+                                  void* stream) {
   if (n <= 0 || p <= 0) return (int)cudaSuccess;
   if (p > kMaxPoints) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: return launch<1>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
-    case 2: return launch<2>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
-    case 4: return launch<4>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    return dispatch<__nv_bfloat16>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, k, update_idx, patch_thickness, gap_size, st);
   }
+  return dispatch<float>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, k, update_idx, patch_thickness, gap_size, st);
 }

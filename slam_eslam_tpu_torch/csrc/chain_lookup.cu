@@ -22,6 +22,11 @@
 // direct global loads, no shared memory, and an early exit at the first
 // level that hits.  Threads past N*C return; nothing is padded.
 //
+// The pool's mean and stdev are stored as float32 or bfloat16 (the kernel
+// is templated on the storage type S); a bfloat16 cell row is one 8-byte
+// load per field, upcast exactly, and the select and the outputs are
+// float32 either way.
+//
 // A pure select: it matches the plain version bit for bit.
 
 #include <cuda_runtime.h>
@@ -31,10 +36,10 @@
 
 namespace {
 
-template <int K>
+template <int K, typename S>
 __global__ void __launch_bounds__(256)
-chain_lookup_kernel(const float* __restrict__ pool_mean,
-                    const float* __restrict__ pool_stdev,
+chain_lookup_kernel(const S* __restrict__ pool_mean,
+                    const S* __restrict__ pool_stdev,
                     const int* __restrict__ pool_meta,
                     const float* __restrict__ origin,
                     const int* __restrict__ chain,
@@ -65,13 +70,13 @@ chain_lookup_kernel(const float* __restrict__ pool_mean,
     float m[K], s[K];
     int meta[K];
     bool valid[K];
-    slot_select::load_slots<K>(pool_mean + cell, m);
+    slot_select::load_values<K>(pool_mean + cell, m);
     slot_select::load_slots<K>(pool_meta + cell, meta);
 #pragma unroll
     for (int k = 0; k < K; ++k) valid[k] = (meta[k] & 1) != 0;
     const int best = slot_select::zwindow_select<K>(m, valid, z, z_window);
     if (best < 0) continue;
-    slot_select::load_slots<K>(pool_stdev + cell, s);
+    slot_select::load_values<K>(pool_stdev + cell, s);
     hit = true;
     mean = slot_select::pick<K>(m, best);
     stdev = slot_select::pick<K>(s, best);
@@ -81,46 +86,62 @@ chain_lookup_kernel(const float* __restrict__ pool_mean,
   out_stdev[t] = stdev;
 }
 
-template <int K>
-void launch(const float* pool_mean, const float* pool_stdev,
-            const int* pool_meta, const float* origin, const int* chain,
-            const float* qx, const float* qy, const float* qz,
-            unsigned char* found, float* out_mean, float* out_stdev, int n,
-            int c, int levels, int num_blocks, int nx, int ny, float inv_res,
-            float z_window, cudaStream_t stream) {
+template <int K, typename S>
+void launch(const S* pool_mean, const S* pool_stdev, const int* pool_meta,
+            const float* origin, const int* chain, const float* qx,
+            const float* qy, const float* qz, unsigned char* found,
+            float* out_mean, float* out_stdev, int n, int c, int levels,
+            int num_blocks, int nx, int ny, float inv_res, float z_window,
+            cudaStream_t stream) {
   constexpr int kThreads = 256;
   const long long total = (long long)n * c;
   const unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
-  chain_lookup_kernel<K><<<blocks, kThreads, 0, stream>>>(
+  chain_lookup_kernel<K, S><<<blocks, kThreads, 0, stream>>>(
       pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found,
       out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res,
       z_window);
 }
 
+template <typename S>
+int dispatch(const void* pool_mean, const void* pool_stdev,
+             const int* pool_meta, const float* origin, const int* chain,
+             const float* qx, const float* qy, const float* qz,
+             unsigned char* found, float* out_mean, float* out_stdev, int n,
+             int c, int levels, int num_blocks, int nx, int ny, int k,
+             float inv_res, float z_window, cudaStream_t st) {
+  const S* m = static_cast<const S*>(pool_mean);
+  const S* s = static_cast<const S*>(pool_stdev);
+  switch (k) {
+    case 1: launch<1, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
+    case 2: launch<2, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
+    case 4: launch<4, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Pool fields are
-// [num_blocks, nx, ny*k] (float32 mean/stdev, int32 packed meta, bit 0 =
-// valid), origin [num_blocks, 2], chain [n, levels] int32, queries and
-// outputs [n, c].  Launches on `stream` and returns cudaGetLastError();
-// cudaErrorInvalidValue for a k other than 1, 2 or 4.
-extern "C" int chain_lookup_launch(const float* pool_mean,
-                                   const float* pool_stdev,
+// [num_blocks, nx, ny*k] (mean/stdev float32, or bfloat16 when `bf16` is
+// not 0; int32 packed meta, bit 0 = valid), origin [num_blocks, 2], chain
+// [n, levels] int32, queries and outputs [n, c] float32.  Launches on
+// `stream` and returns cudaGetLastError(); cudaErrorInvalidValue for a k
+// other than 1, 2 or 4.
+extern "C" int chain_lookup_launch(const void* pool_mean,
+                                   const void* pool_stdev,
                                    const int* pool_meta, const float* origin,
                                    const int* chain, const float* qx,
                                    const float* qy, const float* qz,
                                    unsigned char* found, float* out_mean,
                                    float* out_stdev, int n, int c, int levels,
                                    int num_blocks, int nx, int ny, int k,
-                                   float inv_res, float z_window,
+                                   int bf16, float inv_res, float z_window,
                                    void* stream) {
   if ((long long)n * c <= 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 1: launch<1>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
-    case 2: launch<2>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
-    case 4: launch<4>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    return dispatch<__nv_bfloat16>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, k, inv_res, z_window, st);
   }
-  return (int)cudaGetLastError();
+  return dispatch<float>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, k, inv_res, z_window, st);
 }

@@ -8,9 +8,17 @@
 //
 // K is a compile-time slot count, so the arrays stay in registers; read
 // an element at a run-time index with pick(), never with a[i].
+//
+// A map pool stores its float fields as float32 or as bfloat16
+// (Config.map_pool_dtype).  load_values() reads K slots of either
+// storage type into float32 registers (a bfloat16 is the upper half of a
+// float32, so the upcast is exact), every comparison and all arithmetic
+// run in float32, and store_value() rounds once, to nearest even, where a
+// kernel writes a slot back.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -68,6 +76,44 @@ __device__ __forceinline__ void load_slots(const T* __restrict__ p,
 #pragma unroll
     for (int s = 0; s < K; ++s) out[s] = __ldg(p + s);
   }
+}
+
+// A bfloat16 bit pattern as float32 (exact; what __bfloat162float does).
+__device__ __forceinline__ float bf16_bits_to_float(unsigned int bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// The K consecutive float32 values at p, as load_slots.
+template <int K>
+__device__ __forceinline__ void load_values(const float* __restrict__ p,
+                                            float (&out)[K]) {
+  load_slots<K>(p, out);
+}
+
+// The K consecutive bfloat16 values at p, upcast; at K == 4 one 8-byte
+// load (p must be 8-byte aligned).
+template <int K>
+__device__ __forceinline__ void load_values(
+    const __nv_bfloat16* __restrict__ p, float (&out)[K]) {
+  if constexpr (K == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    out[0] = bf16_bits_to_float(v.x & 0xffffu);
+    out[1] = bf16_bits_to_float(v.x >> 16);
+    out[2] = bf16_bits_to_float(v.y & 0xffffu);
+    out[3] = bf16_bits_to_float(v.y >> 16);
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int s = 0; s < K; ++s) out[s] = bf16_bits_to_float(__ldg(q + s));
+  }
+}
+
+// Write v to a slot of either storage type: as it is, or rounded to
+// nearest even (torch's and XLA's float32 -> bfloat16 conversion).
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 }  // namespace slot_select

@@ -29,7 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from slam_eslam_tpu.config import Config, OdometryConfig, SurfaceHashConfig
+from slam_eslam_tpu_torch.config import Config, OdometryConfig, SurfaceHashConfig
 from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.core.distribution import export_distribution
 from slam_eslam_tpu_torch.core.state import BodyContactState
@@ -42,6 +42,7 @@ from slam_eslam_tpu_torch.models import odometry as odom
 from slam_eslam_tpu_torch.models import terrain as terr
 from slam_eslam_tpu_torch.models.asguard import NUM_WHEELS
 from slam_eslam_tpu_torch.utils import tree
+from slam_eslam_tpu_torch.utils.device import entry_device
 
 
 def _affine(q, t):
@@ -84,14 +85,16 @@ class ContactDraws:
 
 
 class EmbodiedSlamFilter:
-    """``device`` holds every tensor.  Construction mirrors the reference
-    constructor (``EmbodiedSlamFilter.cpp:13-23``)."""
+    """``device`` holds every tensor: the CUDA device unless given
+    (``device="cpu"`` for the CPU; no CUDA device and no ``device``
+    raises).  Construction mirrors the reference constructor
+    (``EmbodiedSlamFilter.cpp:13-23``)."""
 
     def __init__(self, odometry_config: OdometryConfig = None,
                  config: Config = None, device=None):
         self.config = config or Config()
         self.odometry_config = odometry_config or OdometryConfig()
-        self.device = torch.device(device or "cpu")
+        self.device = entry_device(device)
         self.state: pe.PoseEstimatorState | None = None
         self.shared_grid: mls_grid.MLSGrid | None = None
         self.pool: mp.MapPool | None = None

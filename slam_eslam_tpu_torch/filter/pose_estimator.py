@@ -20,12 +20,13 @@ import dataclasses
 
 import torch
 
-from slam_eslam_tpu.config import Config
+from slam_eslam_tpu_torch.config import Config
 from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu_torch.models import contact_model as cm
 from slam_eslam_tpu_torch.models import odometry as odom
 from slam_eslam_tpu_torch.utils import geometry
+from slam_eslam_tpu_torch.utils.device import entry_device
 
 
 @dataclasses.dataclass
@@ -39,7 +40,10 @@ class PoseEstimatorState:
     @staticmethod
     def create(cfg: Config, num_contact_points, device=None,
                generator=None):
-        device = torch.device(device or "cpu")
+        """Zeroed state on ``device``: the CUDA device unless given
+        (``device="cpu"`` for the CPU; no CUDA device and no ``device``
+        raises)."""
+        device = entry_device(device)
         if generator is None:
             generator = torch.Generator(device).manual_seed(cfg.seed)
         return PoseEstimatorState(

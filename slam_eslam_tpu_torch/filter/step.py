@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from slam_eslam_tpu.config import Config, OdometryConfig
+from slam_eslam_tpu_torch.config import Config, OdometryConfig
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.models import odometry as odom
 from slam_eslam_tpu_torch.utils import tree

@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from slam_eslam_tpu.config import Config
+from slam_eslam_tpu_torch.config import Config
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.filter.step import StepDraws, cfg_odo

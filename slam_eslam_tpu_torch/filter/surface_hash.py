@@ -25,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-from slam_eslam_tpu.config import Config, SurfaceHashConfig
+from slam_eslam_tpu_torch.config import Config, SurfaceHashConfig
 from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.core.state import ParticleSet
 from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid

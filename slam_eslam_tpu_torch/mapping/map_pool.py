@@ -22,10 +22,13 @@ Differences from the JAX package, all for the GPU:
   O(B), and there is no host sync.
 * The chain lookup and the merge run kernels K2 (``ops.chain_lookup``)
   and K3 (``ops.block_merge``) on CUDA tensors, their plain versions on
-  CPU tensors.  Lookups are SoA and carry no colour (the colour chain
-  lookup of the per-particle slip update is not ported yet);
-  ``shards > 1`` and ``mesh`` belong to
-  the multi-GPU slice and raise ``NotImplementedError``.
+  CPU tensors.  The float fields are stored as float32 or bfloat16
+  (``Config.map_pool_dtype``): every read upcasts (exactly), arithmetic
+  is float32, a written slot rounds once, lookups return float32.
+  Lookups are SoA and carry no colour (the colour chain lookup of the
+  per-particle slip update is not ported yet); ``shards > 1`` and
+  ``mesh`` belong to the multi-GPU slice and raise
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,11 +54,11 @@ def _single_shard(shards):
 
 @dataclasses.dataclass
 class MapPool:
-    mean: torch.Tensor          # [B, nx, ny*K] float32
+    mean: torch.Tensor          # [B, nx, ny*K] float32 or bfloat16
     stdev: torch.Tensor
     height: torch.Tensor
     meta: torch.Tensor          # [B, nx, ny*K] int32, see pack_meta
-    color: torch.Tensor | None  # [B, nx, ny*K*3] float32, or None
+    color: torch.Tensor | None  # [B, nx, ny*K*3] as mean, or None
     origin: torch.Tensor        # [B, 2] float32, world xy of cell (0, 0)
     allocated: torch.Tensor     # [B] bool
     chain: torch.Tensor         # [N, L] int32 block ids, head first; -1 empty
@@ -91,6 +94,20 @@ class MapPool:
     def active(self):
         return self.chain[:, 0]
 
+    def count_valid(self, chunk=16384):
+        """Number of valid patch slots in the pool, ``[]`` int64 on the
+        device, counted ``chunk`` blocks at a time (``valid.sum()`` would
+        make a pool-sized temporary, 10 GB at 400,000 blocks)."""
+        total = torch.zeros((), dtype=torch.int64, device=self.meta.device)
+        for part in self.meta.split(chunk):
+            total += (part & 1).sum()
+        return total
+
+    def storage_bytes(self):
+        """Bytes of the per-slot fields."""
+        return sum(getattr(self, f).numel() * getattr(self, f).element_size()
+                   for f in self.data_fields())
+
     def data_fields(self):
         """The per-slot fields (``color`` only when the pool has one)."""
         return _FIELDS + (("color",) if self.color is not None else ())
@@ -102,8 +119,8 @@ class MapPool:
         """Every particle starts with its own copy of ``template`` in
         block ``i`` (``PoseEstimator.cpp:47-62``; a prebuilt environment
         grid gives the clone-from-env seed).  ``dtype``: storage dtype of
-        the float fields (a ``torch.dtype`` or its name; default the
-        template's); only float32 pools reach the CUDA kernels."""
+        the float fields, float32 or bfloat16 (a ``torch.dtype`` or its
+        name; default the template's)."""
         _single_shard(shards)
         if num_blocks < n_particles:
             raise ValueError("the pool must hold one block per particle")

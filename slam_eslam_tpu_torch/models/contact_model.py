@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from slam_eslam_tpu.config import ContactModelConfig
+from slam_eslam_tpu_torch.config import ContactModelConfig
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.utils import geometry
 

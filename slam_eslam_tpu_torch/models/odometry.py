@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from slam_eslam_tpu.config import OdometryConfig
+from slam_eslam_tpu_torch.config import OdometryConfig
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.utils import geometry
 

@@ -109,14 +109,18 @@ class TrajectorySim:
 
 
 def random_pool(n, num_blocks, nx, ny, k=4, resolution=0.25, chain_len=3,
-                seed=0, device=None):
-    """A seeded ``MapPool`` for kernel checks, made on ``device``: every
+                seed=0, device=None, dtype=torch.float32, parts=1):
+    """A seeded ``MapPool`` for kernel checks, made on ``device`` with its
+    float fields stored as ``dtype`` (drawn in float32, then rounded, so
+    a bfloat16 pool is the float32 pool of the same seed rounded): every
     cell holds a uniform random share of valid slots (half full on
     average, one cell in five full), slot means near 0.3 m (fusable),
     0.5-1.3 m above (gap extension) or 2-3 m above (neither), random
     horizontal bits and update stamps; block origins on a lattice of
     block sizes; unique chain heads and tails of random blocks, a quarter
-    of them empty (-1)."""
+    of them empty (-1).  The per-slot fields are drawn ``num_blocks /
+    parts`` blocks at a time, so that the float32 draws of a pool of tens
+    of GB never exist whole (another ``parts``, another pool)."""
     from slam_eslam_tpu_torch.mapping.map_pool import MapPool
 
     gen = torch.Generator(device or "cpu").manual_seed(seed)
@@ -124,25 +128,37 @@ def random_pool(n, num_blocks, nx, ny, k=4, resolution=0.25, chain_len=3,
     rand = lambda *s: torch.rand(s, generator=gen, **f32)
     randint = lambda lo, hi, *s: torch.randint(
         lo, hi, s, generator=gen, device=device)
-    b, shape = num_blocks, (num_blocks, nx, ny * k)
-    kind = rand(*shape)
-    mean = 0.3 + torch.where(
-        kind < 0.3, 0.03 * torch.randn(shape, generator=gen, **f32),
-        torch.where(kind < 0.5, 0.5 + 0.8 * rand(*shape),
-                    2.0 + rand(*shape)))
-    level = rand(b, nx, ny, 1)
-    valid = (rand(b, nx, ny, k) < level).reshape(shape)
-    meta = (valid.to(torch.int32) | (rand(*shape) < 0.8).to(torch.int32) << 1
+    b = num_blocks
+    if b % parts:
+        raise ValueError(f"{b} blocks do not split into {parts} equal parts")
+    step = b // parts
+    shape = (step, nx, ny * k)
+    field = lambda dt: torch.empty((b, nx, ny * k), dtype=dt, device=device)
+    mean, stdev, height, meta = (field(dtype), field(dtype), field(dtype),
+                                 field(torch.int32))
+    for lo in range(0, b, step):
+        kind = rand(*shape)
+        mean[lo:lo + step] = 0.3 + torch.where(
+            kind < 0.3, 0.03 * torch.randn(shape, generator=gen, **f32),
+            torch.where(kind < 0.5, 0.5 + 0.8 * rand(*shape),
+                        2.0 + rand(*shape)))
+        level = rand(step, nx, ny, 1)
+        valid = (rand(step, nx, ny, k) < level).reshape(shape)
+        meta[lo:lo + step] = (
+            valid.to(torch.int32) | (rand(*shape) < 0.8).to(torch.int32) << 1
             | randint(0, 5, *shape).to(torch.int32) << 2)
+    del kind, level, valid
     size = torch.tensor([nx * resolution, ny * resolution], **f32)
     origin = randint(-8, 8, b, 2).to(torch.float32) * size - size / 2
     chain = randint(0, b, n, chain_len).to(torch.int32)
     chain[rand(n, chain_len) < 0.25] = -1
     chain[:, 0] = torch.randperm(b, generator=gen, device=device)[:n].to(
         torch.int32)
+    for lo in range(0, b, step):
+        stdev[lo:lo + step] = 0.01 + 0.19 * rand(*shape)
+        height[lo:lo + step] = 0.3 * rand(*shape) * (rand(*shape) < 0.3)
     pool = MapPool(
-        mean=mean, stdev=0.01 + 0.19 * rand(*shape),
-        height=0.3 * rand(*shape) * (rand(*shape) < 0.3), meta=meta,
+        mean=mean, stdev=stdev, height=height, meta=meta,
         color=None, origin=origin,
         allocated=torch.zeros(b, dtype=torch.bool, device=device),
         chain=chain, resolution=float(resolution), nx=nx, ny=ny, k=k)

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every kernel of the port, one ``csrc/<name>.cu`` each
-KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells")
+KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
+           "block_copy")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
@@ -98,17 +99,16 @@ def load_all(names=KERNELS):
 
 
 def check_operand(name, t, shape, dtype, device, align=None):
-    """Raise unless ``t`` lies on ``device`` with ``dtype`` and ``shape``,
-    C-contiguous (and ``align``-byte aligned): what a launcher needs
-    before it hands ``t.data_ptr()`` to a kernel."""
+    """Raise unless ``t`` lies on ``device`` with ``dtype`` (one dtype or
+    a tuple of allowed ones) and ``shape``, C-contiguous (and
+    ``align``-byte aligned): what a launcher needs before it hands
+    ``t.data_ptr()`` to a kernel."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        if t.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"{name} is bfloat16: the CUDA kernels read float32 "
-                "(bf16 pool storage is not ported yet)")
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected "
+                        f"{' or '.join(str(d) for d in allowed)}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
@@ -116,6 +116,19 @@ def check_operand(name, t, shape, dtype, device, align=None):
         raise ValueError(f"{name} must be contiguous")
     if align and t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+# storage types of the map pool's float fields that the pool kernels take
+POOL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def pool_align(dtype, k):
+    """Byte alignment the pool kernels need of a field of ``dtype``: at
+    K = 4 a cell's slots are one vector load (16 bytes of float32 or
+    int32, 8 of bfloat16)."""
+    if k != 4:
+        return None
+    return 8 if dtype == torch.bfloat16 else 16
 
 
 def build_log(name):

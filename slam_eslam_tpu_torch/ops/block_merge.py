@@ -30,7 +30,7 @@ import torch
 from slam_eslam_tpu_torch.mapping import mls_grid
 from slam_eslam_tpu_torch.ops import _build
 
-MAX_POINTS = 16384  # kMaxPoints of csrc/block_merge.cu
+MAX_POINTS = 16384  # kMaxPoints of csrc/cell_sort.cuh
 
 
 def block_merge_reference(mean, stdev, height, meta, color, blk, lx, ly, w,
@@ -85,7 +85,7 @@ def block_merge_reference(mean, stdev, height, meta, color, blk, lx, ly, w,
 def _launcher():
     fn = _build.load("block_merge").block_merge_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 11 + [i32] * 7 + [f32] * 2 + [ptr]
+    fn.argtypes = [ptr] * 11 + [i32] * 8 + [f32] * 2 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,10 +94,13 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
                 update_idx, point_color=None, *, k, patch_thickness=0.1,
                 gap_size=1.5):
     """Merge ``[N, P]`` point operands into the active blocks ``blk [N]``
-    of the pool fields ``mean, stdev, height`` (float32), ``meta``
-    (int32), each ``[B, nx, ny*k]``, and ``color`` (``[B, nx, ny*k*3]``
-    or None, then ``point_color [P, 3]``), in place.  ``update_idx`` is a
-    Python int.  See the module docstring for the semantics."""
+    of the pool fields ``mean, stdev, height`` (all float32 or all
+    bfloat16), ``meta`` (int32), each ``[B, nx, ny*k]``, and ``color``
+    (``[B, nx, ny*k*3]`` of the same dtype, or None; then ``point_color
+    [P, 3]`` float32), in place.  A bfloat16 pool is read up to float32,
+    fused in float32 and rounded once (to nearest even) where a slot is
+    written.  ``update_idx`` is a Python int.  See the module docstring
+    for the semantics."""
     device = mean.device
     kw = dict(k=k, patch_thickness=patch_thickness, gap_size=gap_size)
     if device.type == "cpu":
@@ -115,11 +118,13 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
         raise ValueError(f"pool lane extent {nyk} is not a multiple of "
                          f"k={k}")
     f32 = torch.float32
-    align = 16 if k == 4 else None
-    for name, t, dtype in (("mean", mean, f32), ("stdev", stdev, f32),
-                           ("height", height, f32),
+    _build.check_operand("mean", mean, (b, nx, nyk), _build.POOL_DTYPES,
+                         device, _build.pool_align(mean.dtype, k))
+    for name, t, dtype in (("stdev", stdev, mean.dtype),
+                           ("height", height, mean.dtype),
                            ("meta", meta, torch.int32)):
-        _build.check_operand(name, t, (b, nx, nyk), dtype, device, align)
+        _build.check_operand(name, t, (b, nx, nyk), dtype, device,
+                             _build.pool_align(dtype, k))
     for name, t, shape, dtype in (
             ("blk", blk, (n,), torch.int32),
             ("lx", lx, (n, p), torch.int32), ("ly", ly, (n, p), torch.int32),
@@ -127,7 +132,8 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
         _build.check_operand(name, t, shape, dtype, device)
     color_ptr = pcolor_ptr = None
     if color is not None:
-        _build.check_operand("color", color, (b, nx, nyk * 3), f32, device)
+        _build.check_operand("color", color, (b, nx, nyk * 3), mean.dtype,
+                             device)
         _build.check_operand("point_color", point_color, (p, 3), f32, device)
         color_ptr, pcolor_ptr = color.data_ptr(), point_color.data_ptr()
     with torch.cuda.device(device):
@@ -136,7 +142,8 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
             mean.data_ptr(), stdev.data_ptr(), height.data_ptr(),
             meta.data_ptr(), color_ptr, blk.data_ptr(), lx.data_ptr(),
             ly.data_ptr(), w.data_ptr(), wz.data_ptr(), pcolor_ptr,
-            n, p, b, nx, nyk // k, k, int(update_idx),
+            n, p, b, nx, nyk // k, k, int(mean.dtype == torch.bfloat16),
+            int(update_idx),
             float(patch_thickness), float(gap_size), stream,
         )
     if err != 0:

@@ -85,7 +85,7 @@ def chain_lookup_reference(mean, stdev, meta, origin, resolution, chain,
 def _launcher():
     fn = _build.load("chain_lookup").chain_lookup_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 11 + [i32] * 7 + [f32] * 2 + [ptr]
+    fn.argtypes = [ptr] * 11 + [i32] * 8 + [f32] * 2 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -94,9 +94,11 @@ def chain_lookup(mean, stdev, meta, origin, resolution, chain, queries, *,
                  k, z_window=3.0):
     """Chain lookup of SoA queries ``(x, y, z)``, each ``[N, C]`` float32,
     through ``chain [N, L]`` int32 into the pool fields ``mean, stdev``
-    (float32) and ``meta`` (int32, bit 0 = valid), each ``[B, nx, ny*k]``,
-    with block origins ``origin [B, 2]``.  Returns ``(found bool, mean,
-    stdev)``, each ``[N, C]``.
+    (both float32 or both bfloat16) and ``meta`` (int32, bit 0 = valid),
+    each ``[B, nx, ny*k]``, with block origins ``origin [B, 2]``.  Returns
+    ``(found bool, mean, stdev)``, each ``[N, C]``, float32 whatever the
+    pool stores (the upcast is exact, so the result is still bitwise that
+    of the plain version on the same pool).
 
     CPU tensors take ``chain_lookup_reference``; CUDA tensors launch the
     kernel, which reads the pool in place."""
@@ -111,12 +113,12 @@ def chain_lookup(mean, stdev, meta, origin, resolution, chain, queries, *,
     n, c = xq.shape
     levels = chain.shape[1] if chain.dim() == 2 else -1
     f32 = torch.float32
-    align = 16 if k == 4 else None
-    for name, t, shape, dtype in (
-            ("mean", mean, (b, nx, nyk), f32),
-            ("stdev", stdev, (b, nx, nyk), f32),
-            ("meta", meta, (b, nx, nyk), torch.int32)):
-        _build.check_operand(name, t, shape, dtype, device, align)
+    _build.check_operand("mean", mean, (b, nx, nyk), _build.POOL_DTYPES,
+                         device, _build.pool_align(mean.dtype, k))
+    _build.check_operand("stdev", stdev, (b, nx, nyk), mean.dtype, device,
+                         _build.pool_align(mean.dtype, k))
+    _build.check_operand("meta", meta, (b, nx, nyk), torch.int32, device,
+                         _build.pool_align(torch.int32, k))
     for name, t, shape, dtype in (
             ("origin", origin, (b, 2), f32),
             ("chain", chain, (n, levels), torch.int32),
@@ -137,6 +139,7 @@ def chain_lookup(mean, stdev, meta, origin, resolution, chain, queries, *,
             yq.data_ptr(), zq.data_ptr(), found.data_ptr(),
             out_mean.data_ptr(), out_stdev.data_ptr(),
             n, c, levels, b, nx, nyk // k, k,
+            int(mean.dtype == torch.bfloat16),
             inverse_resolution(resolution), float(z_window), stream,
         )
     if err != 0:

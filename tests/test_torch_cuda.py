@@ -1,10 +1,11 @@
 """CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``),
-K3 (``csrc/block_merge.cu``) and K5 (``csrc/select_cells.cu``) against
-their plain PyTorch versions on the card, and short GPU-vs-CPU runs of
-the localisation and SLAM paths and of the application API's contact
-update.  K2 and K5 must match bit for bit; K3 bit for bit on cells one
-point hits and within rtol 1e-6 elsewhere (the plain version sums with
-atomics on the card).  Marked ``cuda``; without a CUDA device every test
+K3 (``csrc/block_merge.cu``), K5 (``csrc/select_cells.cu``) and K7
+(``csrc/block_copy.cu``) against their plain PyTorch versions on the
+card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
+of the application API's contact update.  K2, K5 and K7 must match bit
+for bit; K3 bit for bit on cells one point hits and within rtol 1e-6
+elsewhere (the plain version sums with atomics on the card), on a
+bfloat16 pool within one bfloat16 ulp there.  Marked ``cuda``; without a CUDA device every test
 skips.  This file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -29,6 +30,7 @@ from slam_eslam_tpu_torch.mapping.lookup import make_lookup
 from slam_eslam_tpu_torch.mapping.mls_grid import PackedLookup, PatchCloud
 from slam_eslam_tpu_torch.models import sim
 from slam_eslam_tpu_torch.models.asguard import AsguardSim
+from slam_eslam_tpu_torch.ops import block_copy as bc
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
 from slam_eslam_tpu_torch.ops import contact_fold as cf
@@ -161,8 +163,9 @@ def test_chain_lookup_matches_plain(dev, n, c, nx):
         assert torch.equal(a, b)
 
 
-def merge_setup(n, p, nx, dev, seed):
-    pool = sim.random_pool(n, 4 * n, nx, nx, seed=seed, device=dev)
+def merge_setup(n, p, nx, dev, seed, dtype=torch.float32):
+    pool = sim.random_pool(n, 4 * n, nx, nx, seed=seed, device=dev,
+                           dtype=dtype)
     gen = torch.Generator(dev).manual_seed(seed)
     ang = torch.linspace(-np.pi / 2, np.pi / 2, p, device=dev)
     r = 0.5 + 2.0 * torch.rand(p, generator=gen, device=dev)
@@ -249,12 +252,126 @@ def test_block_merge_colour_pool(dev):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n,c,nx,k", [(4096, 8, 40, 4), (1001, 5, 12, 4),
+                                      (513, 3, 12, 2)])
+def test_chain_lookup_bf16_matches_plain(dev, n, c, nx, k):
+    """K2 on a pool stored in bfloat16: still a pure select, bitwise,
+    float32 out."""
+    pool = sim.random_pool(n, 4 * n, nx, nx, k=k, seed=n, device=dev,
+                           dtype=torch.bfloat16)
+    q = sim.chain_queries(pool, c, seed=n)
+    args = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            pool.chain, q)
+    before = cl.chain_lookup.launches
+    got = cl.chain_lookup(*args, k=k, z_window=1.0)
+    assert cl.chain_lookup.launches == before + 1
+    ref = cl.chain_lookup_reference(*args, k=k, z_window=1.0)
+    torch.cuda.synchronize()
+    assert 0.1 < float(ref[0].float().mean()) < 0.9
+    assert got[1].dtype == got[2].dtype == torch.float32
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def bf16_ulps(a, b):
+    """Largest distance in bfloat16 steps between two bfloat16 tensors."""
+    return int((a.view(torch.int16).long()
+                - b.view(torch.int16).long()).abs().max())
+
+
+@pytest.mark.parametrize("n,p,nx", [(4096, 64, 40), (777, 300, 12)])
+def test_block_merge_bf16_matches_plain(dev, n, p, nx):
+    """K3 on a pool stored in bfloat16: meta equal, one-point cells bit
+    for bit, many-point cells (float32 sums in another order, then one
+    rounding) within one bfloat16 ulp; the storage type is kept."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(n, p, nx, dev, seed=n,
+                                             dtype=torch.bfloat16)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    kern = [f.clone() for f in fields]
+    plain = [f.clone() for f in fields]
+    before = bm.block_merge.launches
+    bm.block_merge(*kern, None, blk, lx, ly, w, wz, 5, k=4)
+    assert bm.block_merge.launches == before + 1
+    bm.block_merge_reference(*plain, None, blk, lx, ly, w, wz, 5, k=4)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3], plain[3])
+    assert int((kern[3] != fields[3]).sum()) > n
+    one = one_point_slots(pool, blk, lx, ly)
+    for a, b in zip(kern[:3], plain[:3]):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a[one], b[one])
+        assert bf16_ulps(a, b) <= 1
+
+
+@pytest.mark.parametrize("in_place", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,n,p,nx,nyk", [
+    ("whole", 4096, 64, 40, 128), ("cells", 4096, 64, 40, 128),
+    ("points", 4096, 64, 40, 128), ("whole", 777, 20, 11, 44),
+    ("cells", 777, 20, 11, 44), ("points", 777, 20, 11, 44)])
+def test_block_copy_matches_plain(dev, mode, n, p, nx, nyk, dtype,
+                                  in_place):
+    """K7 against its plain version, bit for bit, at the merge benchmark's
+    shape and at a ragged one whose blocks are no multiple of 16 bytes in
+    bfloat16; out of place, blocks outside ``blk`` keep their content."""
+    b = n + 64
+    gen = torch.Generator(dev).manual_seed(n)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    make = lambda: (rand(b, nx, nyk).to(dtype), rand(b, nx, nyk).to(dtype),
+                    rand(b, nx, nyk).to(dtype),
+                    torch.randint(0, 99, (b, nx, nyk), generator=gen,
+                                  device=dev, dtype=torch.int32))
+    fields = make()
+    blk = torch.randperm(b, generator=gen, device=dev)[:n].to(torch.int32)
+    blk[5] = -1
+    ny = nyk // 4
+    points = (torch.randint(-1, nx + 1, (n, p), generator=gen, device=dev,
+                            dtype=torch.int32),
+              torch.randint(-1, ny + 1, (n, p), generator=gen, device=dev,
+                            dtype=torch.int32), rand(n, p), rand(n, p))
+    out = None if in_place else make()
+    start = None if in_place else [f.clone() for f in out]
+    want_out = None if in_place else [f.clone() for f in out]
+    want_in = [f.clone() for f in fields]
+    before = bc.block_copy.launches
+    got = bc.block_copy(fields, blk, points, out=out, mode=mode, k=4)
+    assert bc.block_copy.launches == before + 1
+    want = bc.block_copy_reference(want_in, blk, points, out=want_out,
+                                   mode=mode, k=4)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.view(torch.uint8), w_.view(torch.uint8))
+    if not in_place:                      # and something was copied
+        assert all(not torch.equal(g, o) for g, o in zip(got, start))
+
+
+def test_block_copy_packed_and_no_points(dev):
+    """One packed image of ``4 * nx`` rows and a copy without the point
+    operands (the JAX probes ``copy_packed`` and ``copy_fields``)."""
+    n, b, nx, nyk = 300, 364, 12, 48
+    gen = torch.Generator(dev).manual_seed(0)
+    packed = torch.rand((b, 4 * nx, nyk), generator=gen, device=dev)
+    out = torch.zeros_like(packed)
+    blk = torch.randperm(b, generator=gen, device=dev)[:n].to(torch.int32)
+    got = bc.block_copy((packed,), blk, out=(out,))
+    want = torch.zeros_like(packed)
+    want[blk.long()] = packed[blk.long()]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
+
+
 def test_kernels_reject_bad_operands(dev):
     pool, (blk, lx, ly, w, wz) = merge_setup(64, 16, 12, dev, seed=4)
     q = sim.chain_queries(pool, 4)
-    with pytest.raises(NotImplementedError):     # bf16 pool storage
+    with pytest.raises(TypeError):               # mixed pool storage types
         cl.chain_lookup(pool.mean.bfloat16(), pool.stdev, pool.meta,
                         pool.origin, 0.25, pool.chain, q, k=4)
+    with pytest.raises(TypeError):               # float16 is no pool type
+        bm.block_merge(pool.mean.half(), pool.stdev.half(),
+                       pool.height.half(), pool.meta, None, blk, lx, ly, w,
+                       wz, 1, k=4)
+    with pytest.raises(TypeError):               # int64 block ids
+        bc.block_copy((pool.mean,), blk.long())
     with pytest.raises(ValueError):              # chain on the host
         cl.chain_lookup(pool.mean, pool.stdev, pool.meta, pool.origin,
                         0.25, pool.chain.cpu(), q, k=4)

@@ -114,7 +114,7 @@ def test_update_contact_matches_jax(mode):
         kw["hash_u"] = randint_draws(k_init, N, jf.hash.n_valid)
     else:
         kw["normal_xy"], kw["normal_yaw"] = gaussian_normals(k_init, N)
-    tf = tef.EmbodiedSlamFilter(config=cfg).init(
+    tf = tef.EmbodiedSlamFilter(config=cfg, device="cpu").init(
         pose, shared_grid=convert.mls_grid_from(as_dict(jgrid)),
         use_shared_map=shared, hash_config=opt.get("hash"), **kw)
     for name, val in as_dict(jf.state.particles).items():
@@ -184,7 +184,7 @@ def test_distribution_export():
     jgrid = jax_grid()
     pose = (np.array([0.0, 0.0, 0.4]), 0.0)
     jf = jef.EmbodiedSlamFilter(config=cfg).init(pose, shared_grid=jgrid)
-    tf = tef.EmbodiedSlamFilter(config=cfg).init(
+    tf = tef.EmbodiedSlamFilter(config=cfg, device="cpu").init(
         pose, shared_grid=convert.mls_grid_from(as_dict(jgrid)))
     tf.state = convert.pose_estimator_state_from(
         as_dict(jf.state), generator=torch.Generator().manual_seed(0))
@@ -224,7 +224,7 @@ def test_distribution_export():
 
 def test_terrain_labels_force_the_update():
     cfg = config()
-    tf = tef.EmbodiedSlamFilter(config=cfg).init(
+    tf = tef.EmbodiedSlamFilter(config=cfg, device="cpu").init(
         (np.array([0.0, 0.0, 0.4]), 0.0),
         shared_grid=convert.mls_grid_from(as_dict(jax_grid())))
     sim = jsim.TrajectorySim(terrain, speed=0.05)
@@ -241,17 +241,32 @@ def test_terrain_labels_force_the_update():
 
 
 def test_queued_entry_points_raise():
-    tf = tef.EmbodiedSlamFilter(config=config())
+    tf = tef.EmbodiedSlamFilter(config=config(), device="cpu")
     for name in ("update_scan", "update_distance_image", "process_map",
                  "run_stream"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(tf, name)(None, None, None)
     assert tf.update_featurecloud(None) is False
     slip = config(contact_model=ContactModelConfig(use_slip_update=True))
-    tf = tef.EmbodiedSlamFilter(config=slip).init(
+    tf = tef.EmbodiedSlamFilter(config=slip, device="cpu").init(
         (np.zeros(3), 0.0), use_shared_map=False)
     with pytest.raises(NotImplementedError, match="colour chain lookup"):
         tf.update_contact((np.array([1.0, 0, 0, 0]), np.zeros(3)),
                           convert.body_contact_state_from(as_dict(
                               jsim.conformal_contact_state(
                                   np.zeros(3), 0.0, terrain))))
+
+
+def test_default_device_is_the_card():
+    """No ``device``: the CUDA device, and an error where there is none;
+    ``device="cpu"`` runs on the CPU."""
+    cfg = config()
+    for make in (lambda **kw: tef.EmbodiedSlamFilter(config=cfg, **kw).device,
+                 lambda **kw: tpe.PoseEstimatorState.create(
+                     cfg, 8, **kw).step.device):
+        assert make(device="cpu") == torch.device("cpu")
+        if torch.cuda.is_available():
+            assert make().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()

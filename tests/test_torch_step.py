@@ -26,6 +26,7 @@ from slam_eslam_tpu.mapping.lookup import make_lookup as jmake_lookup
 from slam_eslam_tpu.models import contact_model as jcm
 from slam_eslam_tpu.models import sim as jsim
 from slam_eslam_tpu.models.asguard import AsguardSim
+from slam_eslam_tpu_torch import bench as tbench
 from slam_eslam_tpu_torch import convert
 from slam_eslam_tpu_torch.filter import pose_estimator as tpe
 from slam_eslam_tpu_torch.filter import step as tstep
@@ -320,3 +321,41 @@ class TestSteps:
         # the trajectory exercised the measurement and resampling paths
         assert not np.asarray(ref_state.particles.floating).all()
         assert np.asarray(ref_state.particles.n_contacts).max() >= 3
+
+    @pytest.mark.parametrize("ablate", ["none", "noupdate"])
+    def test_bench_filter_runner(self, world, ablate):
+        """The runner that ``slam_eslam_tpu_torch.bench`` times in filter
+        mode is this path: on the JAX draws its centroids equal the JAX
+        ``make_scan_runner``'s (atol 1e-4 m), and its ``noupdate``
+        ablation equals ``bench.py``'s (odometry, ``project`` and centroid
+        only)."""
+        cfg, jstate = world["cfg"], world["state"]
+        css = [cs for cs, _ in world["frames"]]
+        qs = np.stack([q for _, q in world["frames"]])
+        jcss = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *css)
+        if ablate == "none":
+            ref_cents = jstep.make_scan_runner(cfg, world["jlookup"])(
+                jstate, jcss, jnp.asarray(qs))[1]
+        else:
+            def one_step(state, inp):
+                cs, q = inp
+                state = dataclasses.replace(state, odometry=jstep.odom.update(
+                    state.odometry, cs, q, jstep.cfg_odo(cfg)))
+                state = jpe.project(state, q, cfg)
+                return state, jpe.centroid(state.particles, q)[0]
+
+            ref_cents = jax.jit(lambda s, c, q: jax.lax.scan(
+                one_step, s, (c, q)))(jstate, jcss, jnp.asarray(qs))[1]
+        key, draws = jstate.key, []
+        for _ in range(T):
+            key, proj = project_draws(key, N)
+            u = None
+            if ablate == "none":
+                key, u = resample_draws(key, N)
+            draws.append(tstep.StepDraws(proj, u))
+        run = tbench.make_filter_runner(cfg, world["tlookup"], ablate)
+        _, got_cents = run(port_state(jstate),
+                           tree.stack([port_contact(c) for c in css]), t(qs),
+                           draws)
+        np.testing.assert_allclose(got_cents.numpy(), np.asarray(ref_cents),
+                                   rtol=0, atol=1e-4)

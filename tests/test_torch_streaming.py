@@ -65,11 +65,11 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
-def config(match):
+def config(match, dtype="float32"):
     return dataclasses.replace(
         Config(), particle_count=N, min_effective=0.9 * N, grid_size=2.0,
         grid_resolution=0.25, map_pool_blocks=4 * N, map_chain_length=3,
-        map_pool_color=False, use_visual_update=match,
+        map_pool_color=False, map_pool_dtype=dtype, use_visual_update=match,
         grid_use_negative_information=match,
         contact_model=ContactModelConfig(contact_point_radius=0.0,
                                          min_contacts=2))
@@ -146,8 +146,10 @@ def jax_filter(cfg, z0):
                 ids=["bench", "match+negative"])
 def runs(request):
     """One JAX run and the port's run on the same inputs."""
-    match = request.param
-    cfg = config(match)
+    return run_both(config(request.param))
+
+
+def run_both(cfg):
     traj = trajectory()
     z0 = float(JSim(terrain=terrain).position[2])
     jframes = jst.stack_frames([
@@ -239,6 +241,46 @@ def test_final_particles_and_pool(runs):
     assert (ref["pool"]["meta"] & 1).sum() > 5 * N
 
 
+def test_bf16_pool_run():
+    """The same 30 frames on a pool stored in bfloat16
+    (``Config.map_pool_dtype``), JAX draws injected: the gate sequences,
+    ``alloc_failed``, the chains and block origins as on a float32 pool;
+    centroids within 1e-4 m (the maps differ by a rounding of a bfloat16
+    slot here and there, the particles by float32 rounding); patch counts
+    equal or within 1; at least 99.9 % of the pool's slots bit for bit
+    and the rest within 2 bfloat16 ulps of a ~0.3 m height (1/256 m,
+    atol 4e-3: a slot fused several times can collect more than one
+    moved rounding)."""
+    both = run_both(config(False, "bfloat16"))
+    jaux, taux = both["jaux"], both["taux"]
+    np.testing.assert_array_equal(taux["updated"], np.asarray(jaux["updated"]))
+    np.testing.assert_array_equal(taux["mapped"], np.asarray(jaux["mapped"]))
+    assert taux["mapped"].sum() == STEPS and taux["updated"].sum() >= 3
+    np.testing.assert_allclose(taux["centroid"].numpy(),
+                               np.asarray(jaux["centroid"]), atol=1e-4)
+    jpool, tpool = both["jcarry"].pool, both["tcarry"].pool
+    assert jpool.mean.dtype == jnp.bfloat16
+    assert tpool.mean.dtype == torch.bfloat16
+    assert int(both["tcarry"].alloc_failed) == int(
+        both["jcarry"].alloc_failed) == 0
+    np.testing.assert_array_equal(tpool.chain.numpy(),
+                                  np.asarray(jpool.chain))
+    np.testing.assert_allclose(tpool.origin.numpy(), np.asarray(jpool.origin),
+                               rtol=1e-5, atol=1e-6)
+    n_j = int((np.asarray(jpool.meta) & 1).sum())
+    n_t = int(tpool.valid.sum())
+    assert n_j > 5 * N and abs(n_t - n_j) <= 1, (n_t, n_j)
+    same_meta = tpool.meta.numpy() == np.asarray(jpool.meta)
+    assert same_meta.mean() >= 0.999
+    for name in ("mean", "stdev", "height"):
+        got = getattr(tpool, name).float().numpy()
+        ref = np.asarray(getattr(jpool, name), np.float32)
+        assert (got == ref)[same_meta].mean() >= 0.999, name
+        np.testing.assert_allclose(got[same_meta], ref[same_meta], rtol=0,
+                                   atol=4e-3, err_msg=name)
+    assert both["seen"]["dup_heads"] > 0 and both["seen"]["rolled"] > 0
+
+
 def test_rollover_and_copy_on_write_fired(runs):
     seen = runs["seen"]
     assert seen["dup_heads"] > 0, seen
@@ -288,7 +330,7 @@ def test_filter_init(env_seed):
     jf.init(pose=(np.array([0.3, -0.2, 0.1]), 0.2), shared_grid=grid,
             use_shared_map=False, num_contact_points=20)
     nxy, nyaw = init_normals(cfg.seed, N)
-    tf = TFilter(config=cfg)
+    tf = TFilter(config=cfg, device="cpu")
     tf.init(pose=(np.array([0.3, -0.2, 0.1]), 0.2),
             shared_grid=(None if grid is None
                          else convert.mls_grid_from(as_dict(grid))),
