@@ -55,7 +55,31 @@ Phases (any failure raises and exits non-zero):
    4,096 particles on a bfloat16 pool (200 frames) and SLAM mode at
    100,000 particles on a bfloat16 pool of 400,000 blocks (50 frames);
    and hold the first 60 SLAM frames on a bfloat16 pool against the CPU
-   port and against the float32 pool, fed the same random draws.
+   port and against the float32 pool, fed the same random draws;
+9. check the merge on a packed block image (P4, the second entry point of
+   K3's source) at the merge probe's shape (N = 4,096 particles, P = 64
+   points, N + 64 blocks of 40x40x4 slots in one float32 image of 160 rows
+   per block) against its plain version (meta rows equal as int32, fields
+   bitwise on one-point cells, K3's tolerance elsewhere) and against K3 on
+   the unpacked fields (bit for bit), and time the three in turns; run the
+   merge probe ``slam_eslam_tpu_torch.tools.probe_merge_overhead`` in
+   process at its defaults (every variant prints, ``copy_packed`` not
+   below its byte bound, the grouped rows are K3's); then drive the
+   application's mapping API, ``EmbodiedSlamFilter`` with per-particle
+   maps at 4,096 particles on a colour-carrying float32 pool with the
+   scan match, negative information, the slip update on terrain labels
+   and the surface hash, the way ``examples.slam_demo`` drives it (three
+   timed passes): ``update_contact`` on each of 200 frames,
+   ``update_scan`` and ``update_distance_image`` (a
+   textured 12x16 distance image) on every tenth; count K2 and K3 launches
+   against the gates and the host syncs of every mapping update (one, the
+   read of the pool's failure count); hold ``run_stream`` against the same
+   60 frames driven call by call, and the card against the CPU port over
+   60 frames on identical draws; and merge a distance image into a hole
+   of the shared 400x400 map at 100,000 particles
+   (``update_distance_image`` in shared-map mode) and check that the
+   contacts of the next ``update_contact`` find the new patches, against
+   a twin filter that merged the same image 4 m to the side.
 
 Every kernel's time stands beside its bound: the bytes the call must move
 (each input read once, each output written once, counted from this run's
@@ -66,7 +90,8 @@ The third line from the end is ``{"kernels": [...]}``, then the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile DIR`` also writes
 ``torch.profiler`` tables and traces of 10 localisation steps, of 50
-SLAM frames and of 20 application frames to DIR.
+SLAM frames, of 20 application frames and of 50 frames of the mapping path
+to DIR.
 """
 
 from __future__ import annotations
@@ -124,6 +149,8 @@ APP_HASH_PERIOD = 5      # steps between hash reinjections
 CP_OK_RTOL = 1e-3        # cp_ok counts per update, GPU vs CPU port
 KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
            "block_copy")
+# every wrapper that counts launches: block_merge's source has two
+WRAPPERS = KERNELS + ("block_merge_packed",)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): memory rate, and float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -137,6 +164,22 @@ FLOOR_FRACTION_MAX = 1.05
 BIG_N, BIG_STEPS = 100_000, 5     # 100k-particle SLAM: 50 frames
 BIG_PARTS = 16    # the 400,000-block check pool is drawn 25,000 at a time
 INT32_ELEMENTS = 2 ** 31  # element offsets from here on need 64 bits
+# phase 9: the merge probe's default shape; the application mapping path
+PROBE = dict(n=4096, p=64, nx=40, ny=40, k=4)
+MAP_CHECK_FRAMES = 60
+MAP_WARM_FRAMES = 30
+MAP_PASSES = 3               # timed passes of the 200 frames, rates as a range
+MAP_IMAGE = (12, 16)         # the distance image of examples/full_demo.py
+MAP_HASH_PERIOD = 5
+MAP_LABEL_PERIOD = 4         # terrain labels on every fourth frame
+MAP_CAMERA_DISTANCE = 0.08   # m between camera merges: every second scan
+STREAM_ATOL = 1e-5           # m, run_stream vs the same frames call by call
+# the shared-map camera merge: half side of the hole in the start map, the
+# twin's sideways mount, and the least weight difference (in mean weights)
+# that counts as the new patches seen; float32 rounding is 1e-7 of a weight
+SHARED_HOLE = 1.5
+SHARED_FAR = 4.0
+SHARED_WEIGHT_FLOOR = 1e-2
 
 
 def bench_terrain(x, y):
@@ -439,10 +482,16 @@ def check_chain_lookup(dev, pool, z_window):
         args = (pool.mean, pool.stdev, pool.meta, pool.origin,
                 pool.resolution, pool.chain[:n].contiguous(),
                 tuple(q[:n].contiguous() for q in queries))
+        # with the slot index a colour pool's lookup gathers its colour by
         kw = dict(k=pool.k, z_window=z_window)
-        got = cl.chain_lookup(*args, **kw)
-        ref = cl.chain_lookup_reference(*args, **kw)
+        got = cl.chain_lookup(*args, **kw, with_slot=True)
+        ref = cl.chain_lookup_reference(*args, **kw, with_slot=True)
         torch.cuda.synchronize()
+        if not (torch.equal(got[3] >= 0, got[0]) and all(
+                torch.equal(a, b) for a, b in zip(
+                    got[:3], cl.chain_lookup(*args, **kw)))):
+            raise RuntimeError(f"chain_lookup[{name}]: the slot output "
+                               f"changes the result")
         if got[0].shape != (n, SLAM_C):
             raise RuntimeError(f"chain_lookup[{name}]: bad output shape")
         if not all(torch.equal(a, b) for a, b in zip(got, ref)):
@@ -450,10 +499,11 @@ def check_chain_lookup(dev, pool, z_window):
             raise RuntimeError(f"chain_lookup[{name}]: differs from its "
                                f"plain version ({bad} found flags)")
         max_err = max(max_err, *(float((a - b).abs().max())
-                                 for a, b in zip(got[1:], ref[1:])))
+                                 for a, b in zip(got[1:3], ref[1:3])))
         empty = float((pool.chain[:n] < 0).float().mean())
         print(f"chain_lookup[{name}] N={n} C={SLAM_C} L="
-              f"{pool.chain.shape[1]} {pool.mean.dtype}: bitwise equal, found "
+              f"{pool.chain.shape[1]} {pool.mean.dtype}: bitwise equal, slot "
+              f"indices too, found "
               f"{float(got[0].float().mean()):.4f}, empty chain entries "
               f"{empty:.4f}")
         if name == "bench":
@@ -791,7 +841,7 @@ def check_select_cells(dev, cfg):
                 raise RuntimeError(f"select_cells[{name}]: differs from the "
                                    f"{what} ({bad} found flags)")
         max_err = max(max_err, *(float((a - b).abs().max())
-                                 for a, b in zip(got[1:], ref[1:])))
+                                 for a, b in zip(got[1:3], ref[1:3])))
         inside = (ix >= 0) & (ix < packed.data.shape[0]) & (iy >= 0) & (
             iy < packed.data.shape[1])
         print(f"select_cells[{name}] Q={8 * n}: bitwise equal, found "
@@ -1419,6 +1469,13 @@ def expect(cond, label, message):
         raise RuntimeError(f"bench[{label}]: {message}")
 
 
+def expect_launches(launches, want, label):
+    """Launch counts are what the gates predict (they count only on the
+    card)."""
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, want {want}")
+
+
 def bench_filter_runs(card):
     """Filter mode at its defaults, then with ``--fold off``."""
     from slam_eslam_tpu_torch.ops import block_copy
@@ -1439,7 +1496,7 @@ def bench_filter_runs(card):
     expect(0 < floor <= FLOOR_FRACTION_MAX, "filter",
            f"merge floor fraction {floor}: the merge's twin (K7, cells "
            f"mode) must not take longer than the merge")
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(WRAPPERS, 0)
     expect(detail["run_launches"] == dict(want, contact_fold=runs), "filter",
            f"launches in the timed runs {detail['run_launches']}")
     merge_iters = (4 * 20 + 20) * (1 + 3)
@@ -1469,7 +1526,7 @@ def bench_filter_runs(card):
     steps = 20
     result, detail, launches, secs = run_bench(
         ["--fold", "off", "--steps", str(steps)], "fold off")
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(WRAPPERS, 0)
     expect(detail["run_launches"] == dict(
         want, select_cells=steps * (1 + repeats)), "fold off",
         f"launches in the timed runs {detail['run_launches']}")
@@ -1503,7 +1560,7 @@ def bench_slam_run(card, n, steps, extra, label):
            and pool.mean.dtype == torch.bfloat16 and pool.b == 4 * n
            and pool.n == n, label, f"unexpected result {result}")
     n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(WRAPPERS, 0)
     want.update(chain_lookup=n_meas * (1 + repeats),
                 block_merge=n_map * (1 + repeats))
     expect(launches == want and n_meas and n_map, label,
@@ -1555,66 +1612,674 @@ def bf16_path(dev):
     return dev_err, diff
 
 
-def profile_app(cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev, out):
+# ---------------------------------------------------------------- phase 9
+
+def check_merge_packed(dev):
+    """P4 against its plain version and against K3 on the unpacked fields,
+    at the merge probe's shape and operands; the three timed in turns.
+    Returns ``(max_abs_err, (ms, plain_ms, bound_ms, bound_by, K3 ms))``."""
+    from types import SimpleNamespace
+
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
+    from slam_eslam_tpu_torch.utils import kernel_eff
+
+    n, p, nx, ny, k = (PROBE[key] for key in ("n", "p", "nx", "ny", "k"))
+    fields, blk, points = kernel_eff.merge_benchmark_operands(
+        n, p, nx, ny, k, dev)
+    lx, ly = points[:2]
+    shape = SimpleNamespace(b=fields[0].shape[0], nx=nx, ny=ny, k=k,
+                            mean=fields[0])
+    kw = dict(k=k, patch_thickness=0.1, gap_size=1.5)
+    uidx = probe.UPDATE_IDX
+    packed = bm.pack_fields(*fields)
+    kern, plain = packed.clone(), packed.clone()
+    unpacked = [f.clone() for f in fields]
+    bm.block_merge_packed(kern, blk, *points, uidx, nx=nx, **kw)
+    bm.block_merge_packed_reference(plain, blk, *points, uidx, nx=nx, **kw)
+    bm.block_merge(*unpacked, None, blk, *points, uidx, **kw)
+    torch.cuda.synchronize()
+    got, ref = bm.packed_fields(kern, nx), bm.packed_fields(plain, nx)
+    if not torch.equal(got[3], ref[3]):
+        raise RuntimeError(f"block_merge_packed: meta rows differ in "
+                           f"{int((got[3] != ref[3]).sum())} words")
+    one = one_point_slots(shape, blk, lx, ly)
+    max_err = 0.0
+    for fname, a, b in zip(("mean", "stdev", "height"), got, ref):
+        if not torch.equal(a[one], b[one]):
+            raise RuntimeError(f"block_merge_packed {fname}: one-point cells "
+                               f"not bitwise equal")
+        outside = (a - b).abs() > (MERGE_HEIGHT_ATOL if fname == "height"
+                                   else MERGE_RTOL * b.abs())
+        if bool(outside.any()):
+            raise RuntimeError(f"block_merge_packed {fname}: outside "
+                               f"tolerance")
+        max_err = max(max_err, float((a - b).abs().max()))
+    for fname, a, b in zip(("mean", "stdev", "height", "meta"), got,
+                           unpacked):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise RuntimeError(f"block_merge_packed {fname}: differs from "
+                               f"the merge on the unpacked fields")
+    idle = torch.ones(shape.b, dtype=torch.bool, device=dev)
+    idle[blk.long()] = False
+    if not torch.equal(kern.view(torch.int32)[idle],
+                       packed.view(torch.int32)[idle]):
+        raise RuntimeError("block_merge_packed: a block outside blk changed")
+    written = int((got[3] != fields[3]).sum())
+    if written <= n:
+        raise RuntimeError(f"block_merge_packed: only {written} meta words "
+                           f"written")
+    print(f"block_merge_packed[probe] N={n} P={p} B={shape.b} image "
+          f"[{4 * nx},{ny * k}] float32 ({packed.numel() * 4 / 1e6:.1f} MB): "
+          f"{written} meta words written, meta equal, one-point cells "
+          f"bitwise, max_abs_err={max_err:.3e}; equal bit for bit to "
+          f"block_merge on the unpacked fields")
+    ms, first, second = in_turns({
+        "plain": lambda: bm.block_merge_packed_reference(
+            plain, blk, *points, uidx, nx=nx, **kw),
+        "unpacked": lambda: bm.block_merge(*unpacked, None, blk, *points,
+                                           uidx, **kw),
+        "packed": lambda: bm.block_merge_packed(kern, blk, *points, uidx,
+                                                nx=nx, **kw),
+    }, dict(plain=5, unpacked=50, packed=50))
+    b_ms, b_by = bound(*block_merge_bytes(shape, blk, lx, ly))
+    print(f"block_merge_packed[probe] kernel {ms['packed']:.4f} ms "
+          f"({first['packed']:.4f}, {second['packed']:.4f}), block_merge on "
+          f"the unpacked fields {ms['unpacked']:.4f} ms "
+          f"({first['unpacked']:.4f}, {second['unpacked']:.4f}), packed / "
+          f"unpacked {ms['packed'] / ms['unpacked']:.3f}, plain "
+          f"{ms['plain']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return max_err, (ms["packed"], ms["plain"], b_ms, b_by, ms["unpacked"])
+
+
+def probe_run():
+    """The merge probe in process, at its defaults, with every launch
+    count at 0 before.  Returns ``(results, launch counts)``."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sys.stdout.flush()
+    results = probe.main([])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if list(results) != list(probe.VARIANTS):
+        raise RuntimeError(f"merge probe: variants {list(results)}")
+    for name, r in results.items():
+        if not (np.isfinite(r["ms"]) and r["ms"] > 0 and r["bound_ms"] > 0):
+            raise RuntimeError(f"merge probe: {name} took {r['ms']} ms")
+    cp = results["copy_packed"]
+    if cp["ms"] < cp["bound_ms"]:
+        raise RuntimeError(
+            f"merge probe: copy_packed took {cp['ms']} ms, less than the "
+            f"card needs for its bytes ({cp['bound_ms']} ms)")
+    for g in probe.GROUPS:            # kernel K3, timed once
+        if results[f"grouped{g}"]["ms"] != results["merge"]["ms"]:
+            raise RuntimeError(f"merge probe: grouped{g} is not the merge")
+    # _slope_time: chains of 4 * iters and of iters, a warm-up and three
+    # repeats each
+    per = (4 * 20 + 20) * (1 + 3)
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(block_merge=per, block_copy=3 * per, block_merge_packed=per)
+    expect_launches(launches, want, "merge probe")
+    return results, launches
+
+
+def map_labels(frame):
+    """Per-wheel terrain labels, on every MAP_LABEL_PERIOD-th frame."""
+    return app_labels(frame) if frame % MAP_LABEL_PERIOD == 3 else None
+
+
+def map_config(**kw):
+    """Phase 6's SLAM configuration with everything the mapping API has
+    switched on: colours on a float32 pool, the scan match, negative
+    information, the slip update, and a camera gate that lets every second
+    image through."""
+    from slam_eslam_tpu_torch import ContactModelConfig
+    from slam_eslam_tpu_torch.config import UpdateThreshold
+
+    return dataclasses.replace(
+        slam_config(), map_pool_color=True, use_visual_update=True,
+        grid_use_negative_information=True,
+        mapping_camera_threshold=UpdateThreshold(MAP_CAMERA_DISTANCE,
+                                                 np.pi / 6),
+        contact_model=ContactModelConfig(
+            contact_point_radius=0.0, min_contacts=2, use_slip_update=True),
+        **kw)
+
+
+def map_setup():
+    """The SLAM benchmark's drive with all 20 contact points per frame
+    (the application computes its own odometry), a textured 12x16 distance
+    image beside every scan, the sensor mounts, and the start map: the
+    drive's terrain painted with class colours, which also feeds the hash.
+    Everything on the host."""
+    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch.examples.slam_demo import laser_mount
+    from slam_eslam_tpu_torch.models import sim
+
+    z0, frames, _, _ = bench.slam_trajectory(SLAM_STEPS, 0)
+    n_frames = len(frames)
+    h, w = MAP_IMAGE
+    rng = np.random.default_rng(9)
+    dimg = rng.uniform(0.8, 2.6, (n_frames, h, w)).astype(np.float32)
+    dimg[:, 0, 0], dimg[:, 5, 7] = 0.0, 8.0       # invalid, too far
+    # terrain classes as the image sees them: class 0 left, 1 in the
+    # middle, 2 (which the start map has nowhere) on the right
+    tex = np.zeros((h, w, 3), np.float32)
+    tex[:, :w // 3, 0] = 1.0
+    tex[:, w // 3:2 * w // 3, 1] = 1.0
+    tex[:, 2 * w // 3:, 2] = 1.0
+    frames = dataclasses.replace(
+        frames, dimg=torch.from_numpy(dimg), has_dimg=frames.has_scan.clone(),
+        host_has_dimg=frames.host_has_scan.copy(),
+        timg=torch.from_numpy(
+            np.broadcast_to(tex, (n_frames, h, w, 3)).copy()))
+    # the camera of examples/full_demo.py: z forward, tilted 38 deg down
+    rot_x = lambda a: np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                                [0, np.sin(a), np.cos(a)]])
+    camera = (rot_x(-np.deg2rad(38.0)) @ np.array(
+        [[1.0, 0, 0], [0, 0, 1], [0, -1, 0]]), np.array([0.0, 0.20, 0.25]))
+    intrinsics = (0.09, 0.09, -0.09 * (w - 1) / 2, -0.09 * (h - 1) / 2)
+    env = sim.terrain_grid(
+        bench.slam_terrain, nx=SLAM_POOL["nx"], ny=SLAM_POOL["ny"],
+        resolution=SLAM_POOL["resolution"], origin=(-5.0, -5.0),
+        k=SLAM_POOL["k"], color=app_classes)
+    return dict(z0=z0, frames=frames, laser=laser_mount(), camera=camera,
+                intrinsics=intrinsics, env=env)
+
+
+def map_filter(cfg, setup, dev, start):
+    """A fresh per-particle filter on the start map with the surface hash,
+    its particles set to the Gaussian cloud ``start``."""
+    from slam_eslam_tpu_torch import SurfaceHashConfig
+    from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+    from slam_eslam_tpu_torch.utils import tree
+
+    f = EmbodiedSlamFilter(config=cfg, device=dev).init(
+        pose=(np.array([0.0, 0.0, setup["z0"]]), 0.0),
+        shared_grid=setup["env"], use_shared_map=False,
+        hash_config=SurfaceHashConfig(use_hash=True, period=MAP_HASH_PERIOD))
+    f.state = dataclasses.replace(f.state, particles=dataclasses.replace(
+        tree.to(start, dev), map_id=f.state.particles.map_id))
+    return f
+
+
+def map_draws(cfg, setup, n_frames):
+    """A seeded Gaussian start cloud and, per frame, every draw of the
+    loop: ``project``'s, the resampling uniforms and the hash's in-bucket
+    draws on reinjection frames.  On the host."""
+    from slam_eslam_tpu_torch import SurfaceHashConfig
+    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    from slam_eslam_tpu_torch.filter.step import StepDraws
+    from slam_eslam_tpu_torch.filter.surface_hash import SurfaceHash
+
+    n = cfg.particle_count
+    gen = torch.Generator().manual_seed(4)
+    start = pe.init_gaussian(
+        n, (0.0, 0.0), 0.0, cfg.initial_translation_error[:2],
+        cfg.initial_rotation_error[2], setup["z0"],
+        cfg.initial_translation_error[2] + 1e-3, generator=gen)
+    h = SurfaceHash.create(
+        SurfaceHashConfig(use_hash=True, period=MAP_HASH_PERIOD),
+        setup["env"])
+    frames, draws = setup["frames"], []
+    for i in range(n_frames):
+        hash_u = None
+        if (i + 1) % MAP_HASH_PERIOD == 0:
+            fr = frames.at(i)
+            count = int(h._at_bucket(h.bucket_count,
+                                     h.bucket(*h.signature(fr.contact, fr.q))))
+            hash_u = (torch.rand(n, generator=gen, dtype=torch.float64)
+                      * max(count, 1)).long()
+        draws.append(StepDraws(pe.ProjectDraws.sample(n, gen, "cpu"),
+                               torch.rand(n, generator=gen), hash_u))
+    return start, draws
+
+
+def count_syncs(fn):
+    """``fn()`` with host syncs reported as warnings; returns ``(result,
+    number of syncs)``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def map_drive(f, setup, n_frames, labels=None, draws=None, spans=None):
+    """The application's loop over the first ``n_frames`` frames (already
+    on the filter's device): ``update_contact`` on every frame, host syncs
+    forbidden; on a scan frame ``update_scan`` and then
+    ``update_distance_image`` with the texture, their host syncs counted.
+    ``spans`` collects ``(call, host ms, CUDA events)`` of every mapping
+    call.  Returns the gates, the centroids ``[T, 3]`` and the set of
+    host-sync counts of the mapping calls whose gate fired."""
+    from slam_eslam_tpu_torch.filter.eslam_filter import ContactDraws
+    from slam_eslam_tpu_torch.mapping import projection
+
+    frames = setup["frames_on"][f.device.type]
+    cuda = f.device.type == "cuda"
+    consts = [torch.as_tensor(v, dtype=torch.float32, device=f.device)
+              for v in setup["intrinsics"]]
+    gates = {"updated": [], "mapped": [], "cam_mapped": []}
+    cents, sync_counts = [], set()
+
+    def timed(name, fn):
+        if spans is None or not cuda:
+            return count_syncs(fn) if cuda else (fn(), 0)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        t0 = time.perf_counter()
+        out, syncs = count_syncs(fn)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        spans.append((name, out, host_ms, *ev))
+        return out, syncs
+
+    for i in range(n_frames):
+        fr = frames.at(i)
+        pose = (fr.host_q, fr.host_body_pos.astype(np.float64))
+        d = None if draws is None else ContactDraws(
+            draws[i].project, draws[i].resample_u, draws[i].hash_u)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            gates["updated"].append(f.update_contact(
+                pose, fr.contact, None if labels is None else labels(i),
+                draws=d, orientation=fr.q))
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+        mapped = cam = False
+        if bool(fr.host_has_scan):
+            scan = projection.LaserScan(fr.ranges, fr.start_angle,
+                                        fr.angular_resolution)
+            mapped, syncs = timed("update_scan", lambda: f.update_scan(
+                pose, scan, setup["laser"], orientation=fr.q))
+            sync_counts.add(syncs if mapped else 1)
+            image = projection.DistanceImage(fr.dimg, *consts)
+            cam, syncs = timed(
+                "update_distance_image", lambda: f.update_distance_image(
+                    pose, image, setup["camera"], texture=fr.timg,
+                    orientation=fr.q))
+            sync_counts.add(syncs if cam else 1)
+        gates["mapped"].append(mapped)
+        gates["cam_mapped"].append(cam)
+        cents.append(f.get_centroid()[0])
+    return ({k: np.array(v, bool) for k, v in gates.items()},
+            torch.stack(cents), sync_counts)
+
+
+def check_map_state(f, cents, label):
+    """Finite centroids, weights and pool; some valid patch carries the
+    texture's third class, which the start map has nowhere.  Returns the
+    patch count."""
+    pool = f.pool
+    if not (bool(torch.isfinite(cents).all())
+            and bool(torch.isfinite(f.state.particles.weight).all())
+            and all(bool(torch.isfinite(getattr(pool, name)).all())
+                    for name in ("mean", "stdev", "height", "color"))):
+        raise RuntimeError(f"{label}: non-finite centroids, weights or pool")
+    valid = (pool.meta & 1).bool()
+    textured = int((valid & (pool.color.reshape(
+        pool.meta.shape + (3,))[..., 2] > 0.5)).sum())
+    if not textured:
+        raise RuntimeError(f"{label}: no patch carries the texture's colour")
+    return int(pool.count_valid()), textured
+
+
+def map_pass(cfg, setup, dev, start, card, number):
+    """One timed pass of the application's loop over all frames from a
+    fresh filter, labels included, as ``examples.slam_demo`` drives it:
+    launch counts against the gates, one host sync per mapping update,
+    the map's state.  Returns the pass's numbers."""
+    from slam_eslam_tpu_torch import ops
+
+    n_frames = len(setup["frames"])
+    f = map_filter(cfg, setup, dev, start)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    spans = []
+    t0 = time.perf_counter()
+    gates, cents, sync_counts = map_drive(f, setup, n_frames,
+                                          labels=map_labels, spans=spans)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_meas, n_map, n_cam = (int(gates[k].sum())
+                            for k in ("updated", "mapped", "cam_mapped"))
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(chain_lookup=n_meas + n_map, block_merge=n_map + n_cam)
+    labelled = sum(map_labels(i) is not None for i in range(n_frames))
+    expect_launches(launches, want, "mapping path")
+    if n_meas < labelled or n_map != SLAM_STEPS or not 1 < n_cam < n_map:
+        raise RuntimeError(f"mapping path: {n_meas} measurement updates, "
+                           f"{n_map} laser and {n_cam} camera merges")
+    if sync_counts != {1}:
+        raise RuntimeError(f"mapping path: {sorted(sync_counts)} host syncs "
+                           f"in a mapping update (each makes one, the read "
+                           f"of the pool's failure count)")
+    if f.update_idx != n_map + n_cam or f.steps != n_frames:
+        raise RuntimeError(f"mapping path: update_idx {f.update_idx}, steps "
+                           f"{f.steps}")
+    patches, textured = check_map_state(f, cents, "mapping path")
+
+    def mean_ms(name, which):
+        ms = [which(s) for s in spans if s[0] == name and s[1]]
+        return sum(ms) / max(len(ms), 1)
+
+    host = lambda s: s[2]
+    device = lambda s: s[3].elapsed_time(s[4])
+    reinjected = sum(1 for i, g in enumerate(gates["updated"])
+                     if g and (i + 1) % MAP_HASH_PERIOD == 0)
+    out = dict(
+        elapsed=elapsed, frames=n_frames, launches=launches, n_meas=n_meas,
+        n_map=n_map, n_cam=n_cam, patches=patches,
+        scan_ms=mean_ms("update_scan", host),
+        scan_device_ms=mean_ms("update_scan", device),
+        image_ms=mean_ms("update_distance_image", host),
+        image_device_ms=mean_ms("update_distance_image", device))
+    print(f"mapping path[pass {number}]: {n_frames} frames x {SLAM_N} "
+          f"particles in {elapsed:.4f} s = {n_frames / elapsed:.2f} frames/s; "
+          f"{n_meas} measurement updates ({labelled} frames with terrain "
+          f"labels, {reinjected} hash reinjections), {n_map} laser and "
+          f"{n_cam} camera merges; update_scan {out['scan_ms']:.4f} ms on "
+          f"the host "
+          f"({out['scan_device_ms']:.4f} ms by CUDA events), "
+          f"update_distance_image {out['image_ms']:.4f} ms "
+          f"({out['image_device_ms']:.4f} ms); one host sync per mapping "
+          f"update; launches {launches}; pool "
+          f"{f.pool.storage_bytes() / 1e9:.3f} GB, patches {patches}, "
+          f"{textured} with the texture's colour [{card}]")
+    return out
+
+
+def map_app_path(dev, card, profile=None):
+    from slam_eslam_tpu_torch.config import UpdateThreshold
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = map_config()
+    setup = map_setup()
+    setup["frames_on"] = {"cpu": setup["frames"],
+                          "cuda": tree.to(setup["frames"], dev)}
+    start, draws = map_draws(cfg, setup, MAP_CHECK_FRAMES)
+
+    # ---- the loop as examples.slam_demo drives it, labels included ----
+    map_drive(map_filter(cfg, setup, dev, start), setup, MAP_WARM_FRAMES,
+              labels=map_labels)                                # warm-up
+    # several passes from the same start: host-bound rates spread, so the
+    # range is what one run can say
+    passes = [map_pass(cfg, setup, dev, start, card, number)
+              for number in range(MAP_PASSES)]
+    out = dict(passes[0], rates=[o["frames"] / o["elapsed"] for o in passes],
+               scan_ms_range=[o["scan_ms"] for o in passes],
+               image_ms_range=[o["image_ms"] for o in passes])
+
+    # ---- run_stream against the same frames call by call: a gate that
+    # fires on every frame (the stream carries no terrain labels, and it
+    # reinjects on every period-th frame where the calls reinject only
+    # after a measurement update), identical draws ----
+    every = dataclasses.replace(cfg, measurement_threshold=UpdateThreshold(
+        0.002, cfg.measurement_threshold.angle))
+    draws_d = [tree.to(d, dev) for d in draws]
+    host_f = map_filter(every, setup, dev, start)
+    g_host, c_host, _ = map_drive(host_f, setup, MAP_CHECK_FRAMES,
+                                  draws=draws_d)
+    stream_f = map_filter(every, setup, dev, start)
+    sub = setup["frames_on"]["cuda"].at(slice(0, MAP_CHECK_FRAMES))
+    aux, syncs = count_syncs(lambda: stream_f.run_stream(
+        sub, laser2body=setup["laser"], camera2body=setup["camera"],
+        camera_intrinsics=setup["intrinsics"], camera_texture=True,
+        draws=draws_d))
+    if syncs > 1:
+        raise RuntimeError(f"run_stream: {syncs} host syncs (one is allowed, "
+                           f"the read of the stream's failure count)")
+    for name in g_host:
+        if not (aux[name] == g_host[name]).all():
+            raise RuntimeError(f"run_stream: {name} gates differ from the "
+                               f"calls'")
+    if not g_host["updated"].all():
+        raise RuntimeError("run_stream: the measurement gate did not fire on "
+                           "every frame")
+    diff = float((aux["centroid"] - c_host).abs().max())
+    p_host, p_stream = (int(x.pool.count_valid()) for x in (host_f, stream_f))
+    print(f"run_stream: {MAP_CHECK_FRAMES} frames ({int(aux['mapped'].sum())} "
+          f"laser, {int(aux['cam_mapped'].sum())} camera merges, "
+          f"{MAP_CHECK_FRAMES // MAP_HASH_PERIOD} reinjections) against the "
+          f"same frames call by call: max centroid difference {diff:.3e} m, "
+          f"patches {p_stream} vs {p_host}, alloc_failed_total "
+          f"{int(aux['alloc_failed_total'])}")
+    if not diff <= STREAM_ATOL or p_host != p_stream or (
+            stream_f.update_idx != host_f.update_idx):
+        raise RuntimeError(f"run_stream differs from the calls: centroids by "
+                           f"{diff} m, patches {p_stream} vs {p_host}")
+    out.update(stream_diff=diff)
+    del host_f, stream_f
+
+    # ---- the card against the CPU port, labels included ----
+    res = {}
+    for d in ("cpu", dev):
+        fd = map_filter(cfg, setup, d, start)
+        g, c, _ = map_drive(fd, setup, MAP_CHECK_FRAMES, labels=map_labels,
+                            draws=draws if d == "cpu" else draws_d)
+        res[str(d)] = (g, c.cpu(), int(fd.pool.count_valid()))
+        del fd
+    (g_cpu, c_cpu, p_cpu), (g_gpu, c_gpu, p_gpu) = res["cpu"], res[str(dev)]
+    if any((g_cpu[k] != g_gpu[k]).any() for k in g_cpu):
+        raise RuntimeError("mapping path: GPU and CPU gates differ")
+    dev_err = float((c_gpu - c_cpu).abs().max())
+    print(f"mapping path: GPU vs CPU port over {MAP_CHECK_FRAMES} frames, "
+          f"max centroid difference {dev_err:.3e} m, patches {p_gpu} vs "
+          f"{p_cpu}")
+    if not dev_err <= CENTROID_ATOL:
+        raise RuntimeError(f"mapping path: GPU and CPU centroids differ by "
+                           f"{dev_err} m")
+    if abs(p_gpu - p_cpu) > PATCH_COUNT_RTOL * p_cpu:
+        raise RuntimeError(f"mapping path: patch counts {p_gpu} (GPU) and "
+                           f"{p_cpu} (CPU) differ")
+    out.update(dev_err=dev_err)
+    if profile:
+        profile_map(cfg, setup, dev, start, Path(profile))
+    return out
+
+
+def shared_camera_merge(dev, card):
+    """``update_distance_image`` in shared-map mode at 100,000 particles.
+    The shared 400x400 map starts with a hole (no patches) around the
+    robot.  One filter merges a textured image of the ground under the
+    robot, under its centroid pose: the camera fills the hole with new
+    patches.  Its twin merges the same image through a mount
+    ``SHARED_FAR`` m to the side, onto terrain no contact reaches.  At the
+    next measurement update only the first filter's contacts find
+    patches, and its weights differ from the twin's."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.mapping import projection
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = dataclasses.replace(app_config(), log_debug=False)
+    z0, poses, css, qs = app_setup()
+    css_d, qs_d = tree.to(css, dev), qs.to(dev)
+    grid = sim.terrain_grid(bench_terrain, **GRID)
+    res, (ox, oy) = GRID["resolution"], GRID["origin"]
+    x0, y0 = poses[0][1][:2]
+    lo = lambda c, o: max(int((c - SHARED_HOLE - o) / res), 0)
+    hi = lambda c, o: int((c + SHARED_HOLE - o) / res) + 1
+    hole = np.zeros((GRID["nx"], GRID["ny"]), bool)
+    hole[lo(x0, ox):hi(x0, ox), lo(y0, oy):hi(y0, oy)] = True
+    grid_d = tree.to(dataclasses.replace(
+        grid, valid=grid.valid & ~torch.from_numpy(hole)[..., None]), dev)
+    # a camera 0.25 m above the body that looks straight down, and the
+    # same camera on a boom SHARED_FAR m to the side
+    h, w = MAP_IMAGE
+    down = np.diag([1.0, -1.0, -1.0])
+    mounts = {"seen": (down, np.array([0.0, 0.0, 0.25])),
+              "twin": (down, np.array([0.0, SHARED_FAR, 0.25]))}
+    intrinsics = [torch.tensor(v, dtype=torch.float32, device=dev)
+                  for v in (0.09, 0.09, -0.09 * (w - 1) / 2,
+                            -0.09 * (h - 1) / 2)]
+
+    def image_at(position):
+        """A level surface at the terrain's height under the robot."""
+        ground = float(bench_terrain(position[0], position[1]))
+        return projection.DistanceImage(torch.full(
+            (h, w), 0.25 + float(position[2]) - ground, device=dev),
+            *intrinsics)
+
+    texture = torch.full((h, w, 3), 0.5, device=dev)
+    filters = {name: app_filter(cfg, grid_d, z0, dev) for name in mounts}
+    seen, twin = filters["seen"], filters["twin"]
+    ops.reset_launch_counts()
+    frame, merged_at, contacts = 0, None, {}
+    while frame < 40:
+        for f in filters.values():
+            gate = f.update_contact(poses[frame], tree.index(css_d, frame),
+                                    orientation=qs_d[frame])
+        frame += 1
+        if merged_at is None and gate:
+            before = seen.shared_grid
+            for name, f in filters.items():
+                fired, syncs = count_syncs(lambda: f.update_distance_image(
+                    poses[frame - 1], image_at(poses[frame - 1][1]),
+                    mounts[name], texture=texture,
+                    orientation=qs_d[frame - 1]))
+                if not fired or f.update_idx != 1:
+                    raise RuntimeError("shared camera merge: the gate did "
+                                       "not fire")
+            merged_at = frame
+        elif merged_at is not None and gate:
+            break
+        contacts = {name: int(f.last_eval.n_contacts.sum())
+                    for name, f in filters.items()}
+    after = seen.shared_grid
+    in_hole = torch.from_numpy(hole).to(dev)[..., None]
+    new = int((after.valid & ~before.valid).sum())
+    new_in_hole = int((after.valid & ~before.valid & in_hole).sum())
+    coloured = int((after.valid & (after.color[..., 0] == 0.5)).sum())
+    twin_in_hole = int((twin.shared_grid.valid & in_hole).sum())
+    found = {name: int(f.last_eval.n_contacts.sum())
+             for name, f in filters.items()}
+    mean_w = 1.0 / N_BENCH
+    dw = float((seen.state.particles.weight
+                - twin.state.particles.weight).abs().max()) / mean_w
+    launches = ops.launch_counts()
+    print(f"shared camera merge: {N_BENCH} particles, image {h}x{w} merged "
+          f"at frame {merged_at} into the {GRID['nx']}x{GRID['ny']} map: "
+          f"{new} new patches ({new_in_hole} in the hole, {coloured} with "
+          f"the texture's colour; the twin's merge {SHARED_FAR} m aside left "
+          f"{twin_in_hole} there), {syncs} host syncs; contact groups found "
+          f"before the merge {contacts}, at the measurement update of frame "
+          f"{frame} {found}; weights differ from the twin's by up to {dw:.4f}"
+          f" of the mean weight; contact_fold launches "
+          f"{launches['contact_fold']} [{card}]")
+    if not (new >= h * w // 2 and new_in_hole == new and coloured == new
+            and twin_in_hole == 0):
+        raise RuntimeError("shared camera merge: the image did not fill the "
+                           "hole")
+    if contacts != {"seen": 0, "twin": 0} or found["twin"] != 0 or (
+            found["seen"] < N_BENCH // 2):
+        raise RuntimeError("shared camera merge: the next measurement update "
+                           "did not find the new patches")
+    if not dw > SHARED_WEIGHT_FLOOR:
+        raise RuntimeError(f"shared camera merge: weights differ by {dw} of "
+                           f"the mean weight only")
+    if not torch.isfinite(seen.state.particles.weight).all():
+        raise RuntimeError("shared camera merge: non-finite weights")
+    # two filters, a measurement update each at the first frame and at
+    # the next frame whose gate fired
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(contact_fold=4)
+    expect_launches(launches, want, "shared camera merge")
+
+
+def phase9(dev, card, profile=None):
+    p4_err, p4 = check_merge_packed(dev)
+    probe, probe_launches = probe_run()
+    print(f"merge probe: merge {probe['merge']['ms']:.4f} ms, merge_packed "
+          f"{probe['merge_packed']['ms']:.4f} ms, copy_packed "
+          f"{probe['copy_packed']['ms']:.4f} ms (bound "
+          f"{probe['copy_packed']['bound_ms']:.4f} ms); launches "
+          f"{probe_launches} [{card}]")
+    mapping = map_app_path(dev, card, profile)
+    shared_camera_merge(dev, card)
+    row = ("block_merge_packed", "tools/probe_merge_overhead.py:212",
+           probe_launches["block_merge_packed"], p4_err, p4[0], p4[1],
+           p4[2:4], None,
+           {"ms_unpacked_in_turns": p4[4],
+            "probe_ms": probe["merge_packed"]["ms"],
+            "probe_merge_ms": probe["merge"]["ms"],
+            "probe_copy_packed_ms": probe["copy_packed"]["ms"]})
+    return row, mapping
+
+
+def profile_frames(fn, n_frames, label, out, stem):
+    """``fn()`` under ``torch.profiler``: the table and the trace into
+    ``out`` as ``<stem>_profile.txt`` and ``<stem>_trace.json``, and a line
+    with the device's busy share and the launch calls per frame.  Returns
+    what ``fn`` returned."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    f = app_filter(cfg, grid_d, z0, dev, hcfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        gates = app_drive(f, poses, frames, qs_l, APP_PROFILE_FRAMES)
+        result = fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     avg = prof.key_averages()
+    # the kernels' own rows only: an operator's row repeats the time of
+    # the kernels it launched
     device_us = sum(getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0))
-                    for e in avg)
+                    for e in avg if e.device_type == DeviceType.CUDA)
     launch_calls = sum(e.count for e in avg
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cudaLaunchKernelExC"))
     table = avg.table(sort_by="cuda_time_total", row_limit=50)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "chip_smoke_app_profile.txt").write_text(table)
-    prof.export_chrome_trace(str(out / "chip_smoke_app_trace.json"))
-    print(f"application profile: {APP_PROFILE_FRAMES} frames "
-          f"({sum(gates)} measurement updates) in {wall:.4f} s traced, "
+    (out / f"{stem}_profile.txt").write_text(table)
+    prof.export_chrome_trace(str(out / f"{stem}_trace.json"))
+    print(f"{label} profile: {n_frames} frames in {wall:.4f} s traced, "
           f"device busy {device_us / 1e3:.3f} ms "
           f"({device_us / 1e4 / wall:.2f} %), "
-          f"{launch_calls / APP_PROFILE_FRAMES:.1f} launch calls per frame")
+          f"{launch_calls / n_frames:.1f} launch calls per frame")
     print(table[:6000])
+    return result
+
+
+def profile_app(cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev, out):
+    f = app_filter(cfg, grid_d, z0, dev, hcfg)
+    gates = profile_frames(
+        lambda: app_drive(f, poses, frames, qs_l, APP_PROFILE_FRAMES),
+        APP_PROFILE_FRAMES, "application", out, "chip_smoke_app")
+    print(f"application profile: {sum(gates)} measurement updates")
 
 
 def profile_slam(run, cfg, z0, frames_d, odos, dev, out):
-    from torch.profiler import ProfilerActivity, profile
-
     from slam_eslam_tpu_torch.utils import tree
 
     carry = slam_carry(cfg, z0, dev)
     sub = slice(0, SLAM_PROFILE_FRAMES)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(carry, frames_d.at(sub), tree.index(odos, sub))
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    avg = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0))
-                    for e in avg)
-    launch_calls = sum(e.count for e in avg
-                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                    "cudaLaunchKernelExC"))
-    table = avg.table(sort_by="cuda_time_total", row_limit=50)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "chip_smoke_slam_profile.txt").write_text(table)
-    prof.export_chrome_trace(str(out / "chip_smoke_slam_trace.json"))
-    print(f"SLAM profile: {SLAM_PROFILE_FRAMES} frames in {wall:.4f} s "
-          f"traced, device busy {device_us / 1e3:.3f} ms "
-          f"({device_us / 1e4 / wall:.2f} %), "
-          f"{launch_calls / SLAM_PROFILE_FRAMES:.1f} launch calls per frame")
-    print(table[:6000])
+    profile_frames(lambda: run(carry, frames_d.at(sub), tree.index(odos, sub)),
+                   SLAM_PROFILE_FRAMES, "SLAM", out, "chip_smoke_slam")
+
+
+def profile_map(cfg, setup, dev, start, out):
+    f = map_filter(cfg, setup, dev, start)
+    gates, _, _ = profile_frames(
+        lambda: map_drive(f, setup, SLAM_PROFILE_FRAMES, labels=map_labels),
+        SLAM_PROFILE_FRAMES, "mapping", out, "chip_smoke_map")
+    print("mapping profile: " + ", ".join(
+        f"{int(g.sum())} {name}" for name, g in gates.items()))
 
 
 def profile_steps(run, cfg, particles, css_d, qs_d, dev, out, steps=10):
@@ -1639,8 +2304,8 @@ def profile_steps(run, cfg, particles, css_d, qs_d, dev, out, steps=10):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile the localisation, SLAM and "
-                         "application paths into DIR")
+                    help="also profile the localisation, SLAM, application "
+                         "and mapping paths into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: "
@@ -1722,6 +2387,19 @@ def main():
           f"{drv['big']['peak'] / 1e9:.2f} GB); bf16 vs CPU "
           f"{bf16_err:.3e} m, vs float32 {bf16_diff:.3e} m [{card}]")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    p4_row, mapping = phase9(dev, card, args.profile)
+    span = lambda xs, digits: f"{min(xs):.{digits}f}-{max(xs):.{digits}f}"
+    print(f"mapping path: {span(mapping['rates'], 2)} frames/s over "
+          f"{MAP_PASSES} passes at {SLAM_N} particles through "
+          f"update_contact, update_scan "
+          f"({span(mapping['scan_ms_range'], 4)} ms) and "
+          f"update_distance_image ({span(mapping['image_ms_range'], 4)} ms); "
+          f"run_stream "
+          f"vs calls {mapping['stream_diff']:.3e} m, GPU vs CPU "
+          f"{mapping['dev_err']:.3e} m [{card}]")
+
     f32c, bf16c = k7[""], k7["_bf16"]
     rows = (
         ("contact_fold", "slam_eslam_tpu/ops/pallas_gather.py:578",
@@ -1758,10 +2436,13 @@ def main():
           "ms_cells_bf16": bf16c["cells"], "merge_ms_bf16": bf16c["merge"],
           "library_ms_bf16": bf16c["library"],
           "bound_ms_bf16": bf16c["bound_whole"][0]}),
+        p4_row,
     )
+    # block_merge_packed is the second entry point of block_merge's source
+    source = lambda name: name.removesuffix("_packed")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"slam_eslam_tpu_torch/csrc/{name}.cu",
+        "source": f"slam_eslam_tpu_torch/csrc/{source(name)}.cu",
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
         "bound_by": bnd[1], "library_ms": library_ms, **more,

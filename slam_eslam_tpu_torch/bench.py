@@ -36,7 +36,6 @@ import argparse
 import contextlib
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
@@ -44,7 +43,7 @@ import numpy as np
 import torch
 
 from slam_eslam_tpu_torch.config import Config, ContactModelConfig
-from slam_eslam_tpu_torch.utils.device import entry_device
+from slam_eslam_tpu_torch.utils.device import card_line, entry_device
 
 # reference-default grid scale of the filter mode: 20 m at 0.05 m
 # resolution (Configuration.hpp:101-103)
@@ -153,18 +152,6 @@ def parser():
         help="torch device (default: the CUDA device; 'cpu' runs the "
         "kernels' plain versions)")
     return ap
-
-
-def card_line(device):
-    """The card's name and power limit as ``nvidia-smi`` gives them; None
-    for a run on the CPU."""
-    if device.type != "cuda":
-        return None
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[device.index or 0]
 
 
 @contextlib.contextmanager

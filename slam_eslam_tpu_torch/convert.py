@@ -28,8 +28,11 @@ from slam_eslam_tpu_torch.filter.pose_estimator import PoseEstimatorState
 from slam_eslam_tpu_torch.filter.streaming import StreamingState
 from slam_eslam_tpu_torch.filter.surface_hash import SurfaceHash
 from slam_eslam_tpu_torch.mapping.map_pool import MapPool
-from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid, PackedLookup
+from slam_eslam_tpu_torch.mapping.mls_grid import (MLSGrid, PackedLookup,
+                                                   PatchCloud)
+from slam_eslam_tpu_torch.mapping.projection import DistanceImage, LaserScan
 from slam_eslam_tpu_torch.models.odometry import FootContactOdometry
+from slam_eslam_tpu_torch.ops.block_merge import pack_fields
 
 
 def bf16_from_bits(bits, device=None):
@@ -77,6 +80,40 @@ def packed_lookup_from(d, device=None) -> PackedLookup:
                  resolution=float(d["resolution"]))
 
 
+def patch_cloud_from(d, device=None) -> PatchCloud:
+    """A JAX ``PatchCloud`` dict, its colour included."""
+    return _from(PatchCloud, d, device)
+
+
+def laser_scan_from(d, device=None) -> LaserScan:
+    return _from(LaserScan, d, device)
+
+
+def distance_image_from(d, device=None) -> DistanceImage:
+    return _from(DistanceImage, d, device)
+
+
+def packed_image_from(packed, device=None):
+    """The merge probe's packed block image, a float32 array ``[B, 4*nx,
+    ny*k]`` whose last ``nx`` rows of each block are int32 meta words
+    bitcast to float32, as a tensor: copied as bytes, so every meta word
+    keeps its bits (``ops.block_merge.packed_fields`` takes it apart)."""
+    packed = np.array(packed, copy=True)
+    if packed.dtype != np.float32 or packed.ndim != 3 or packed.shape[1] % 4:
+        raise ValueError("a packed block image is a float32 array "
+                         "[B, 4*nx, ny*k]")
+    return torch.from_numpy(packed.view(np.int32)).view(
+        torch.float32).to(device)
+
+
+def packed_image_from_fields(d, device=None):
+    """The packed block image of the fields ``mean``, ``stdev``,
+    ``height`` (float32) and ``meta`` (int32) of a dict, e.g. of a JAX
+    ``MapPool``: ``[B, 4*nx, ny*k]`` float32, meta as bits."""
+    return pack_fields(*(_tensor(d[name], device)
+                         for name in ("mean", "stdev", "height", "meta")))
+
+
 def pose_estimator_state_from(d, device=None,
                               generator=None) -> PoseEstimatorState:
     """``generator`` draws what is not given explicitly; defaults to a
@@ -102,8 +139,9 @@ def map_pool_from(d, device=None) -> MapPool:
 
 def streaming_state_from(d, device=None, generator=None) -> StreamingState:
     """A JAX ``StreamingState`` dict.  The motion-gate anchors become
-    host float32 arrays and ``update_idx`` a Python int, as the port's
-    host-side gates keep them."""
+    (the camera's ``cam_pos``/``cam_q`` included) become host float32
+    arrays, ``update_idx`` a Python int and ``steps`` the host copy of the
+    filter's step counter, as the port's host-side gates keep them."""
     anchor = lambda name: np.array(d[name], np.float32)
     return StreamingState(
         filter=pose_estimator_state_from(d["filter"], device, generator),
@@ -113,6 +151,7 @@ def streaming_state_from(d, device=None, generator=None) -> StreamingState:
         cam_pos=anchor("cam_pos"), cam_q=anchor("cam_q"),
         update_idx=int(d["update_idx"]),
         alloc_failed=_tensor(d["alloc_failed"], device),
+        steps=int(d["filter"]["step"]),
     )
 
 

@@ -46,6 +46,20 @@
 // as below, and the written slot is rounded once, to nearest even, at the
 // store, as the plain version's `.to(dtype)` does.
 //
+// Layout: the kernel addresses a field as base + b * block_stride + (cell
+// * K + slot), with the stride between blocks (in elements) a parameter.
+// A pool of four separate tensors [B, nx, ny*K] has block_stride = nx*ny*K.
+// The packed block image of tools/probe_merge_overhead.py::merge_packed
+// (its _merge_packed_kernel: the same _merge_body on one float32 tensor
+// [B, 4*nx, ny*K], rows [0, nx) mean, [nx, 2nx) stdev, [2nx, 3nx) height,
+// [3nx, 4nx) meta as int32 bits) is the same kernel with the four bases
+// nx*ny*K elements apart and block_stride = 4*nx*ny*K
+// (block_merge_packed_launch): a block's four fields then lie within 100 KB
+// of each other instead of a whole field tensor apart.  The TPU kernel
+// loads the whole image and concatenates the four results back; here the
+// owner thread still moves only its cell's rows.  The meta rows are read
+// and written as int32 words and never pass through float arithmetic.
+//
 // Arithmetic follows the plain version op for op: the fusion formula is
 // written with __fmul_rn / __fadd_rn / __fdiv_rn so that nvcc does not
 // contract it into FMAs, and 1/x and sqrtf are IEEE (no --use_fast_math).
@@ -73,7 +87,8 @@ block_merge_kernel(S* __restrict__ pool_mean, S* __restrict__ pool_stdev,
                    const int* __restrict__ ly, const float* __restrict__ w,
                    const float* __restrict__ wz,
                    const float* __restrict__ point_color, int p, int p_pad,
-                   int num_blocks, int nx, int ny, int update_idx,
+                   int num_blocks, size_t block_stride, int nx, int ny,
+                   int update_idx,
                    float patch_thickness, float gap_size) {
   extern __shared__ unsigned long long keys[];
   const int n = blockIdx.x;
@@ -108,7 +123,8 @@ block_merge_kernel(S* __restrict__ pool_mean, S* __restrict__ pool_stdev,
 
     const unsigned ix = cell / (unsigned)ny;
     const unsigned iy = cell - ix * (unsigned)ny;
-    const size_t base = (((size_t)b * nx + ix) * ny + iy) * K;
+    const size_t base =
+        (size_t)b * block_stride + ((size_t)ix * ny + iy) * K;
     float m[K], s[K], h[K];
     int meta[K];
     slot_select::load_values<K>(pool_mean + base, m);
@@ -182,14 +198,28 @@ block_merge_kernel(S* __restrict__ pool_mean, S* __restrict__ pool_stdev,
   }
 }
 
+// One call's operands; the field pointers are typed by the launcher.
+struct Operands {
+  void* mean;
+  void* stdev;
+  void* height;
+  int* meta;
+  void* color;  // needs block_stride == nx * ny * k (colour has 3 per slot)
+  const int* blk;
+  const int* lx;
+  const int* ly;
+  const float* w;
+  const float* wz;
+  const float* point_color;
+  int n, p, num_blocks;
+  size_t block_stride;  // elements between a field's successive blocks
+  int nx, ny, update_idx;
+  float patch_thickness, gap_size;
+};
+
 template <int K, typename S>
-int launch(void* pool_mean, void* pool_stdev, void* pool_height,
-           int* pool_meta, void* pool_color, const int* blk, const int* lx,
-           const int* ly, const float* w, const float* wz,
-           const float* point_color, int n, int p, int num_blocks, int nx,
-           int ny, int update_idx, float patch_thickness, float gap_size,
-           cudaStream_t stream) {
-  const int p_pad = cell_sort::padded(p);
+int launch(const Operands& a, cudaStream_t stream) {
+  const int p_pad = cell_sort::padded(a.p);
   const size_t smem = (size_t)p_pad * sizeof(unsigned long long);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -197,39 +227,39 @@ int launch(void* pool_mean, void* pool_stdev, void* pool_height,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  block_merge_kernel<K, S><<<n, kThreads, smem, stream>>>(
-      static_cast<S*>(pool_mean), static_cast<S*>(pool_stdev),
-      static_cast<S*>(pool_height), pool_meta, static_cast<S*>(pool_color),
-      blk, lx, ly, w, wz, point_color, p, p_pad, num_blocks, nx, ny,
-      update_idx, patch_thickness, gap_size);
+  block_merge_kernel<K, S><<<a.n, kThreads, smem, stream>>>(
+      static_cast<S*>(a.mean), static_cast<S*>(a.stdev),
+      static_cast<S*>(a.height), a.meta, static_cast<S*>(a.color), a.blk,
+      a.lx, a.ly, a.w, a.wz, a.point_color, a.p, p_pad, a.num_blocks,
+      a.block_stride, a.nx, a.ny, a.update_idx, a.patch_thickness,
+      a.gap_size);
   return (int)cudaGetLastError();
 }
 
 template <typename S>
-int dispatch(void* pool_mean, void* pool_stdev, void* pool_height,
-             int* pool_meta, void* pool_color, const int* blk, const int* lx,
-             const int* ly, const float* w, const float* wz,
-             const float* point_color, int n, int p, int num_blocks, int nx,
-             int ny, int k, int update_idx, float patch_thickness,
-             float gap_size, cudaStream_t st) {
+int dispatch(const Operands& a, int k, void* stream) {
+  if (a.n <= 0 || a.p <= 0) return (int)cudaSuccess;
+  if (a.p > kMaxPoints) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return launch<1, S>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
-    case 2: return launch<2, S>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
-    case 4: return launch<4, S>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, update_idx, patch_thickness, gap_size, st);
+    case 1: return launch<1, S>(a, st);
+    case 2: return launch<2, S>(a, st);
+    case 4: return launch<4, S>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Pool fields are
-// [num_blocks, nx, ny*k] (mean/stdev/height float32, or bfloat16 when
-// `bf16` is not 0; int32 meta) and, when pool_color is not null,
-// [num_blocks, nx, ny*k*3] colour of the same storage type with
-// point_color [p, 3] float32; blk [n] int32; lx, ly [n, p] int32; w, wz
-// [n, p] float32.  Updates the pool in place on `stream` and returns
-// cudaGetLastError(); cudaErrorInvalidValue for a k other than 1, 2 or 4
-// or for more than kMaxPoints points.
+// Plain C entry points (loaded with ctypes).  Both update the pool in place
+// on `stream` and return cudaGetLastError(); cudaErrorInvalidValue for a k
+// other than 1, 2 or 4 or for more than kMaxPoints points.  blk [n] int32;
+// lx, ly [n, p] int32; w, wz [n, p] float32.
+
+// Pool fields are [num_blocks, nx, ny*k] (mean/stdev/height float32, or
+// bfloat16 when `bf16` is not 0; int32 meta) and, when pool_color is not
+// null, [num_blocks, nx, ny*k*3] colour of the same storage type with
+// point_color [p, 3] float32.
 extern "C" int block_merge_launch(void* pool_mean, void* pool_stdev,
                                   void* pool_height, int* pool_meta,
                                   void* pool_color, const int* blk,
@@ -239,11 +269,29 @@ extern "C" int block_merge_launch(void* pool_mean, void* pool_stdev,
                                   int k, int bf16, int update_idx,
                                   float patch_thickness, float gap_size,
                                   void* stream) {
-  if (n <= 0 || p <= 0) return (int)cudaSuccess;
-  if (p > kMaxPoints) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    return dispatch<__nv_bfloat16>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, k, update_idx, patch_thickness, gap_size, st);
-  }
-  return dispatch<float>(pool_mean, pool_stdev, pool_height, pool_meta, pool_color, blk, lx, ly, w, wz, point_color, n, p, num_blocks, nx, ny, k, update_idx, patch_thickness, gap_size, st);
+  const Operands a = {pool_mean, pool_stdev, pool_height, pool_meta,
+                      pool_color, blk, lx, ly, w, wz, point_color, n, p,
+                      num_blocks, (size_t)nx * ny * k, nx, ny, update_idx,
+                      patch_thickness, gap_size};
+  return bf16 ? dispatch<__nv_bfloat16>(a, k, stream)
+              : dispatch<float>(a, k, stream);
+}
+
+// The packed block image: `packed` is float32 [num_blocks, 4*nx, ny*k] with
+// a block's mean, stdev, height and meta (int32 bits) in successive groups
+// of nx rows.  No colour, float32 only.
+extern "C" int block_merge_packed_launch(float* packed, const int* blk,
+                                         const int* lx, const int* ly,
+                                         const float* w, const float* wz,
+                                         int n, int p, int num_blocks, int nx,
+                                         int ny, int k, int update_idx,
+                                         float patch_thickness, float gap_size,
+                                         void* stream) {
+  const size_t field = (size_t)nx * ny * k;
+  const Operands a = {packed, packed + field, packed + 2 * field,
+                      reinterpret_cast<int*>(packed + 3 * field), nullptr,
+                      blk, lx, ly, w, wz, nullptr, n, p, num_blocks,
+                      4 * field, nx, ny, update_idx, patch_thickness,
+                      gap_size};
+  return dispatch<float>(a, k, stream);
 }

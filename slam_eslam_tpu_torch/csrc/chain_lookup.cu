@@ -9,7 +9,11 @@
 // floor((x - origin[b]) * inv_res) (the same reciprocal product as the
 // plain version, mls_grid.inverse_resolution), and run the z-window slot
 // select (slot_select.cuh) over the cell's K slots; the first level with
-// a hit gives (found, mean, stdev), none gives (0, 0, 0).
+// a hit gives (found, mean, stdev), none gives (0, 0, 0).  Where the
+// caller passes out_slot, the hit slot's element index into the pool's
+// flattened fields goes there (64 bits: a large pool has more than 2^31
+// slots), -1 for no hit: a colour pool's caller gathers the patch colour
+// by it.
 //
 // What bounds it on an H100: latency of scattered loads.  At the SLAM
 // bench shape (N = 4096 particles, C = 8 contacts, L = 3, K = 4, a
@@ -47,7 +51,8 @@ chain_lookup_kernel(const S* __restrict__ pool_mean,
                     const float* __restrict__ qz,
                     unsigned char* __restrict__ found,
                     float* __restrict__ out_mean, float* __restrict__ out_stdev,
-                    int n, int c, int levels, int num_blocks, int nx, int ny,
+                    long long* __restrict__ out_slot, int n, int c, int levels,
+                    int num_blocks, int nx, int ny,
                     float inv_res, float z_window) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)n * c) return;
@@ -58,6 +63,7 @@ chain_lookup_kernel(const S* __restrict__ pool_mean,
 
   bool hit = false;
   float mean = 0.0f, stdev = 0.0f;
+  long long slot = -1;
   for (int l = 0; l < levels && !hit; ++l) {
     const int b = __ldg(chain + (size_t)i * levels + l);
     if (b < 0 || b >= num_blocks) continue;  // empty chain entry
@@ -80,41 +86,44 @@ chain_lookup_kernel(const S* __restrict__ pool_mean,
     hit = true;
     mean = slot_select::pick<K>(m, best);
     stdev = slot_select::pick<K>(s, best);
+    slot = (long long)cell + best;
   }
   found[t] = hit ? 1 : 0;
   out_mean[t] = mean;
   out_stdev[t] = stdev;
+  if (out_slot != nullptr) out_slot[t] = slot;
 }
 
 template <int K, typename S>
 void launch(const S* pool_mean, const S* pool_stdev, const int* pool_meta,
             const float* origin, const int* chain, const float* qx,
             const float* qy, const float* qz, unsigned char* found,
-            float* out_mean, float* out_stdev, int n, int c, int levels,
-            int num_blocks, int nx, int ny, float inv_res, float z_window,
-            cudaStream_t stream) {
+            float* out_mean, float* out_stdev, long long* out_slot, int n,
+            int c, int levels, int num_blocks, int nx, int ny, float inv_res,
+            float z_window, cudaStream_t stream) {
   constexpr int kThreads = 256;
   const long long total = (long long)n * c;
   const unsigned int blocks = (unsigned int)((total + kThreads - 1) / kThreads);
   chain_lookup_kernel<K, S><<<blocks, kThreads, 0, stream>>>(
       pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found,
-      out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res,
-      z_window);
+      out_mean, out_stdev, out_slot, n, c, levels, num_blocks, nx, ny,
+      inv_res, z_window);
 }
 
 template <typename S>
 int dispatch(const void* pool_mean, const void* pool_stdev,
              const int* pool_meta, const float* origin, const int* chain,
              const float* qx, const float* qy, const float* qz,
-             unsigned char* found, float* out_mean, float* out_stdev, int n,
-             int c, int levels, int num_blocks, int nx, int ny, int k,
+             unsigned char* found, float* out_mean, float* out_stdev,
+             long long* out_slot, int n, int c, int levels, int num_blocks,
+             int nx, int ny, int k,
              float inv_res, float z_window, cudaStream_t st) {
   const S* m = static_cast<const S*>(pool_mean);
   const S* s = static_cast<const S*>(pool_stdev);
   switch (k) {
-    case 1: launch<1, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
-    case 2: launch<2, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
-    case 4: launch<4, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
+    case 1: launch<1, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, out_slot, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
+    case 2: launch<2, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, out_slot, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
+    case 4: launch<4, S>(m, s, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, out_slot, n, c, levels, num_blocks, nx, ny, inv_res, z_window, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -125,7 +134,8 @@ int dispatch(const void* pool_mean, const void* pool_stdev,
 // Plain C entry point (loaded with ctypes).  Pool fields are
 // [num_blocks, nx, ny*k] (mean/stdev float32, or bfloat16 when `bf16` is
 // not 0; int32 packed meta, bit 0 = valid), origin [num_blocks, 2], chain
-// [n, levels] int32, queries and outputs [n, c] float32.  Launches on
+// [n, levels] int32, queries and outputs [n, c] float32; out_slot [n, c]
+// int64 or null.  Launches on
 // `stream` and returns cudaGetLastError(); cudaErrorInvalidValue for a k
 // other than 1, 2 or 4.
 extern "C" int chain_lookup_launch(const void* pool_mean,
@@ -134,14 +144,15 @@ extern "C" int chain_lookup_launch(const void* pool_mean,
                                    const int* chain, const float* qx,
                                    const float* qy, const float* qz,
                                    unsigned char* found, float* out_mean,
-                                   float* out_stdev, int n, int c, int levels,
-                                   int num_blocks, int nx, int ny, int k,
+                                   float* out_stdev, long long* out_slot,
+                                   int n, int c, int levels, int num_blocks,
+                                   int nx, int ny, int k,
                                    int bf16, float inv_res, float z_window,
                                    void* stream) {
   if ((long long)n * c <= 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return dispatch<__nv_bfloat16>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, k, inv_res, z_window, st);
+    return dispatch<__nv_bfloat16>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, out_slot, n, c, levels, num_blocks, nx, ny, k, inv_res, z_window, st);
   }
-  return dispatch<float>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, n, c, levels, num_blocks, nx, ny, k, inv_res, z_window, st);
+  return dispatch<float>(pool_mean, pool_stdev, pool_meta, origin, chain, qx, qy, qz, found, out_mean, out_stdev, out_slot, n, c, levels, num_blocks, nx, ny, k, inv_res, z_window, st);
 }

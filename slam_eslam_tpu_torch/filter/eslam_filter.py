@@ -8,23 +8,26 @@ grid) with the optional global initialisation from the surface hash,
 the proprioceptive update ``update_contact`` (the reference's
 ``update(body2odo, BodyContactState, ltc)``: odometry and propagation
 on every call, and a motion-gated measurement update with terrain
-labels, debug capture and hash reinjection), the read-outs and the
-distribution export.  The streaming SLAM loop is ``filter.streaming``.
+labels, debug capture and hash reinjection), the exteroceptive updates
+``update_scan`` and ``update_distance_image`` with ``process_map`` (scan
+match and map merge over all particles), ``run_stream`` (a whole frame
+stream through ``filter.streaming``, anchors carried in and out), the
+read-outs and the distribution export.
 
 The motion gate runs on the host from the host pose, as in the JAX
 package; the hash period counts ``project`` calls on the host, and in
 per-particle mode the map chains follow the device resampling index
 (the identity when resampling did not fire), so a measurement update
-never reads the device back to the host.
-
-The exteroceptive updates (``update_scan``, ``update_distance_image``,
-``process_map``) and ``run_stream`` are not ported yet and raise
-``NotImplementedError`` (``ROADMAP.md`` queue 1).
+never reads the device back to the host.  The mapping gates run on the
+host too.  ``process_map`` reads one device value back after a merge,
+the count of particles the pool had no block for, as the JAX package
+does; ``run_stream`` reads the stream's count once at its end.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -34,15 +37,16 @@ from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.core.distribution import export_distribution
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
+from slam_eslam_tpu_torch.filter import streaming
 from slam_eslam_tpu_torch.filter.surface_hash import SurfaceHash
 from slam_eslam_tpu_torch.mapping import map_pool as mp
-from slam_eslam_tpu_torch.mapping import mls_grid
+from slam_eslam_tpu_torch.mapping import mls_grid, projection
 from slam_eslam_tpu_torch.mapping.lookup import make_lookup
 from slam_eslam_tpu_torch.models import odometry as odom
 from slam_eslam_tpu_torch.models import terrain as terr
 from slam_eslam_tpu_torch.models.asguard import NUM_WHEELS
-from slam_eslam_tpu_torch.utils import tree
-from slam_eslam_tpu_torch.utils.device import entry_device
+from slam_eslam_tpu_torch.utils import geometry, tree
+from slam_eslam_tpu_torch.utils.device import entry_device, to_device_async
 
 
 def _affine(q, t):
@@ -58,6 +62,35 @@ def _affine(q, t):
     ], np.float32)
     m[:3, 3] = np.asarray(t)
     return m
+
+
+def _mounted(q, t, sensor2body):
+    """4x4 pose of a sensor mounted by ``sensor2body = (rot [3, 3], trans
+    [3])`` on the body pose ``(q, t)``."""
+    mount = np.eye(4)
+    mount[:3, :3] = np.asarray(sensor2body[0])
+    mount[:3, 3] = np.asarray(sensor2body[1])
+    return _affine(q, t) @ mount
+
+
+def _quat_from_matrix(r):
+    """``[3, 3]`` rotation matrix -> unit quaternion ``[w, x, y, z]`` with
+    ``w >= 0``, float32 on the host (Shepperd's method: the
+    best-conditioned of the four constructions)."""
+    r = np.asarray(r, np.float32)
+    m00, m11, m22 = r[0, 0], r[1, 1], r[2, 2]
+    mags = np.array([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                     1 - m00 + m11 - m22, 1 - m00 - m11 + m22], np.float32)
+    cands = np.array([
+        [mags[0], r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]],
+        [r[2, 1] - r[1, 2], mags[1], r[1, 0] + r[0, 1], r[0, 2] + r[2, 0]],
+        [r[0, 2] - r[2, 0], r[1, 0] + r[0, 1], mags[2], r[2, 1] + r[1, 2]],
+        [r[1, 0] - r[0, 1], r[0, 2] + r[2, 0], r[2, 1] + r[1, 2], mags[3]],
+    ], np.float32)
+    best = int(np.argmax(mags))
+    q = cands[best] / (np.float32(2.0)
+                       * np.sqrt(np.maximum(mags[best], np.float32(1e-12))))
+    return -q if q[0] < 0 else q
 
 
 def _motion(delta):
@@ -100,10 +133,18 @@ class EmbodiedSlamFilter:
         self.pool: mp.MapPool | None = None
         self.use_shared_map = True
         self.hash: SurfaceHash | None = None
-        self.ud_pose = _far_pose()
-        self.steps = 0          # project calls since init (the hash period)
+        self._reset_gates()
         self.last_eval = None   # ContactEvalResult of the last measurement
         self._lookup = None
+        self._runners = {}
+
+    def _reset_gates(self):
+        # the motion gates' anchors (udPose / mapPose / stereoPose)
+        self.ud_pose = _far_pose()
+        self.map_pose = _far_pose()
+        self.stereo_pose = _far_pose()
+        self.update_idx = 0
+        self.steps = 0          # project calls since init (the hash period)
 
     def make_grid_template(self, origin_xy=(0.0, 0.0), center=None):
         """An empty grid of ``grid_size`` at ``grid_resolution``
@@ -182,8 +223,7 @@ class EmbodiedSlamFilter:
             particles = dataclasses.replace(particles, map_id=torch.arange(
                 cfg.particle_count, dtype=torch.int32, device=self.device))
         self.state = dataclasses.replace(state, particles=particles)
-        self.ud_pose = _far_pose()
-        self.steps = 0
+        self._reset_gates()
         self.last_eval = None
         return self
 
@@ -192,12 +232,8 @@ class EmbodiedSlamFilter:
     # ------------------------------------------------------------------
 
     def _to_device(self, a, dtype=torch.float32):
-        """Host values on the filter's device; to a GPU asynchronously
-        from pinned memory, so the host does not wait."""
-        t = torch.tensor(np.asarray(a), dtype=dtype)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        """Host values on the filter's device, without a blocking copy."""
+        return to_device_async(a, self.device, dtype)
 
     def _terrain_prob(self, ltc):
         """Terrain labels -> the slip update's per-point probability
@@ -235,10 +271,12 @@ class EmbodiedSlamFilter:
         ``contact_state`` should lie on the filter's device."""
         cfg = self.config
         shared = self.use_shared_map
-        if not shared and cfg.contact_model.use_slip_update:
-            raise NotImplementedError(
-                "the slip update in per-particle mode needs the colour chain "
-                "lookup, which is not ported yet (ROADMAP.md queue 1)")
+        if (not shared and cfg.contact_model.use_slip_update
+                and self.pool.color is None):
+            raise ValueError(
+                "the slip update in per-particle mode reads the terrain "
+                "class off the patch colours: it needs a colour-carrying "
+                "pool (map_pool_color=True)")
         draws = draws or ContactDraws()
         q_np, t_np = body2odometry
         q = orientation if orientation is not None else self._to_device(q_np)
@@ -294,22 +332,190 @@ class EmbodiedSlamFilter:
     # exteroceptive updates (EmbodiedSlamFilter.cpp:179-351)
     # ------------------------------------------------------------------
 
-    def _queued(self, name):
-        raise NotImplementedError(
-            f"EmbodiedSlamFilter.{name} is not ported yet (ROADMAP.md "
-            "queue 1); filter.streaming runs the laser path")
+    def update_scan(self, body2odometry, scan: projection.LaserScan,
+                    laser2body, orientation=None):
+        """Laser mapping update (``EmbodiedSlamFilter.cpp:311-351``).
+        ``laser2body = (rot [3, 3], trans [3])``, host values.  In
+        per-particle mode the scan merges into every particle's map (after
+        the laser's negative information, ``:160``); with
+        ``use_visual_update`` the particles are also weighted by the scan
+        match, in either map mode.  ``orientation``: the quaternion
+        already on the filter's device.  Returns True when the mapping
+        gate fired."""
+        cfg = self.config
+        q_np, t_np = body2odometry
+        pose = _mounted(q_np, t_np, laser2body)
+        dist, angle = _motion(np.linalg.inv(self.map_pose) @ pose)
+        if not (dist > cfg.mapping_threshold.distance
+                or angle > cfg.mapping_threshold.angle):
+            return False
 
-    def update_scan(self, *args, **kw):
-        self._queued("update_scan")
+        q = orientation if orientation is not None else self._to_device(q_np)
+        l_rot = self._to_device(laser2body[0])
+        l_trans = self._to_device(laser2body[1])
+        pts, valid = projection.scan_to_points(tree.to(scan, self.device),
+                                               cfg.max_sensor_range)
+        cloud = projection.project_points(pts, valid, l_rot, l_trans, q)
+        update = not self.use_shared_map
+        free = None
+        if update and cfg.grid_use_negative_information:
+            free = projection.free_space_points(pts, valid, l_rot, l_trans, q)
+        self.process_map(cloud, match=cfg.use_visual_update, update=update,
+                         free=free)
+        self.map_pose = pose
+        return True
 
-    def update_distance_image(self, *args, **kw):
-        self._queued("update_distance_image")
+    def update_distance_image(self, body2odometry,
+                              dimage: projection.DistanceImage, camera2body,
+                              texture=None, orientation=None):
+        """Camera mapping update (``EmbodiedSlamFilter.cpp:239-309``): the
+        distance image, with ``texture [H, W, 3]`` as patch colour when
+        given, is always merged and never matched (``:301``), and carries
+        no negative information (``:172-176``).  In shared-map mode it
+        merges into the shared grid under the centroid pose, and the next
+        ``update_contact`` looks the new patches up.  Returns True when
+        the camera gate fired."""
+        cfg = self.config
+        q_np, t_np = body2odometry
+        pose = _mounted(q_np, t_np, camera2body)
+        dist, angle = _motion(np.linalg.inv(self.stereo_pose) @ pose)
+        if not (dist > cfg.mapping_camera_threshold.distance
+                or angle > cfg.mapping_camera_threshold.angle):
+            return False
 
-    def process_map(self, *args, **kw):
-        self._queued("process_map")
+        q = orientation if orientation is not None else self._to_device(q_np)
+        dimage = tree.to(dimage, self.device)
+        pts, valid = projection.distance_image_to_points(
+            dimage, cfg.max_sensor_range)
+        color = (projection.texture_colors(dimage, texture)
+                 if texture is not None else None)
+        cloud = projection.project_points(
+            pts, valid, self._to_device(camera2body[0]),
+            self._to_device(camera2body[1]), q, color=color)
+        if self.use_shared_map:
+            pos, quat = self.get_centroid()
+            self.shared_grid = mls_grid.merge_cloud(
+                self.shared_grid, cloud,
+                geometry.rot2d(geometry.yaw_from_quat(quat)), pos[:2],
+                pos[2], 0.0, self.update_idx,
+                patch_thickness=cfg.grid_patch_thickness,
+                gap_size=cfg.grid_gap_size)
+            self._lookup = make_lookup(cfg, self.shared_grid)
+            self.update_idx += 1
+        else:
+            self.process_map(cloud, match=False, update=True)
+        self.stereo_pose = pose
+        return True
 
-    def run_stream(self, *args, **kw):
-        self._queued("run_stream")
+    def process_map(self, cloud: mls_grid.PatchCloud, match, update,
+                    free=None):
+        """Per-particle scan match and map merge (``EmbodiedSlamFilter::
+        processMap``, ``EmbodiedSlamFilter.cpp:179-232``).  ``match``
+        weights every particle by ``match^0.1`` of the cloud against its
+        own map (kernel K2), or against the shared grid in shared-map
+        mode; ``update`` (per-particle mode only) gives every particle its
+        own head block, rolls grids over, applies the free-space samples
+        ``free = (points [F, 3], mask [F])`` and merges the cloud (kernel
+        K3).  After a merge the count of particles the pool had no block
+        for is read back, and reported on stderr when it is not 0."""
+        cfg = self.config
+        p = self.state.particles
+        if self.pool is None:
+            if match:
+                w = mls_grid.match_cloud(
+                    self.shared_grid, cloud, geometry.rot2d(p.yaw), p.xy,
+                    p.z, p.z_sigma, sampling=10, sigma=0.2,
+                    z_window=cfg.mls_z_window)
+                self._scale_weights(w)
+            return
+        pool = self.pool
+        n_failed = None
+        if update:
+            pool, f1 = mp.ensure_unique_active(pool,
+                                               shards=cfg.map_pool_shards)
+            pool, f2 = mp.rollover(
+                pool, p.xy, cfg.grid_size / 2.0 * cfg.grid_threshold,
+                shards=cfg.map_pool_shards)
+            n_failed = f1 + f2
+            if free is not None:
+                mp.apply_negative_cloud_all(pool, p.xy, p.yaw, p.z, *free)
+        if match:
+            self._scale_weights(mp.match_cloud_all(
+                pool, p.xy, p.yaw, p.z, p.z_sigma, cloud, sampling=10,
+                sigma=0.2, z_window=cfg.mls_z_window))
+        if update:
+            mp.merge_cloud_all(pool, p.xy, p.yaw, p.z, p.z_sigma, cloud,
+                               self.update_idx,
+                               patch_thickness=cfg.grid_patch_thickness,
+                               gap_size=cfg.grid_gap_size)
+            self.update_idx += 1
+        self.pool = pool
+        if update:
+            nf = int(n_failed)
+            if nf:
+                print(f"slam_eslam_tpu_torch: map pool exhausted for {nf} "
+                      "particles", file=sys.stderr)
+
+    def _scale_weights(self, match_score):
+        """``w *= match^0.1`` (visualWeighting = 0.1,
+        ``EmbodiedSlamFilter.cpp:219-220``)."""
+        p = self.state.particles
+        weight = p.weight * torch.pow(match_score.clamp(min=1e-30), 0.1)
+        self.state = dataclasses.replace(
+            self.state, particles=dataclasses.replace(p, weight=weight))
+
+    def run_stream(self, frames: streaming.SlamFrames, laser2body=None,
+                   mesh=None, camera2body=None, camera_intrinsics=None,
+                   camera_texture=False, draws=None):
+        """A whole frame stream (``streaming.stack_frames``, on the
+        filter's device) through ``filter.streaming``: every update this
+        class would run frame by frame, gates included.  Per-particle
+        mode only.  Consumes and updates this filter's state, the gate
+        anchors, ``update_idx`` and the step count.  ``draws``: one
+        ``step.StepDraws`` per frame.  Returns the per-frame ``aux``
+        (centroids, gate flags) plus ``alloc_failed_total``, the count of
+        pool exhaustion over the stream (also reported on stderr when it
+        is not 0)."""
+        if self.use_shared_map:
+            raise ValueError(
+                "run_stream requires per-particle-map mode "
+                "(use_shared_map=False); shared-map tracking streams via "
+                "filter.step.make_scan_runner")
+        extr = lambda e: (None if e is None else
+                          np.asarray(e[0], np.float32).tobytes()
+                          + np.asarray(e[1], np.float32).tobytes())
+        key = (extr(laser2body), extr(camera2body), camera_intrinsics,
+               camera_texture, self.odometry_config)
+        if key not in self._runners:
+            self._runners[key] = streaming.make_slam_scan_runner(
+                self.config, laser2body=laser2body, hash_=self.hash,
+                mesh=mesh, camera2body=camera2body,
+                camera_intrinsics=camera_intrinsics,
+                camera_texture=camera_texture,
+                odometry_config=self.odometry_config)
+        anchor = lambda pose: (pose[:3, 3].astype(np.float32),
+                               _quat_from_matrix(pose[:3, :3]))
+        (ud_pos, ud_q), (map_pos, map_q), (cam_pos, cam_q) = (
+            anchor(self.ud_pose), anchor(self.map_pose),
+            anchor(self.stereo_pose))
+        carry = dataclasses.replace(
+            streaming.StreamingState.create(self.state, self.pool,
+                                            steps=self.steps),
+            ud_pos=ud_pos, ud_q=ud_q, map_pos=map_pos, map_q=map_q,
+            cam_pos=cam_pos, cam_q=cam_q, update_idx=self.update_idx)
+        carry, aux = self._runners[key](carry, frames, draws=draws)
+        self.state, self.pool = carry.filter, carry.pool
+        self.update_idx, self.steps = carry.update_idx, carry.steps
+        self.ud_pose = _affine(carry.ud_q, carry.ud_pos)
+        self.map_pose = _affine(carry.map_q, carry.map_pos)
+        self.stereo_pose = _affine(carry.cam_q, carry.cam_pos)
+        aux["alloc_failed_total"] = carry.alloc_failed
+        nf = int(carry.alloc_failed)
+        if nf:
+            print(f"slam_eslam_tpu_torch: map pool exhausted {nf} times "
+                  "during the stream (merges degraded; raise "
+                  "map_pool_blocks)", file=sys.stderr)
+        return aux
 
     def update_featurecloud(self, *_args, **_kw):
         """Stereo feature clouds are unsupported, as in the reference

@@ -22,11 +22,13 @@ from slam_eslam_tpu_torch.utils import tree
 
 @dataclasses.dataclass
 class StepDraws:
-    """The random draws of one step: ``project``'s and the resampling
-    uniforms ``[N]``."""
+    """The random draws of one step: ``project``'s, the resampling
+    uniforms ``[N]`` and, where a surface hash reinjects, its in-bucket
+    integer draws ``[N]`` (``SurfaceHash.sample_bucket``)."""
 
     project: pe.ProjectDraws
     resample_u: torch.Tensor
+    hash_u: torch.Tensor | None = None
 
 
 def cfg_odo(cfg: Config):

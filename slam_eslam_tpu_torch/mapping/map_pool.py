@@ -25,9 +25,11 @@ Differences from the JAX package, all for the GPU:
   CPU tensors.  The float fields are stored as float32 or bfloat16
   (``Config.map_pool_dtype``): every read upcasts (exactly), arithmetic
   is float32, a written slot rounds once, lookups return float32.
-  Lookups are SoA and carry no colour (the colour chain lookup of the
-  per-particle slip update is not ported yet); ``shards > 1`` and
-  ``mesh`` belong to the multi-GPU slice and raise
+  The lookup of a colourless pool is SoA; a colour-carrying pool's
+  lookup takes ``[N, C, 3]`` points and also returns the hit patch's
+  colour: one plain gather by the slot index that K2 returns
+  (``ops.chain_lookup.chain_color``).
+  ``shards > 1`` and ``mesh`` belong to the multi-GPU slice and raise
   ``NotImplementedError``.
 """
 
@@ -253,21 +255,32 @@ def rollover(pool: MapPool, xy, threshold, shards=1):
 
 def make_chain_lookup(pool: MapPool, z_window=3.0):
     """The per-particle map lookup of the measurement update:
-    ``lookup(map_id [N], (x, y, z) [N, C])`` searches each particle's
-    chain head first (``MLSMap::getPatch``) and returns ``(found, mean,
-    stdev)``, through kernel K2 on CUDA tensors and its plain version
-    (``ops.chain_lookup``) on CPU tensors.  SoA queries, as
-    ``evaluate_pose_batch`` passes them; no fold."""
+    ``lookup(map_id [N], points)`` searches each particle's chain head
+    first (``MLSMap::getPatch``), through kernel K2 on CUDA tensors and
+    its plain version (``ops.chain_lookup``) on CPU tensors; no fold.
+
+    On a colourless pool ``points`` are SoA queries ``(x, y, z)``, each
+    ``[N, C]``, as ``evaluate_pose_batch`` passes them to a ``soa`` lookup,
+    and the result is ``(found, mean, stdev)``.  On a colour-carrying pool
+    ``points`` is ``[N, C, 3]`` and the result ``(found, mean, stdev,
+    color [N, C, 3])``, as the JAX package's ``chain_lookup`` returns it
+    (the slip update reads the terrain class off the patch colour)."""
+    with_color = pool.color is not None
 
     def lookup(map_id, points):
-        xq, yq, zq = (q.contiguous() for q in points)
-        return cl.chain_lookup(
-            pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
-            pool.chain.index_select(0, map_id.long()).contiguous(),
-            (xq, yq, zq), k=pool.k, z_window=z_window)
+        if with_color:
+            points = points.unbind(-1)
+        queries = tuple(q.contiguous() for q in points)
+        chain = pool.chain.index_select(0, map_id.long()).contiguous()
+        out = cl.chain_lookup(pool.mean, pool.stdev, pool.meta, pool.origin,
+                              pool.resolution, chain, queries, k=pool.k,
+                              z_window=z_window, with_slot=with_color)
+        if not with_color:
+            return out
+        return out[:3] + (cl.chain_color(pool.color, out[3]),)
 
     lookup.batched = True
-    lookup.soa = True
+    lookup.soa = not with_color
     return lookup
 
 

@@ -7,9 +7,12 @@ Port of ``slam_eslam_tpu.mapping.mls_grid``.  Read side: the
 ``PoseEstimator.hpp:97-105``).  Write side: the ``PatchCloud`` a scan
 projects to, the row-wise same-cell fusion ``_dedup_fuse_rows`` and the
 envire slot rules ``fuse_slot_rows`` -- the plain version the block-merge
-kernel (``ops.block_merge``) is held against.  The single-grid writers
-(``merge_points``, ``merge_cloud``, ``match_cloud``,
-``apply_negative_points``) are not ported yet.
+kernel (``ops.block_merge``) is held against -- and the single-grid
+writers ``merge_points``, ``merge_cloud``, ``match_cloud`` and
+``apply_negative_points`` (``MLSGrid::updateCell`` / ``merge`` / ``match``
+on one grid: the shared map's camera merge and the map-building rig).
+The single-grid writers return a new grid, as in the JAX package, and
+read nothing back to the host.
 """
 
 from __future__ import annotations
@@ -77,6 +80,13 @@ class MLSGrid:
         """Cell index -> world xy ``[..., 2]`` of the cell centre."""
         cell = torch.stack([ix, iy], dim=-1).to(self.mean.dtype)
         return (cell + 0.5) * self.resolution + self.origin
+
+    def clear(self):
+        """The grid with every patch dropped (``valid`` and
+        ``update_idx`` zeroed; the other fields are shared)."""
+        return dataclasses.replace(
+            self, valid=torch.zeros_like(self.valid),
+            update_idx=torch.zeros_like(self.update_idx))
 
 
 @dataclasses.dataclass
@@ -331,3 +341,169 @@ def fuse_slot_rows(means, stdevs, heights, valids, horiz, uidx,
     horiz = torch.where(upd, new_horiz[:, None], horiz)
     uidx = torch.where(upd, torch.full_like(uidx, int(update_idx)), uidx)
     return means, stdevs, heights, valids, horiz, uidx, upd
+
+
+# --------------------------------------------------------------------------
+# Single-grid writers (MLSGrid::updateCell / merge / match on one grid)
+# --------------------------------------------------------------------------
+
+def _dedup_fuse(ix, iy, z, var, mask, nx, ny, color=None):
+    """Gaussian-fuse points that land in the same cell
+    (``mls_grid._dedup_fuse``): a stable sort by linear cell id and
+    inverse-variance sums over each run, in point order.  Returns ``(ix,
+    iy, fused_z, fused_var, keep, order, fused_color)``, all ``[P]`` in
+    sorted order, ``keep`` marking one survivor per occupied cell;
+    ``color [P, 3]``, when given, fuses by the same weights."""
+    lin = torch.where(mask, ix.long() * ny + iy.long(),
+                      torch.full_like(ix, nx * ny, dtype=torch.long))
+    w = torch.where(mask, 1.0 / var.clamp(min=1e-12), torch.zeros_like(var))
+    _, order, first, wsum, wzsum, csum = run_sums_rows(
+        lin[None], w[None], (w * z)[None],
+        None if color is None else color[None])
+    order, first, wsum = order[0], first[0], wsum[0].clamp(min=1e-30)
+    fused_color = None if csum is None else csum[0] / wsum[:, None]
+    keep = first & mask[order]
+    return (ix[order], iy[order], wzsum[0] / wsum, 1.0 / wsum, keep, order,
+            fused_color)
+
+
+def scatter_fuse_cells(arrays, ix, iy, z, var, keep, update_idx,
+                       patch_thickness=0.1, gap_size=1.5, color=None):
+    """Fuse one measurement per (unique) cell into the K patch slots
+    (``mls_grid.scatter_fuse_cells``).  ``arrays`` is the dict of grid
+    fields shaped ``[X, ny, K]`` (``color [X, ny, K, 3]``); ``(ix, iy)``
+    must be unique among the ``keep`` entries (``_dedup_fuse``).  Returns
+    the dict of updated fields (new tensors).  Dropped entries are written
+    to a spare row past the grid, so nothing depends on their number and
+    no device value is read back."""
+    x, ny = arrays["mean"].shape[:2]
+    zero = torch.zeros_like(ix)
+    gix = torch.where(keep, ix, zero).long()
+    giy = torch.where(keep, iy, zero).long()
+    means, stdevs, heights, valids, horiz, uidx, upd = fuse_slot_rows(
+        arrays["mean"][gix, giy], arrays["stdev"][gix, giy],
+        arrays["height"][gix, giy], arrays["valid"][gix, giy],
+        arrays["horizontal"][gix, giy], arrays["update_idx"][gix, giy],
+        z, var, keep, update_idx,
+        patch_thickness=patch_thickness, gap_size=gap_size)
+    cell = torch.where(keep, gix * ny + giy, torch.full_like(gix, x * ny))
+
+    def scat(dst, val):
+        trail = dst.shape[2:]
+        flat = torch.cat([dst.reshape((x * ny,) + trail),
+                          dst.new_zeros((1,) + trail)])
+        flat[cell] = val.to(dst.dtype)
+        return flat[:-1].reshape(dst.shape)
+
+    out = {"mean": scat(arrays["mean"], means),
+           "stdev": scat(arrays["stdev"], stdevs),
+           "height": scat(arrays["height"], heights),
+           "valid": scat(arrays["valid"], valids),
+           "horizontal": scat(arrays["horizontal"], horiz),
+           "update_idx": scat(arrays["update_idx"], uidx)}
+    if color is not None and "color" in arrays:
+        # written slots take the (fused) measurement colour (terrain-class
+        # RGB riding on patches, ContactModel.cpp:238-240)
+        cell_colors = torch.where(upd[..., None], color[:, None, :],
+                                  arrays["color"][gix, giy])
+        out["color"] = scat(arrays["color"], cell_colors)
+    return out
+
+
+def merge_points(grid: MLSGrid, xy, z, stdev, mask, update_idx,
+                 patch_thickness=0.1, gap_size=1.5, color=None):
+    """Scatter-fuse a batch of surface measurements into the grid
+    (looping ``MLSGrid::updateCell`` over projected points,
+    ``testMap.cpp:304-317``): points are bucketed by cell and
+    Gaussian-fused per cell, then each occupied cell resolves against its
+    K slots by the envire rules (``fuse_slot_rows``).  ``update_idx`` (a
+    Python int) is stamped on touched patches.  Returns the updated
+    grid."""
+    ix, iy, inb = grid.to_grid(xy)
+    ix, iy, z, var, keep, _, fcolor = _dedup_fuse(
+        ix, iy, z, stdev * stdev, mask & inb, grid.nx, grid.ny, color=color)
+    arrays = {name: getattr(grid, name) for name in (
+        "mean", "stdev", "height", "valid", "horizontal", "update_idx")}
+    if color is not None:
+        arrays["color"] = grid.color
+    return dataclasses.replace(grid, **scatter_fuse_cells(
+        arrays, ix, iy, z, var, keep, update_idx,
+        patch_thickness=patch_thickness, gap_size=gap_size, color=fcolor))
+
+
+def apply_negative_points(grid: MLSGrid, points, mask, z_margin=0.15):
+    """Negative information (``useNegativeInformation``,
+    ``EmbodiedSlamFilter.cpp:160``): patches whose mean lies within
+    ``z_margin`` of a free-space sample ``points [P, 3]``
+    (``projection.free_space_points``) are invalidated.  Returns the
+    updated grid."""
+    ix, iy, inb = grid.to_grid(points[..., :2])
+    m = mask & inb
+    zero = torch.zeros_like(ix)
+    gix = torch.where(m, ix, zero).long()
+    giy = torch.where(m, iy, zero).long()
+    hit = (grid.valid[gix, giy]
+           & ((grid.mean[gix, giy] - points[..., 2:3]).abs() <= z_margin)
+           & m[..., None])
+    cells = grid.nx * grid.ny
+    hits = torch.zeros((cells + 1, grid.k), dtype=torch.int32,
+                       device=ix.device)
+    hits.index_put_((torch.where(m, gix * grid.ny + giy,
+                                 torch.full_like(gix, cells)),),
+                    hit.to(torch.int32), accumulate=True)
+    return dataclasses.replace(
+        grid, valid=grid.valid & (hits[:-1] == 0).reshape(grid.valid.shape))
+
+
+def _place_cloud(cloud: PatchCloud, rot2d, trans, z_offset):
+    """The cloud under a planar pose: ``rot2d [..., 2, 2]``, ``trans
+    [..., 2]``, ``z_offset [...]`` -> world ``[..., P, 3]``."""
+    px, py = cloud.xy[:, 0], cloud.xy[:, 1]
+    gx = (rot2d[..., 0, 0, None] * px + rot2d[..., 0, 1, None] * py
+          + trans[..., 0, None])
+    gy = (rot2d[..., 1, 0, None] * px + rot2d[..., 1, 1, None] * py
+          + trans[..., 1, None])
+    return torch.stack([gx, gy, cloud.z + z_offset[..., None]], dim=-1)
+
+
+def match_cloud(grid: MLSGrid, cloud: PatchCloud, rot2d, trans, z_offset,
+                offset_stdev, sampling=10, sigma=0.2, z_window=3.0):
+    """Scan-to-map consistency score in [0, 1] (``MLSGrid::match``,
+    consumed at ``EmbodiedSlamFilter.cpp:214-221``): every
+    ``sampling``-th cloud patch, placed by ``rot2d``, ``trans`` and
+    ``z_offset`` (the particle's zPos), is looked up and scored with a
+    Gaussian on the height residual, ``offset_stdev`` (the particle's
+    zSigma) widening its variance; missing patches score 0 and the sum is
+    normalised by the number of valid sampled patches.  The pose may carry
+    leading batch dimensions (``rot2d [N, 2, 2]``, ``trans [N, 2]``,
+    ``z_offset, offset_stdev [N]``): one score per pose."""
+    z_offset = torch.as_tensor(z_offset, dtype=cloud.z.dtype,
+                               device=cloud.z.device)
+    offset_stdev = torch.as_tensor(offset_stdev, dtype=cloud.z.dtype,
+                                   device=cloud.z.device)
+    m = cloud.valid & (torch.arange(cloud.p, device=cloud.z.device)
+                       % sampling == 0)
+    pts = _place_cloud(cloud, rot2d, trans, z_offset)
+    found, mean, stdev, _ = get_patch(grid, pts, z_window)
+    var = (sigma * sigma + stdev * stdev + cloud.stdev ** 2
+           + offset_stdev[..., None] ** 2)
+    resid = pts[..., 2] - mean
+    score = torch.where(m & found, torch.exp(-0.5 * resid * resid / var),
+                        torch.zeros_like(resid))
+    return score.sum(-1) / m.sum().clamp(min=1)
+
+
+def merge_cloud(grid: MLSGrid, cloud: PatchCloud, rot2d, trans, z_offset,
+                offset_stdev, update_idx, patch_thickness=0.1, gap_size=1.5):
+    """Merge a scan cloud into the grid under one pose (``MLSGrid::
+    merge(scanMap, C_s2p, offsetPatch)``, ``EmbodiedSlamFilter.cpp:
+    222-227``): patches are shifted by ``z_offset`` and their uncertainty
+    widened by ``offset_stdev`` before fusion.  Returns the updated
+    grid."""
+    z_offset = torch.as_tensor(z_offset, dtype=cloud.z.dtype,
+                               device=cloud.z.device)
+    pts = _place_cloud(cloud, rot2d, trans, z_offset)
+    stdev = torch.sqrt(cloud.stdev ** 2 + offset_stdev ** 2)
+    return merge_points(grid, pts[:, :2], pts[:, 2], stdev, cloud.valid,
+                        update_idx, patch_thickness=patch_thickness,
+                        gap_size=gap_size, color=cloud.color)

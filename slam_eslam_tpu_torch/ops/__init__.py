@@ -1,7 +1,9 @@
 """The port's CUDA kernels, one wrapper module each (``contact_fold``,
 ``chain_lookup``, ``block_merge``, ``select_cells``, ``block_copy``),
 built and bound by ``_build``.  Every wrapper counts its kernel launches
-in ``<wrapper>.launches``; ``launch_counts`` reads them all."""
+in ``<wrapper>.launches``; ``launch_counts`` reads them all
+(``block_merge_packed``, the second wrapper of ``block_merge``'s source,
+included)."""
 
 import importlib
 
@@ -9,8 +11,11 @@ from slam_eslam_tpu_torch.ops._build import KERNELS
 
 
 def _wrappers():
-    return {name: getattr(importlib.import_module(f"{__name__}.{name}"), name)
-            for name in KERNELS}
+    out = {name: getattr(importlib.import_module(f"{__name__}.{name}"), name)
+           for name in KERNELS}
+    out["block_merge_packed"] = importlib.import_module(
+        f"{__name__}.block_merge").block_merge_packed
+    return out
 
 
 def launch_counts():

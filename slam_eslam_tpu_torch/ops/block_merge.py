@@ -1,4 +1,5 @@
-"""Block merge: kernel K3 (which also serves K4) and its plain version.
+"""Block merge: kernel K3 (which also serves K4 and P4) and its plain
+versions.
 
 Replaces ``slam_eslam_tpu/ops/pallas_merge.py::_merge_kernel`` (through
 ``merge_blocks``) and ``_merge_kernel_grouped`` (``merge_blocks_grouped``,
@@ -18,6 +19,19 @@ CUDA kernel (``csrc/block_merge.cu``) for CUDA tensors and runs
 ``block_merge.launches`` counts kernel launches.  Active blocks must be
 unique (``map_pool.ensure_unique_active``); a shared block takes the
 writes of its particles in unspecified order.
+
+``block_merge_packed`` is the same merge on the packed block image of
+``tools/probe_merge_overhead.py::merge_packed`` (its
+``_merge_packed_kernel``, probe kernel P4): one float32 tensor ``[B, 4*nx,
+ny*k]`` whose rows ``[0, nx)`` are a block's mean, ``[nx, 2nx)`` its stdev,
+``[2nx, 3nx)`` its height and ``[3nx, 4nx)`` its meta words as int32 bits
+(``pack_fields``, ``packed_fields``).  It launches the same CUDA kernel
+through its own entry point, with the four field bases ``nx*ny*k``
+elements apart and a block stride of four fields, counts its launches in
+``block_merge_packed.launches`` and runs ``block_merge_packed_reference``
+for CPU tensors.  On the TPU the packed image probes the cost of issuing
+four DMAs per block instead of one; on a GPU it probes whether a cell's
+four loads and stores are cheaper 26 KB apart than a field tensor apart.
 """
 
 from __future__ import annotations
@@ -153,3 +167,114 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
 
 
 block_merge.launches = 0
+
+
+def pack_fields(mean, stdev, height, meta):
+    """Four float32/int32 fields ``[B, nx, ny*k]`` -> the packed block
+    image ``[B, 4*nx, ny*k]`` float32, meta carried as bits.  The copy goes
+    through int32 words, so no meta word meets float arithmetic."""
+    for name, t in (("mean", mean), ("stdev", stdev), ("height", height)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}: a packed block "
+                            f"image is float32 (its meta rows are 32-bit "
+                            f"words)")
+    if meta.dtype != torch.int32:
+        raise TypeError(f"meta has dtype {meta.dtype}, expected torch.int32")
+    bits = lambda t: t.contiguous().view(torch.int32)
+    return torch.cat([bits(mean), bits(stdev), bits(height), meta],
+                     dim=1).view(torch.float32)
+
+
+def packed_fields(packed, nx):
+    """Contiguous copies ``(mean, stdev, height, meta)`` of the four row
+    ranges of a packed block image (meta as int32)."""
+    words = packed.view(torch.int32)
+    part = lambda i: words[:, i * nx:(i + 1) * nx].contiguous()
+    return (part(0).view(torch.float32), part(1).view(torch.float32),
+            part(2).view(torch.float32), part(3))
+
+
+def _check_packed(packed, nx, k):
+    if packed.dtype != torch.float32:
+        raise TypeError(f"packed has dtype {packed.dtype}: a packed block "
+                        f"image is float32 (a 16-bit image cannot carry the "
+                        f"32-bit meta words)")
+    if packed.dim() != 3 or packed.shape[1] != 4 * nx:
+        raise ValueError(f"packed has shape {tuple(packed.shape)}, expected "
+                         f"[B, {4 * nx}, ny*k]")
+    if packed.shape[2] % k:
+        raise ValueError(f"packed lane extent {packed.shape[2]} is not a "
+                         f"multiple of k={k}")
+
+
+def block_merge_packed_reference(packed, blk, lx, ly, w, wz, update_idx, *,
+                                 nx, k, patch_thickness=0.1, gap_size=1.5):
+    """The plain version of ``block_merge_packed``: the four row ranges
+    taken out (``packed_fields``), ``block_merge_reference`` on them, and
+    the results written back through int32 words.  In place."""
+    _check_packed(packed, nx, k)
+    fields = packed_fields(packed, nx)
+    block_merge_reference(*fields, None, blk, lx, ly, w, wz, update_idx,
+                          k=k, patch_thickness=patch_thickness,
+                          gap_size=gap_size)
+    words = packed.view(torch.int32)
+    for i, f in enumerate(fields):
+        words[:, i * nx:(i + 1) * nx] = f.view(torch.int32)
+
+
+@functools.cache
+def _packed_launcher():
+    fn = _build.load("block_merge").block_merge_packed_launch
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def block_merge_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
+                       patch_thickness=0.1, gap_size=1.5):
+    """``block_merge`` on a packed block image ``packed [B, 4*nx, ny*k]``
+    float32 (module docstring), in place: point operands ``blk [N]``,
+    ``lx, ly [N, P]`` int32 and ``w, wz [N, P]`` float32 as ``block_merge``
+    takes them, unique active blocks, no colour.  ``update_idx`` is a
+    Python int."""
+    device = packed.device
+    kw = dict(nx=nx, k=k, patch_thickness=patch_thickness, gap_size=gap_size)
+    if device.type == "cpu":
+        block_merge_packed_reference(packed, blk, lx, ly, w, wz, update_idx,
+                                     **kw)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"block_merge_packed runs on CPU or CUDA, not "
+                         f"{device}")
+    _check_packed(packed, nx, k)
+    b, _, nyk = packed.shape
+    n, p = lx.shape
+    if p > MAX_POINTS:
+        raise ValueError(f"block_merge_packed takes at most {MAX_POINTS} "
+                         f"points per particle, got {p}")
+    f32 = torch.float32
+    align = _build.pool_align(f32, k)
+    _build.check_operand("packed", packed, (b, 4 * nx, nyk), f32, device,
+                         align)
+    if align and (nx * nyk * 4) % align:
+        raise ValueError(f"a field of {nx}x{nyk} slots does not keep the "
+                         f"field sub-images {align}-byte aligned")
+    for name, t, shape, dtype in (
+            ("blk", blk, (n,), torch.int32),
+            ("lx", lx, (n, p), torch.int32), ("ly", ly, (n, p), torch.int32),
+            ("w", w, (n, p), f32), ("wz", wz, (n, p), f32)):
+        _build.check_operand(name, t, shape, dtype, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _packed_launcher()(
+            packed.data_ptr(), blk.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            w.data_ptr(), wz.data_ptr(), n, p, b, nx, nyk // k, k,
+            int(update_idx), float(patch_thickness), float(gap_size), stream)
+    if err != 0:
+        raise RuntimeError(f"block_merge_packed kernel launch failed: CUDA "
+                           f"error {err}")
+    block_merge_packed.launches += 1
+
+
+block_merge_packed.launches = 0

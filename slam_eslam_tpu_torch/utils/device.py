@@ -9,6 +9,9 @@ raises.
 
 from __future__ import annotations
 
+import subprocess
+
+import numpy as np
 import torch
 
 
@@ -26,3 +29,26 @@ def entry_device(device=None):
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def to_device_async(a, device, dtype=torch.float32):
+    """Host values ``a`` as a tensor of ``dtype`` on ``device``; to a GPU
+    asynchronously from pinned memory, so that the host does not wait (a
+    blocking copy inside a frame would be a host sync)."""
+    t = torch.tensor(np.asarray(a), dtype=dtype)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def card_line(device):
+    """The card's name and power limit as ``nvidia-smi`` gives them; None
+    for a run on the CPU."""
+    if device.type != "cuda":
+        return None
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[device.index or 0]

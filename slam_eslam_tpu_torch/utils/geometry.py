@@ -62,6 +62,13 @@ def remove_yaw(q):
     return quat_mul(quat_from_yaw(-yaw_from_quat(q)), q)
 
 
+def rot2d(theta):
+    """``[...]`` -> ``[..., 2, 2]`` planar rotation matrix."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1),
+                        torch.stack([s, c], dim=-1)], dim=-2)
+
+
 def pose_matrix_2p5d(xy, yaw, z):
     """Per-particle ``(R [..., 3, 3], t [..., 3])`` of
     ``Translation3d(x, y, z) * AngleAxisd(yaw, UnitZ())``

@@ -1,5 +1,6 @@
 """CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``),
-K3 (``csrc/block_merge.cu``), K5 (``csrc/select_cells.cu``) and K7
+K3 (``csrc/block_merge.cu``, and through its second entry point the merge
+on a packed block image, P4), K5 (``csrc/select_cells.cu``) and K7
 (``csrc/block_copy.cu``) against their plain PyTorch versions on the
 card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
 of the application API's contact update.  K2, K5 and K7 must match bit
@@ -161,6 +162,12 @@ def test_chain_lookup_matches_plain(dev, n, c, nx):
     assert 0.1 < float(ref[0].float().mean()) < 0.9
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+    # the slot output a colour pool's lookup gathers its colour by
+    got = cl.chain_lookup(*args, k=4, z_window=1.0, with_slot=True)
+    ref = cl.chain_lookup_reference(*args, k=4, z_window=1.0, with_slot=True)
+    assert got[3].dtype == torch.int64 and bool((got[3] >= 0).equal(got[0]))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def merge_setup(n, p, nx, dev, seed, dtype=torch.float32):
@@ -233,6 +240,61 @@ def test_block_merge_many_points_match_cpu(dev):
     ulps = (kern[1].cpu().view(torch.int32).long()
             - cpu[1].view(torch.int32).long()).abs()
     assert int(ulps.max()) <= 1
+
+
+@pytest.mark.parametrize("n,p,nx", [(4096, 64, 40), (777, 300, 12),
+                                    (64, 8192, 40)])
+def test_block_merge_packed_matches_plain_and_unpacked(dev, n, p, nx):
+    """The merge on the packed block image: meta rows equal as int32 and
+    the fields bitwise on one-point cells, rtol 1e-6 elsewhere, against
+    its plain version; bit for bit against K3 on the unpacked fields (one
+    kernel, two layouts); blocks no particle owns untouched."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(n, p, nx, dev, seed=n + 1)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    packed = bm.pack_fields(*fields)
+    for a, b in zip(bm.packed_fields(packed, nx), fields):
+        assert torch.equal(a, b)
+    kern, plain = packed.clone(), packed.clone()
+    unpacked = [f.clone() for f in fields]
+    before = (bm.block_merge_packed.launches, bm.block_merge.launches)
+    bm.block_merge_packed(kern, blk, lx, ly, w, wz, 5, nx=nx, k=4)
+    assert (bm.block_merge_packed.launches, bm.block_merge.launches) == (
+        before[0] + 1, before[1])
+    bm.block_merge_packed_reference(plain, blk, lx, ly, w, wz, 5, nx=nx, k=4)
+    bm.block_merge(*unpacked, None, blk, lx, ly, w, wz, 5, k=4)
+    torch.cuda.synchronize()
+    got, ref = bm.packed_fields(kern, nx), bm.packed_fields(plain, nx)
+    assert torch.equal(got[3], ref[3])
+    assert int((got[3] != fields[3]).sum()) > n
+    one = one_point_slots(pool, blk, lx, ly)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a[one], b[one])
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for a, b in zip(got, unpacked):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    idle = torch.ones(pool.b, dtype=torch.bool, device=dev)
+    idle[blk.long()] = False
+    assert torch.equal(kern.view(torch.int32)[idle],
+                       packed.view(torch.int32)[idle])
+
+
+def test_block_merge_packed_rejects_bad_operands(dev):
+    pool, (blk, lx, ly, w, wz) = merge_setup(32, 16, 12, dev, seed=2)
+    packed = bm.pack_fields(pool.mean, pool.stdev, pool.height, pool.meta)
+    args = (blk, lx, ly, w, wz, 1)
+    with pytest.raises(TypeError, match="float32"):
+        bm.block_merge_packed(packed.bfloat16(), *args, nx=12, k=4)
+    with pytest.raises(ValueError, match="shape"):
+        bm.block_merge_packed(packed, *args, nx=10, k=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        bm.block_merge_packed(packed.transpose(1, 2).contiguous()
+                              .transpose(1, 2), *args, nx=12, k=4)
+    with pytest.raises(TypeError, match="lx"):
+        bm.block_merge_packed(packed, blk, lx.long(), ly, w, wz, 1, nx=12,
+                              k=4)
+    with pytest.raises(TypeError, match="bfloat16|float32"):
+        bm.pack_fields(pool.mean.bfloat16(), pool.stdev, pool.height,
+                       pool.meta)
 
 
 def test_block_merge_colour_pool(dev):

@@ -17,6 +17,7 @@ MODULES = [
     "slam_eslam_tpu_torch.core.filter",
     "slam_eslam_tpu_torch.core.gmm",
     "slam_eslam_tpu_torch.core.state",
+    "slam_eslam_tpu_torch.examples.slam_demo",
     "slam_eslam_tpu_torch.filter.eslam_filter",
     "slam_eslam_tpu_torch.filter.pose_estimator",
     "slam_eslam_tpu_torch.filter.step",
@@ -37,6 +38,8 @@ MODULES = [
     "slam_eslam_tpu_torch.ops.chain_lookup",
     "slam_eslam_tpu_torch.ops.contact_fold",
     "slam_eslam_tpu_torch.ops.select_cells",
+    "slam_eslam_tpu_torch.tools.probe_merge_overhead",
+    "slam_eslam_tpu_torch.tools.stat_map_test",
     "slam_eslam_tpu_torch.utils.device",
     "slam_eslam_tpu_torch.utils.geometry",
     "slam_eslam_tpu_torch.utils.kernel_eff",

@@ -224,6 +224,63 @@ def test_chain_lookup_bitwise(seed):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
 
 
+@pytest.mark.parametrize("seed", [8, 9])
+def test_colour_chain_lookup_matches_jax(seed):
+    """On a colour-carrying pool the lookup takes ``[N, C, 3]`` points and
+    also returns the hit patch's colour, as JAX ``chain_lookup`` does
+    (a colour pool never reaches the Pallas kernel there): found, mean and
+    stdev bit for bit, colour equal (a gather), zeros where nothing is
+    found."""
+    jpool = random_pool(seed, with_color=True, unique_heads=False)
+    pts = lookup_queries(jpool, seed)
+    zw = 1.0
+    lookup = jmp.make_chain_lookup(jpool, zw)
+    assert not getattr(lookup, "batched", False)   # the XLA gather
+    ref = jax.jit(lambda p: jax.vmap(lookup)(jnp.arange(N), p))(pts)
+    port_lookup = tmp.make_chain_lookup(port_pool(jpool), zw)
+    assert port_lookup.batched and not port_lookup.soa
+    got = port_lookup(torch.arange(N), t(pts))
+    found = np.asarray(ref[0])
+    assert 0.1 < found.mean() < 0.9
+    assert len(got) == 4 and got[3].shape == (N, 8, 3)
+    for a, b_ in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+    assert np.asarray(ref[3])[found].max() > 0.5
+    assert not np.asarray(ref[3])[~found].any()
+    # resampled particles look their own chains up
+    idx = np.random.default_rng(seed).integers(0, N, N)
+    ref_r = jax.jit(lambda p: jax.vmap(lookup)(jnp.asarray(idx), p))(pts)
+    got_r = port_lookup(t(idx), t(pts))
+    for a, b_ in zip(got_r, ref_r):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+
+
+@pytest.mark.parametrize("seed", [8, 9])
+def test_chain_lookup_slot_points_at_the_hit_patch(seed):
+    """``with_slot`` (what the colour gather goes by): the index of the
+    selected slot in the flattened fields, -1 where nothing is found."""
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    jpool = random_pool(seed, with_color=True, unique_heads=False)
+    pool, pts = port_pool(jpool), t(lookup_queries(jpool, seed))
+    args = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            pool.chain, pts.unbind(-1))
+    found, mean, stdev, slot = cl.chain_lookup(*args, k=K, z_window=1.0,
+                                               with_slot=True)
+    for a, b_ in zip((found, mean, stdev),
+                     cl.chain_lookup(*args, k=K, z_window=1.0)):
+        assert torch.equal(a, b_)
+    assert slot.dtype == torch.int64 and 0.1 < float(found.float().mean()) < 0.9
+    assert torch.equal(slot >= 0, found)
+    assert torch.equal(pool.mean.reshape(-1)[slot[found]], mean[found])
+    assert torch.equal(pool.stdev.reshape(-1)[slot[found]], stdev[found])
+    assert (pool.meta.reshape(-1)[slot[found]] & 1).all()
+    color = cl.chain_color(pool.color, slot)
+    assert torch.equal(color[found],
+                       pool.color.reshape(-1, 3)[slot[found]])
+    assert not color[~found].any()
+
+
 # ------------------------------------------------------------ merge
 
 def merge_case(seed, p, spread, with_color=False):

@@ -17,6 +17,14 @@ atol 1e-6 (float32
 rounding: XLA contracts multiply-adds, the port rounds each operation).
 Also the fixtures: ``AsguardSim`` contact states, ``precompute_odometry``
 and ``EmbodiedSlamFilter.init``.
+
+The camera runners (``camera2body`` with static intrinsics, a distance
+image on every fifth frame, gated on its own anchor and merged without a
+match) run twice under the same tolerances: on a colourless pool
+together with the in-loop hash reinjection (a ``SurfaceHash`` of a
+terrain grid, period 4, the JAX in-bucket draws injected), and textured
+(``camera_texture``, RGB riding on the merged patches) on a
+colour-carrying pool, whose colour field must agree within rtol 2e-6.
 """
 
 import dataclasses
@@ -27,8 +35,10 @@ import numpy as np
 import pytest
 import torch
 
-from slam_eslam_tpu.config import Config, ContactModelConfig
+from slam_eslam_tpu.config import (Config, ContactModelConfig,
+                                   SurfaceHashConfig)
 from slam_eslam_tpu.filter import streaming as jst
+from slam_eslam_tpu.filter import surface_hash as jsh
 from slam_eslam_tpu.filter.eslam_filter import EmbodiedSlamFilter as JFilter
 from slam_eslam_tpu.models.asguard import AsguardSim as JSim
 from slam_eslam_tpu_torch import convert
@@ -65,11 +75,22 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
-def config(match, dtype="float32"):
+CAMERA = (np.array([[0.0, -0.1736, 0.9848], [-1.0, 0.0, 0.0],
+                    [0.0, -0.9848, -0.1736]], np.float32),
+          np.array([0.1, 0.0, 0.35], np.float32))
+IMG_H, IMG_W = 6, 8
+INTRINSICS = (2 * 0.5 / IMG_W, 2 * 0.4 / IMG_H, -0.5, -0.4)
+# an odd number of slope bins: the level footprint of the trajectory
+# (slopes of +-1e-8) lies inside a bucket, not on an edge between two
+HASH = SurfaceHashConfig(use_hash=True, slope_bins=5, angular_steps=4,
+                         period=4, percentage=0.25)
+
+
+def config(match, dtype="float32", color=False):
     return dataclasses.replace(
         Config(), particle_count=N, min_effective=0.9 * N, grid_size=2.0,
         grid_resolution=0.25, map_pool_blocks=4 * N, map_chain_length=3,
-        map_pool_color=False, map_pool_dtype=dtype, use_visual_update=match,
+        map_pool_color=color, map_pool_dtype=dtype, use_visual_update=match,
         grid_use_negative_information=match,
         contact_model=ContactModelConfig(contact_point_radius=0.0,
                                          min_contacts=2))
@@ -113,18 +134,50 @@ def project_draws(key, n):
     )
 
 
-def slam_draws(key, n, updated):
+def slam_draws(key, n, updated, bucket_counts=None):
     """Per frame: ``project``'s draws, then the resampling uniforms
-    (``pose_estimator.py:305``) when the measurement gate fired."""
+    (``pose_estimator.py:305``) when the measurement gate fired, then the
+    hash's in-bucket draws (``surface_hash.py:237,259``) on the frames
+    that reinject (``bucket_counts[frame]`` not None)."""
     out = []
-    for up in updated:
+    for i, up in enumerate(updated):
         key, proj = project_draws(key, n)
-        u = None
+        u = hash_u = None
         if up:
             key, k_rs = jax.random.split(key)
             u = t(jax.random.uniform(k_rs, (n,), jnp.float32))
-        out.append(StepDraws(proj, u))
+        if bucket_counts is not None and bucket_counts[i] is not None:
+            key, k_s = jax.random.split(key)
+            hash_u = t(jax.random.randint(
+                k_s, (n,), 0, jnp.maximum(bucket_counts[i], 1)))
+        out.append(StepDraws(proj, u, hash_u))
     return out
+
+
+def camera_images(n_frames):
+    """Seeded distance images (with invalid pixels), textures and the
+    frames that carry one (every fifth, off the laser's frames).  The
+    invalid pixels are finite (zero, too far): a nan pixel, though masked,
+    turns every patch of the JAX package's kernel merge to nan (its
+    one-hot products multiply the nan by 0), which the port's merge does
+    not reproduce; ``tests/test_torch_projection.py`` covers nan pixels."""
+    rng = np.random.default_rng(1)
+    dimg = rng.uniform(0.5, 2.8, (n_frames, IMG_H, IMG_W)).astype(np.float32)
+    dimg[:, 0, 0] = 0.0
+    dimg[:, 2, 5] = 7.0
+    timg = rng.uniform(0, 1, (n_frames, IMG_H, IMG_W, 3)).astype(np.float32)
+    return dimg, np.arange(n_frames) % 5 == 2, timg
+
+
+def jax_hash():
+    from slam_eslam_tpu.models import sim as jsim
+
+    # a map rougher than the ground the robot rolls on, so that few of
+    # its candidates share the level signature and reinjection fires
+    rough = lambda x, y: 0.4 * np.sin(2.5 * np.asarray(x)) + 0.3 * np.cos(
+        2.1 * np.asarray(y))
+    return jsh.SurfaceHash.create(HASH, jsim.terrain_grid(
+        rough, nx=24, ny=24, resolution=0.25, origin=(-3.0, -3.0)))
 
 
 def init_normals(seed, n):
@@ -149,30 +202,54 @@ def runs(request):
     return run_both(config(request.param))
 
 
-def run_both(cfg):
+def run_both(cfg, camera=None, use_hash=False):
+    """``camera``: None, ``"plain"`` or ``"texture"``."""
     traj = trajectory()
     z0 = float(JSim(terrain=terrain).position[2])
+    dimg, has_dimg, timg = camera_images(len(traj))
+    extra = lambda i: () if camera is None else (
+        (dimg[i], has_dimg[i]) + ((timg[i],) if camera == "texture" else ()))
+    kw = {} if camera is None else dict(
+        camera2body=CAMERA, camera_intrinsics=INTRINSICS,
+        camera_texture=camera == "texture")
+    jhash = jax_hash() if use_hash else None
     jframes = jst.stack_frames([
         (cmp, jnp.asarray(q), jnp.asarray(pos), jnp.asarray(r), SCAN_META,
-         jnp.asarray(hs)) for _, cmp, q, pos, r, hs in traj])
+         jnp.asarray(hs)) + tuple(jnp.asarray(a) for a in extra(i))
+        for i, (_, cmp, q, pos, r, hs) in enumerate(traj)])
     full = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs),
                                   *[fr[0] for fr in traj])
     qs = jnp.stack([jnp.asarray(fr[2]) for fr in traj])
     jodos = jst.precompute_odometry(20, full, qs, cfg=cfg)
     carry0 = jst.StreamingState.create(*(lambda f: (f.state, f.pool))(
         jax_filter(cfg, z0)))
-    run = jst.make_slam_scan_runner(cfg, laser2body=LASER,
-                                    external_odometry=True)
+    run = jst.make_slam_scan_runner(cfg, laser2body=LASER, hash_=jhash,
+                                    external_odometry=True, **kw)
     jcarry, jaux = run(carry0, jframes, jodos)
 
     tframes = tst.stack_frames([
         (convert.body_contact_state_from(as_dict(cmp)), q, pos, r,
-         SCAN_META, hs) for _, cmp, q, pos, r, hs in traj])
+         SCAN_META, hs) + extra(i)
+        for i, (_, cmp, q, pos, r, hs) in enumerate(traj)])
     todos = tst.precompute_odometry(
         20, tree.stack([convert.body_contact_state_from(as_dict(fr[0]))
                         for fr in traj]), t(np.asarray(qs)), cfg=cfg)
     carry = convert.streaming_state_from(as_dict(carry0))
-    draws = slam_draws(carry0.filter.key, N, np.asarray(jaux["updated"]))
+    counts = None
+    if use_hash:
+        # the bucket of each reinjection frame's signature
+        counts = [None] * len(traj)
+        bins = HASH.slope_bins
+        for i, (_, cmp, q, *_rest) in enumerate(traj):
+            if (i + 1) % HASH.period == 0:
+                sx, sy = jhash.signature(cmp, jnp.asarray(q))
+                counts[i] = jhash.bucket_count[
+                    jsh._bucket_index(sx, bins) * bins
+                    + jsh._bucket_index(sy, bins)]
+    draws = slam_draws(carry0.filter.key, N, np.asarray(jaux["updated"]),
+                       counts)
+    thash = (convert.surface_hash_from(as_dict(jhash), HASH) if use_hash
+             else None)
 
     # watch the copy-on-write and rollover steps of the port's run
     seen = {"dup_heads": 0, "rolled": 0}
@@ -192,12 +269,13 @@ def run_both(cfg):
     tmp.ensure_unique_active, tmp.rollover = spy_ensure, spy_rollover
     try:
         tcarry, taux = tst.make_slam_scan_runner(
-            cfg, laser2body=LASER, external_odometry=True)(
-            carry, tframes, todos, draws)
+            cfg, laser2body=LASER, hash_=thash, external_odometry=True,
+            **kw)(carry, tframes, todos, draws)
     finally:
         tmp.ensure_unique_active, tmp.rollover = ensure, roll
     return dict(cfg=cfg, traj=traj, jodos=jodos, todos=todos, jcarry=jcarry,
-                jaux=jaux, tcarry=tcarry, taux=taux, seen=seen, z0=z0)
+                jaux=jaux, tcarry=tcarry, taux=taux, seen=seen, z0=z0,
+                jhash=jhash, counts=counts)
 
 
 def test_gates_and_centroids(runs):
@@ -239,6 +317,80 @@ def test_final_particles_and_pool(runs):
         np.testing.assert_allclose(got["pool"][name], ref["pool"][name],
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     assert (ref["pool"]["meta"] & 1).sum() > 5 * N
+
+
+def assert_runs_match(both, n_merges):
+    """Gates, centroids, final particles, anchors and the pool, under the
+    tolerances of the module docstring."""
+    jaux, taux = both["jaux"], both["taux"]
+    for name in ("updated", "mapped", "cam_mapped"):
+        np.testing.assert_array_equal(taux[name], np.asarray(jaux[name]),
+                                      err_msg=name)
+    np.testing.assert_allclose(taux["centroid"].numpy(),
+                               np.asarray(jaux["centroid"]), atol=1e-4)
+    got, ref = convert.to_numpy(both["tcarry"]), as_dict(both["jcarry"])
+    for name, val in ref["filter"]["particles"].items():
+        if val.dtype.kind in "biu":
+            np.testing.assert_array_equal(got["filter"]["particles"][name],
+                                          val, err_msg=name)
+        else:
+            np.testing.assert_allclose(got["filter"]["particles"][name], val,
+                                       rtol=1e-4, atol=1e-5, err_msg=name)
+    assert int(got["alloc_failed"]) == int(ref["alloc_failed"])
+    assert got["update_idx"] == int(ref["update_idx"]) == n_merges
+    assert got["steps"] == int(ref["filter"]["step"]) == len(both["traj"])
+    for name in ("ud_pos", "ud_q", "map_pos", "map_q", "cam_pos", "cam_q"):
+        np.testing.assert_allclose(got[name], ref[name], rtol=1e-6,
+                                   err_msg=name)
+    for name in ("chain", "meta", "allocated"):
+        np.testing.assert_array_equal(got["pool"][name], ref["pool"][name],
+                                      err_msg=name)
+    for name in ("mean", "stdev", "height", "origin"):
+        np.testing.assert_allclose(got["pool"][name], ref["pool"][name],
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    return got, ref
+
+
+def test_camera_and_hash_run():
+    """The distance-image path on a colourless pool, with the scan match,
+    negative information and the in-loop hash reinjection."""
+    both = run_both(config(True), camera="plain", use_hash=True)
+    cam = both["taux"]["cam_mapped"]
+    # the first image always merges; later ones wait for 1 m or 30 deg
+    assert cam[2] and 1 <= cam.sum() <= 6
+    got, ref = assert_runs_match(both, STEPS + int(cam.sum()))
+    assert got["pool"]["color"] is None
+    # some reinjection frame replaced particles: a distinctive signature
+    replaced = []
+    for i, count in enumerate(both["counts"]):
+        if count is not None:
+            _, cmp, q, *_ = both["traj"][i]
+            rel = float(both["jhash"].relevance(
+                *both["jhash"].signature(cmp, jnp.asarray(q)))) ** 3
+            replaced.append(rel >= 0.8 and int(count) > 0)
+    assert len(replaced) == len(both["traj"]) // HASH.period and any(replaced)
+    assert ref["filter"]["particles"]["floating"].any()
+
+
+def test_textured_camera_run():
+    """``camera_texture`` on a colour-carrying pool: the texture rides on
+    the merged patches."""
+    both = run_both(config(False, color=True), camera="texture")
+    cam = both["taux"]["cam_mapped"]
+    got, ref = assert_runs_match(both, STEPS + int(cam.sum()))
+    np.testing.assert_allclose(got["pool"]["color"], ref["pool"]["color"],
+                               rtol=2e-6, atol=1e-7)
+    assert (ref["pool"]["color"] > 0.5).sum() > 10
+    # laser patches carry no colour, camera patches do
+    assert ((ref["pool"]["meta"] & 1) > 0).sum() * 3 > (
+        ref["pool"]["color"] > 0).sum() > 0
+
+
+def test_camera_arguments():
+    with pytest.raises(ValueError, match="camera_intrinsics"):
+        tst.make_slam_step(config(False), camera2body=CAMERA)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tst.make_slam_step(config(False), mesh=object())
 
 
 def test_bf16_pool_run():
