@@ -10,8 +10,12 @@ Phases (any failure raises and exits non-zero):
    per source, all started together;
 3. check the contact fold (K1) against its plain PyTorch version on the
    card, at the localisation benchmark shape (N = 100,000 particles,
-   C = 8 contacts, a 400x400x4 grid), at a ragged N and on a spread
-   cloud with out-of-grid queries, and time both with CUDA events;
+   C = 8 contacts, a 400x400x4 grid), at a ragged N, on a spread cloud
+   with out-of-grid queries and at C = 1, 5, 20 x N = 1, 127, 129 (around
+   a warp and a block's edge), with the groups given as one-hot and as
+   int32 ids; count the instructions its inputs need for its bound, and
+   those of the built kernel from ``cuobjdump -sass`` beside them; time it
+   on the card (see below), back to back and with a cold L2;
 4. drive the localisation path: the benchmark trajectory (100k
    particles, 20 m x 20 m map at 0.05 m, contacts compacted to 8, 150
    steps) through ``filter.step.make_scan_runner`` on the card; count K1
@@ -30,8 +34,10 @@ Phases (any failure raises and exits non-zero):
    60 frames against the CPU port fed the same random draws;
 7. check the unfolded lookup's select (K5) against its plain version,
    bit for bit, at 800,000 queries (100k particles x 8 contacts) on the
-   400x400x4 grid, at a ragged count and on a spread cloud with
-   out-of-grid queries, and time both; then drive the application API,
+   400x400x4 grid, at a ragged count, on a spread cloud with out-of-grid
+   queries, at Q = 1, 3, 5 and 800,001 and on views that start 4 bytes
+   into a tensor, and time it on the card, back to back and with a cold
+   L2; then drive the application API,
    ``EmbodiedSlamFilter.update_contact`` in shared-map mode with
    ``log_debug`` and the surface hash (global init, reinjection), at
    100k particles over the 150 frames of the localisation trajectory
@@ -81,10 +87,23 @@ Phases (any failure raises and exits non-zero):
    contacts of the next ``update_contact`` find the new patches, against
    a twin filter that merged the same image 4 m to the side.
 
-Every kernel's time stands beside its bound: the bytes the call must move
-(each input read once, each output written once, counted from this run's
-inputs) over the card's published memory rate, or its operations over
-the published float32 rate, whichever takes longer.
+Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
+launches (a kernel module's ``launch``: no check, no allocation) captured
+into a CUDA graph and replayed between two CUDA events, so that no Python
+runs between two launches.  ``device_ms_profiler`` is the cross-check:
+``torch.profiler``'s time of the kernel by its name over 20 eager
+launches, which leaves out the gap between two graph nodes.  ``call_ms``
+is CUDA events around a Python loop of calls of the public wrapper, which
+is the wrapper's host time wherever that exceeds the kernel's (what an
+eager loop pays per call).  ``plain_ms`` and ``library_ms`` are device times too: every
+kernel the plain version, or the one PyTorch call, puts on the card, as
+``torch.profiler`` sums them (``plain_call_ms``, ``library_call_ms``: the
+events around the calls).  Each time stands beside its bound: the bytes
+the call must move (each input read once, each output written once,
+counted from this run's inputs) over the card's published memory rate,
+or its operations over the published float32 rate (for K1: the
+instructions this run's queries need, ``utils.kernel_eff.fold_work``),
+whichever takes longer.
 
 The third line from the end is ``{"kernels": [...]}``, then the card's
 name and power limit; the last line is
@@ -155,6 +174,17 @@ WRAPPERS = KERNELS + ("block_merge_packed",)
 # sheet): memory rate, and float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_F32 = 67e12
+# a kernel's device time: raw launches per CUDA graph; the graph's and the
+# profiler's readings are said to differ beyond this
+GRAPH_REPS = 200
+BIG_GRAPH_REPS = 50      # at the 100,000-particle shapes
+COPY_GRAPH_REPS = 100    # the whole-block copy moves 671 MB a launch
+CROSS_CHECK_RTOL = 0.25
+# the small shapes of the K1 check (C contact rows x N particles, around
+# a warp and a block's edge) and of the K5 check (Q queries)
+FOLD_SMALL_C = (1, 5, 20)
+FOLD_SMALL_N = (1, 127, 129)
+SELECT_SMALL_Q = (1, 3, 5, 800_001)
 # the merge benchmark's shape (utils.kernel_eff.merge_floor_fraction)
 COPY_N, COPY_N_RAGGED, COPY_P = 4096, 4093, 64
 COPY_BLOCK = dict(nx=40, ny=32, k=4)
@@ -216,6 +246,74 @@ def bound(nbytes, flops=0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms_of(fn, calls=5):
+    """Device milliseconds per call of ``fn``, a function of many PyTorch
+    operations: every kernel it puts on the card, summed by
+    ``torch.profiler``."""
+    from slam_eslam_tpu_torch.utils import profiling
+
+    return profiling.profiler_kernel_time(fn, None, calls) * 1e3
+
+
+def kernel_times(label, call, launch, kernel_name, plain, bnd, n_call=50,
+                 n_plain=5, reps=GRAPH_REPS):
+    """Every time of one kernel row.  ``ms`` = ``device_ms``: ``reps`` raw
+    launches (``launch()``: a kernel module's ``launch`` on fixed operands
+    and outputs) captured into a CUDA graph and replayed, so no Python
+    runs between the launches; ``device_ms_profiler``: the kernel's own
+    time by its name (``kernel_name``) from ``torch.profiler`` over 20
+    eager launches, without the gap between graph nodes; ``call_ms``: CUDA
+    events around a Python loop of ``call()``, the public wrapper (what an
+    eager loop pays per call: the wrapper's host time where that exceeds
+    the kernel's), in turns with ``plain()``, the plain version
+    (``plain_call_ms``); ``plain_ms``: the plain version's kernels on the
+    card, summed by the profiler; ``bound_ms``, ``bound_by`` from
+    ``bnd``."""
+    from slam_eslam_tpu_torch.utils import profiling
+
+    call_ms, plain_call, runs = alternate(call, plain, n_call, n_plain)
+    plain_ms = device_ms_of(plain)
+    dev = profiling.device_time(launch, reps) * 1e3
+    prof = profiling.profiler_kernel_time(launch, kernel_name) * 1e3
+    print(f"{label} device {dev:.5f} ms (graph of {reps} launches), "
+          f"{prof:.5f} ms (profiler, {kernel_name}); call {call_ms:.4f} ms "
+          f"({runs[1]:.4f}, {runs[2]:.4f}: events around the wrapper), plain "
+          f"{plain_ms:.4f} ms on the card (profiler, all its kernels), "
+          f"{plain_call:.4f} ms a call ({runs[0]:.4f}, {runs[3]:.4f}), bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}): {bnd[0] / dev:.3f} of the bound")
+    if abs(dev - prof) > CROSS_CHECK_RTOL * prof:
+        print(f"{label}: graph and profiler readings differ by "
+              f"{abs(dev - prof) / prof:.0%}; ms takes the graph's, which "
+              f"holds the gap between two graph nodes that a captured step "
+              f"pays too; the profiler's is the kernel alone")
+    return dict(ms=dev, device_ms=dev, device_ms_profiler=prof,
+                call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call,
+                bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def cold_times(label, launch, times):
+    """Add ``device_ms_cold_l2`` to ``times``: ``launch()`` with the L2
+    cache flushed before every launch (``profiling.device_time_cold``)."""
+    from slam_eslam_tpu_torch.utils import profiling
+
+    cold, fill = profiling.device_time_cold(launch)
+    times.update(device_ms_cold_l2=cold * 1e3, l2_fill_ms=fill * 1e3)
+    print(f"{label} device {cold * 1e3:.5f} ms with a cold L2 (a "
+          f"{profiling.L2_FILL_BYTES >> 20} MB copy before every launch, its "
+          f"own {fill * 1e3:.5f} ms taken off), {times['device_ms']:.5f} ms "
+          f"back to back")
+
+
+def in_turns_device(old, new, reps=GRAPH_REPS):
+    """Device ms of two launchers, old, new, new, old: ``((old mean, new
+    mean), the four readings)``."""
+    from slam_eslam_tpu_torch.utils import profiling
+
+    runs = [profiling.device_time(f, reps) * 1e3
+            for f in (old, new, new, old)]
+    return ((runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2), runs
+
+
 def distinct(cells):
     """Number of distinct values in an integer tensor."""
     return int(torch.unique(cells).numel())
@@ -236,10 +334,11 @@ def grid_query_bytes(packed, xq, yq, per_query):
 
 # ---------------------------------------------------------------- phase 3
 
-def fold_inputs(n, spread, dev, seed):
+def fold_inputs(n, spread, dev, seed, c=8):
     """Seeded contact-fold operands: a 400x400 grid with 4 slots per
-    cell (some empty), [8, N] queries around a particle cloud, two
-    grouped pairs, one inactive member and ungrouped points."""
+    cell (some empty), [C, N] queries around a particle cloud and, per 8
+    contact rows, two grouped pairs, one inactive member and ungrouped
+    points.  Returns ``(packed, queries, act, mv, onehot, seg)``."""
     from slam_eslam_tpu_torch.core.state import BodyContactState
     from slam_eslam_tpu_torch.mapping.mls_grid import PackedLookup
 
@@ -261,7 +360,6 @@ def fold_inputs(n, spread, dev, seed):
         resolution=res,
     )
 
-    c = 8
     if spread:
         pxy = rng.uniform(-15.0, 15.0, (n, 2))      # beyond the 20 m grid
     else:
@@ -273,17 +371,44 @@ def fold_inputs(n, spread, dev, seed):
     far = rng.random((c, n)) < 0.05
     qz = np.where(far, qz + rng.uniform(-4.0, 4.0, (c, n)), qz)
     mv = rng.uniform(0.01, 0.2, (1, n))
+    # the 8-row pattern repeated, every repeat with group ids of its own
+    rows = np.arange(c)
+    pattern = np.array([0, 0, 1, 1, -1, 2, 2, -1])[rows % 8]
     cs = BodyContactState.create(
-        np.zeros((c, 3)), group_id=[0, 0, 1, 1, -1, 2, 2, -1])
+        np.zeros((c, 3)),
+        group_id=np.where(pattern < 0, -1, pattern + 3 * (rows // 8)))
     seg, s = cs.segments()
     onehot = (seg[:, None] == torch.arange(s)[None, :]).float()
-    act = np.array([1, 1, 1, 0, 1, 1, 1, 1], np.float32)[:, None]
+    act = np.array([1, 1, 1, 0, 1, 1, 1, 1], np.float32)[rows % 8][:, None]
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    return (packed, (t(qx), t(qy), t(qz)), t(act), t(mv), onehot.to(dev))
+    return (packed, (t(qx), t(qy), t(qz)), t(act), t(mv), onehot.to(dev),
+            seg.to(dev))
+
+
+def fold_agrees(label, out_k, out_p, c, n):
+    """Raise unless the kernel's ``[8, N]`` agrees with the plain
+    version's: rows 0-3 within KERNEL_RTOL (plus KERNEL_ATOL_REL of the
+    row's largest magnitude), row 4 exactly, rows 5-7 zero.  Returns the
+    largest absolute difference."""
+    if out_k.shape != (8, n) or not torch.isfinite(out_k).all():
+        raise RuntimeError(f"contact_fold[{label}]: bad output")
+    for r in range(4):
+        a, b = out_k[r], out_p[r]
+        tol = KERNEL_RTOL * b.abs() + KERNEL_ATOL_REL * b.abs().max()
+        bad = int(((a - b).abs() > tol).sum())
+        if bad:
+            raise RuntimeError(f"contact_fold[{label}] row {r}: {bad} "
+                               f"values outside tolerance")
+    if not torch.equal(out_k[4], out_p[4]) or out_k[5:].any():
+        raise RuntimeError(f"contact_fold[{label}]: n_contacts rows "
+                           f"differ")
+    return float((out_k[:5] - out_p[:5]).abs().max())
 
 
 def check_contact_fold(dev, cfg):
+    from slam_eslam_tpu_torch.ops import _build
     from slam_eslam_tpu_torch.ops import contact_fold as cf
+    from slam_eslam_tpu_torch.utils import kernel_eff, profiling
 
     correction = cfg.contact_model.contact_likelihood_correction
     z_window = cfg.mls_z_window
@@ -291,46 +416,85 @@ def check_contact_fold(dev, cfg):
     for name, n, spread in (("bench", N_BENCH, False),
                             ("ragged", N_RAGGED, False),
                             ("spread", N_BENCH, True)):
-        packed, q, act, mv, onehot = fold_inputs(n, spread, dev, seed=n)
+        packed, q, act, mv, onehot, seg = fold_inputs(n, spread, dev, seed=n)
         kw = dict(onehot=onehot, correction=correction, z_window=z_window)
-        if name == "bench":
-            # x, y, z per query, mv and 8 output rows per particle, the
-            # touched slot rows; ~60 float32 operations per query
-            k1_bound = bound(grid_query_bytes(packed, q[0], q[1], 12)
-                             + 9 * n * 4, 60.0 * q[0].numel())
         out_k = cf.contact_fold(packed, q, act, mv, **kw)
         out_p = cf.contact_fold_reference(packed, q, act, mv, **kw)
+        by_seg = cf.contact_fold(packed, q, act, mv, seg=seg,
+                                 correction=correction, z_window=z_window)
         torch.cuda.synchronize()
-        if out_k.shape != (8, n) or not torch.isfinite(out_k).all():
-            raise RuntimeError(f"contact_fold[{name}]: bad output")
-        for r in range(4):
-            a, b = out_k[r], out_p[r]
-            tol = KERNEL_RTOL * b.abs() + KERNEL_ATOL_REL * b.abs().max()
-            bad = int(((a - b).abs() > tol).sum())
-            if bad:
-                raise RuntimeError(f"contact_fold[{name}] row {r}: {bad} "
-                                   f"values outside tolerance")
-        if not torch.equal(out_k[4], out_p[4]) or out_k[5:].any():
-            raise RuntimeError(f"contact_fold[{name}]: n_contacts rows "
-                               f"differ")
-        err = float((out_k[:5] - out_p[:5]).abs().max())
+        if not torch.equal(out_k, by_seg):
+            raise RuntimeError(f"contact_fold[{name}]: seg= and onehot= "
+                               f"give different results")
+        err = fold_agrees(name, out_k, out_p, 8, n)
         max_err = max(max_err, err)
         print(f"contact_fold[{name}] N={n}: max_abs_err={err:.3e} "
               f"mean n_contacts={float(out_k[4].mean()):.3f}")
         if name == "bench":
-            kern = lambda: cf.contact_fold(packed, q, act, mv, **kw)
-            plain = lambda: cf.contact_fold_reference(packed, q, act, mv,
-                                                      **kw)
-            for f in (kern, plain):
-                cuda_ms(f, 3)
-            # alternate plain, kernel, kernel, plain
-            p1, k1, k2, p2 = (cuda_ms(plain, 20), cuda_ms(kern, 50),
-                              cuda_ms(kern, 50), cuda_ms(plain, 20))
-            timing = ((k1 + k2) / 2, (p1 + p2) / 2, *k1_bound)
-            print(f"contact_fold[bench] kernel {timing[0]:.4f} ms "
-                  f"({k1:.4f}, {k2:.4f}), plain {timing[1]:.4f} ms "
-                  f"({p1:.4f}, {p2:.4f}), bound {k1_bound[0]:.4f} ms "
-                  f"({k1_bound[1]})")
+            # x, y, z per query, mv and 8 output rows per particle, the
+            # touched slot rows; the instructions these queries need
+            nbytes = grid_query_bytes(packed, q[0], q[1], 12) + 9 * n * 4
+            work = kernel_eff.fold_work(packed, q, act, mv, seg, correction,
+                                        z_window)
+            b_s, b_by, needed = kernel_eff.fold_bound(
+                nbytes, work, packed.data.shape[2] // 2)
+            byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = profiling.instruction_bound_seconds(needed) * 1e3
+            sass = _build.sass_instructions("contact_fold",
+                                            ("contact_fold_kernel", "ILi4E"))
+            if sass is None:
+                raise RuntimeError("contact_fold: no cuobjdump to count the "
+                                   "kernel's instructions with")
+            print(f"contact_fold[bench] bound: {nbytes} bytes = "
+                  f"{byte_ms:.5f} ms; {needed} instructions needed "
+                  f"({needed / q[0].numel():.1f} per query: {work}) = "
+                  f"{ops_ms:.5f} ms; bound by {b_by}.  The built kernel: "
+                  f"{sass['main']} SASS instructions (static: its loop over "
+                  f"the rows once, both Mills branches) and "
+                  f"{sass['subroutines']} in slow-path subroutines")
+            launch = lambda: cf.launch(packed, q, act, mv, seg, out_k,
+                                       correction, z_window)
+            timing = kernel_times(
+                "contact_fold[bench]",
+                lambda: cf.contact_fold(packed, q, act, mv, **kw), launch,
+                "contact_fold_kernel",
+                lambda: cf.contact_fold_reference(packed, q, act, mv, **kw),
+                (b_s * 1e3, b_by), n_plain=20)
+            # the wrapper given the group ids (what the model hands it: no
+            # argmax) and given the one-hot, in turns
+            ways, first, second = in_turns({
+                "onehot": lambda: cf.contact_fold(packed, q, act, mv, **kw),
+                "seg": lambda: cf.contact_fold(
+                    packed, q, act, mv, seg=seg, correction=correction,
+                    z_window=z_window)}, dict(onehot=50, seg=50))
+            timing.update(bound_ms_bytes=byte_ms, bound_ms_operations=ops_ms,
+                          needed_instructions_per_query=(
+                              needed / q[0].numel()),
+                          tail_share=work["tail"] / max(work["found"], 1),
+                          sass_instructions=sass["main"],
+                          sass_subroutine_instructions=sass["subroutines"],
+                          call_ms_seg=ways["seg"],
+                          call_ms_onehot_in_turns=ways["onehot"])
+            print(f"contact_fold[bench] call {ways['seg']:.4f} ms with seg= "
+                  f"({first['seg']:.4f}, {second['seg']:.4f}), "
+                  f"{ways['onehot']:.4f} ms with onehot= "
+                  f"({first['onehot']:.4f}, {second['onehot']:.4f}: an "
+                  f"argmax and a cast more), in turns")
+            cold_times("contact_fold[bench]", launch, timing)
+    # a warp's and a block's edges, one row and more rows than the bench
+    for c in FOLD_SMALL_C:
+        for n in FOLD_SMALL_N:
+            packed, q, act, mv, onehot, seg = fold_inputs(
+                n, False, dev, seed=1000 * c + n, c=c)
+            out_k = cf.contact_fold(packed, q, act, mv, seg=seg,
+                                    correction=correction, z_window=z_window)
+            out_p = cf.contact_fold_reference(packed, q, act, mv, onehot,
+                                              correction, z_window)
+            torch.cuda.synchronize()
+            max_err = max(max_err, fold_agrees(f"C={c} N={n}", out_k, out_p,
+                                               c, n))
+    print(f"contact_fold[small] C in {FOLD_SMALL_C} x N in {FOLD_SMALL_N}: "
+          f"within tolerance, max_abs_err of all {max_err:.3e}")
     return max_err, timing
 
 
@@ -507,15 +671,12 @@ def check_chain_lookup(dev, pool, z_window):
               f"{float(got[0].float().mean()):.4f}, empty chain entries "
               f"{empty:.4f}")
         if name == "bench":
-            k_ms, p_ms, runs = alternate(lambda: cl.chain_lookup(*args, **kw),
-                                         lambda: cl.chain_lookup_reference(
-                                             *args, **kw))
-            b_ms, b_by = bound(chain_lookup_bytes(pool, args[5], args[6],
-                                                  z_window))
-            timing = (k_ms, p_ms, b_ms, b_by)
-            print(f"chain_lookup[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
-                  f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-                  f"{runs[3]:.4f}), bound {b_ms:.5f} ms ({b_by})")
+            outs = cl.chain_lookup(*args, **kw)
+            timing = kernel_times(
+                "chain_lookup[bench]", lambda: cl.chain_lookup(*args, **kw),
+                lambda: cl.launch(*args, outs, **kw), "chain_lookup_kernel",
+                lambda: cl.chain_lookup_reference(*args, **kw),
+                bound(chain_lookup_bytes(pool, args[5], args[6], z_window)))
     return max_err, timing
 
 
@@ -622,16 +783,15 @@ def check_block_merge(dev, pool, cfg):
               f"written ({multi} from multi-point cells), meta equal, "
               f"max_abs_err={max_err:.3e}")
         if name == "bench":
-            k_ms, p_ms, runs = alternate(
+            timing = kernel_times(
+                "block_merge[bench]",
                 lambda: bm.block_merge(*kern, None, blk, lx, ly, w, wz, 7,
                                        **kw),
+                lambda: bm.launch(*kern, None, blk, lx, ly, w, wz, 7, **kw),
+                "block_merge_kernel",
                 lambda: bm.block_merge_reference(*plain, None, blk, lx, ly,
-                                                 w, wz, 7, **kw))
-            b_ms, b_by = bound(*block_merge_bytes(pool, blk, lx, ly))
-            timing = (k_ms, p_ms, b_ms, b_by)
-            print(f"block_merge[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
-                  f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-                  f"{runs[3]:.4f}), bound {b_ms:.5f} ms ({b_by})")
+                                                 w, wz, 7, **kw),
+                bound(*block_merge_bytes(pool, blk, lx, ly)))
         del kern, plain
     return max_err, timing
 
@@ -814,32 +974,47 @@ def slam_path(dev, profile):
 
 # ---------------------------------------------------------------- phase 7
 
+def select_outs(q, dev):
+    return (torch.empty(q, dtype=torch.bool, device=dev),
+            torch.empty(q, dtype=torch.float32, device=dev),
+            torch.empty(q, dtype=torch.float32, device=dev))
+
+
 def check_select_cells(dev, cfg):
     """K5 against its plain version on the phase-3 grid and queries, flat:
     every output bit for bit, misses included; the int32-cell entry
-    against the world entry; both timed in turns."""
+    against the world entry; small counts, and views that start 4 bytes
+    into a tensor; timed on the card, and the wrapper in turns with the
+    plain version."""
     from slam_eslam_tpu_torch.mapping import mls_grid
     from slam_eslam_tpu_torch.ops import select_cells as sc
 
     z_window = cfg.mls_z_window
     max_err, timing = 0.0, None
-    for name, n, spread in (("bench", N_BENCH, False),
-                            ("ragged", N_RAGGED, False),
-                            ("spread", N_BENCH, True)):
-        packed, q, *_ = fold_inputs(n, spread, dev, seed=n + 7)
-        q = tuple(a.reshape(-1).contiguous() for a in q)
+
+    def compare(label, packed, q):
+        """World and cell entries against the plain version; returns the
+        kernel's outputs and the cells."""
         got = sc.select_cells(packed, q, z_window)
         ref = sc.select_cells_reference(packed, q, z_window)
         ix, iy = mls_grid.cells(packed, q[0], q[1])
         by_cell = sc.select_cells(packed, (ix, iy, q[2]), z_window)
         torch.cuda.synchronize()
-        if got[0].shape != (8 * n,):
-            raise RuntimeError(f"select_cells[{name}]: bad output shape")
+        if got[0].shape != q[2].shape:
+            raise RuntimeError(f"select_cells[{label}]: bad output shape")
         for what, out in (("plain version", ref), ("cell entry", by_cell)):
             if not all(torch.equal(a, b) for a, b in zip(got, out)):
                 bad = int((got[0] != out[0]).sum())
-                raise RuntimeError(f"select_cells[{name}]: differs from the "
+                raise RuntimeError(f"select_cells[{label}]: differs from the "
                                    f"{what} ({bad} found flags)")
+        return got, ref, (ix, iy)
+
+    for name, n, spread in (("bench", N_BENCH, False),
+                            ("ragged", N_RAGGED, False),
+                            ("spread", N_BENCH, True)):
+        packed, q, *_ = fold_inputs(n, spread, dev, seed=n + 7)
+        q = tuple(a.reshape(-1).contiguous() for a in q)
+        got, ref, (ix, iy) = compare(name, packed, q)
         max_err = max(max_err, *(float((a - b).abs().max())
                                  for a, b in zip(got[1:3], ref[1:3])))
         inside = (ix >= 0) & (ix < packed.data.shape[0]) & (iy >= 0) & (
@@ -847,18 +1022,33 @@ def check_select_cells(dev, cfg):
         print(f"select_cells[{name}] Q={8 * n}: bitwise equal, found "
               f"{float(got[0].float().mean()):.4f}, outside the grid "
               f"{float((~inside).float().mean()):.4f}")
+        if name == "spread":
+            # small counts, one past a full block, and views that start 4
+            # bytes into a tensor
+            for count in SELECT_SMALL_Q:
+                big = fold_inputs(-(-count // 8) + 1, True, dev,
+                                  seed=count)[1]
+                flat = tuple(a.reshape(-1) for a in big)
+                compare(f"Q={count}", packed,
+                        tuple(a[:count].contiguous() for a in flat))
+                compare(f"Q={count} offset view", packed,
+                        tuple(a[1:count + 1] for a in flat))
+            print(f"select_cells[small] Q in {SELECT_SMALL_Q}, on fresh "
+                  f"tensors and on views that start 4 bytes into one, both "
+                  f"entries: bitwise equal")
         if name == "bench":
-            k_ms, p_ms, runs = alternate(
-                lambda: sc.select_cells(packed, q, z_window),
-                lambda: sc.select_cells_reference(packed, q, z_window),
-                n_kern=50, n_plain=20)
+            outs = select_outs(q[2].numel(), dev)
             # x, y, z read and found, mean, stdev written per query, and
             # the touched slot rows
-            b_ms, b_by = bound(grid_query_bytes(packed, q[0], q[1], 12 + 9))
-            timing = (k_ms, p_ms, b_ms, b_by)
-            print(f"select_cells[bench] kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
-                  f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-                  f"{runs[3]:.4f}), bound {b_ms:.4f} ms ({b_by})")
+            launch = lambda: sc.launch(packed, q, outs, z_window)
+            timing = kernel_times(
+                "select_cells[bench]",
+                lambda: sc.select_cells(packed, q, z_window), launch,
+                "select_world_kernel",
+                lambda: sc.select_cells_reference(packed, q, z_window),
+                bound(grid_query_bytes(packed, q[0], q[1], 12 + 9)),
+                n_plain=20)
+            cold_times("select_cells[bench]", launch, timing)
     return max_err, timing
 
 
@@ -1183,7 +1373,7 @@ def check_block_copy(dev, cfg):
     Returns ``(largest |kernel - plain| of all comparisons, timings)``."""
     from slam_eslam_tpu_torch.ops import block_copy as bc
     from slam_eslam_tpu_torch.ops import block_merge as bm
-    from slam_eslam_tpu_torch.utils import kernel_eff
+    from slam_eslam_tpu_torch.utils import kernel_eff, profiling
 
     # the operands that the benchmark's merge_floor_fraction times
     copy_inputs = lambda n, dtype, seed: kernel_eff.merge_benchmark_operands(
@@ -1274,22 +1464,57 @@ def check_block_copy(dev, cfg):
                 points=50, merge=50))
         b_whole = bound(block_copy_bytes(fields, blk, points, "whole"))
         b_cells = bound(block_copy_bytes(fields, blk, points, "cells"))
-        timing[tag] = dict(ms, bound_whole=b_whole, bound_cells=b_cells)
+        # the same rows unsorted: the same bytes must move
+        b_points = bound(block_copy_bytes(fields, blk, points, "points"))
         spread = ", ".join(f"{name} {first[name]:.4f}/{second[name]:.4f}"
                            for name in ms)
-        print(f"block_copy[bench] {dtype}: whole {ms['whole']:.4f} ms (plain "
-              f"{ms['plain']:.4f}, library {ms['library']:.4f}, bound "
-              f"{b_whole[0]:.4f} ms by {b_whole[1]}), cells "
-              f"{ms['cells']:.4f} ms (plain {ms['plain_cells']:.4f}, bound "
-              f"{b_cells[0]:.5f} ms), the same rows unsorted (points) "
-              f"{ms['points']:.4f} ms, merge {ms['merge']:.4f} ms; cells / "
-              f"merge {ms['cells'] / ms['merge']:.3f}, points / merge "
-              f"{ms['points'] / ms['merge']:.3f} [{spread}]")
-        if ms["whole"] < b_whole[0]:
+        print(f"block_copy[bench] {dtype} calls (events around the "
+              f"wrappers): whole {ms['whole']:.4f} ms (plain "
+              f"{ms['plain']:.4f}, library {ms['library']:.4f}), cells "
+              f"{ms['cells']:.4f} ms (plain {ms['plain_cells']:.4f}), the "
+              f"same rows unsorted (points) {ms['points']:.4f} ms, merge "
+              f"{ms['merge']:.4f} ms [{spread}]")
+        # the card's own times: raw launches in a CUDA graph, then the
+        # profiler's reading of each kernel by its name
+        launches = {mode: (lambda mode=mode: bc.launch(
+            fields, blk, points, fields, mode=mode, k=k)) for mode in bc.MODES}
+        launches["merge"] = lambda: bm.launch(*fields, None, blk, *points, 3,
+                                              **kw)
+        dev_ms = {name: profiling.device_time(f, COPY_GRAPH_REPS) * 1e3
+                  for name, f in launches.items()}
+        prof_ms = {name: profiling.profiler_kernel_time(
+            f, "block_merge_kernel" if name == "merge"
+            else f"block_copy_{name}_kernel") * 1e3
+            for name, f in launches.items()}
+        # the plain versions and the library call on the card: all their
+        # kernels, summed by the profiler
+        dev_ms.update(
+            plain=device_ms_of(lambda: bc.block_copy_reference(
+                fields, blk, points, mode="whole", k=k)),
+            plain_cells=device_ms_of(lambda: bc.block_copy_reference(
+                fields, blk, points, mode="cells", k=k)),
+            library=device_ms_of(library))
+        timing[tag] = dict(call=ms, device=dev_ms, profiler=prof_ms,
+                           bound_whole=b_whole, bound_cells=b_cells,
+                           bound_points=b_points)
+        print(f"block_copy[bench] {dtype} device (graph of "
+              f"{COPY_GRAPH_REPS} launches / profiler): whole "
+              f"{dev_ms['whole']:.4f} / {prof_ms['whole']:.4f} ms (bound "
+              f"{b_whole[0]:.4f} ms by {b_whole[1]}; plain "
+              f"{dev_ms['plain']:.4f}, library {dev_ms['library']:.4f} ms on "
+              f"the card), cells "
+              f"{dev_ms['cells']:.4f} / {prof_ms['cells']:.4f} ms (bound "
+              f"{b_cells[0]:.5f} ms; plain {dev_ms['plain_cells']:.4f}), "
+              f"points {dev_ms['points']:.4f} / "
+              f"{prof_ms['points']:.4f} ms (bound {b_points[0]:.5f} ms), "
+              f"merge {dev_ms['merge']:.4f} / {prof_ms['merge']:.4f} ms; "
+              f"cells / merge {dev_ms['cells'] / dev_ms['merge']:.3f}, "
+              f"points / merge {dev_ms['points'] / dev_ms['merge']:.3f}")
+        if dev_ms["whole"] < b_whole[0]:
             raise RuntimeError(
-                f"block_copy whole mode took {ms['whole']} ms, less than the "
-                f"card needs for its bytes ({b_whole[0]} ms): the loads or "
-                f"stores are gone")
+                f"block_copy whole mode took {dev_ms['whole']} ms, less than "
+                f"the card needs for its bytes ({b_whole[0]} ms): the loads "
+                f"or stores are gone")
     return max_err, timing
 
 
@@ -1376,18 +1601,16 @@ def check_big_kernels(dev, cfg):
     if not found_far > 0:
         raise RuntimeError("chain_lookup[100k]: no hit past 2^31 elements")
     k2_err = max_abs_diff(got[1:], ref[1:])
-    k_ms, p_ms, runs = alternate(lambda: cl.chain_lookup(*args, **kw),
-                                 lambda: cl.chain_lookup_reference(*args,
-                                                                   **kw),
-                                 n_kern=20, n_plain=3)
-    b_ms, b_by = bound(chain_lookup_bytes(pool, pool.chain, queries,
-                                          cfg.mls_z_window))
     print(f"chain_lookup[100k] N={BIG_N} C={SLAM_C} L={pool.chain.shape[1]}: "
           f"bitwise equal, found {float(got[0].float().mean()):.4f} "
-          f"({found_far:.4f} for heads past 2^31); kernel {k_ms:.4f} ms "
-          f"({runs[1]:.4f}, {runs[2]:.4f}), plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by})")
-    k2 = (k2_err, (k_ms, p_ms, b_ms, b_by))
+          f"({found_far:.4f} for heads past 2^31)")
+    k2 = (k2_err, kernel_times(
+        "chain_lookup[100k]", lambda: cl.chain_lookup(*args, **kw),
+        lambda: cl.launch(*args, got, **kw), "chain_lookup_kernel",
+        lambda: cl.chain_lookup_reference(*args, **kw),
+        bound(chain_lookup_bytes(pool, pool.chain, queries,
+                                 cfg.mls_z_window)),
+        n_call=20, n_plain=3, reps=BIG_GRAPH_REPS))
     del got, ref, args
 
     # K3
@@ -1430,20 +1653,21 @@ def check_big_kernels(dev, cfg):
             k3_err = max(k3_err, float(
                 (a[part].float() - b[part].float()).abs().max()))
             del steps
-    k_ms, p_ms, runs = alternate(
-        lambda: bm.block_merge(*kern, None, *ops, 7, **kw),
-        lambda: bm.block_merge_reference(*plain, None, *ops, 7, **kw),
-        n_kern=20, n_plain=3)
-    b_ms, b_by = bound(*block_merge_bytes(pool, blk, lx, ly))
     print(f"block_merge[100k] N={BIG_N} P={lx.shape[1]}: meta equal over "
           f"{pool.b} blocks, fields bitwise equal outside the "
           f"{multi_cells} multi-point cells and within one bfloat16 step "
           f"inside, max_abs_err={k3_err:.3e}; {far_written} slots written "
-          f"past 2^31 elements; kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
-          f"{runs[2]:.4f}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms "
-          f"({b_by}); peak allocated in this check "
+          f"past 2^31 elements")
+    k3 = kernel_times(
+        "block_merge[100k]",
+        lambda: bm.block_merge(*kern, None, *ops, 7, **kw),
+        lambda: bm.launch(*kern, None, *ops, 7, **kw), "block_merge_kernel",
+        lambda: bm.block_merge_reference(*plain, None, *ops, 7, **kw),
+        bound(*block_merge_bytes(pool, blk, lx, ly)),
+        n_call=20, n_plain=3, reps=BIG_GRAPH_REPS)
+    print(f"100k pool: peak allocated in this check "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return k2, (k3_err, (k_ms, p_ms, b_ms, b_by))
+    return k2, (k3_err, k3)
 
 
 def run_bench(argv, label):
@@ -1480,7 +1704,12 @@ def bench_filter_runs(card):
     """Filter mode at its defaults, then with ``--fold off``."""
     from slam_eslam_tpu_torch.ops import block_copy
 
-    repeats, roofline_iters = 3, (4 * 10 + 10) * (1 + 3)
+    from slam_eslam_tpu_torch.utils import profiling
+
+    # the fold roofline: the wrapper once, then the warm-up and the
+    # captured launches of its CUDA graph
+    repeats, roofline_iters = 3, (1 + profiling.DEVICE_TIME_WARMUP
+                                  + profiling.DEVICE_TIME_REPS)
     result, detail, launches, secs = run_bench([], "filter")
     runs = STEPS * (1 + repeats)
     for key in ("merge_dma_floor_fraction", "merge_us_per_block",
@@ -1492,6 +1721,10 @@ def bench_filter_runs(card):
            and result["card"] == card and result["fold_mfu"] is None
            and result["fold_tier"] == [GRID["nx"], GRID["ny"]], "filter",
            f"unexpected result {result}")
+    expect(detail["fold"]["launches"] == roofline_iters
+           and detail["fold"]["bound_by"] in ("bytes", "operations")
+           and detail["fold"]["needed_instructions_per_query"] > 0, "filter",
+           f"fold roofline {detail['fold']}")
     floor = detail["merge"]["floor_fraction"]
     expect(0 < floor <= FLOOR_FRACTION_MAX, "filter",
            f"merge floor fraction {floor}: the merge's twin (K7, cells "
@@ -1509,8 +1742,9 @@ def bench_filter_runs(card):
            "filter", "non-finite centroids or weights")
     print(f"bench[filter]: {result['value']} particle-updates/s, "
           f"sol_fraction {result['sol_fraction']}, K1 "
-          f"{detail['fold']['us']:.2f} us against a bound of "
-          f"{detail['fold']['bound_us']:.2f} us (fraction "
+          f"{detail['fold']['us']:.2f} us on the card (a CUDA graph of raw "
+          f"launches) against a bound of {detail['fold']['bound_us']:.2f} us "
+          f"by {detail['fold']['bound_by']} (fraction "
           f"{detail['fold']['fraction']:.4f}); merge "
           f"{detail['merge']['merge_us_per_block'] * 1e3:.2f} ns/block, its "
           f"twin {detail['merge']['copy_us_per_block'] * 1e3:.2f} ns/block "
@@ -1617,12 +1851,12 @@ def bf16_path(dev):
 def check_merge_packed(dev):
     """P4 against its plain version and against K3 on the unpacked fields,
     at the merge probe's shape and operands; the three timed in turns.
-    Returns ``(max_abs_err, (ms, plain_ms, bound_ms, bound_by, K3 ms))``."""
+    Returns ``(max_abs_err, the row's times)``."""
     from types import SimpleNamespace
 
     from slam_eslam_tpu_torch.ops import block_merge as bm
     from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
-    from slam_eslam_tpu_torch.utils import kernel_eff
+    from slam_eslam_tpu_torch.utils import kernel_eff, profiling
 
     n, p, nx, ny, k = (PROBE[key] for key in ("n", "p", "nx", "ny", "k"))
     fields, blk, points = kernel_eff.merge_benchmark_operands(
@@ -1683,13 +1917,32 @@ def check_merge_packed(dev):
                                                 nx=nx, **kw),
     }, dict(plain=5, unpacked=50, packed=50))
     b_ms, b_by = bound(*block_merge_bytes(shape, blk, lx, ly))
-    print(f"block_merge_packed[probe] kernel {ms['packed']:.4f} ms "
-          f"({first['packed']:.4f}, {second['packed']:.4f}), block_merge on "
-          f"the unpacked fields {ms['unpacked']:.4f} ms "
-          f"({first['unpacked']:.4f}, {second['unpacked']:.4f}), packed / "
-          f"unpacked {ms['packed'] / ms['unpacked']:.3f}, plain "
-          f"{ms['plain']:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return max_err, (ms["packed"], ms["plain"], b_ms, b_by, ms["unpacked"])
+    packed_launch = lambda: bm.launch_packed(kern, blk, *points, uidx, nx=nx,
+                                             **kw)
+    unpacked_launch = lambda: bm.launch(*unpacked, None, blk, *points, uidx,
+                                        **kw)
+    (d_unpacked, d_packed), runs = in_turns_device(unpacked_launch,
+                                                   packed_launch)
+    prof = profiling.profiler_kernel_time(packed_launch,
+                                          "block_merge_kernel") * 1e3
+    plain_ms = device_ms_of(lambda: bm.block_merge_packed_reference(
+        plain, blk, *points, uidx, nx=nx, **kw))
+    print(f"block_merge_packed[probe] device {d_packed:.5f} ms (graph of "
+          f"{GRAPH_REPS} launches), {prof:.5f} ms (profiler), block_merge on "
+          f"the unpacked fields {d_unpacked:.5f} ms (unpacked, packed, "
+          f"packed, unpacked: {', '.join(f'{r:.5f}' for r in runs)}), packed "
+          f"/ unpacked {d_packed / d_unpacked:.3f}; calls (events around the "
+          f"wrappers) {ms['packed']:.4f} ms ({first['packed']:.4f}, "
+          f"{second['packed']:.4f}) and {ms['unpacked']:.4f} ms "
+          f"({first['unpacked']:.4f}, {second['unpacked']:.4f}), plain "
+          f"{plain_ms:.4f} ms on the card, {ms['plain']:.4f} ms a call, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    return max_err, dict(
+        ms=d_packed, device_ms=d_packed, device_ms_profiler=prof,
+        call_ms=ms["packed"], plain_ms=plain_ms, plain_call_ms=ms["plain"],
+        bound_ms=b_ms,
+        bound_by=b_by, ms_unpacked_in_turns=d_unpacked,
+        call_ms_unpacked_in_turns=ms["unpacked"])
 
 
 def probe_run():
@@ -2211,10 +2464,8 @@ def phase9(dev, card, profile=None):
     mapping = map_app_path(dev, card, profile)
     shared_camera_merge(dev, card)
     row = ("block_merge_packed", "tools/probe_merge_overhead.py:212",
-           probe_launches["block_merge_packed"], p4_err, p4[0], p4[1],
-           p4[2:4], None,
-           {"ms_unpacked_in_turns": p4[4],
-            "probe_ms": probe["merge_packed"]["ms"],
+           probe_launches["block_merge_packed"], p4_err, p4, None,
+           {"probe_ms": probe["merge_packed"]["ms"],
             "probe_merge_ms": probe["merge"]["ms"],
             "probe_copy_packed_ms": probe["copy_packed"]["ms"]})
     return row, mapping
@@ -2329,31 +2580,32 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    max_err, (k_ms, p_ms, *k1_bound) = check_contact_fold(dev, Config())
+    max_err, k1 = check_contact_fold(dev, Config())
     res = main_path(dev, args.profile)
     ms_step = res["elapsed"] / STEPS * 1e3
     print(f"main path: {ms_step:.4f} ms/step, "
           f"{N_BENCH * STEPS / res['elapsed']:.1f} particle-updates/s, "
-          f"contact_fold {k_ms * 1e3:.2f} us/step (plain "
-          f"{p_ms * 1e3:.2f} us), final-10 xy error "
+          f"contact_fold {k1['device_ms'] * 1e3:.2f} us/step on the card "
+          f"({k1['call_ms'] * 1e3:.2f} us per eager call, plain "
+          f"{k1['plain_ms'] * 1e3:.2f} us), final-10 xy error "
           f"{res['final10']:.4f} m [{card}]")
 
-    (k2_err, (k2_ms, k2_plain, *k2_bound)), (
-        k3_err, (k3_ms, k3_plain, *k3_bound)) = check_slam_kernels(
-            dev, slam_config())
+    (k2_err, k2), (k3_err, k3) = check_slam_kernels(dev, slam_config())
     slam = slam_path(dev, args.profile)
     print(f"SLAM path: {slam['frames'] / slam['elapsed']:.2f} frames/s at "
           f"{SLAM_N} particles, {slam['elapsed'] / slam['frames'] * 1e3:.4f}"
-          f" ms/frame; chain_lookup {k2_ms * 1e3:.2f} us (plain "
-          f"{k2_plain * 1e3:.2f} us), block_merge {k3_ms * 1e3:.2f} us "
-          f"(plain {k3_plain * 1e3:.2f} us) [{card}]")
+          f" ms/frame; chain_lookup {k2['device_ms'] * 1e3:.2f} us (plain "
+          f"{k2['plain_ms'] * 1e3:.2f} us), block_merge "
+          f"{k3['device_ms'] * 1e3:.2f} us (plain "
+          f"{k3['plain_ms'] * 1e3:.2f} us) [{card}]")
 
-    k5_err, (k5_ms, k5_plain, *k5_bound) = check_select_cells(dev, Config())
+    k5_err, k5 = check_select_cells(dev, Config())
     app = app_path(dev, args.profile)
     print(f"application path: {APP_FRAMES / app['elapsed']:.2f} frames/s at "
           f"{N_BENCH} particles, {app['ms_meas']:.4f} ms per measurement "
           f"update ({app['n_meas']} updates); select_cells "
-          f"{k5_ms * 1e3:.2f} us (plain {k5_plain * 1e3:.2f} us) [{card}]")
+          f"{k5['device_ms'] * 1e3:.2f} us (plain "
+          f"{k5['plain_ms'] * 1e3:.2f} us) [{card}]")
 
     # phase 8
     import gc
@@ -2361,10 +2613,12 @@ def main():
     k7_err, k7 = check_block_copy(dev, slam_config())
     (k2b_err, k2b), (k3b_err, k3b) = check_slam_kernels(
         dev, slam_config("bfloat16"), torch.bfloat16)
-    print(f"bfloat16 pool: chain_lookup {k2b[0] * 1e3:.2f} us (plain "
-          f"{k2b[1] * 1e3:.2f} us, float32 pool {k2_ms * 1e3:.2f} us), "
-          f"block_merge {k3b[0] * 1e3:.2f} us (plain {k3b[1] * 1e3:.2f} us, "
-          f"float32 pool {k3_ms * 1e3:.2f} us), max_abs_err {k2b_err:.3e} / "
+    print(f"bfloat16 pool: chain_lookup {k2b['device_ms'] * 1e3:.2f} us "
+          f"(plain {k2b['plain_ms'] * 1e3:.2f} us, float32 pool "
+          f"{k2['device_ms'] * 1e3:.2f} us), block_merge "
+          f"{k3b['device_ms'] * 1e3:.2f} us (plain "
+          f"{k3b['plain_ms'] * 1e3:.2f} us, float32 pool "
+          f"{k3['device_ms'] * 1e3:.2f} us), max_abs_err {k2b_err:.3e} / "
           f"{k3b_err:.3e} [{card}]")
     by_dtype = compare_pool_dtypes(dev, slam_config())
     gc.collect()
@@ -2401,40 +2655,63 @@ def main():
           f"{mapping['dev_err']:.3e} m [{card}]")
 
     f32c, bf16c = k7[""], k7["_bf16"]
+
+    def other(times, tag):
+        """A row's times at another storage type or shape, keys tagged."""
+        return {f"{key}_{tag}": times[key]
+                for key in ("ms", "device_ms_profiler", "call_ms",
+                            "plain_ms", "bound_ms")}
+
+    def pool_rows(name, f32, bf16, big, big_err, bf16_err):
+        return {**other(bf16, "bf16"), "max_abs_err_bf16": bf16_err,
+                "call_ms_in_turns": by_dtype[f"{name}_f32"],
+                "call_ms_bf16_in_turns": by_dtype[f"{name}_bf16"],
+                "launches_100k": drv["big"]["launches"][name],
+                **other(big, "100k"), "max_abs_err_100k": big_err}
+
     rows = (
         ("contact_fold", "slam_eslam_tpu/ops/pallas_gather.py:578",
-         res["launches"], max_err, k_ms, p_ms, k1_bound, None, {}),
+         res["launches"], max_err, k1, None, {}),
         ("chain_lookup", "slam_eslam_tpu/ops/pallas_chain.py:36",
-         slam["launches"]["chain_lookup"], k2_err, k2_ms, k2_plain, k2_bound,
-         None, {"ms_bf16": k2b[0], "plain_ms_bf16": k2b[1],
-                "bound_ms_bf16": k2b[2], "max_abs_err_bf16": k2b_err,
-                "ms_in_turns": by_dtype["chain_lookup_f32"],
-                "ms_bf16_in_turns": by_dtype["chain_lookup_bf16"],
-                "launches_100k": drv["big"]["launches"]["chain_lookup"],
-                "ms_100k": k2c[0], "plain_ms_100k": k2c[1],
-                "bound_ms_100k": k2c[2], "max_abs_err_100k": k2c_err}),
+         slam["launches"]["chain_lookup"], k2_err, k2, None,
+         pool_rows("chain_lookup", k2, k2b, k2c, k2c_err, k2b_err)),
         ("block_merge", "slam_eslam_tpu/ops/pallas_merge.py:211",
-         slam["launches"]["block_merge"], k3_err, k3_ms, k3_plain, k3_bound,
-         None, {"ms_bf16": k3b[0], "plain_ms_bf16": k3b[1],
-                "bound_ms_bf16": k3b[2], "max_abs_err_bf16": k3b_err,
-                "ms_in_turns": by_dtype["block_merge_f32"],
-                "ms_bf16_in_turns": by_dtype["block_merge_bf16"],
-                "launches_100k": drv["big"]["launches"]["block_merge"],
-                "ms_100k": k3c[0], "plain_ms_100k": k3c[1],
-                "bound_ms_100k": k3c[2], "max_abs_err_100k": k3c_err}),
+         slam["launches"]["block_merge"], k3_err, k3, None,
+         pool_rows("block_merge", k3, k3b, k3c, k3c_err, k3b_err)),
         ("select_cells", "slam_eslam_tpu/ops/pallas_gather.py:277",
-         app["launches"]["select_cells"], k5_err, k5_ms, k5_plain, k5_bound,
-         None, {}),
+         app["launches"]["select_cells"], k5_err, k5, None, {}),
         # whole-block mode (what the TPU kernel computes); the cells mode
-        # (the merge's twin on this card) beside it
+        # (the merge's twin on this card) and the same rows unsorted
+        # (points) beside it
         ("block_copy", "slam_eslam_tpu/utils/kernel_eff.py:177",
-         drv["launches"]["block_copy"], k7_err, f32c["whole"], f32c["plain"],
-         f32c["bound_whole"], f32c["library"],
-         {"ms_cells": f32c["cells"], "plain_ms_cells": f32c["plain_cells"],
+         drv["launches"]["block_copy"], k7_err,
+         dict(ms=f32c["device"]["whole"], device_ms=f32c["device"]["whole"],
+              device_ms_profiler=f32c["profiler"]["whole"],
+              call_ms=f32c["call"]["whole"],
+              plain_ms=f32c["device"]["plain"],
+              plain_call_ms=f32c["call"]["plain"],
+              bound_ms=f32c["bound_whole"][0],
+              bound_by=f32c["bound_whole"][1]),
+         f32c["device"]["library"],
+         {"library_call_ms": f32c["call"]["library"],
+          "ms_cells": f32c["device"]["cells"],
+          "device_ms_profiler_cells": f32c["profiler"]["cells"],
+          "call_ms_cells": f32c["call"]["cells"],
+          "plain_ms_cells": f32c["device"]["plain_cells"],
+          "plain_call_ms_cells": f32c["call"]["plain_cells"],
           "bound_ms_cells": f32c["bound_cells"][0],
-          "ms_points": f32c["points"], "merge_ms": f32c["merge"], "ms_bf16": bf16c["whole"],
-          "ms_cells_bf16": bf16c["cells"], "merge_ms_bf16": bf16c["merge"],
-          "library_ms_bf16": bf16c["library"],
+          "ms_points": f32c["device"]["points"],
+          "device_ms_profiler_points": f32c["profiler"]["points"],
+          "call_ms_points": f32c["call"]["points"],
+          "bound_ms_points": f32c["bound_points"][0],
+          "merge_ms": f32c["device"]["merge"],
+          "ms_bf16": bf16c["device"]["whole"],
+          "call_ms_bf16": bf16c["call"]["whole"],
+          "ms_cells_bf16": bf16c["device"]["cells"],
+          "ms_points_bf16": bf16c["device"]["points"],
+          "merge_ms_bf16": bf16c["device"]["merge"],
+          "library_ms_bf16": bf16c["device"]["library"],
+          "library_call_ms_bf16": bf16c["call"]["library"],
           "bound_ms_bf16": bf16c["bound_whole"][0]}),
         p4_row,
     )
@@ -2444,10 +2721,9 @@ def main():
         "name": name, "route": "cuda",
         "source": f"slam_eslam_tpu_torch/csrc/{source(name)}.cu",
         "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-        "bound_by": bnd[1], "library_ms": library_ms, **more,
-    } for (name, replaces, launches, err, ms, plain_ms, bnd, library_ms,
-           more) in rows]}))
+        **times, "library_ms": library_ms, **more,
+    } for (name, replaces, launches, err, times, library_ms, more)
+        in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

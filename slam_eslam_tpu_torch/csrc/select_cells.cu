@@ -16,15 +16,27 @@
 // matches it bit for bit, misses included: a query outside the grid reads
 // cell (0, 0), and a query without a candidate reports slot 0 of its cell.
 //
-// What bounds it on an H100: scattered reads of the packed [nx, ny, 2K]
-// float32 grid.  At the localisation shape (Q = 800k queries, a 400 x 400
-// x 8 grid of 5.1 MB that stays in the 50 MB L2) one call reads 800k x 12
-// B of queries (coalesced), 800k x 32 B of cell rows (two 16-byte loads
-// each at K = 4, mostly L2 hits) and writes 800k x 9 B.  The TPU kernels'
-// VMEM window, one-hot MXU matmuls, window anchor ladder and transposed
-// table exist because a TPU gathers slowly; this card reads the cell row
-// directly.  So the design is one thread per query, no shared memory, no
-// padding (threads past Q return).
+// What bounds it on an H100: bytes.  At the localisation shape (Q = 800k
+// queries, a 400 x 400 x 8 grid of 5.1 MB that stays in the 50 MB L2) one
+// call reads 800k x 12 B of queries, at most 160k x 32 B of distinct cell
+// rows, and writes 800k x 9 B: 17 MB, 5.1 us at 3.35 TB/s.  It computes
+// almost nothing (a cell index, K compares).  On the card itself (a CUDA
+// graph of raw launches; chip_smoke.py prints the reading at every run) a
+// call takes about 7 us, 0.7 of that bound; CUDA events around the Python
+// wrapper had read 40 to 120 us, which was the wrapper's host time.
+//
+// The TPU kernels' VMEM window, one-hot MXU matmuls, window anchor ladder
+// and transposed table exist because a TPU gathers slowly; this card
+// reads the cell row directly.  So the design is one thread per query,
+// three coalesced 4-byte loads, the cell's row as two 16-byte loads (at
+// K = 4), no shared memory, no padding (threads past Q return).  A
+// variant with four consecutive queries per thread (16-byte query loads,
+// the four rows requested before any is used, 16-byte stores) was built
+// and held against this one in turns on three inputs and both entry
+// points: it took longer on every one (PERF.md has the readings) and was
+// dropped.  An empty kernel of as many blocks takes a third of this
+// kernel's time: what is left above the bound is launch and block
+// dispatch as much as the scattered rows, not transaction width.
 //
 // Two entry points: world SoA queries (x, y, z), whose cell is
 // floor((x - origin) * inv_res) rounded exactly as mls_grid.cells computes

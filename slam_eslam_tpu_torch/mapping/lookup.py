@@ -69,11 +69,12 @@ def make_lookup(cfg, grid):
     lookup = shared_grid_lookup(grid, z_window)
     packed = lookup.packed
 
-    def fold(queries, act_col, mv, *, onehot, correction):
+    def fold(queries, act_col, mv, *, onehot=None, correction, seg=None):
         """``[C, N]`` SoA queries -> ``[8, N]`` per-particle rows
-        (``ops.contact_fold.contact_fold``)."""
+        (``ops.contact_fold.contact_fold``); the groups as ``onehot
+        [C, S]``, as int32 ids ``seg [C]``, or both."""
         return contact_fold(packed, queries, act_col, mv, onehot=onehot,
-                            correction=correction, z_window=z_window)
+                            correction=correction, z_window=z_window, seg=seg)
 
     lookup.fold = fold
     return lookup

@@ -342,7 +342,8 @@ def evaluate_pose_batch(state: BodyContactState, rot, trans, meas_var,
     ``map_lookup_batch`` with ``soa`` takes SoA queries ``(x, y, z)``,
     each ``[N, C]``, and returns ``(found, mean, stdev)``; without it,
     points ``[N, C, 3]`` and returns ``(found, mean, stdev, color)``.
-    Its ``fold`` (``ops.contact_fold.contact_fold``) is used unless Chitta
+    Its ``fold`` (``ops.contact_fold.contact_fold``, given the groups as
+    int32 ids, which is what the kernel reads) is used unless Chitta
     weighting, terrain probabilities (``[C]``, ``[N, C]`` or a callable
     of ``(group_id, patch color)``) or the ``log_debug`` points
     (``with_debug_points``) need per-query data.
@@ -350,9 +351,6 @@ def evaluate_pose_batch(state: BodyContactState, rot, trans, meas_var,
     n, c = rot.shape[0], state.c
     seg, num_seg = state.segments()
     dtype = state.position.dtype
-    onehot = (seg[:, None] == torch.arange(num_seg, dtype=seg.dtype,
-                                           device=seg.device)[None, :]
-              ).to(dtype)                                      # [C, S]
     active = state.valid & ~(state.contact < CONTACT_THRESHOLD)  # [C]
     radius = cfg.contact_point_radius
 
@@ -362,9 +360,12 @@ def evaluate_pose_batch(state: BodyContactState, rot, trans, meas_var,
         out8 = fold_fn(
             world_queries(state, rot, trans, radius),
             active.to(dtype)[:, None], meas_var.to(dtype)[None, :],
-            onehot=onehot, correction=cfg.contact_likelihood_correction,
+            seg=seg, correction=cfg.contact_likelihood_correction,
         )
         return _fold_result(out8, n, c, num_seg, cfg)
+    onehot = (seg[:, None] == torch.arange(num_seg, dtype=seg.dtype,
+                                           device=seg.device)[None, :]
+              ).to(dtype)                                      # [C, S]
 
     # unfolded branch: per-query lookup, log-space ratio, [N, C] layout
     wx, wy, wz = world_queries(state, rot, trans, radius,

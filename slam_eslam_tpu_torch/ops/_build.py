@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -136,3 +137,69 @@ def build_log(name):
     -v`` register and spill report); '' before the first build."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _toolkit_binary(name):
+    """A binary of the CUDA toolkit that ``nvcc`` belongs to, or None."""
+    found = shutil.which(name)
+    if found:
+        return found
+    cand = Path(nvcc_path()).with_name(name)
+    return str(cand) if cand.exists() else None
+
+
+# one instruction of a `cuobjdump -sass` listing: its address, its opcode
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T\d]\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+def count_sass(listing, kernel):
+    """Count the machine instructions of one kernel in a ``cuobjdump
+    -sass`` listing: the first function whose mangled name contains every
+    string of ``kernel`` (a string or a tuple of them).  Returns
+    ``{"main": the kernel's own instructions, "subroutines": those of the
+    out-of-line slow paths that follow them (IEEE division and square
+    root call one for denormal operands), "function": the mangled
+    name}``; padding (``NOP``) and the closing branch-to-itself do not
+    count.  A static count: a loop's body counts once however often it
+    runs, and both sides of a branch count, so it says how much code the
+    compiler made of the kernel, not how much of it a thread runs."""
+    wanted = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    function, lines = None, []
+    for line in listing.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            if function is not None:
+                break
+            if all(w in head.group(1) for w in wanted):
+                function = head.group(1)
+            continue
+        if function is not None:
+            m = _SASS_LINE.match(line)
+            if m:
+                lines.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    if function is None:
+        raise RuntimeError(f"no kernel matching {wanted} in the SASS listing")
+    # a slow path is entered by CALL; the first such target starts the
+    # subroutines, which the compiler places after the kernel's own code
+    targets = [int(t, 16) for _, op, args in lines if op.startswith("CALL")
+               for t in re.findall(r"0x([0-9a-f]+)", args)]
+    first_sub = min(targets, default=None)
+    counted = [addr for addr, op, args in lines
+               if op != "NOP" and not (op == "BRA"
+                                       and f"{addr:#x}" in args.split())]
+    own = [addr for addr in counted if first_sub is None or addr < first_sub]
+    return {"main": len(own), "subroutines": len(counted) - len(own),
+            "function": function}
+
+
+def sass_instructions(name, kernel):
+    """``count_sass`` of the built library ``name`` (built first if need
+    be); None where the toolkit has no ``cuobjdump``."""
+    tool = _toolkit_binary("cuobjdump")
+    if tool is None:
+        return None
+    load(name)
+    proc = subprocess.run([tool, "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True)
+    return count_sass(proc.stdout, kernel)

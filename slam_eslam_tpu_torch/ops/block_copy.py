@@ -90,6 +90,35 @@ def _launcher():
     return fn
 
 
+def launch(fields, blk, points, out, *, mode="whole", k=4):
+    """Launch the kernel on PyTorch's current stream: tuples ``fields`` and
+    ``out`` (the same tuple for a copy in place), ``blk`` and ``points``
+    (or None) as ``block_copy`` takes them, already checked.  Allocates
+    nothing on the card and reads nothing back."""
+    b, rows, cols = fields[0].shape
+    n = blk.shape[0]
+    device = fields[0].device
+    p, point_ptrs = 0, [None] * 4
+    if points is not None:
+        p = points[0].shape[1]
+        point_ptrs = [t.data_ptr() for t in points]
+    count = len(fields)
+    ptrs = ctypes.c_void_p * count
+    with torch.cuda.device(device):
+        err = _launcher()(
+            ptrs(*(t.data_ptr() for t in fields)),
+            ptrs(*(t.data_ptr() for t in out)),
+            (ctypes.c_int * count)(*(t.element_size() for t in fields)),
+            count, blk.data_ptr(), *point_ptrs, n, p, b, rows, cols, k,
+            MODES.index(mode),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_copy kernel launch failed: CUDA error "
+                           f"{err}")
+    block_copy.launches += 1
+
+
 def block_copy(fields, blk, points=None, *, out=None, mode="whole", k=4):
     """Copy block ``blk[n]`` of every tensor of ``fields`` (1 to 4 block
     images ``[B, rows, cols]``) into ``out`` (default: in place), whole or
@@ -128,32 +157,13 @@ def block_copy(fields, blk, points=None, *, out=None, mode="whole", k=4):
                              FIELD_DTYPES, device)
         _build.check_operand(f"out[{i}]", dst, (b, rows, cols), src.dtype,
                              device)
-    p = 0
-    point_ptrs = [None] * 4
     if points is not None:
-        lx, ly, w, wz = points
-        p = lx.shape[1]
-        for name, t, dtype in (("lx", lx, torch.int32),
-                               ("ly", ly, torch.int32),
-                               ("w", w, torch.float32),
-                               ("wz", wz, torch.float32)):
+        p = points[0].shape[1]
+        for name, t, dtype in zip(("lx", "ly", "w", "wz"), points,
+                                  (torch.int32, torch.int32, torch.float32,
+                                   torch.float32)):
             _build.check_operand(name, t, (n, p), dtype, device)
-        point_ptrs = [t.data_ptr() for t in points]
-    count = len(fields)
-    ptrs = ctypes.c_void_p * count
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            ptrs(*(t.data_ptr() for t in fields)),
-            ptrs(*(t.data_ptr() for t in out)),
-            (ctypes.c_int * count)(*(t.element_size() for t in fields)),
-            count, blk.data_ptr(), *point_ptrs, n, p, b, rows, cols, k,
-            MODES.index(mode), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"block_copy kernel launch failed: CUDA error "
-                           f"{err}")
-    block_copy.launches += 1
+    launch(fields, blk, points, out, mode=mode, k=k)
     return out
 
 

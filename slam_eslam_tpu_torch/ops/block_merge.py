@@ -104,6 +104,32 @@ def _launcher():
     return fn
 
 
+def launch(mean, stdev, height, meta, color, blk, lx, ly, w, wz, update_idx,
+           point_color=None, *, k, patch_thickness=0.1, gap_size=1.5):
+    """Launch the merge kernel on PyTorch's current stream: operands as
+    ``block_merge`` takes them, already checked.  In place; allocates
+    nothing and reads nothing back."""
+    b, nx, nyk = mean.shape
+    n, p = lx.shape
+    device = mean.device
+    color_ptr = pcolor_ptr = None
+    if color is not None:
+        color_ptr, pcolor_ptr = color.data_ptr(), point_color.data_ptr()
+    with torch.cuda.device(device):
+        err = _launcher()(
+            mean.data_ptr(), stdev.data_ptr(), height.data_ptr(),
+            meta.data_ptr(), color_ptr, blk.data_ptr(), lx.data_ptr(),
+            ly.data_ptr(), w.data_ptr(), wz.data_ptr(), pcolor_ptr,
+            n, p, b, nx, nyk // k, k, int(mean.dtype == torch.bfloat16),
+            int(update_idx), float(patch_thickness), float(gap_size),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_merge kernel launch failed: CUDA error "
+                           f"{err}")
+    block_merge.launches += 1
+
+
 def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
                 update_idx, point_color=None, *, k, patch_thickness=0.1,
                 gap_size=1.5):
@@ -144,26 +170,13 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
             ("lx", lx, (n, p), torch.int32), ("ly", ly, (n, p), torch.int32),
             ("w", w, (n, p), f32), ("wz", wz, (n, p), f32)):
         _build.check_operand(name, t, shape, dtype, device)
-    color_ptr = pcolor_ptr = None
     if color is not None:
         _build.check_operand("color", color, (b, nx, nyk * 3), mean.dtype,
                              device)
         _build.check_operand("point_color", point_color, (p, 3), f32, device)
-        color_ptr, pcolor_ptr = color.data_ptr(), point_color.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            mean.data_ptr(), stdev.data_ptr(), height.data_ptr(),
-            meta.data_ptr(), color_ptr, blk.data_ptr(), lx.data_ptr(),
-            ly.data_ptr(), w.data_ptr(), wz.data_ptr(), pcolor_ptr,
-            n, p, b, nx, nyk // k, k, int(mean.dtype == torch.bfloat16),
-            int(update_idx),
-            float(patch_thickness), float(gap_size), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"block_merge kernel launch failed: CUDA error "
-                           f"{err}")
-    block_merge.launches += 1
+    launch(mean, stdev, height, meta, color, blk, lx, ly, w, wz, update_idx,
+           point_color, k=k, patch_thickness=patch_thickness,
+           gap_size=gap_size)
 
 
 block_merge.launches = 0
@@ -231,6 +244,26 @@ def _packed_launcher():
     return fn
 
 
+def launch_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
+                  patch_thickness=0.1, gap_size=1.5):
+    """Launch the merge kernel's packed entry point on PyTorch's current
+    stream: operands as ``block_merge_packed`` takes them, already
+    checked.  In place; allocates nothing and reads nothing back."""
+    b, _, nyk = packed.shape
+    n, p = lx.shape
+    device = packed.device
+    with torch.cuda.device(device):
+        err = _packed_launcher()(
+            packed.data_ptr(), blk.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            w.data_ptr(), wz.data_ptr(), n, p, b, nx, nyk // k, k,
+            int(update_idx), float(patch_thickness), float(gap_size),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_merge_packed kernel launch failed: CUDA "
+                           f"error {err}")
+    block_merge_packed.launches += 1
+
+
 def block_merge_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
                        patch_thickness=0.1, gap_size=1.5):
     """``block_merge`` on a packed block image ``packed [B, 4*nx, ny*k]``
@@ -265,16 +298,7 @@ def block_merge_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
             ("lx", lx, (n, p), torch.int32), ("ly", ly, (n, p), torch.int32),
             ("w", w, (n, p), f32), ("wz", wz, (n, p), f32)):
         _build.check_operand(name, t, shape, dtype, device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _packed_launcher()(
-            packed.data_ptr(), blk.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            w.data_ptr(), wz.data_ptr(), n, p, b, nx, nyk // k, k,
-            int(update_idx), float(patch_thickness), float(gap_size), stream)
-    if err != 0:
-        raise RuntimeError(f"block_merge_packed kernel launch failed: CUDA "
-                           f"error {err}")
-    block_merge_packed.launches += 1
+    launch_packed(packed, blk, lx, ly, w, wz, update_idx, **kw)
 
 
 block_merge_packed.launches = 0

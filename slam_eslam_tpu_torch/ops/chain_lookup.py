@@ -120,6 +120,34 @@ def _launcher():
     return fn
 
 
+def launch(mean, stdev, meta, origin, resolution, chain, queries, outs, *,
+           k, z_window=3.0):
+    """Launch the kernel on PyTorch's current stream: operands as
+    ``chain_lookup`` takes them, already checked, and ``outs = (found,
+    mean, stdev)`` or ``(found, mean, stdev, slot)``, each ``[N, C]``,
+    given.  Allocates nothing and reads nothing back."""
+    xq, yq, zq = queries
+    b, nx, nyk = mean.shape
+    n, c = xq.shape
+    device = mean.device
+    slot = outs[3].data_ptr() if len(outs) > 3 else None
+    with torch.cuda.device(device):
+        err = _launcher()(
+            mean.data_ptr(), stdev.data_ptr(), meta.data_ptr(),
+            origin.data_ptr(), chain.data_ptr(), xq.data_ptr(),
+            yq.data_ptr(), zq.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), slot,
+            n, c, chain.shape[1], b, nx, nyk // k, k,
+            int(mean.dtype == torch.bfloat16),
+            inverse_resolution(resolution), float(z_window),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"chain_lookup kernel launch failed: CUDA error "
+                           f"{err}")
+    chain_lookup.launches += 1
+
+
 def chain_lookup(mean, stdev, meta, origin, resolution, chain, queries, *,
                  k, z_window=3.0, with_slot=False):
     """Chain lookup of SoA queries ``(x, y, z)``, each ``[N, C]`` float32,
@@ -161,30 +189,14 @@ def chain_lookup(mean, stdev, meta, origin, resolution, chain, queries, *,
     if nyk % k:
         raise ValueError(f"pool lane extent {nyk} is not a multiple of "
                          f"k={k}")
-    found = torch.empty((n, c), dtype=torch.bool, device=device)
-    out_mean = torch.empty((n, c), dtype=f32, device=device)
-    out_stdev = torch.empty((n, c), dtype=f32, device=device)
-    out_slot = (torch.empty((n, c), dtype=torch.int64, device=device)
-                if with_slot else None)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            mean.data_ptr(), stdev.data_ptr(), meta.data_ptr(),
-            origin.data_ptr(), chain.data_ptr(), xq.data_ptr(),
-            yq.data_ptr(), zq.data_ptr(), found.data_ptr(),
-            out_mean.data_ptr(), out_stdev.data_ptr(),
-            out_slot.data_ptr() if with_slot else None,
-            n, c, levels, b, nx, nyk // k, k,
-            int(mean.dtype == torch.bfloat16),
-            inverse_resolution(resolution), float(z_window), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"chain_lookup kernel launch failed: CUDA error "
-                           f"{err}")
-    chain_lookup.launches += 1
+    outs = (torch.empty((n, c), dtype=torch.bool, device=device),
+            torch.empty((n, c), dtype=f32, device=device),
+            torch.empty((n, c), dtype=f32, device=device))
     if with_slot:
-        return found, out_mean, out_stdev, out_slot
-    return found, out_mean, out_stdev
+        outs += (torch.empty((n, c), dtype=torch.int64, device=device),)
+    launch(mean, stdev, meta, origin, resolution, chain, queries, outs, k=k,
+           z_window=z_window)
+    return outs
 
 
 chain_lookup.launches = 0

@@ -15,7 +15,12 @@ with, over the valid contact groups g of particle i,
 
 ``contact_fold`` launches the CUDA kernel (``csrc/contact_fold.cu``) for
 CUDA tensors and runs ``contact_fold_reference`` for CPU tensors; there
-is no other route.  ``contact_fold.launches`` counts kernel launches.
+is no other route.  It checks its operands, allocates the output and
+calls ``launch``, the one place the kernel is launched from: ``launch``
+takes operands that were checked before and the output, allocates and
+checks nothing, so a loop of it can be captured into a CUDA graph
+(``utils.profiling.device_time``).  ``contact_fold.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -129,19 +134,60 @@ def _launcher():
     return fn
 
 
+def segment_ids(onehot):
+    """int32 group id per contact row of a ``[C, S]`` one-hot group
+    membership (what ``BodyContactState.segments`` returns first)."""
+    return onehot.argmax(dim=1).to(torch.int32)
+
+
+def launch(packed, queries, act_col, mv, seg, out, correction, z_window=3.0):
+    """Launch the kernel on PyTorch's current stream: operands as
+    ``contact_fold`` takes them, already checked, ``seg [C]`` int32 and
+    ``out [8, N]`` float32 given.  Allocates nothing and reads nothing
+    back."""
+    xq, yq, zq = queries
+    c, n = xq.shape
+    nx, ny, k2 = packed.data.shape
+    device = out.device
+    with torch.cuda.device(device):
+        err = _launcher()(
+            xq.data_ptr(), yq.data_ptr(), zq.data_ptr(), mv.data_ptr(),
+            act_col.data_ptr(), seg.data_ptr(), packed.origin.data_ptr(),
+            packed.data.data_ptr(), out.data_ptr(),
+            c, n, nx, ny, k2 // 2,
+            mls_grid.inverse_resolution(packed.resolution), float(z_window),
+            float(correction),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"contact_fold kernel launch failed: CUDA error "
+                           f"{err}")
+    contact_fold.launches += 1
+
+
 def contact_fold(packed: mls_grid.PackedLookup, queries, act_col, mv, *,
-                 onehot, correction, z_window=3.0):
+                 onehot=None, correction, z_window=3.0, seg=None):
     """Contact fold of ``[C, N]`` world queries ``(x, y, z)`` with
     ``act_col [C, 1]`` (0/1 active mask), ``mv [1, N]`` (measurement
-    variance) and ``onehot [C, S]`` (group membership, each group a
-    consecutive run of contact rows as ``BodyContactState.segments``
-    builds it).  Returns ``[8, N]`` float32.
+    variance) and the group membership, each group a consecutive run of
+    contact rows as ``BodyContactState.segments`` builds it: ``onehot
+    [C, S]``, or the int32 group ids ``seg [C]`` themselves, or both (the
+    kernel reads ``seg`` and skips the ``argmax`` that recovers it from
+    ``onehot``; the plain version reads ``onehot``).  Returns ``[8, N]``
+    float32.
 
     CPU tensors take ``contact_fold_reference``; CUDA tensors launch
     the kernel, which reads the grid in place and never pads ``N``."""
     xq, yq, zq = queries
     device = packed.data.device
+    if onehot is None and seg is None:
+        raise ValueError("contact_fold needs onehot or seg")
     if device.type == "cpu":
+        if onehot is None:
+            # one column per contact row, as many as there can be groups
+            onehot = (seg[:, None] == torch.arange(
+                seg.shape[0], dtype=seg.dtype,
+                device=seg.device)[None, :]).to(xq.dtype)
         return contact_fold_reference(packed, queries, act_col, mv, onehot,
                                       correction, z_window)
     if device.type != "cuda":
@@ -152,28 +198,20 @@ def contact_fold(packed: mls_grid.PackedLookup, queries, act_col, mv, *,
     for name, t, shape in (("x", xq, (c, n)), ("y", yq, (c, n)),
                            ("z", zq, (c, n)), ("act_col", act_col, (c, 1)),
                            ("mv", mv, (1, n)),
-                           ("packed.data", packed.data, (nx, ny, k2)),
                            ("packed.origin", packed.origin, (2,))):
         _build.check_operand(name, t, shape, f32, device)
-    if onehot.device != device or onehot.dim() != 2 or onehot.shape[0] != c:
-        raise ValueError(f"onehot must be [C={c}, S] on {device}")
-    seg = onehot.argmax(dim=1).to(torch.int32)
+    # at K = 4 a cell's means, and its stdevs, are one 16-byte load
+    _build.check_operand("packed.data", packed.data, (nx, ny, k2), f32,
+                         device, 16 if k2 == 8 else None)
+    if seg is None:
+        if (onehot.device != device or onehot.dim() != 2
+                or onehot.shape[0] != c):
+            raise ValueError(f"onehot must be [C={c}, S] on {device}")
+        seg = segment_ids(onehot)
+    else:
+        _build.check_operand("seg", seg, (c,), torch.int32, device)
     out = torch.empty((8, n), dtype=f32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            xq.data_ptr(), yq.data_ptr(), zq.data_ptr(), mv.data_ptr(),
-            act_col.data_ptr(), seg.data_ptr(), packed.origin.data_ptr(),
-            packed.data.data_ptr(), out.data_ptr(),
-            c, n, nx, ny, k2 // 2,
-            mls_grid.inverse_resolution(packed.resolution), float(z_window),
-            float(correction),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"contact_fold kernel launch failed: CUDA error "
-                           f"{err}")
-    contact_fold.launches += 1
+    launch(packed, queries, act_col, mv, seg, out, correction, z_window)
     return out
 
 

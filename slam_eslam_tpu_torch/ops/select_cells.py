@@ -11,7 +11,12 @@ over its K slots and ``(found, mean, |stdev|)`` -- exactly
 
 ``select_cells`` launches the CUDA kernel (``csrc/select_cells.cu``) for
 CUDA tensors and runs the plain version for CPU tensors; there is no
-other route.  ``select_cells.launches`` counts kernel launches.
+other route.  It checks its operands, allocates the outputs and calls
+``launch``, the one place the kernel is launched from: ``launch`` takes
+flat operands that were checked before and the outputs, allocates and
+checks nothing, so a loop of it can be captured into a CUDA graph
+(``utils.profiling.device_time``).  ``select_cells.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -50,6 +55,36 @@ def _launchers():
     return world, cells
 
 
+def launch(packed, queries, outs, z_window=3.0):
+    """Launch the kernel on PyTorch's current stream: flat contiguous
+    ``queries = (x, y, z)`` float32 or ``(ix, iy, z)`` with int32 cells,
+    ``outs = (found bool, mean, stdev)`` of the same length, all checked
+    before.  Allocates nothing and reads nothing back.  The kernel moves
+    4-byte words, so a view that starts anywhere in a tensor will do."""
+    a, b, zq = queries
+    nx, ny, k2 = packed.data.shape
+    world, cells = _launchers()
+    device = zq.device
+    q = zq.numel()
+    out_ptrs = tuple(t.data_ptr() for t in outs)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if a.dtype == torch.int32:
+            err = cells(packed.data.data_ptr(), a.data_ptr(), b.data_ptr(),
+                        zq.data_ptr(), *out_ptrs, q, nx, ny, k2 // 2,
+                        float(z_window), stream)
+        else:
+            err = world(packed.data.data_ptr(), packed.origin.data_ptr(),
+                        a.data_ptr(), b.data_ptr(), zq.data_ptr(), *out_ptrs,
+                        q, nx, ny, k2 // 2,
+                        mls_grid.inverse_resolution(packed.resolution),
+                        float(z_window), stream)
+    if err != 0:
+        raise RuntimeError(f"select_cells kernel launch failed: CUDA error "
+                           f"{err}")
+    select_cells.launches += 1
+
+
 def select_cells(packed: mls_grid.PackedLookup, queries, z_window=3.0):
     """Z-window patch select of ``queries`` against the packed grid:
     world coordinates ``(x, y, z)`` (float32) or cells ``(ix, iy, z)``
@@ -68,8 +103,7 @@ def select_cells(packed: mls_grid.PackedLookup, queries, z_window=3.0):
     nx, ny, k2 = packed.data.shape
     k = k2 // 2
     shape = zq.shape
-    cell_queries = a.dtype == torch.int32
-    qdtype = torch.int32 if cell_queries else torch.float32
+    qdtype = torch.int32 if a.dtype == torch.int32 else torch.float32
     a, b, zq = (t.reshape(-1).contiguous() for t in (a, b, zq))
     q = zq.numel()
     f32 = torch.float32
@@ -79,28 +113,11 @@ def select_cells(packed: mls_grid.PackedLookup, queries, z_window=3.0):
     for name, t, dtype in (("x/ix", a, qdtype), ("y/iy", b, qdtype),
                            ("z", zq, f32)):
         _build.check_operand(name, t, (q,), dtype, device)
-    found = torch.empty(q, dtype=torch.bool, device=device)
-    mean = torch.empty(q, dtype=f32, device=device)
-    stdev = torch.empty(q, dtype=f32, device=device)
-    world, cells = _launchers()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        outs = (found.data_ptr(), mean.data_ptr(), stdev.data_ptr())
-        if cell_queries:
-            err = cells(packed.data.data_ptr(), a.data_ptr(), b.data_ptr(),
-                        zq.data_ptr(), *outs, q, nx, ny, k, float(z_window),
-                        stream)
-        else:
-            err = world(packed.data.data_ptr(), packed.origin.data_ptr(),
-                        a.data_ptr(), b.data_ptr(), zq.data_ptr(), *outs, q,
-                        nx, ny, k,
-                        mls_grid.inverse_resolution(packed.resolution),
-                        float(z_window), stream)
-    if err != 0:
-        raise RuntimeError(f"select_cells kernel launch failed: CUDA error "
-                           f"{err}")
-    select_cells.launches += 1
-    return found.reshape(shape), mean.reshape(shape), stdev.reshape(shape)
+    outs = (torch.empty(q, dtype=torch.bool, device=device),
+            torch.empty(q, dtype=f32, device=device),
+            torch.empty(q, dtype=f32, device=device))
+    launch(packed, (a, b, zq), outs, z_window)
+    return tuple(t.reshape(shape) for t in outs)
 
 
 select_cells.launches = 0

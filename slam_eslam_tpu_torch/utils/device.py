@@ -52,3 +52,4 @@ def card_line(device):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[device.index or 0]
+

@@ -248,3 +248,123 @@ class TestFoldAgainstUnfolded:
         np.testing.assert_array_equal(fin, np.isfinite(a.z_var.numpy()))
         np.testing.assert_allclose(a.z_var.numpy()[fin],
                                    b.z_var.numpy()[fin], rtol=2e-3)
+
+
+def group_ids(c, grouping):
+    """Group ids of ``c`` contact rows: the 8-row pattern of ``GROUPS``
+    repeated with ids of its own per repeat, or one group for all."""
+    if grouping == "one":
+        return np.zeros(c, np.int32)
+    rows = np.arange(c)
+    pattern = GROUPS[rows % 8]
+    return np.where(pattern < 0, -1, pattern + 3 * (rows // 8)).astype(
+        np.int32)
+
+
+def queries_c(n, c, seed):
+    rng = np.random.default_rng(seed)
+    pxy = rng.uniform(-2.0, 2.0, (n, 2))
+    offs = rng.uniform(-0.4, 0.4, (c, 2))
+    qx = (offs[:, 0:1] + pxy[None, :, 0]).astype(np.float32)
+    qy = (offs[:, 1:2] + pxy[None, :, 1]).astype(np.float32)
+    qz = terrain(qx, qy) + rng.normal(0.0, 0.05, (c, n))
+    far = rng.random((c, n)) < 0.05
+    qz = np.where(far, qz + rng.uniform(-4, 4, (c, n)), qz).astype(np.float32)
+    mv = rng.uniform(0.01, 0.2, (1, n)).astype(np.float32)
+    return qx, qy, qz, mv
+
+
+class TestSegmentIds:
+    """``contact_fold(seg=...)``: the int32 group ids the kernel reads, in
+    place of (or beside) the one-hot membership.  On the CPU both reach the
+    plain version, which is held against the JAX package's
+    ``contact_fold_sums`` on the exact gather (rtol 1e-5, as above)."""
+
+    @pytest.mark.parametrize("c,grouping,active", [
+        (1, "pattern", "some"), (8, "pattern", "some"),
+        (20, "pattern", "some"), (8, "one", "all"), (20, "one", "some"),
+        (8, "pattern", "none"), (1, "one", "none")])
+    def test_seg_equals_onehot_and_jax(self, jax_grid, c, grouping, active):
+        n = 67
+        qx, qy, qz, mv = queries_c(n, c, seed=31 * c + len(grouping))
+        gid = group_ids(c, grouping)
+        seg, s = JContactState.create(np.zeros((c, 3)),
+                                      group_id=gid).segments()
+        seg = np.asarray(seg)
+        onehot = (seg[:, None] == np.arange(s)[None, :]).astype(np.float32)
+        if grouping == "one":
+            assert len(set(seg.tolist())) == 1            # S = 1
+        act = {"all": np.ones(c, np.float32),
+               "none": np.zeros(c, np.float32),
+               "some": ACTIVE[np.arange(c) % 8]}[active][:, None].copy()
+
+        jp = jgrid.PackedLookup.from_grid(jax_grid)
+        ix, iy = jax_cells(qx, qy)
+        f, m, sd = jgrid.get_patch_packed_cells(
+            jp, ix.reshape(-1), iy.reshape(-1), jnp.asarray(qz).reshape(-1))
+        ref = np.asarray(pg.contact_fold_sums(
+            f.reshape(c, n), m.reshape(c, n), sd.reshape(c, n),
+            jnp.asarray(qz), jnp.broadcast_to(jnp.asarray(act), (c, n)),
+            jnp.asarray(mv), jnp.asarray(act), jnp.asarray(onehot),
+            CORRECTION))
+
+        packed = mls_grid.PackedLookup.from_grid(
+            convert.mls_grid_from(as_dict(jax_grid)))
+        t = torch.from_numpy
+        args = (packed, (t(qx), t(qy), t(qz)), t(act), t(mv))
+        kw = dict(correction=CORRECTION, z_window=3.0)
+        by_onehot = cf.contact_fold(*args, onehot=t(onehot), **kw)
+        by_seg = cf.contact_fold(*args, seg=t(seg.astype(np.int32)), **kw)
+        both = cf.contact_fold(*args, onehot=t(onehot),
+                               seg=t(seg.astype(np.int32)), **kw)
+        assert by_seg.shape == (8, n)
+        torch.testing.assert_close(by_seg, by_onehot, rtol=0, atol=0)
+        torch.testing.assert_close(both, by_onehot, rtol=0, atol=0)
+        assert_rows_close(by_seg.numpy(), ref)
+        if active == "none":
+            assert not by_seg.any()
+        else:
+            assert by_seg[4].max() >= 1
+
+    def test_segment_ids_invert_the_onehot(self):
+        for c in (1, 8, 20):
+            seg, s = BodyContactState.create(
+                np.zeros((c, 3)), group_id=group_ids(c, "pattern")).segments()
+            onehot = (seg[:, None] == torch.arange(s)[None, :]).float()
+            got = cf.segment_ids(onehot)
+            assert got.dtype == torch.int32
+            assert torch.equal(got, seg)
+
+    def test_needs_one_of_them(self, jax_grid):
+        packed = mls_grid.PackedLookup.from_grid(
+            convert.mls_grid_from(as_dict(jax_grid)))
+        qx, qy, qz, mv = (torch.from_numpy(a)
+                          for a in queries_c(4, 8, seed=1))
+        with pytest.raises(ValueError, match="onehot or seg"):
+            cf.contact_fold(packed, (qx, qy, qz), torch.ones(8, 1), mv,
+                            correction=CORRECTION)
+
+    def test_the_model_hands_the_fold_its_segment_ids(self, jax_grid):
+        """``evaluate_pose_batch`` gives the fold the int32 ids (what the
+        kernel reads) and builds no one-hot on the fold path."""
+        grid = convert.mls_grid_from(as_dict(jax_grid))
+        cmc = ContactModelConfig(contact_point_radius=0.0, min_contacts=2)
+        lookup = make_lookup(Config(contact_model=cmc), grid)
+        seen = {}
+        inner = lookup.fold
+
+        def spy(queries, act_col, mv, **kw):
+            seen.update(kw)
+            return inner(queries, act_col, mv, **kw)
+
+        lookup.fold = spy
+        state = BodyContactState.create(
+            np.zeros((8, 3), np.float32) + [0.1, 0.0, -0.1],
+            group_id=[0, 0, 1, 1, 2, 2, 3, 3])
+        n = 16
+        cm.evaluate_pose_batch(
+            state, torch.eye(3).expand(n, 3, 3), torch.zeros(n, 3),
+            torch.full((n,), 0.09), pe.bind_lookup(lookup, None), cmc)
+        assert seen["seg"].dtype == torch.int32
+        assert seen["seg"].tolist() == [0, 0, 1, 1, 2, 2, 3, 3]
+        assert seen.get("onehot") is None

@@ -53,7 +53,7 @@ def terrain(x, y):
         0.9 * np.asarray(y))
 
 
-def fold_case(n, spread, seed, dev, nx=200, ny=160, k=4):
+def fold_case(n, spread, seed, dev, nx=200, ny=160, k=4, c=8):
     rng = np.random.default_rng(seed)
     res, origin = 0.05, (-5.0, -4.0)
     cx = (np.arange(nx) + 0.5) * res + origin[0]
@@ -67,17 +67,22 @@ def fold_case(n, spread, seed, dev, nx=200, ny=160, k=4):
     packed = PackedLookup(torch.tensor(data, dtype=torch.float32, device=dev),
                           torch.tensor(origin, device=dev), res)
     pxy = rng.uniform(-spread, spread, (n, 2))
-    offs = rng.uniform(-0.4, 0.4, (8, 2))
+    offs = rng.uniform(-0.4, 0.4, (c, 2))
     qx = offs[:, :1] + pxy[None, :, 0]
     qy = offs[:, 1:] + pxy[None, :, 1]
-    qz = terrain(qx, qy) + rng.normal(0, 0.05, (8, n))
-    qz = np.where(rng.random((8, n)) < 0.05, qz + rng.uniform(-4, 4, (8, n)),
+    qz = terrain(qx, qy) + rng.normal(0, 0.05, (c, n))
+    qz = np.where(rng.random((c, n)) < 0.05, qz + rng.uniform(-4, 4, (c, n)),
                   qz)
     f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    # the 8-row pattern repeated, every repeat with group ids of its own
+    rows = np.arange(c)
+    pattern = np.array([0, 0, 1, 1, -1, 2, 2, -1])[rows % 8]
     seg, s = BodyContactState.create(
-        np.zeros((8, 3)), group_id=[0, 0, 1, 1, -1, 2, 2, -1]).segments()
+        np.zeros((c, 3)),
+        group_id=np.where(pattern < 0, -1,
+                          pattern + 3 * (rows // 8))).segments()
     onehot = (seg[:, None] == torch.arange(s)[None, :]).float().to(dev)
-    act = f(np.array([1, 1, 1, 0, 1, 1, 1, 1])[:, None])
+    act = f(np.array([1, 1, 1, 0, 1, 1, 1, 1])[rows % 8][:, None])
     mv = f(rng.uniform(0.01, 0.2, (1, n)))
     return packed, (f(qx), f(qy), f(qz)), act, mv, onehot
 
@@ -598,3 +603,114 @@ def test_update_contact_matches_cpu_port(dev):
                                    fc.get_centroid()[0], rtol=0, atol=1e-3)
     assert sc.select_cells.launches - before == n_meas > 0
     assert torch.equal(fg.last_eval.cp_ok.cpu(), fc.last_eval.cp_ok)
+
+
+def assert_fold_close(got, ref):
+    for r in range(4):
+        atol = 1e-5 * float(ref[r].abs().max())
+        torch.testing.assert_close(got[r], ref[r], rtol=1e-4, atol=atol)
+    assert torch.equal(got[4:], ref[4:])
+
+
+@pytest.mark.parametrize("c", [1, 5, 8, 9, 20, 32])
+@pytest.mark.parametrize("n", [1, 127, 129, 4096])
+def test_fold_tile_and_row_edges(dev, c, n):
+    """K1 around a warp's and a block's edge, at one row and at more rows
+    than the bench has: ``seg=`` and ``onehot=`` give the same bits, and
+    both agree with the plain version."""
+    packed, q, act, mv, onehot = fold_case(n, 1.0, 100 * c + n, dev, c=c)
+    seg = cf.segment_ids(onehot)
+    got = cf.contact_fold(packed, q, act, mv, seg=seg, correction=0.33)
+    by_onehot = cf.contact_fold(packed, q, act, mv, onehot=onehot,
+                                correction=0.33)
+    ref = cf.contact_fold_reference(packed, q, act, mv, onehot, 0.33)
+    torch.cuda.synchronize()
+    assert torch.equal(got, by_onehot)
+    assert_fold_close(got, ref)
+
+
+def test_fold_many_rows(dev):
+    """C = 100 contact rows: the row loop has no limit of its own."""
+    c, n = 100, 300
+    packed, q, act, mv, onehot = fold_case(n, 1.0, 3, dev, c=c)
+    got = cf.contact_fold(packed, q, act, mv, seg=cf.segment_ids(onehot),
+                          correction=0.33)
+    ref = cf.contact_fold_reference(packed, q, act, mv, onehot, 0.33)
+    torch.cuda.synchronize()
+    assert_fold_close(got, ref)
+
+
+def test_fold_all_rows_inactive(dev):
+    packed, q, act, mv, onehot = fold_case(257, 1.0, 5, dev)
+    got = cf.contact_fold(packed, q, torch.zeros_like(act), mv,
+                          onehot=onehot, correction=0.33)
+    torch.cuda.synchronize()
+    assert not bool(got.any())
+
+
+@pytest.mark.parametrize("count", [1, 3, 5, 4096, 800_001])
+@pytest.mark.parametrize("offset", [0, 1], ids=["fresh", "offset_view"])
+def test_select_cells_small_counts_and_views(dev, count, offset):
+    """K5 at small counts and one past a full block, on fresh tensors and
+    on views that start 4 bytes into one: both entries, bit for bit."""
+    n = -(-(count + 1) // 8)
+    packed, q, *_ = fold_case(n, 6.0, count, dev)
+    q = tuple(a.reshape(-1)[offset:offset + count] for a in q)
+    if not offset:
+        q = tuple(a.contiguous() for a in q)
+    got = sc.select_cells(packed, q, 3.0)
+    ix, iy = mls_grid.cells(packed, q[0], q[1])
+    by_cell = sc.select_cells(packed, (ix, iy, q[2]), 3.0)
+    ref = sc.select_cells_reference(packed, q, 3.0)
+    torch.cuda.synchronize()
+    assert got[0].shape == (count,)
+    for a, b, c in zip(got, ref, by_cell):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_launches_capture_into_a_cuda_graph(dev):
+    """The raw launches of K1 and K5 allocate nothing and read nothing
+    back, so a CUDA graph captures them; a replay gives the eager result."""
+    packed, q, act, mv, onehot = fold_case(4096, 1.0, 11, dev)
+    seg = cf.segment_ids(onehot)
+    ref = cf.contact_fold(packed, q, act, mv, seg=seg, correction=0.33)
+    flat = tuple(a.reshape(-1).contiguous() for a in q)
+    sel_ref = sc.select_cells(packed, flat, 3.0)
+    out = torch.zeros_like(ref)
+    outs = tuple(torch.zeros_like(t) for t in sel_ref)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = cf.contact_fold.launches, sc.select_cells.launches
+    with torch.cuda.graph(graph):
+        cf.launch(packed, q, act, mv, seg, out, 0.33)
+        sc.launch(packed, flat, outs, 3.0)
+    assert (cf.contact_fold.launches, sc.select_cells.launches) == (
+        before[0] + 1, before[1] + 1)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    for a, b in zip(outs, sel_ref):
+        assert torch.equal(a, b)
+
+
+def test_device_time_reads_below_the_call_time(dev):
+    """``profiling.device_time`` of K1's raw launch, the profiler's
+    reading of the kernel by name and of every kernel of a call, and the
+    cold-L2 reading are all positive."""
+    from slam_eslam_tpu_torch.utils import profiling
+
+    packed, q, act, mv, onehot = fold_case(4096, 1.0, 13, dev)
+    seg = cf.segment_ids(onehot)
+    out = cf.contact_fold(packed, q, act, mv, seg=seg, correction=0.33)
+    launch = lambda: cf.launch(packed, q, act, mv, seg, out, 0.33)
+    t = profiling.device_time(launch, reps=50, replays=3)
+    p = profiling.profiler_kernel_time(launch, "contact_fold_kernel",
+                                       calls=10)
+    # the wrapper given the one-hot: the argmax and the cast count too
+    whole = profiling.profiler_kernel_time(
+        lambda: cf.contact_fold(packed, q, act, mv, onehot=onehot,
+                                correction=0.33), calls=10)
+    cold, fill = profiling.device_time_cold(launch, reps=20, replays=2)
+    assert 0 < p < whole and t > 0
+    assert fill > 0 and cold > 0

@@ -183,3 +183,33 @@ def test_unpacked_lookup_matches_jax_get_patch(grids):
         None, torch.from_numpy(pts))
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_views_into_a_tensor_select_like_fresh_tensors(grids):
+    """Queries given as views that start 4 bytes into a tensor (a sliced
+    batch) select exactly as fresh copies do, world and cell entries, and
+    as the JAX package's exact select: the kernel moves 4-byte words, so
+    it needs no alignment of its queries."""
+    jgrid, tgrid = grids
+    packed = mls_grid.PackedLookup.from_grid(tgrid)
+    jpacked = jmls.PackedLookup.from_grid(jgrid)
+    flat = cloud(6.0, n=41, seed=5).reshape(-1, 3)
+    qx, qy, qz = (torch.from_numpy(flat[:, i].copy()) for i in range(3))
+    for count in (1, 3, 5, 40 * 8):
+        view = tuple(a[1:count + 1] for a in (qx, qy, qz))
+        assert all(v.data_ptr() - a.data_ptr() == 4
+                   for v, a in zip(view, (qx, qy, qz)))
+        fresh = tuple(v.clone() for v in view)
+        ref = sc.select_cells_reference(packed, fresh)
+        for q in (view, fresh):
+            got = sc.select_cells(packed, q)
+            ix, iy = mls_grid.cells(packed, q[0], q[1])
+            by_cell = sc.select_cells(packed, (ix, iy, q[2]))
+            for a, b, c in zip(got, ref, by_cell):
+                assert a.shape == (count,)
+                assert torch.equal(a, b) and torch.equal(a, c)
+        jref = jmls.get_patch_packed_cells(
+            jpacked, jnp.asarray(ix.numpy()), jnp.asarray(iy.numpy()),
+            jnp.asarray(view[2].numpy()))
+        for a, b in zip(got, jref):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
