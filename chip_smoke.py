@@ -25,7 +25,9 @@ Phases (any failure raises and exits non-zero):
    plain versions at the SLAM benchmark shapes (N = 4,096 particles,
    C = 8 contacts, chains of 3, P = 64 scan points, a 16,384-block pool
    of 40x40x4 cells half full of patches, with empty chain entries) and
-   at a ragged N, and time both;
+   at a ragged N; K3 also at P = 1, 192 (the camera image) and 2,048
+   points against its plain version on the CPU, whose run sums go in point
+   order as the kernel's do; and time both;
 6. drive the SLAM path: 4,096 particles with per-particle maps over 200
    frames (20 laser scans) through ``filter.streaming.
    make_slam_scan_runner`` on the card with host syncs forbidden; count
@@ -53,7 +55,8 @@ Phases (any failure raises and exits non-zero):
    as the merge visits them, and unsorted), in place and into a second
    pool, and time it beside its plain version, the library call and the
    block merge; check K2 and K3 on a pool stored in bfloat16 at phase
-   5's shapes, and at the 100,000-particle run's shape (a bfloat16 pool
+   5's shapes (K3's three other point counts included), and at the
+   100,000-particle run's shape (a bfloat16 pool
    of 400,000 blocks, element offsets past 2^31); then run the benchmark
    ``slam_eslam_tpu_torch.bench`` in process: filter mode at its defaults
    (100k particles, 150 steps; K1 launches, the fold and merge rooflines
@@ -67,7 +70,8 @@ Phases (any failure raises and exits non-zero):
    points, N + 64 blocks of 40x40x4 slots in one float32 image of 160 rows
    per block) against its plain version (meta rows equal as int32, fields
    bitwise on one-point cells, K3's tolerance elsewhere) and against K3 on
-   the unpacked fields (bit for bit), and time the three in turns; run the
+   the unpacked fields (bit for bit), and time the three in turns; hold P4
+   against K3 on the unpacked fields at P = 1, 192 and 2,048 too; run the
    merge probe ``slam_eslam_tpu_torch.tools.probe_merge_overhead`` in
    process at its defaults (every variant prints, ``copy_packed`` not
    below its byte bound, the grouped rows are K3's); then drive the
@@ -103,7 +107,12 @@ the call must move (each input read once, each output written once,
 counted from this run's inputs) over the card's published memory rate,
 or its operations over the published float32 rate (for K1: the
 instructions this run's queries need, ``utils.kernel_eff.fold_work``),
-whichever takes longer.
+whichever takes longer.  K2, K3, K7 ``cells``/``points`` and P4 also stand
+beside ``bound_ms_sectors``: the distinct 32-byte sectors their inputs
+touch, read and written (``utils.kernel_eff.chain_traffic``,
+``merge_traffic``: the card moves sectors, and a scattered 8- or 16-byte
+slot row costs one), over the same memory rate, with ``share_sectors``
+the bound over the device time.
 
 The third line from the end is ``{"kernels": [...]}``, then the card's
 name and power limit; the last line is
@@ -122,6 +131,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -196,6 +206,9 @@ BIG_PARTS = 16    # the 400,000-block check pool is drawn 25,000 at a time
 INT32_ELEMENTS = 2 ** 31  # element offsets from here on need 64 bits
 # phase 9: the merge probe's default shape; the application mapping path
 PROBE = dict(n=4096, p=64, nx=40, ny=40, k=4)
+# K3's other point counts (phases 5, 8, 9): one point, the camera image
+# (MAP_IMAGE), a long cloud
+MERGE_POINTS = (1, 192, 2048)
 MAP_CHECK_FRAMES = 60
 MAP_WARM_FRAMES = 30
 MAP_PASSES = 3               # timed passes of the 200 frames, rates as a range
@@ -256,7 +269,7 @@ def device_ms_of(fn, calls=5):
 
 
 def kernel_times(label, call, launch, kernel_name, plain, bnd, n_call=50,
-                 n_plain=5, reps=GRAPH_REPS):
+                 n_plain=5, reps=GRAPH_REPS, sectors=None):
     """Every time of one kernel row.  ``ms`` = ``device_ms``: ``reps`` raw
     launches (``launch()``: a kernel module's ``launch`` on fixed operands
     and outputs) captured into a CUDA graph and replayed, so no Python
@@ -268,7 +281,8 @@ def kernel_times(label, call, launch, kernel_name, plain, bnd, n_call=50,
     the kernel's), in turns with ``plain()``, the plain version
     (``plain_call_ms``); ``plain_ms``: the plain version's kernels on the
     card, summed by the profiler; ``bound_ms``, ``bound_by`` from
-    ``bnd``."""
+    ``bnd``; with ``sectors`` (the 32-byte sectors the call touches) also
+    ``bound_ms_sectors`` and its share of ``ms``."""
     from slam_eslam_tpu_torch.utils import profiling
 
     call_ms, plain_call, runs = alternate(call, plain, n_call, n_plain)
@@ -286,9 +300,31 @@ def kernel_times(label, call, launch, kernel_name, plain, bnd, n_call=50,
               f"{abs(dev - prof) / prof:.0%}; ms takes the graph's, which "
               f"holds the gap between two graph nodes that a captured step "
               f"pays too; the profiler's is the kernel alone")
-    return dict(ms=dev, device_ms=dev, device_ms_profiler=prof,
-                call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call,
-                bound_ms=bnd[0], bound_by=bnd[1])
+    times = dict(ms=dev, device_ms=dev, device_ms_profiler=prof,
+                 call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call,
+                 bound_ms=bnd[0], bound_by=bnd[1])
+    if sectors is not None:
+        times.update(sector_times(label, sectors, dev))
+    return times
+
+
+def sector_ms(sectors):
+    """The least time the card takes to move ``sectors`` 32-byte sectors."""
+    from slam_eslam_tpu_torch.utils.kernel_eff import SECTOR_BYTES
+
+    return sectors * SECTOR_BYTES / PEAK_BYTES_PER_S * 1e3
+
+
+def sector_times(label, sectors, ms):
+    """``bound_ms_sectors`` (the sectors a call touches over the memory
+    rate) and its share of the device time ``ms``, printed."""
+    from slam_eslam_tpu_torch.utils.kernel_eff import SECTOR_BYTES
+
+    b = sector_ms(sectors)
+    print(f"{label} sectors {sectors} ({sectors * SECTOR_BYTES / 1e6:.2f} "
+          f"MB): bound "
+          f"{b:.5f} ms, {b / ms:.3f} of it")
+    return dict(sectors=sectors, bound_ms_sectors=b, share_sectors=b / ms)
 
 
 def cold_times(label, launch, times):
@@ -607,38 +643,10 @@ def alternate(kern, plain, n_kern=50, n_plain=5):
                                      second["kern"], second["plain"])
 
 
-def chain_lookup_bytes(pool, chain, queries, z_window):
-    """Bytes one chain lookup must move for these inputs: per query its
-    x, y, z and the three outputs; the chain; and per level a query
-    reaches (the walk ends at the first hit) the block's origin and the
-    cell's mean and meta rows, plus the stdev row where it hits."""
-    from slam_eslam_tpu_torch.ops import chain_lookup as cl
-
-    xq, yq, zq = queries
-    size = pool.mean.element_size()
-    nbytes = xq.numel() * (12 + 9) + chain.numel() * 4
-    found = torch.zeros_like(xq, dtype=torch.bool)
-    size_x, size_y = pool.nx * pool.resolution, pool.ny * pool.resolution
-    for level in range(chain.shape[1]):
-        b = chain[:, level]
-        ok = (b >= 0)[:, None] & ~found
-        org = pool.origin.index_select(0, b.clamp(min=0).long())
-        inside = ((xq >= org[:, 0:1]) & (xq < org[:, 0:1] + size_x)
-                  & (yq >= org[:, 1:2]) & (yq < org[:, 1:2] + size_y))
-        hit, _, _ = cl.block_get_patch(
-            pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
-            b.clamp(min=0), xq, yq, zq, k=pool.k, z_window=z_window)
-        hit = hit & ok
-        nbytes += int(ok.sum()) * 8
-        nbytes += int((ok & inside).sum()) * pool.k * (size + 4)
-        nbytes += int(hit.sum()) * pool.k * size
-        found |= hit
-    return nbytes
-
-
 def check_chain_lookup(dev, pool, z_window):
     from slam_eslam_tpu_torch.models import sim
     from slam_eslam_tpu_torch.ops import chain_lookup as cl
+    from slam_eslam_tpu_torch.utils.kernel_eff import chain_traffic
 
     queries = sim.chain_queries(pool, SLAM_C, seed=5)
     max_err, timing = 0.0, None
@@ -672,11 +680,13 @@ def check_chain_lookup(dev, pool, z_window):
               f"{empty:.4f}")
         if name == "bench":
             outs = cl.chain_lookup(*args, **kw)
+            traffic = chain_traffic(pool, args[5], args[6], z_window)
             timing = kernel_times(
                 "chain_lookup[bench]", lambda: cl.chain_lookup(*args, **kw),
                 lambda: cl.launch(*args, outs, **kw), "chain_lookup_kernel",
                 lambda: cl.chain_lookup_reference(*args, **kw),
-                bound(chain_lookup_bytes(pool, args[5], args[6], z_window)))
+                bound(traffic["bytes"]), sectors=traffic["sectors"])
+            timing["sectors_all_levels"] = traffic["sectors_all_levels"]
     return max_err, timing
 
 
@@ -708,28 +718,35 @@ def bench_cloud(dev):
                                      torch.zeros(3, device=dev), q)
 
 
+def cloud_of(dev, p, seed=21):
+    """A cloud of ``p`` points ahead of the robot, heights near 0.3 m: the
+    camera image's lattice for p = 12 x 16 (``MAP_IMAGE``: 0.6-2.1 m
+    ahead, 0.9 m to either side), else ``p`` points drawn over 0.3-3.3 m
+    ahead and 1.5 m to either side (K3's other point counts)."""
+    from slam_eslam_tpu_torch.mapping.mls_grid import PatchCloud
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
+    h, w = MAP_IMAGE
+    if p == h * w:
+        gx, gy = torch.meshgrid(torch.linspace(0.6, 2.1, h, device=dev),
+                                torch.linspace(-0.9, 0.9, w, device=dev),
+                                indexing="ij")
+        xy = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+    else:
+        xy = torch.stack([0.3 + 3.0 * rand(p), 3.0 * rand(p) - 1.5], -1)
+    return PatchCloud.create(
+        xy=xy, z=0.3 + 0.02 * torch.randn(p, generator=gen, device=dev),
+        stdev=0.01 + 0.04 * rand(p),
+        valid=torch.ones(p, dtype=torch.bool, device=dev))
+
+
 def hit_cells(blk, lx, ly, b, nx, ny):
     """``(in-range points, distinct hit cells)`` of merge operands."""
     from slam_eslam_tpu_torch.ops.block_copy import hit_rows
 
     rows = hit_rows(blk, lx, ly, b, nx, ny)
     return int(rows.numel()), distinct(rows)
-
-
-def block_merge_bytes(pool, blk, lx, ly):
-    """Bytes one block merge must move for these operands: the block ids
-    and the four point rows; per distinct hit cell the K slots of the
-    four fields read and one slot of each written.  The operations (two
-    sums per point, about 50 per cell for the slot rules, the sort's
-    P log^2 P compares per particle) are counted for the other bound."""
-    n, p = lx.shape
-    size = pool.mean.element_size()
-    _, cells = hit_cells(blk, lx, ly, pool.b, pool.nx, pool.ny)
-    nbytes = (n * 4 + 4 * n * p * 4
-              + cells * (pool.k * (3 * size + 4) + 3 * size + 4))
-    p_pad = 1 << (p - 1).bit_length()
-    flops = n * p_pad * (p_pad.bit_length() ** 2) / 2 + 2 * n * p + 50 * cells
-    return nbytes, flops
 
 
 def bf16_steps(a, b):
@@ -741,6 +758,7 @@ def check_block_merge(dev, pool, cfg):
     from slam_eslam_tpu_torch.mapping import map_pool as mp
     from slam_eslam_tpu_torch.models import sim
     from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.utils.kernel_eff import merge_traffic
 
     ops = mp.merge_operands(pool, *sim.poses_on_heads(pool, 3.0, seed=7),
                             bench_cloud(dev))
@@ -783,6 +801,7 @@ def check_block_merge(dev, pool, cfg):
               f"written ({multi} from multi-point cells), meta equal, "
               f"max_abs_err={max_err:.3e}")
         if name == "bench":
+            traffic = merge_traffic(pool, blk, lx, ly)
             timing = kernel_times(
                 "block_merge[bench]",
                 lambda: bm.block_merge(*kern, None, blk, lx, ly, w, wz, 7,
@@ -791,9 +810,73 @@ def check_block_merge(dev, pool, cfg):
                 "block_merge_kernel",
                 lambda: bm.block_merge_reference(*plain, None, blk, lx, ly,
                                                  w, wz, 7, **kw),
-                bound(*block_merge_bytes(pool, blk, lx, ly)))
+                bound(traffic["bytes"], traffic["flops"]),
+                sectors=traffic["sectors"])
         del kern, plain
+    timing.update(check_merge_points(dev, pool, cfg))
     return max_err, timing
+
+
+def compact_merge(fields, blk):
+    """The blocks ``blk`` (all valid) of ``fields`` as a pool of their own,
+    and the block ids into it: the merge of the same points touches the
+    same cells with the same sums."""
+    ids = torch.arange(blk.shape[0], dtype=torch.int32, device=blk.device)
+    return [f.index_select(0, blk.long()) for f in fields], ids
+
+
+def check_merge_points(dev, pool, cfg):
+    """K3 at the other point counts it serves (``MERGE_POINTS``: one
+    point, the camera image, a long cloud) on the blocks the SLAM check's
+    poses hit: against the plain version on the CPU, whose sums run in
+    point order as the kernel's do (the card's plain version sums with
+    atomics): meta, mean and height bit for bit, stdev within one step
+    (PyTorch's vectorised CPU ``sqrt`` is not correctly rounded); and the
+    device time beside the sector bound.  Returns the row's keys."""
+    from slam_eslam_tpu_torch.mapping import map_pool as mp
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.utils import profiling
+    from slam_eslam_tpu_torch.utils.kernel_eff import merge_traffic
+
+    kw = dict(k=pool.k, patch_thickness=cfg.grid_patch_thickness,
+              gap_size=cfg.grid_gap_size)
+    poses = sim.poses_on_heads(pool, 3.0, seed=7)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    step = lambda a, b: (bf16_steps(a, b) if a.dtype == torch.bfloat16 else
+                         (a.view(torch.int32).long()
+                          - b.view(torch.int32).long()).abs())
+    out = {}
+    for p in MERGE_POINTS:
+        blk, lx, ly, w, wz = mp.merge_operands(pool, *poses, cloud_of(dev, p))
+        sub, ids = compact_merge(fields, blk)
+        cpu = [f.cpu() for f in sub]
+        bm.block_merge(*sub, None, ids, lx, ly, w, wz, 7, **kw)
+        bm.block_merge_reference(*cpu, None, ids.cpu(), lx.cpu(), ly.cpu(),
+                                 w.cpu(), wz.cpu(), 7, **kw)
+        torch.cuda.synchronize()
+        label = f"block_merge[P={p}]"
+        for fname, a, b in zip(("mean", "stdev", "height", "meta"), sub, cpu):
+            gap = int(step(a.cpu(), b).max())
+            if gap > (1 if fname == "stdev" else 0):
+                raise RuntimeError(f"{label} {fname}: {gap} steps from the "
+                                   f"plain version on the CPU")
+        written = int((sub[3].cpu() != pool.meta.index_select(
+            0, blk.long()).cpu()).sum())
+        if not written:
+            raise RuntimeError(f"{label}: nothing written")
+        traffic = merge_traffic(pool, blk, lx, ly)
+        ms = profiling.device_time(
+            lambda: bm.launch(*fields, None, blk, lx, ly, w, wz, 7, **kw)) * 1e3
+        b_ms = bound(traffic["bytes"], traffic["flops"])[0]
+        print(f"{label} N={blk.shape[0]} {pool.mean.dtype}: {written} slots "
+              f"written, meta, mean and height equal bit for bit to the plain "
+              f"version on the CPU, stdev within one step; device {ms:.5f} ms "
+              f"(graph of {GRAPH_REPS} launches), bound {b_ms:.5f} ms (bytes)")
+        out.update({f"ms_p{p}": ms, f"bound_ms_p{p}": b_ms})
+        sec = sector_times(label, traffic["sectors"], ms)
+        out.update({f"{key}_p{p}": v for key, v in sec.items()})
+    return out
 
 
 def check_slam_kernels(dev, cfg, dtype=torch.float32):
@@ -1464,6 +1547,11 @@ def check_block_copy(dev, cfg):
                 points=50, merge=50))
         b_whole = bound(block_copy_bytes(fields, blk, points, "whole"))
         b_cells = bound(block_copy_bytes(fields, blk, points, "cells"))
+        # the merge's rows, read and written: the same sectors as its own
+        shape = SimpleNamespace(b=fields[0].shape[0], nx=COPY_BLOCK["nx"],
+                                ny=COPY_BLOCK["ny"], k=k, mean=fields[0])
+        copy_sectors = kernel_eff.merge_traffic(shape, blk, *points[:2])[
+            "sectors"]
         # the same rows unsorted: the same bytes must move
         b_points = bound(block_copy_bytes(fields, blk, points, "points"))
         spread = ", ".join(f"{name} {first[name]:.4f}/{second[name]:.4f}"
@@ -1496,7 +1584,10 @@ def check_block_copy(dev, cfg):
             library=device_ms_of(library))
         timing[tag] = dict(call=ms, device=dev_ms, profiler=prof_ms,
                            bound_whole=b_whole, bound_cells=b_cells,
-                           bound_points=b_points)
+                           bound_points=b_points, sectors=copy_sectors)
+        for mode in ("cells", "points", "merge"):
+            sector_times(f"block_copy[bench] {dtype} {mode}", copy_sectors,
+                         dev_ms[mode])
         print(f"block_copy[bench] {dtype} device (graph of "
               f"{COPY_GRAPH_REPS} launches / profiler): whole "
               f"{dev_ms['whole']:.4f} / {prof_ms['whole']:.4f} ms (bound "
@@ -1570,6 +1661,8 @@ def check_big_kernels(dev, cfg):
     from slam_eslam_tpu_torch.ops import block_copy as bc
     from slam_eslam_tpu_torch.ops import block_merge as bm
     from slam_eslam_tpu_torch.ops import chain_lookup as cl
+    from slam_eslam_tpu_torch.utils.kernel_eff import (chain_traffic,
+                                                       merge_traffic)
 
     torch.cuda.reset_peak_memory_stats()
     pool = sim.random_pool(BIG_N, 4 * BIG_N, **SLAM_POOL, seed=13, device=dev,
@@ -1604,13 +1697,14 @@ def check_big_kernels(dev, cfg):
     print(f"chain_lookup[100k] N={BIG_N} C={SLAM_C} L={pool.chain.shape[1]}: "
           f"bitwise equal, found {float(got[0].float().mean()):.4f} "
           f"({found_far:.4f} for heads past 2^31)")
+    traffic = chain_traffic(pool, pool.chain, queries, cfg.mls_z_window)
     k2 = (k2_err, kernel_times(
         "chain_lookup[100k]", lambda: cl.chain_lookup(*args, **kw),
         lambda: cl.launch(*args, got, **kw), "chain_lookup_kernel",
         lambda: cl.chain_lookup_reference(*args, **kw),
-        bound(chain_lookup_bytes(pool, pool.chain, queries,
-                                 cfg.mls_z_window)),
-        n_call=20, n_plain=3, reps=BIG_GRAPH_REPS))
+        bound(traffic["bytes"]), n_call=20, n_plain=3, reps=BIG_GRAPH_REPS,
+        sectors=traffic["sectors"]))
+    k2[1]["sectors_all_levels"] = traffic["sectors_all_levels"]
     del got, ref, args
 
     # K3
@@ -1658,13 +1752,14 @@ def check_big_kernels(dev, cfg):
           f"{multi_cells} multi-point cells and within one bfloat16 step "
           f"inside, max_abs_err={k3_err:.3e}; {far_written} slots written "
           f"past 2^31 elements")
+    traffic = merge_traffic(pool, blk, lx, ly)
     k3 = kernel_times(
         "block_merge[100k]",
         lambda: bm.block_merge(*kern, None, *ops, 7, **kw),
         lambda: bm.launch(*kern, None, *ops, 7, **kw), "block_merge_kernel",
         lambda: bm.block_merge_reference(*plain, None, *ops, 7, **kw),
-        bound(*block_merge_bytes(pool, blk, lx, ly)),
-        n_call=20, n_plain=3, reps=BIG_GRAPH_REPS)
+        bound(traffic["bytes"], traffic["flops"]),
+        n_call=20, n_plain=3, reps=BIG_GRAPH_REPS, sectors=traffic["sectors"])
     print(f"100k pool: peak allocated in this check "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return k2, (k3_err, k3)
@@ -1852,8 +1947,6 @@ def check_merge_packed(dev):
     """P4 against its plain version and against K3 on the unpacked fields,
     at the merge probe's shape and operands; the three timed in turns.
     Returns ``(max_abs_err, the row's times)``."""
-    from types import SimpleNamespace
-
     from slam_eslam_tpu_torch.ops import block_merge as bm
     from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
     from slam_eslam_tpu_torch.utils import kernel_eff, profiling
@@ -1916,7 +2009,8 @@ def check_merge_packed(dev):
         "packed": lambda: bm.block_merge_packed(kern, blk, *points, uidx,
                                                 nx=nx, **kw),
     }, dict(plain=5, unpacked=50, packed=50))
-    b_ms, b_by = bound(*block_merge_bytes(shape, blk, lx, ly))
+    traffic = kernel_eff.merge_traffic(shape, blk, lx, ly)
+    b_ms, b_by = bound(traffic["bytes"], traffic["flops"])
     packed_launch = lambda: bm.launch_packed(kern, blk, *points, uidx, nx=nx,
                                              **kw)
     unpacked_launch = lambda: bm.launch(*unpacked, None, blk, *points, uidx,
@@ -1937,12 +2031,34 @@ def check_merge_packed(dev):
           f"({first['unpacked']:.4f}, {second['unpacked']:.4f}), plain "
           f"{plain_ms:.4f} ms on the card, {ms['plain']:.4f} ms a call, bound "
           f"{b_ms:.5f} ms ({b_by})")
-    return max_err, dict(
+    times = dict(
         ms=d_packed, device_ms=d_packed, device_ms_profiler=prof,
         call_ms=ms["packed"], plain_ms=plain_ms, plain_call_ms=ms["plain"],
         bound_ms=b_ms,
         bound_by=b_by, ms_unpacked_in_turns=d_unpacked,
         call_ms_unpacked_in_turns=ms["unpacked"])
+    times.update(sector_times("block_merge_packed[probe]", traffic["sectors"],
+                              d_packed))
+    # K3's other point counts through the packed entry: P4 = K3 on the
+    # unpacked fields, bit for bit
+    for count in MERGE_POINTS:
+        f2, b2, pts2 = kernel_eff.merge_benchmark_operands(
+            n, count, nx, ny, k, dev, seed=count)
+        image, unpacked = bm.pack_fields(*f2), [f.clone() for f in f2]
+        bm.block_merge_packed(image, b2, *pts2, uidx, nx=nx, **kw)
+        bm.block_merge(*unpacked, None, b2, *pts2, uidx, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(bm.packed_fields(image, nx), unpacked)):
+            raise RuntimeError(f"block_merge_packed[P={count}]: differs from "
+                               f"the merge on the unpacked fields")
+        t = profiling.device_time(lambda: bm.launch_packed(
+            image, b2, *pts2, uidx, nx=nx, **kw)) * 1e3
+        print(f"block_merge_packed[P={count}] N={n}: equal bit for bit to "
+              f"block_merge on the unpacked fields; device {t:.5f} ms")
+        times[f"ms_p{count}"] = t
+        del f2, image, unpacked
+    return max_err, times
 
 
 def probe_run():
@@ -2660,7 +2776,8 @@ def main():
         """A row's times at another storage type or shape, keys tagged."""
         return {f"{key}_{tag}": times[key]
                 for key in ("ms", "device_ms_profiler", "call_ms",
-                            "plain_ms", "bound_ms")}
+                            "plain_ms", "bound_ms", "bound_ms_sectors",
+                            "share_sectors")}
 
     def pool_rows(name, f32, bf16, big, big_err, bf16_err):
         return {**other(bf16, "bf16"), "max_abs_err_bf16": bf16_err,
@@ -2704,6 +2821,12 @@ def main():
           "device_ms_profiler_points": f32c["profiler"]["points"],
           "call_ms_points": f32c["call"]["points"],
           "bound_ms_points": f32c["bound_points"][0],
+          # the sectors the merge's rows occupy, for cells and points alike
+          "bound_ms_sectors_cells": sector_ms(f32c["sectors"]),
+          "share_sectors_cells": sector_ms(f32c["sectors"])
+          / f32c["device"]["cells"],
+          "share_sectors_points": sector_ms(f32c["sectors"])
+          / f32c["device"]["points"],
           "merge_ms": f32c["device"]["merge"],
           "ms_bf16": bf16c["device"]["whole"],
           "call_ms_bf16": bf16c["call"]["whole"],

@@ -15,16 +15,34 @@
 // slots), -1 for no hit: a colour pool's caller gathers the patch colour
 // by it.
 //
-// What bounds it on an H100: latency of scattered loads.  At the SLAM
-// bench shape (N = 4096 particles, C = 8 contacts, L = 3, K = 4, a
-// 16,384-block pool of 1.68 GB) one call reads at most N*C*L = 98k cells,
-// 48 B each (mean, stdev, meta: one 16-byte load per field), about 4.7 MB,
-// and writes 32k x 9 B.  The TPU kernel streams every chain block whole
-// through VMEM (3 x 77 KB per particle, ~940 MB per call) and gathers
-// with one-hot MXU matmuls, because a TPU gathers slowly; this card reads
-// only the touched cell rows.  So the design is one thread per (n, c),
-// direct global loads, no shared memory, and an early exit at the first
-// level that hits.  Threads past N*C return; nothing is padded.
+// What bounds it on an H100: latency of dependent scattered loads.  At
+// the SLAM bench shape (N = 4096 particles, C = 8 contacts, L = 3, K = 4,
+// a 16,384-block pool of 1.68 GB) one call reads at most N*C*L = 98k
+// cells, 48 B each (mean, stdev, meta: one 16-byte load per field), about
+// 4.7 MB, and writes 32k x 9 B.  The TPU kernel streams every chain block
+// whole through VMEM (3 x 77 KB per particle, ~940 MB per call) and
+// gathers with one-hot MXU matmuls, because a TPU gathers slowly; this
+// card reads only the touched cell rows.  A walk that loads a level only
+// after the level before it missed costs up to 1 + 3 L trips to memory
+// (chain entry, origin, mean and meta, then the next level), and most
+// queries miss the head.
+//
+// Design: one thread per (n, c), direct global loads, no shared memory.
+// The thread loads its particle's chain entries (kLevels of them at a
+// time) and all their block origins together and computes every level's
+// cell before it touches the pool; then it walks the levels head first,
+// each level's mean and meta rows, its select, and on a hit the stdev
+// row.  So the trips to memory are chain, origins, then two per level
+// reached (rows, stdev at the hit), against 1 + 3 L for a walk that loads
+// each level's chain entry and origin only after the level before it
+// missed; and no cell row is read past the first hit.  Loading every
+// level's rows before any select (about four trips in all) was measured
+// too: it gained at 4,096 particles and lost at 100,000, where the row
+// loads of levels past the first hit cost more than the trips they save
+// (PERF.md; utils/kernel_eff.py::chain_traffic counts both).  The stdev
+// row is loaded after the walk, not inside it: the form with the load in
+// the loop was measured a tenth slower at 4,096.  Threads past N*C
+// return; nothing is padded.
 //
 // The pool's mean and stdev are stored as float32 or bfloat16 (the kernel
 // is templated on the storage type S); a bfloat16 cell row is one 8-byte
@@ -39,6 +57,9 @@
 #include "slot_select.cuh"
 
 namespace {
+
+// chain levels whose loads are in flight together
+constexpr int kLevels = 4;
 
 template <int K, typename S>
 __global__ void __launch_bounds__(256)
@@ -64,29 +85,68 @@ chain_lookup_kernel(const S* __restrict__ pool_mean,
   bool hit = false;
   float mean = 0.0f, stdev = 0.0f;
   long long slot = -1;
-  for (int l = 0; l < levels && !hit; ++l) {
-    const int b = __ldg(chain + (size_t)i * levels + l);
-    if (b < 0 || b >= num_blocks) continue;  // empty chain entry
-    const int ix = (int)floorf((x - __ldg(origin + 2 * (size_t)b)) * inv_res);
-    const int iy =
-        (int)floorf((y - __ldg(origin + 2 * (size_t)b + 1)) * inv_res);
-    if (ix < 0 || ix >= nx || iy < 0 || iy >= ny) continue;  // off the block
-
-    const size_t cell = (((size_t)b * nx + ix) * ny + iy) * K;
-    float m[K], s[K];
-    int meta[K];
-    bool valid[K];
-    slot_select::load_values<K>(pool_mean + cell, m);
-    slot_select::load_slots<K>(pool_meta + cell, meta);
+  for (int l0 = 0; l0 < levels && !hit; l0 += kLevels) {
+    // the chain entries, then their origins
+    int b[kLevels];
 #pragma unroll
-    for (int k = 0; k < K; ++k) valid[k] = (meta[k] & 1) != 0;
-    const int best = slot_select::zwindow_select<K>(m, valid, z, z_window);
-    if (best < 0) continue;
-    slot_select::load_values<K>(pool_stdev + cell, s);
+    for (int u = 0; u < kLevels; ++u) {
+      b[u] = l0 + u < levels ? __ldg(chain + (size_t)i * levels + l0 + u)
+                             : -1;
+    }
+    float ox[kLevels], oy[kLevels];
+#pragma unroll
+    for (int u = 0; u < kLevels; ++u) {
+      ox[u] = oy[u] = 0.0f;
+      if (b[u] >= 0 && b[u] < num_blocks) {
+        ox[u] = __ldg(origin + 2 * (size_t)b[u]);
+        oy[u] = __ldg(origin + 2 * (size_t)b[u] + 1);
+      }
+    }
+    // every level's cell; an empty chain entry or a cell off its block
+    // skips the level
+    bool on[kLevels];
+    size_t cell[kLevels];
+#pragma unroll
+    for (int u = 0; u < kLevels; ++u) {
+      const int ix = (int)floorf((x - ox[u]) * inv_res);
+      const int iy = (int)floorf((y - oy[u]) * inv_res);
+      on[u] = b[u] >= 0 && b[u] < num_blocks && ix >= 0 && ix < nx &&
+              iy >= 0 && iy < ny;
+      cell[u] = on[u] ? (((size_t)b[u] * nx + ix) * ny + iy) * K : 0;
+    }
+    // head first: the level's mean and meta rows, then its select; the
+    // first level that hits gives the result
+    float m[kLevels][K];
+    int meta[kLevels][K];
+    int level = -1, best = -1;
+#pragma unroll
+    for (int u = 0; u < kLevels; ++u) {
+      if (level >= 0 || !on[u]) continue;
+      slot_select::load_values<K>(pool_mean + cell[u], m[u]);
+      slot_select::load_slots<K>(pool_meta + cell[u], meta[u]);
+      bool valid[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) valid[k] = (meta[u][k] & 1) != 0;
+      const int sel = slot_select::zwindow_select<K>(m[u], valid, z,
+                                                     z_window);
+      if (sel >= 0) {
+        level = u;
+        best = sel;
+        mean = slot_select::pick<K>(m[u], sel);
+      }
+    }
+    if (level < 0) continue;
+    // the stdev row of the hit level
+    size_t at = cell[0];
+#pragma unroll
+    for (int u = 1; u < kLevels; ++u) {
+      if (u == level) at = cell[u];
+    }
+    float s[K];
+    slot_select::load_values<K>(pool_stdev + at, s);
     hit = true;
-    mean = slot_select::pick<K>(m, best);
     stdev = slot_select::pick<K>(s, best);
-    slot = (long long)cell + best;
+    slot = (long long)at + best;
   }
   found[t] = hit ? 1 : 0;
   out_mean[t] = mean;

@@ -18,7 +18,12 @@ this module measures each hot kernel against ITS OWN bound on the card:
   cells and the sums and slot rules taken out, so the fraction isolates
   what those cost on top of the merge's sort and traffic.
 
-Both need the GPU: a timing taken on the CPU would mean nothing, so they
+``chain_traffic`` and ``merge_traffic`` count, from a call's inputs, what
+the chain lookup (K2) and the block merge (K3) must move: the useful
+bytes and the distinct 32-byte sectors (``SECTOR_BYTES``) they lie in,
+the unit the card moves for scattered rows.  They run on any device.
+
+The two measurements need the GPU: a timing taken on the CPU would mean nothing, so they
 return ``None`` for ``device="cpu"``, as the JAX functions do off their
 accelerator; with no ``device`` given and no CUDA device they raise.
 """
@@ -221,6 +226,144 @@ def fold_roofline(packed, n, iters=DEVICE_TIME_REPS, repeats=5, n_seg=4,
             "fraction": bound / t, "bytes": nbytes,
             "needed_instructions_per_query": needed / (cp * n),
             "launches": cf.contact_fold.launches - before}
+
+
+# the card moves device memory in sectors of this many bytes
+SECTOR_BYTES = 32
+
+
+def _sectors(offsets, length):
+    """Distinct ``SECTOR_BYTES`` sectors that byte ranges ``[offset,
+    offset + length)`` of one tensor touch (``offsets`` an int64 tensor;
+    the tensor's storage starts on a sector, as every PyTorch allocation
+    does)."""
+    if offsets.numel() == 0:
+        return 0
+    first = offsets // SECTOR_BYTES
+    last = (offsets + length - 1) // SECTOR_BYTES
+    span = torch.arange(int((last - first).max()) + 1, device=offsets.device)
+    ids = first[:, None] + span
+    return int(torch.unique(ids[ids <= last[:, None]]).numel())
+
+
+def _dense_sectors(nbytes):
+    """Sectors of ``nbytes`` contiguous bytes that start on a sector."""
+    return -(-nbytes // SECTOR_BYTES)
+
+
+def _row_sectors(cells, k, sizes):
+    """Distinct sectors of the slot rows (``k`` slots) of the flat cells
+    ``cells`` (``(block * nx + ix) * ny + iy``, int64) in one field per
+    element size of ``sizes``, summed over the fields."""
+    cells = torch.unique(cells)
+    return sum(_sectors(cells * (k * size), k * size) for size in sizes)
+
+
+def chain_traffic(pool, chain, queries, z_window):
+    """What one chain lookup (kernel K2) must move for these inputs:
+    ``{"bytes", "sectors_read", "sectors_written", "sectors",
+    "sectors_all_levels"}``.
+
+    ``bytes``: per query its x, y, z and the three outputs; the chain; and
+    per level a query reaches (the walk ends at the first hit; an empty or
+    void entry is skipped) the block's origin and, where the query lies on
+    the block, the cell's mean and meta rows, plus the stdev row where it
+    hits (the count behind ``bound_ms``).  ``sectors`` (read + written): the
+    distinct 32-byte sectors those reads and the outputs touch, counted
+    from the cells' byte offsets in each field (a sector read by several
+    queries counts once; an empty level, and the rows of a level whose
+    cell lies off its block, count nothing).  ``sectors_all_levels``: the
+    same with the origin, mean and meta rows of every level, hit or not
+    (what a lookup that loads every level before it selects reads)."""
+    from slam_eslam_tpu_torch.mapping.mls_grid import inverse_resolution
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    xq, yq, zq = queries
+    size = pool.mean.element_size()
+    k = pool.k
+    nq = xq.numel()
+    nbytes = nq * (12 + 9) + chain.numel() * 4
+    found = torch.zeros_like(xq, dtype=torch.bool)
+    size_x, size_y = pool.nx * pool.resolution, pool.ny * pool.resolution
+    inv = inverse_resolution(pool.resolution)
+    need = {"origin": [], "row": [], "stdev": []}
+    every = {"origin": [], "row": []}
+    for level in range(chain.shape[1]):
+        b = chain[:, level]
+        void = (b < 0) | (b >= pool.b)
+        bb = torch.where(void, torch.zeros_like(b), b)
+        ok = (~void)[:, None] & ~found
+        org = pool.origin.index_select(0, bb.long())
+        inside = ((xq >= org[:, 0:1]) & (xq < org[:, 0:1] + size_x)
+                  & (yq >= org[:, 1:2]) & (yq < org[:, 1:2] + size_y))
+        hit, _, _, slot = cl.block_get_patch(
+            pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            bb, xq, yq, zq, k=k, z_window=z_window, with_slot=True)
+        hit = hit & ok
+        nbytes += int(ok.sum()) * 8
+        nbytes += int((ok & inside).sum()) * k * (size + 4)
+        nbytes += int(hit.sum()) * k * size
+        # the cell the kernel computes, and whether it lies on the block
+        ix = torch.floor((xq - org[:, 0:1]) * inv).long()
+        iy = torch.floor((yq - org[:, 1:2]) * inv).long()
+        on = ((ix >= 0) & (ix < pool.nx) & (iy >= 0) & (iy < pool.ny)
+              & (~void)[:, None])
+        cell = (bb.long()[:, None] * pool.nx + ix) * pool.ny + iy
+        blocks = bb.long()[:, None].expand_as(xq)
+        need["origin"].append(blocks[ok])
+        need["row"].append(cell[ok & on])
+        need["stdev"].append(slot[hit] // k)
+        every["origin"].append(blocks[(~void)[:, None].expand_as(xq)])
+        every["row"].append(cell[on])
+        found |= hit
+    cat = lambda parts: torch.cat(parts) if parts else torch.zeros(
+        0, dtype=torch.long, device=xq.device)
+    dense_read = (3 * _dense_sectors(nq * 4)
+                  + _dense_sectors(chain.numel() * 4))
+    written = _dense_sectors(nq) + 2 * _dense_sectors(nq * 4)
+
+    def read(origins, rows):
+        return (dense_read + _sectors(torch.unique(origins) * 8, 8)
+                + _row_sectors(rows, k, (size, 4)))
+
+    sectors_read = (read(cat(need["origin"]), cat(need["row"]))
+                    + _row_sectors(cat(need["stdev"]), k, (size,)))
+    all_read = (read(cat(every["origin"]), cat(every["row"]))
+                + _row_sectors(cat(need["stdev"]), k, (size,)))
+    return {"bytes": nbytes, "sectors_read": sectors_read,
+            "sectors_written": written, "sectors": sectors_read + written,
+            "sectors_all_levels": all_read + written}
+
+
+def merge_traffic(pool, blk, lx, ly):
+    """What one block merge (kernel K3, and P4 on a packed image) must
+    move for these operands: ``{"bytes", "flops", "sectors_read",
+    "sectors_written", "sectors"}``.
+
+    ``bytes``: the block ids and the four point rows; per distinct hit
+    cell the K slots of the four fields read and one slot of each written
+    (the count behind ``bound_ms``).  ``flops``: two sums per point, about 50
+    per cell for the slot rules, the sort's P log^2 P compares per
+    particle.  ``sectors`` (read + written): the distinct 32-byte sectors
+    of the block ids and point rows, and of each hit cell's slot row in
+    every field (a row of at most 16 bytes lies in one sector; cells that
+    share a sector, as neighbours in ``iy`` do, count it once; the written
+    slot lies in the sector that was read).  ``pool`` needs ``b, nx, ny,
+    k`` and ``mean`` (the float fields' storage type)."""
+    from slam_eslam_tpu_torch.ops.block_copy import hit_rows
+
+    n, p = lx.shape
+    size = pool.mean.element_size()
+    rows = hit_rows(blk, lx, ly, pool.b, pool.nx, pool.ny)
+    cells = int(torch.unique(rows).numel())
+    nbytes = (n * 4 + 4 * n * p * 4
+              + cells * (pool.k * (3 * size + 4) + 3 * size + 4))
+    p_pad = 1 << (p - 1).bit_length()
+    flops = n * p_pad * (p_pad.bit_length() ** 2) / 2 + 2 * n * p + 50 * cells
+    fields = _row_sectors(rows, pool.k, (size, size, size, 4))
+    read = _dense_sectors(n * 4) + 4 * _dense_sectors(n * p * 4) + fields
+    return {"bytes": nbytes, "flops": flops, "sectors_read": read,
+            "sectors_written": fields, "sectors": read + fields}
 
 
 def merge_benchmark_operands(n=4096, p=64, nx=40, ny=32, k=4, device="cpu",

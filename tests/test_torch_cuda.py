@@ -678,19 +678,34 @@ def test_launches_capture_into_a_cuda_graph(dev):
     sel_ref = sc.select_cells(packed, flat, 3.0)
     out = torch.zeros_like(ref)
     outs = tuple(torch.zeros_like(t) for t in sel_ref)
+    # K2 and K3 on a SLAM pool: the merge in place on a copy
+    pool, (blk, lx, ly, w, wz) = merge_setup(1024, 64, 12, dev, seed=11)
+    cq = sim.chain_queries(pool, 8, seed=11)
+    cargs = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+             pool.chain, cq)
+    chain_ref = cl.chain_lookup(*cargs, k=4, z_window=1.0, with_slot=True)
+    chain_outs = tuple(torch.zeros_like(t) for t in chain_ref)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    merged = [f.clone() for f in fields]
+    bm.block_merge(*merged, None, blk, lx, ly, w, wz, 5, k=4)
+    work = [f.clone() for f in fields]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = cf.contact_fold.launches, sc.select_cells.launches
+    counts = lambda: (cf.contact_fold.launches, sc.select_cells.launches,
+                      cl.chain_lookup.launches, bm.block_merge.launches)
+    before = counts()
     with torch.cuda.graph(graph):
         cf.launch(packed, q, act, mv, seg, out, 0.33)
         sc.launch(packed, flat, outs, 3.0)
-    assert (cf.contact_fold.launches, sc.select_cells.launches) == (
-        before[0] + 1, before[1] + 1)
+        cl.launch(*cargs, chain_outs, k=4, z_window=1.0)
+        bm.launch(*work, None, blk, lx, ly, w, wz, 5, k=4)
+    assert counts() == tuple(b + 1 for b in before)
     out.zero_()
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
-    for a, b in zip(outs, sel_ref):
+    for a, b in zip(outs + chain_outs + tuple(work),
+                    sel_ref + chain_ref + tuple(merged)):
         assert torch.equal(a, b)
 
 
@@ -714,3 +729,202 @@ def test_device_time_reads_below_the_call_time(dev):
     cold, fill = profiling.device_time_cold(launch, reps=20, replays=2)
     assert 0 < p < whole and t > 0
     assert fill > 0 and cold > 0
+
+
+# ---- K3 at every point count the paths give it and around the warp's
+# edges, against the plain version on the CPU, whose run sums go in point
+# order as the kernel's do (the card's plain version sums with atomics):
+# meta, mean and height bit for bit, stdev within one step (PyTorch's
+# vectorised CPU sqrt is not correctly rounded)
+
+def steps(a, b):
+    """Largest distance in steps of the storage type (float32 or
+    bfloat16 bit patterns)."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return int((a.cpu().view(view).long() - b.view(view).long()).abs().max())
+
+
+def assert_merge_equals_cpu(kern, cpu, label):
+    for name, a, b in zip(("mean", "stdev", "height", "meta"), kern, cpu):
+        assert steps(a, b) <= (1 if name == "stdev" else 0), (label, name)
+
+
+def merge_vs_cpu(pool, ops, update_idx=5, color=None, pcolor=None):
+    """K3 on the card and its plain version on the CPU, from the same
+    pool: ``(card fields, CPU fields)`` (colour last where given)."""
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    kern = [f.clone() for f in fields]
+    cpu = [f.cpu() for f in fields]
+    kc = None if color is None else color.clone()
+    cc = None if color is None else color.cpu()
+    before = bm.block_merge.launches
+    bm.block_merge(*kern, kc, *ops, update_idx, pcolor, k=pool.k)
+    assert bm.block_merge.launches == before + 1
+    bm.block_merge_reference(*cpu, cc, *(a.cpu() for a in ops), update_idx,
+                             None if pcolor is None else pcolor.cpu(),
+                             k=pool.k)
+    torch.cuda.synchronize()
+    if color is not None:
+        kern.append(kc)
+        cpu.append(cc)
+    return kern, cpu
+
+
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 64, 65, 192, 2048, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_merge_point_counts_match_cpu(dev, p, dtype):
+    n = 64 if p > 2048 else 512
+    pool, ops = merge_setup(n, p, 12, dev, seed=p, dtype=dtype)
+    kern, cpu = merge_vs_cpu(pool, ops)
+    assert int((kern[3] != pool.meta).sum()) > 0
+    assert_merge_equals_cpu(kern, cpu, f"P={p}")
+
+
+@pytest.mark.parametrize("p", [40, 64, 100])
+def test_block_merge_one_cell_hit_by_every_point(dev, p):
+    """Runs as long as the cloud, longer than a warp past P = 32."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(256, p, 12, dev, seed=p)
+    lx = torch.full_like(lx, 5)
+    ly = (torch.arange(256, device=dev, dtype=torch.int32) % 12)[:, None]
+    ly = ly.expand(-1, p).contiguous()
+    kern, cpu = merge_vs_cpu(pool, (blk, lx, ly, w, wz))
+    # one slot of one cell per particle
+    assert int((kern[3] != pool.meta).sum()) == 256
+    assert_merge_equals_cpu(kern, cpu, f"one cell, P={p}")
+
+
+def test_block_merge_masked_points_and_void_blocks(dev):
+    """Points out of range and particles whose block is -1 (or past the
+    pool) change nothing."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(512, 64, 12, dev, seed=4)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    out = torch.full_like(lx, 12)
+    kern, _ = merge_vs_cpu(pool, (blk, out, ly, w, wz))
+    for a, b in zip(kern, fields):
+        assert torch.equal(a, b)
+    void = blk.clone()
+    void[::2] = -1
+    void[1::4] = pool.b
+    kern = [f.clone() for f in fields]
+    bm.block_merge(*kern, None, void, lx, ly, w, wz, 5, k=4)
+    # the plain version takes only valid blocks: the particles that have one
+    live = slice(3, None, 4)
+    cpu = [f.cpu() for f in fields]
+    bm.block_merge_reference(*cpu, None, *(a[live].cpu() for a in (
+        blk, lx, ly, w, wz)), 5, k=4)
+    torch.cuda.synchronize()
+    assert_merge_equals_cpu(kern, cpu, "void blocks")
+    idle = torch.ones(pool.b, dtype=torch.bool, device=dev)
+    idle[blk[live].long()] = False
+    assert torch.equal(kern[3][idle], pool.meta[idle])
+    assert not torch.equal(kern[3], pool.meta)
+
+
+@pytest.mark.parametrize("p", [64, 192])
+def test_block_merge_colour_pool_matches_cpu(dev, p):
+    pool, ops = merge_setup(256, p, 12, dev, seed=p + 1)
+    gen = torch.Generator(dev).manual_seed(p)
+    color = torch.rand(pool.mean.shape[:2] + (pool.mean.shape[2] * 3,),
+                       generator=gen, device=dev)
+    pcolor = torch.rand((p, 3), generator=gen, device=dev)
+    kern, cpu = merge_vs_cpu(pool, ops, color=color, pcolor=pcolor)
+    assert_merge_equals_cpu(kern[:4], cpu[:4], f"colour P={p}")
+    torch.testing.assert_close(kern[4].cpu(), cpu[4], rtol=1e-6, atol=1e-7)
+    assert not torch.equal(kern[4], color)
+
+
+@pytest.mark.parametrize("p", [1, 33, 65, 2048])
+def test_block_merge_packed_point_counts(dev, p):
+    """The packed entry at point counts on either side of the warp: K3 on
+    the unpacked fields, bit for bit."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(256, p, 12, dev, seed=p + 2)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    packed = bm.pack_fields(*fields)
+    unpacked = [f.clone() for f in fields]
+    bm.block_merge_packed(packed, blk, lx, ly, w, wz, 5, nx=12, k=4)
+    bm.block_merge(*unpacked, None, blk, lx, ly, w, wz, 5, k=4)
+    torch.cuda.synchronize()
+    for a, b in zip(bm.packed_fields(packed, 12), unpacked):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not torch.equal(unpacked[3], pool.meta)
+
+
+# ---- K2: void chains, hits only at the tail, queries off every block,
+# K = 1 and 2, bfloat16; bit for bit against the plain version, slot
+# index included
+
+def chain_vs_plain(pool, q, k, label):
+    args = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            pool.chain, q)
+    got = cl.chain_lookup(*args, k=k, z_window=1.0, with_slot=True)
+    ref = cl.chain_lookup_reference(*args, k=k, z_window=1.0, with_slot=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), label
+    return got
+
+
+def test_chain_lookup_every_level_void(dev):
+    pool = sim.random_pool(1000, 4000, 12, 12, seed=1, device=dev)
+    q = sim.chain_queries(pool, 8, seed=1)
+    pool.chain.fill_(-1)
+    found, mean, stdev, slot = chain_vs_plain(pool, q, 4, "void")
+    assert not found.any() and not mean.any() and not stdev.any()
+    assert bool((slot == -1).all())
+
+
+def test_chain_lookup_entries_past_the_pool_are_void(dev):
+    """The kernel skips a chain entry at or past ``num_blocks`` as it
+    skips -1 (the plain version takes only -1)."""
+    pool = sim.random_pool(1000, 4000, 12, 12, seed=5, device=dev)
+    q = sim.chain_queries(pool, 8, seed=5)
+    pool.chain[::3, 1] = -1
+    ref = chain_vs_plain(pool, q, 4, "void entries")
+    pool.chain[::3, 1] = pool.b
+    pool.chain[1::3, 1] = torch.where(pool.chain[1::3, 1] < 0, pool.b + 7,
+                                      pool.chain[1::3, 1])
+    got = cl.chain_lookup(pool.mean, pool.stdev, pool.meta, pool.origin,
+                          pool.resolution, pool.chain, q, k=4, z_window=1.0,
+                          with_slot=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_lookup_hits_only_at_the_tail(dev, dtype):
+    """Head and middle blocks lie far from the queries, the tail under
+    them: every hit is at the last level."""
+    n, nx = 1000, 12
+    pool = sim.random_pool(n, 4 * n, nx, nx, seed=2, device=dev, dtype=dtype)
+    ids = torch.arange(n, device=dev, dtype=torch.int32)
+    pool.chain = torch.stack([ids, n + ids, 2 * n + ids], 1).contiguous()
+    pool.origin[:2 * n] = 1000.0
+    pool.origin[2 * n:3 * n] = 0.0
+    size = nx * pool.resolution
+    gen = torch.Generator(dev).manual_seed(2)
+    q = (size * torch.rand((n, 8), generator=gen, device=dev),
+         size * torch.rand((n, 8), generator=gen, device=dev),
+         0.3 + 0.05 * torch.randn((n, 8), generator=gen, device=dev))
+    found, _, _, slot = chain_vs_plain(pool, q, 4, "tail")
+    assert 0.1 < float(found.float().mean()) < 1.0
+    per_block = nx * nx * 4
+    assert torch.equal(slot[found] // per_block,
+                       (2 * n + ids.long())[:, None].expand_as(slot)[found])
+
+
+def test_chain_lookup_queries_off_every_block(dev):
+    pool = sim.random_pool(1000, 4000, 12, 12, seed=3, device=dev)
+    x, y, z = sim.chain_queries(pool, 8, seed=3)
+    found, _, _, _ = chain_vs_plain(pool, (x + 1e4, y - 1e4, z), 4, "off")
+    assert not found.any()
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_lookup_slot_counts(dev, k, dtype):
+    pool = sim.random_pool(2000, 8000, 12, 12, k=k, seed=k, device=dev,
+                           dtype=dtype)
+    found, _, _, _ = chain_vs_plain(pool, sim.chain_queries(pool, 8, seed=k),
+                                    k, f"k={k}")
+    assert 0.05 < float(found.float().mean()) < 0.95

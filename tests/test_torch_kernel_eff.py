@@ -21,6 +21,7 @@ from slam_eslam_tpu.utils import kernel_eff as jeff
 from slam_eslam_tpu.utils import profiling as jprof
 from slam_eslam_tpu_torch.mapping import mls_grid
 from slam_eslam_tpu_torch.models import sim
+from slam_eslam_tpu_torch.ops import block_copy as bc
 from slam_eslam_tpu_torch.utils import kernel_eff as teff
 from slam_eslam_tpu_torch.utils import profiling as tprof
 
@@ -284,3 +285,103 @@ def test_count_sass():
     assert _build.count_sass(SASS, "select_world_kernel")["main"] == 2
     with pytest.raises(RuntimeError, match="no kernel"):
         _build.count_sass(SASS, "block_merge_kernel")
+
+
+# ---- the traffic counts of the block merge (K3) and the chain lookup (K2):
+# useful bytes and distinct 32-byte sectors, against hand counts on tiny
+# pools (blocks of 4x4 cells, K = 4: a float32 or int32 slot row is 16
+# bytes, two cells to a sector; a bfloat16 row 8 bytes, four to a sector)
+
+def tiny_pool(dtype=torch.float32, b=8):
+    pool = sim.random_pool(1, b, 4, 4, k=4, resolution=1.0, seed=0,
+                           dtype=dtype)
+    pool.mean.zero_()
+    pool.meta.fill_(1)                         # every slot valid, mean 0
+    pool.origin = torch.tensor([[10.0 * i, 0.0] for i in range(b)])
+    return pool
+
+
+def merge_ops(blk, lx, ly):
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+    return i32(blk), i32(lx), i32(ly)
+
+
+# one particle on block 1, point rows of P = 2 (one sector each), the
+# block id (one sector): 5 sectors read besides the field rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ly,field_sectors", [
+    ([0, 1], 4),      # neighbours in iy share each field's sector
+    ([1, 2], 8),      # cells 17 and 18: a sector boundary between them
+    ([3, 3], 4),      # one cell hit by both points counts once
+])
+def test_merge_traffic_counts_distinct_sectors(dtype, ly, field_sectors):
+    if dtype == torch.bfloat16 and ly == [1, 2]:
+        field_sectors = 5   # bfloat16 rows 17, 18 share a sector, meta not
+    pool = tiny_pool(dtype)
+    t = teff.merge_traffic(pool, *merge_ops([1], [[0, 0]], [ly]))
+    assert t["sectors_written"] == field_sectors
+    assert t["sectors_read"] == 5 + field_sectors
+    assert t["sectors"] == 5 + 2 * field_sectors
+    size = pool.mean.element_size()
+    cells = len(set(ly))
+    assert t["bytes"] == 4 + 4 * 2 * 4 + cells * (4 * (3 * size + 4)
+                                                   + 3 * size + 4)
+
+
+def test_merge_traffic_void_block_and_masked_points_count_no_rows():
+    pool = tiny_pool()
+    for ops in (merge_ops([-1], [[0, 1]], [[0, 1]]),
+                merge_ops([99], [[0, 1]], [[0, 1]]),
+                merge_ops([2], [[4, 0]], [[0, 4]])):
+        t = teff.merge_traffic(pool, *ops)
+        assert t["sectors_written"] == 0 and t["sectors_read"] == 5
+
+
+@pytest.mark.parametrize("seed,dtype", [(0, torch.float32),
+                                        (1, torch.bfloat16)])
+def test_merge_traffic_sectors_cover_the_useful_bytes(seed, dtype):
+    rng = np.random.default_rng(seed)
+    pool = tiny_pool(dtype, b=64)
+    blk, lx, ly = merge_ops(rng.permutation(64)[:16],
+                            rng.integers(-1, 5, (16, 24)),
+                            rng.integers(-1, 5, (16, 24)))
+    t = teff.merge_traffic(pool, blk, lx, ly)
+    cells = int(torch.unique(bc.hit_rows(blk, lx, ly, 64, 4, 4)).numel())
+    assert t["sectors"] * teff.SECTOR_BYTES >= t["bytes"]
+    # a slot row lies in one sector of each field
+    assert 0 < t["sectors_written"] <= 4 * cells
+
+
+def chain_case(chain, xy, c=1):
+    pool = tiny_pool()
+    pool.chain = torch.tensor([chain], dtype=torch.int32)
+    q = lambda v: torch.full((1, c), v)
+    return pool, (q(xy[0]), q(xy[1]), q(0.0))
+
+
+# queries x, y, z, the chain row: 4 sectors read; found, mean, stdev: 3
+# written.  Block 3's origin lies in sector 0, block 5's in sector 1.
+@pytest.mark.parametrize("chain,xy,origins,rows,every", [
+    ([3, -1, -1], (30.5, 0.5), 1, 3, 1),      # a hit at the head
+    ([-1, -1, 3], (30.5, 0.5), 1, 3, 1),      # void levels count nothing
+    ([5, 3, -1], (30.5, 0.5), 2, 3, 2),       # block 5 off: its origin only
+    ([3, 5, -1], (30.5, 0.5), 1, 3, 2),       # the walk ends at the hit
+    ([5, 5, 5], (30.5, 0.5), 1, 0, 1),        # off every block: no rows
+])
+@pytest.mark.parametrize("c", [1, 3])
+def test_chain_traffic_counts_distinct_sectors(chain, xy, origins, rows,
+                                               every, c):
+    """``origins``, ``rows``: the sectors of origins and of mean, meta and
+    stdev rows that the walk needs; ``every``: the origin sectors of every
+    level (``sectors_all_levels``)."""
+    pool, queries = chain_case(chain, xy, c)
+    if chain == [3, 5, -1]:                    # put block 5 under the query
+        pool.origin[5] = torch.tensor([30.0, 0.0])
+        rows_all = 3 + 2                       # its mean and meta rows too
+    else:
+        rows_all = rows
+    t = teff.chain_traffic(pool, pool.chain, queries, 3.0)
+    assert t["sectors_written"] == 3
+    assert t["sectors_read"] == 4 + origins + rows
+    assert t["sectors"] == 7 + origins + rows
+    assert t["sectors_all_levels"] == 7 + every + rows_all

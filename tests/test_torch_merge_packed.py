@@ -144,10 +144,14 @@ def test_pack_fields_round_trip_keeps_meta_bits():
         convert.packed_image_from(ref.astype(np.float64))
 
 
-@pytest.mark.parametrize("p,spread", [(16, 1.4), (40, 0.6)])
+@pytest.mark.parametrize("p,spread", [(16, 1.4), (40, 0.6), (31, 1.4),
+                                      (33, 1.4), (65, 0.6), (40, 0.0)])
 def test_merge_packed_matches_pallas_and_merge_blocks(p, spread):
+    """Point counts around a warp and two, and (spread 0) every point of a
+    particle in one cell: a run longer than a warp."""
     jpool, pool, (blk, lx, ly, w, wz), hits = case(31 + p, p, spread)
-    assert (hits == 1).any() and (hits > 1).any()
+    assert (hits > 1).any()
+    assert hits.max() > 32 if spread == 0 else (hits == 1).any()
     j = lambda a: jnp.asarray(a.numpy())
     ref_packed = fields_of(np.asarray(jax_merge_packed(
         jax_packed(jpool), j(blk), j(lx), j(ly), j(w), j(wz))))
@@ -161,7 +165,8 @@ def test_merge_packed_matches_pallas_and_merge_blocks(p, spread):
     bm.block_merge_packed(packed, blk, lx, ly, w, wz, UPDATE_IDX, nx=NX, k=K)
     assert bm.block_merge_packed.launches == before  # no kernel on the CPU
     got = fields_of(packed.numpy())
-    assert (got[3] != np.asarray(jpool.meta)).sum() > N
+    # one cell a particle where every point lies in one
+    assert (got[3] != np.asarray(jpool.meta)).sum() > (N if spread else N // 2)
     assert_fields_match(got, ref_packed, hits, "pallas merge_packed")
     assert_fields_match(got, ref_blocks, hits, "merge_blocks")
 
