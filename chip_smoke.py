@@ -2219,7 +2219,9 @@ def count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    # the first switch of a process also warns that the mode is a prototype
+    syncs = [str(w.message) for w in caught]
+    return out, sum("synchroniz" in m and "prototype" not in m for m in syncs)
 
 
 def map_drive(f, setup, n_frames, labels=None, draws=None, spans=None):
@@ -2587,6 +2589,414 @@ def phase9(dev, card, profile=None):
     return row, mapping
 
 
+# ---------------------------------------------------------------- phase 10
+
+PG_NODES = 1024
+PG_ITERS = 10
+PG_CG_ITERS = 64
+PG_SEGMENTS, PG_CAP = 8, 32
+PG_NODE_ATOL = 1e-3          # m and rad, card vs CPU port
+# chi2 history, card vs CPU port: the normal matrix of this 1,024-node ring
+# (node 0 pinned) has a condition number of 2.9e5 (dim 3) and 4.0e5 (dim 4)
+# at the start, so two float32 factorisations that order their sums
+# differently (cuSOLVER, LAPACK) land ~2e-4 apart in the nodes, and chi2,
+# quadratic in the residuals, about twice that.  Once a solve has converged
+# (DCS: chi2 from ~500 down to ~1e-3), the residuals are within a few
+# float32 ulps of the nodes, so chi2 is compared to PG_CHI2_ATOL times the
+# history's first value as well
+PG_CHI2_RTOL = 1e-3
+PG_CHI2_ATOL = 1e-6
+ALIGN_CLOUD = 1024           # padded keyframe / probe cloud points
+ALIGN_REPS = 20
+ONLINE_FRAMES, ONLINE_CHUNK = 200, 50
+ONLINE_CHECK_CHUNKS = 2
+ONLINE_KEYFRAMES = dict(keyframe_distance=0.1)
+SCORE_ATOL = 1e-5
+LOCALIZE_STEPS, LOCALIZE_N = 40, 96
+
+
+def pose_err(a, b):
+    """Largest node difference, yaw wrapped (host arrays)."""
+    d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+    d[:, -1] = np.arctan2(np.sin(d[:, -1]), np.cos(d[:, -1]))
+    return float(np.abs(d).max())
+
+
+def timed_call(fn):
+    """``fn()`` once on the card: ``(result, event ms, host ms, host
+    syncs)``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out, syncs = count_syncs(fn)
+    end.record()
+    end.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    return out, start.elapsed_time(end), host, syncs
+
+
+def pose_graph_solvers(dev, card):
+    """Dense (plain and DCS), PCG and Schur ``optimize`` on a 1,024-node
+    circle graph with loop closures and one outlier closure, ``dim`` 3 and
+    4, against the CPU port on the same graph."""
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.utils import tree
+
+    solvers = {
+        "dense": lambda g: pg.optimize(g, PG_ITERS),
+        "dense dcs": lambda g: pg.optimize(g, PG_ITERS, robust="dcs"),
+        "pcg": lambda g: pg.optimize_cg(g, PG_ITERS, cg_iters=PG_CG_ITERS),
+        "schur": lambda g: pg.optimize_schur(
+            g, PG_ITERS, segments=PG_SEGMENTS, boundary_cap=PG_CAP),
+    }
+    out, faults = {}, []
+    for dim in (3, 4):
+        g_dev, _ = sim.circle_pose_graph(dim, PG_NODES, seed=2,
+                                         outlier=True, device=dev)
+        g_cpu = tree.to(g_dev, "cpu")
+        for name, solve in solvers.items():
+            solve(g_dev)                                 # warm-up
+            (res, hist), ms, host_ms, syncs = timed_call(
+                lambda: solve(g_dev))
+            ref, ref_hist = solve(g_cpu)
+            err = pose_err(res.nodes.cpu(), ref.nodes)
+            hist, ref_hist = hist.cpu().numpy(), ref_hist.numpy()
+            rel = np.abs(hist - ref_hist) / np.maximum(np.abs(ref_hist),
+                                                       1e-30)
+            chi2_rel = float(rel.max())
+            print(f"pose graph[dim {dim}, {PG_NODES} nodes] {name}: "
+                  f"{ms:.4f} ms per optimize on the card (events), "
+                  f"{host_ms:.4f} ms host clock, {syncs} host syncs; vs CPU "
+                  f"port: nodes {err:.3e}, chi2 rel {chi2_rel:.3e} at "
+                  f"iteration {int(rel.argmax())} (chi2 {ref_hist[0]:.6g} -> "
+                  f"{ref_hist[-1]:.6g}) [{card}]")
+            tag = f"pose graph {name} dim {dim}"
+            if not (np.isfinite(hist).all()
+                    and bool(torch.isfinite(res.nodes).all())):
+                faults.append(f"{tag}: non-finite result")
+            if err > PG_NODE_ATOL or not np.allclose(
+                    hist, ref_hist, rtol=PG_CHI2_RTOL,
+                    atol=PG_CHI2_ATOL * abs(ref_hist[0])):
+                faults.append(f"{tag}: card and CPU differ (nodes {err}, "
+                              f"chi2 {chi2_rel})")
+            if name != "schur" and syncs:
+                faults.append(f"{tag}: {syncs} host syncs")
+            out[f"{name} {dim}"] = dict(ms=ms, host_ms=host_ms, syncs=syncs,
+                                        err=err, chi2_rel=chi2_rel)
+    if faults:
+        raise RuntimeError("; ".join(faults))
+    return out
+
+
+def terrain_cloud(terrain, pose, n_valid, seed, dev):
+    """A padded ``ALIGN_CLOUD``-point cloud of terrain samples around the
+    true ``pose = (x, y, yaw, z)``, in the body frame."""
+    from slam_eslam_tpu_torch.mapping.mls_grid import PatchCloud
+
+    rng = np.random.default_rng(seed)
+    local = np.zeros((ALIGN_CLOUD, 2), np.float32)
+    local[:n_valid] = rng.uniform(-3.0, 3.0, (n_valid, 2))
+    c, s = np.cos(pose[2]), np.sin(pose[2])
+    wx = c * local[:, 0] - s * local[:, 1] + pose[0]
+    wy = s * local[:, 0] + c * local[:, 1] + pose[1]
+    z = (terrain(wx, wy) - pose[3]).astype(np.float32)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return PatchCloud.create(
+        xy=f32(local), z=f32(z), stdev=f32(np.full(ALIGN_CLOUD, 0.05)),
+        valid=torch.tensor(np.arange(ALIGN_CLOUD) < n_valid, device=dev))
+
+
+def scan_align_sweeps(dev, card):
+    """``KeyframeManager``'s closure sweep (9x9x7 around a 48x48 keyframe
+    grid at 0.2 m, k = 2) and a 31x31x7 coarse stage, 1,024-point clouds,
+    card against the CPU port."""
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+    from slam_eslam_tpu_torch.backend.keyframes import (Keyframe,
+                                                        KeyframeManager)
+    from slam_eslam_tpu_torch.examples.loop_closure_demo import terrain
+
+    sweeps = {"fine 9x9x7": dict(search_xy=0.5, steps_xy=9, sigma=0.2,
+                                 return_ratio=True),
+              "coarse 31x31x7": dict(search_xy=1.5, steps_xy=31, sigma=0.4,
+                                     return_ratio=True)}
+    out, res = {}, {}
+    for d in ("cpu", dev):
+        km = KeyframeManager(device=d)
+        kf_pose = np.array([0.3, -0.2, 0.1])
+        grid = km._kf_grid(Keyframe(0, 0, kf_pose, terrain_cloud(
+            terrain, (*kf_pose, 0.2), 900, 11, d), 0.2))
+        probe = terrain_cloud(terrain, (0.5, -0.3, 0.15, 0.2), 800, 12, d)
+        for name, kw in sweeps.items():
+            call = lambda: pg.scan_align(
+                grid, probe, km._f32([0.3, -0.2]), km._f32(0.1),
+                km._f32(0.2), search_yaw=0.3, steps_yaw=7, **kw)
+            res[(str(d), name)] = [float(v) for v in torch.cat(
+                [t.reshape(-1) for t in call()]).tolist()]
+            if d == dev:
+                call()
+                ms = cuda_ms(call, ALIGN_REPS)
+                lookups = 7 * kw["steps_xy"] ** 2 * ALIGN_CLOUD
+                out[name] = dict(ms=ms, lookups_per_s=lookups / ms * 1e3)
+    for name in sweeps:
+        a, b = res[(str(dev), name)], res[("cpu", name)]
+        same = max(abs(x - y) for x, y in zip(a[:3], b[:3])) <= 1e-6
+        diffs = [abs(x - y) for x, y in zip(a[3:], b[3:])]
+        print(f"scan_align[{name}, {ALIGN_CLOUD} points]: best (x, y, yaw) "
+              f"= ({a[0]:.4f}, {a[1]:.4f}, {a[2]:.4f}) "
+              f"{'equal to' if same else 'DIFFERS from'} the CPU port's, "
+              f"score {a[3]:.6f} ratio {a[4]:.4f} (vs CPU {diffs[0]:.2e}, "
+              f"{diffs[1]:.2e}); {out[name]['ms']:.4f} ms per sweep, "
+              f"{out[name]['lookups_per_s']:.4g} lookups/s [{card}]")
+        if not same or max(diffs) > SCORE_ATOL:
+            raise RuntimeError(f"scan_align {name}: card and CPU differ")
+    return out
+
+
+def closure_demo(dev, card):
+    from slam_eslam_tpu_torch.examples.loop_closure_demo import closure_run
+
+    quiet = lambda *a, **k: None
+    ref = closure_run("cpu", log=quiet)
+    t0 = time.perf_counter()
+    got = closure_run(dev, log=quiet)
+    seconds = time.perf_counter() - t0
+    print(f"loop_closure_demo: closures {got['closures']}, max |y| drift "
+          f"{got['err_before']:.4f} m before and {got['err_after']:.4f} m "
+          f"after optimisation, {seconds:.3f} s on the card; CPU port "
+          f"closures {[c[:2] for c in ref['closures']]} [{card}]")
+    if ([c[:2] for c in got["closures"]] != [c[:2] for c in ref["closures"]]
+            or not got["closures"]
+            or max(abs(a[2] - b[2]) for a, b in zip(
+                got["closures"], ref["closures"])) > SCORE_ATOL
+            or not got["err_after"] < got["err_before"]):
+        raise RuntimeError("loop_closure_demo: closures or drift differ")
+
+
+def online_slam(cfg, z0, normals, device):
+    from slam_eslam_tpu_torch.online import OnlineSlam
+
+    s = OnlineSlam(config=cfg, laser2body=(np.eye(3), np.zeros(3)),
+                   keyframe_kw=ONLINE_KEYFRAMES, device=device)
+    return s.init(pose=(np.array([0.0, 0.0, z0]), 0.0),
+                  num_contact_points=20, normal_xy=normals[0].to(device),
+                  normal_yaw=normals[1].to(device))
+
+
+def online_path(dev, card):
+    """``OnlineSlam`` at phase 6's geometry over the bench stream (full
+    contacts: ``run_stream`` runs the odometry itself), in chunks; a
+    checkpoint after the first chunk, restored into a fresh filter that
+    runs the second chunk again."""
+    import tempfile
+
+    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+    from slam_eslam_tpu_torch.utils import checkpoint as ckpt
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = slam_config()
+    z0, frames, _, _ = bench.slam_trajectory(ONLINE_FRAMES // 10, 0)
+    normals, draws = slam_draws(ONLINE_FRAMES)
+    chunks = [(frames.at(slice(c, c + ONLINE_CHUNK)),
+               draws[c:c + ONLINE_CHUNK])
+              for c in range(0, ONLINE_FRAMES, ONLINE_CHUNK)]
+    on_dev = lambda ds: [tree.to(x, dev) for x in ds]
+    s = online_slam(cfg, z0, normals, dev)
+    stream_s = []
+    run_stream = s.filter.run_stream
+
+    def timed_stream(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = run_stream(*a, **kw)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t0)
+        return aux
+
+    s.filter.run_stream = timed_stream
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "filter.pt"
+    rows, launches, auxes = [], {"chain_lookup": 0, "block_merge": 0}, []
+    for c, (fr, dr) in enumerate(chunks):
+        cl.chain_lookup.launches = 0
+        bm.block_merge.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = s.process_chunk(fr, draws=on_dev(dr))
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        got = {"chain_lookup": cl.chain_lookup.launches,
+               "block_merge": bm.block_merge.launches}
+        n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
+        want = {"chain_lookup": n_meas + (n_map if cfg.use_visual_update
+                                          else 0), "block_merge": n_map}
+        if got != want or not n_map:
+            raise RuntimeError(f"OnlineSlam chunk {c}: launches {got}, gates "
+                               f"want {want}")
+        for k in launches:
+            launches[k] += got[k]
+        t1 = time.perf_counter()
+        traj, hist = s.optimize()
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t1
+        n_kf = len(s.keyframes.keyframes)
+        if not np.isfinite(traj[:n_kf]).all() or not bool(
+                torch.isfinite(hist).all()):
+            raise RuntimeError(f"OnlineSlam chunk {c}: non-finite optimize")
+        rows.append(dict(stream=stream_s[-1], keyframe=chunk_s - stream_s[-1],
+                         optimize=opt_s, keyframes=n_kf, iters=hist.shape[0]))
+        print(f"OnlineSlam chunk {c}: {ONLINE_CHUNK} frames x {SLAM_N} "
+              f"particles, {n_meas} measurement and {n_map} mapping frames, "
+              f"launches {got}; run_stream {stream_s[-1] * 1e3:.2f} ms, "
+              f"keyframe extraction + alignment "
+              f"{(chunk_s - stream_s[-1]) * 1e3:.2f} ms, optimize "
+              f"{opt_s * 1e3:.2f} ms ({hist.shape[0]} iterations); "
+              f"keyframes {n_kf}, closures {len(s.keyframes.closures)} "
+              f"[{card}]")
+        auxes.append(aux)
+        if c == 0:
+            t1 = time.perf_counter()
+            ckpt.save_filter(path, s.filter)
+            save_s = time.perf_counter() - t1
+        if c == 1:
+            snap = dict(centroid=aux["centroid"].clone(),
+                        best_pose=aux["best_pose"].clone(),
+                        particles=tree.tree_map(torch.clone,
+                                                s.filter.state.particles),
+                        pool={f: getattr(s.filter.pool, f).clone()
+                              for f in ("mean", "stdev", "height", "meta",
+                                        "origin", "chain", "allocated")},
+                        update_idx=s.filter.update_idx)
+    n_kf = len(s.keyframes.keyframes)
+    _, again = s.optimize()
+    if n_kf < 2 or again.shape != (0,):
+        raise RuntimeError(f"OnlineSlam: {n_kf} keyframes, second optimize "
+                           f"ran {again.shape[0]} iterations")
+    kf_frames, kf_poses = list(s.keyframe_frames), [
+        k.pose for k in s.keyframes.keyframes]
+    print(f"OnlineSlam: {ONLINE_FRAMES} frames in {len(chunks)} chunks of "
+          f"{ONLINE_CHUNK}: keyframes at frames {kf_frames}, closures "
+          f"{s.keyframes.closures}, launches {launches}, incremental DCS "
+          f"optimize finite, second call a no-op [{card}]")
+    del s
+
+    # ---- the checkpoint, restored into a fresh filter on the card ----
+    size = path.stat().st_size
+    g = EmbodiedSlamFilter(config=cfg, device=dev).init(
+        pose=(np.array([0.5, 0.5, z0]), 0.3), use_shared_map=False,
+        num_contact_points=20)
+    t1 = time.perf_counter()
+    ckpt.restore_filter(path, g)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    tmp.cleanup()
+    aux = g.run_stream(tree.to(chunks[1][0], dev),
+                       laser2body=(np.eye(3), np.zeros(3)),
+                       draws=on_dev(chunks[1][1]))
+    differ = [name for name, a, b in (
+        ("centroid", aux["centroid"], snap["centroid"]),
+        ("best_pose", aux["best_pose"], snap["best_pose"]),
+        *((f"particles.{f}", getattr(g.state.particles, f),
+           getattr(snap["particles"], f))
+          for f in ("x", "y", "yaw", "z", "z_sigma", "weight")),
+        *((f"pool.{f}", getattr(g.pool, f), snap["pool"][f])
+          for f in snap["pool"])) if not torch.equal(a, b)]
+    print(f"checkpoint: {size / 1e6:.1f} MB, save {save_s:.3f} s, restore "
+          f"{restore_s:.3f} s; chunk 1 again from the restored filter: "
+          + ("equal bit for bit" if not differ else
+             f"differs in {differ}") + f" [{card}]")
+    if differ and not all(name.startswith(("pool.mean", "pool.stdev",
+                                           "pool.height")) for name in differ):
+        raise RuntimeError(f"checkpoint resume differs in {differ}")
+    del g
+
+    # ---- the first chunks against the CPU port on identical draws ----
+    ref = online_slam(cfg, z0, normals, "cpu")
+    for c in range(ONLINE_CHECK_CHUNKS):
+        fr, dr = chunks[c]
+        raux = ref.process_chunk(fr, draws=dr)
+        for name in ("updated", "mapped"):
+            if not (raux[name] == auxes[c][name]).all():
+                raise RuntimeError(f"OnlineSlam chunk {c}: {name} gates "
+                                   f"differ from the CPU port's")
+        err = float((auxes[c]["centroid"].cpu() - raux["centroid"]).abs()
+                    .max())
+        if err > CENTROID_ATOL:
+            raise RuntimeError(f"OnlineSlam chunk {c}: centroids differ by "
+                               f"{err} m")
+    n = len(ref.keyframes.keyframes)
+    pose_diff = max((float(np.abs(a - b.pose).max())
+                     for a, b in zip(kf_poses, ref.keyframes.keyframes)),
+                    default=0.0)
+    print(f"OnlineSlam: GPU vs CPU port over {ONLINE_CHECK_CHUNKS} chunks: "
+          f"keyframe frames {ref.keyframe_frames} (card "
+          f"{kf_frames[:n]}), keyframe poses {pose_diff:.3e}, closures "
+          f"{ref.keyframes.closures} [{card}]")
+    if (ref.keyframe_frames != kf_frames[:n] or pose_diff > CENTROID_ATOL
+            or n < 1):
+        raise RuntimeError("OnlineSlam: keyframes differ from the CPU port")
+    return dict(rows=rows, launches=launches, keyframes=len(kf_frames),
+                ckpt_mb=size / 1e6, save_s=save_s, restore_s=restore_s,
+                differ=differ)
+
+
+def localize_draws(n, steps, seed=3):
+    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+
+    gen = torch.Generator().manual_seed(seed)
+    normals = (torch.randn((n, 2), generator=gen),
+               torch.randn((n,), generator=gen))
+    return normals, [(pe.ProjectDraws.sample(n, gen, "cpu"),
+                      torch.rand(n, generator=gen)) for _ in range(steps)]
+
+
+def localize_run(dev, card):
+    """``examples.localize_demo`` in process: K5 launches (one per step)
+    and the centroids against the CPU port on the same draws."""
+    from slam_eslam_tpu_torch.examples.localize_demo import localize
+    from slam_eslam_tpu_torch.ops import contact_fold as cf
+    from slam_eslam_tpu_torch.ops import select_cells as sc
+
+    quiet = lambda *a, **k: None
+    draws = localize_draws(LOCALIZE_N, LOCALIZE_STEPS)
+    ref = localize(LOCALIZE_STEPS, LOCALIZE_N, "cpu", draws, log=quiet)
+    sc.select_cells.launches = 0
+    cf.contact_fold.launches = 0
+    got = localize(LOCALIZE_STEPS, LOCALIZE_N, dev, draws, log=quiet)
+    launches = {"select_cells": sc.select_cells.launches,
+                "contact_fold": cf.contact_fold.launches}
+    err = float(np.abs(got["centroids"] - ref["centroids"]).max())
+    print(f"localize_demo: {LOCALIZE_STEPS} steps x {LOCALIZE_N} particles "
+          f"in {got['seconds']:.3f} s, launches {launches}, final-10 mean "
+          f"xy ATE {got['errors'][-10:, 0].mean():.4f} m, z "
+          f"{got['errors'][-10:, 1].mean():.4f} m; GPU vs CPU port "
+          f"{err:.3e} m [{card}]")
+    if launches != {"select_cells": LOCALIZE_STEPS, "contact_fold": 0}:
+        raise RuntimeError(f"localize_demo: launches {launches}")
+    if not err <= CENTROID_ATOL:
+        raise RuntimeError(f"localize_demo: GPU and CPU differ by {err} m")
+    return dict(launches=launches, err=err, seconds=got["seconds"])
+
+
+def phase10(dev, card):
+    """The loop-closure backend and the full-stack loop on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(solvers=pose_graph_solvers(dev, card),
+               align=scan_align_sweeps(dev, card))
+    closure_demo(dev, card)
+    out["online"] = online_path(dev, card)
+    out["localize"] = localize_run(dev, card)
+    return out
+
+
 def profile_frames(fn, n_frames, label, out, stem):
     """``fn()`` under ``torch.profiler``: the table and the trace into
     ``out`` as ``<stem>_profile.txt`` and ``<stem>_trace.json``, and a line
@@ -2770,6 +3180,24 @@ def main():
           f"vs calls {mapping['stream_diff']:.3e} m, GPU vs CPU "
           f"{mapping['dev_err']:.3e} m [{card}]")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    p10 = phase10(dev, card)
+    online = p10["online"]
+    print(f"backend: OnlineSlam {ONLINE_FRAMES} frames at {SLAM_N} particles, "
+          f"{online['keyframes']} keyframes, run_stream "
+          f"{sum(r['stream'] for r in online['rows']):.3f} s, keyframes "
+          f"{sum(r['keyframe'] for r in online['rows']):.3f} s, optimize "
+          f"{sum(r['optimize'] for r in online['rows']):.3f} s; dense "
+          f"optimize {p10['solvers']['dense 3']['ms']:.3f} ms, PCG "
+          f"{p10['solvers']['pcg 3']['ms']:.3f} ms, Schur "
+          f"{p10['solvers']['schur 3']['ms']:.3f} ms at {PG_NODES} nodes; "
+          f"closure sweep {p10['align']['fine 9x9x7']['ms']:.3f} ms [{card}]")
+    online_launches = lambda name: {
+        "launches_online": online["launches"][name]}
+    demo_launches = lambda name: {
+        "launches_localize_demo": p10["localize"]["launches"][name]}
+
     f32c, bf16c = k7[""], k7["_bf16"]
 
     def other(times, tag):
@@ -2788,15 +3216,18 @@ def main():
 
     rows = (
         ("contact_fold", "slam_eslam_tpu/ops/pallas_gather.py:578",
-         res["launches"], max_err, k1, None, {}),
+         res["launches"], max_err, k1, None, demo_launches("contact_fold")),
         ("chain_lookup", "slam_eslam_tpu/ops/pallas_chain.py:36",
          slam["launches"]["chain_lookup"], k2_err, k2, None,
-         pool_rows("chain_lookup", k2, k2b, k2c, k2c_err, k2b_err)),
+         {**pool_rows("chain_lookup", k2, k2b, k2c, k2c_err, k2b_err),
+          **online_launches("chain_lookup")}),
         ("block_merge", "slam_eslam_tpu/ops/pallas_merge.py:211",
          slam["launches"]["block_merge"], k3_err, k3, None,
-         pool_rows("block_merge", k3, k3b, k3c, k3c_err, k3b_err)),
+         {**pool_rows("block_merge", k3, k3b, k3c, k3c_err, k3b_err),
+          **online_launches("block_merge")}),
         ("select_cells", "slam_eslam_tpu/ops/pallas_gather.py:277",
-         app["launches"]["select_cells"], k5_err, k5, None, {}),
+         app["launches"]["select_cells"], k5_err, k5, None,
+         demo_launches("select_cells")),
         # whole-block mode (what the TPU kernel computes); the cells mode
         # (the merge's twin on this card) and the same rows unsorted
         # (points) beside it

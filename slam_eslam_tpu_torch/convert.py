@@ -23,6 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from slam_eslam_tpu_torch.backend.keyframes import Keyframe
+from slam_eslam_tpu_torch.backend.pose_graph import PoseGraph
 from slam_eslam_tpu_torch.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu_torch.filter.pose_estimator import PoseEstimatorState
 from slam_eslam_tpu_torch.filter.streaming import StreamingState
@@ -159,6 +161,20 @@ def surface_hash_from(d, config, device=None) -> SurfaceHash:
     """A JAX ``SurfaceHash`` dict; ``config`` is its (static)
     ``SurfaceHashConfig``."""
     return _from(SurfaceHash, d, device, config=config)
+
+
+def pose_graph_from(d, device=None) -> PoseGraph:
+    """A JAX ``PoseGraph`` dict (``dim`` 3 or 4)."""
+    return _from(PoseGraph, d, device)
+
+
+def keyframe_from(d, device=None) -> Keyframe:
+    """A JAX ``Keyframe`` (its fields as a dict, the cloud a
+    ``PatchCloud`` dict)."""
+    return Keyframe(index=int(d["index"]), node_id=int(d["node_id"]),
+                    pose=np.array(d["pose"], float),
+                    cloud=patch_cloud_from(d["cloud"], device),
+                    z=float(d["z"]))
 
 
 def to_numpy(obj):

@@ -14,6 +14,11 @@ import dataclasses
 import torch
 
 
+def weights_sum(weights):
+    """Total weight (``ParticleFilter.hpp:34-39``)."""
+    return weights.sum()
+
+
 def weights_avg(weights):
     """Mean weight (``ParticleFilter.hpp:41-44``)."""
     return weights.mean()

@@ -41,6 +41,10 @@ class ParticleSet:
         """[N, 2] read view."""
         return torch.stack([self.x, self.y], dim=-1)
 
+    def with_xy(self, xy):
+        """Functional update from an ``[N, 2]`` (or ``[..., 2]``) tensor."""
+        return dataclasses.replace(self, x=xy[..., 0], y=xy[..., 1])
+
     @staticmethod
     def zeros(n, device=None, dtype=torch.float32):
         return ParticleSet(
@@ -60,6 +64,15 @@ class ParticleSet:
         """(R, t) per particle for the weighting loop
         (``PoseEstimator.cpp:279-282``)."""
         return geometry.pose_matrix_2p5d(self.xy, self.yaw, self.z)
+
+    def full_pose(self, orientation_quat):
+        """6-DoF pose per particle, ``(q [N, 4], t [N, 3])``: translation *
+        yaw * removeYaw(imu) (``PoseParticle.hpp:58-67``)."""
+        q = geometry.quat_mul(
+            geometry.quat_from_yaw(self.yaw),
+            geometry.remove_yaw(orientation_quat).expand(
+                self.yaw.shape + (4,)))
+        return q, torch.stack([self.x, self.y, self.z], dim=-1)
 
 
 @dataclasses.dataclass

@@ -75,22 +75,9 @@ def _mounted(q, t, sensor2body):
 
 def _quat_from_matrix(r):
     """``[3, 3]`` rotation matrix -> unit quaternion ``[w, x, y, z]`` with
-    ``w >= 0``, float32 on the host (Shepperd's method: the
-    best-conditioned of the four constructions)."""
-    r = np.asarray(r, np.float32)
-    m00, m11, m22 = r[0, 0], r[1, 1], r[2, 2]
-    mags = np.array([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
-                     1 - m00 + m11 - m22, 1 - m00 - m11 + m22], np.float32)
-    cands = np.array([
-        [mags[0], r[2, 1] - r[1, 2], r[0, 2] - r[2, 0], r[1, 0] - r[0, 1]],
-        [r[2, 1] - r[1, 2], mags[1], r[1, 0] + r[0, 1], r[0, 2] + r[2, 0]],
-        [r[0, 2] - r[2, 0], r[1, 0] + r[0, 1], mags[2], r[2, 1] + r[1, 2]],
-        [r[1, 0] - r[0, 1], r[0, 2] + r[2, 0], r[2, 1] + r[1, 2], mags[3]],
-    ], np.float32)
-    best = int(np.argmax(mags))
-    q = cands[best] / (np.float32(2.0)
-                       * np.sqrt(np.maximum(mags[best], np.float32(1e-12))))
-    return -q if q[0] < 0 else q
+    ``w >= 0``, float32 on the host (``geometry.quat_from_matrix``)."""
+    return geometry.quat_from_matrix(
+        torch.from_numpy(np.asarray(r, np.float32))).numpy()
 
 
 def _motion(delta):

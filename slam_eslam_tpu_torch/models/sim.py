@@ -203,3 +203,60 @@ def chain_queries(pool, c, seed=0):
                                      device=device)]
          + 0.05 * torch.randn((n, c), generator=gen, device=device))
     return x.contiguous(), y.contiguous(), z.contiguous()
+
+
+def circle_pose_graph(dim=3, m=16, seed=0, outlier=False, device=None):
+    """A seeded noisy circle trajectory as a ``PoseGraph`` (the graph of
+    ``tests/test_pose_graph.py``): ``m`` nodes on the unit circle (``dim``
+    4 adds z = 0.1 sin(2 theta)) perturbed by N(0, 0.1) except node 0,
+    odometry edges between neighbours and closures (0, m-1), (2, m-2),
+    (1, m/2), information 100 I, in ``max(64, m + 8)`` edge slots.
+    ``outlier`` adds, in slot ``m + 3``, a closure claiming node ``m/2``
+    (node 8 at m = 16) sits at node 0 + (5, 5).  Returns ``(graph, ground truth [m, dim]
+    float32)``."""
+    from slam_eslam_tpu_torch.backend.pose_graph import PoseGraph
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi, m, endpoint=False)
+    cols = [np.cos(th), np.sin(th)]
+    if dim == 4:
+        cols.append(0.1 * np.sin(2 * th))
+    cols.append(th + np.pi / 2)
+    gt = np.stack(cols, -1)
+    n0 = gt + rng.normal(0, 0.1, gt.shape)
+    n0[0] = gt[0]
+
+    def rel(a, b):
+        c, s = np.cos(a[-1]), np.sin(a[-1])
+        d = b[:2] - a[:2]
+        out = [c * d[0] + s * d[1], -s * d[0] + c * d[1]]
+        if dim == 4:
+            out.append(b[2] - a[2])
+        out.append(np.arctan2(np.sin(b[-1] - a[-1]), np.cos(b[-1] - a[-1])))
+        return np.array(out)
+
+    pairs = [(k, k + 1) for k in range(m - 1)]
+    pairs += [(0, m - 1), (2, m - 2), (1, m // 2)]
+    z = [rel(gt[a], gt[b]) for a, b in pairs]
+    slots = list(range(len(pairs)))
+    if outlier:
+        pairs.append((0, m // 2))
+        z.append(np.array([5.0, 5.0] + [0.0] * (dim - 2)))
+        slots.append(m + 3)
+    cap = max(64, m + 8)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    g = PoseGraph.empty(m, cap, dim=dim, device=device or "cpu")
+    ends = np.zeros((2, cap), np.int32)
+    ends[:, slots] = np.array(pairs, np.int32).T
+    edge_z = np.zeros((cap, dim), np.float32)
+    edge_z[slots] = np.stack(z)
+    info = np.zeros((cap, dim, dim), np.float32)
+    info[slots] = np.eye(dim) * 100.0
+    valid = np.zeros(cap, bool)
+    valid[slots] = True
+    g.nodes, g.node_valid = f32(n0), g.node_valid | True
+    g.edge_i = torch.tensor(ends[0], device=g.nodes.device)
+    g.edge_j = torch.tensor(ends[1], device=g.nodes.device)
+    g.edge_z, g.edge_info = f32(edge_z), f32(info)
+    g.edge_valid = torch.tensor(valid, device=g.nodes.device)
+    return g, np.asarray(gt, np.float32)

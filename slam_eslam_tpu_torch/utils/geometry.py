@@ -1,9 +1,10 @@
-"""Quaternion and yaw helpers of the localisation step.
+"""Geometry primitives: quaternions, yaw decomposition, 2-D rotations.
 
-Port of the subset of ``slam_eslam_tpu.utils.geometry`` the main path
-uses (``base::getYaw`` / ``base::removeYaw`` / the 2.5-D particle pose).
-Quaternions are ``[..., 4]`` tensors ordered ``[w, x, y, z]``; every
-function broadcasts over leading batch dimensions.
+Port of ``slam_eslam_tpu.utils.geometry`` (the Rock ``base-types``
+helpers the reference leans on: ``base::getYaw``, ``base::removeYaw``,
+the 2.5-D particle pose).  Quaternions are ``[..., 4]`` tensors ordered
+``[w, x, y, z]``; every function but ``quat_from_matrix`` broadcasts over
+leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ def quat_mul(q1, q2):
     )
 
 
+def quat_conj(q):
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
+def quat_normalize(q):
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def quat_rotate(q, v):
     """Rotate vector(s) ``v`` [..., 3] by quaternion(s) ``q`` [..., 4]."""
     w = q[..., 0:1]
@@ -46,6 +56,58 @@ def quat_from_yaw(yaw):
     zeros = torch.zeros_like(half)
     return torch.stack([torch.cos(half), zeros, zeros, torch.sin(half)],
                        dim=-1)
+
+
+def quat_from_axis_angle(axis, angle):
+    """Quaternion of a rotation by ``angle`` about ``axis [3]`` (normalised
+    here), float32."""
+    axis = torch.as_tensor(axis, dtype=torch.float32)
+    axis = axis / torch.linalg.norm(axis)
+    half = 0.5 * torch.as_tensor(angle, dtype=torch.float32,
+                                 device=axis.device)
+    return torch.cat([torch.cos(half)[..., None],
+                      torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def quat_to_matrix(q):
+    """``[..., 4]`` -> ``[..., 3, 3]`` rotation matrix."""
+    w, x, y, z = q.unbind(-1)
+    r = torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_from_matrix(r):
+    """``[3, 3]`` rotation matrix -> ``[4]`` unit quaternion with ``w >= 0``
+    (Shepperd's method, branch-free: all four constructions, the
+    best-conditioned one selected on the device)."""
+    r = torch.as_tensor(r)
+    m00, m11, m22 = r[0, 0], r[1, 1], r[2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+    cands = torch.stack([
+        torch.stack([qw2, r[2, 1] - r[1, 2], r[0, 2] - r[2, 0],
+                     r[1, 0] - r[0, 1]]),
+        torch.stack([r[2, 1] - r[1, 2], qx2, r[1, 0] + r[0, 1],
+                     r[0, 2] + r[2, 0]]),
+        torch.stack([r[0, 2] - r[2, 0], r[1, 0] + r[0, 1], qy2,
+                     r[2, 1] + r[1, 2]]),
+        torch.stack([r[1, 0] - r[0, 1], r[0, 2] + r[2, 0],
+                     r[2, 1] + r[1, 2], qz2]),
+    ])                                                   # [4, 4]
+    mags = torch.stack([qw2, qx2, qy2, qz2])
+    best = torch.argmax(mags)
+    q = cands[best] / (2.0 * torch.sqrt(mags[best].clamp(min=1e-12)))
+    return torch.where(q[0] < 0, -q, q)
 
 
 def yaw_from_quat(q):
@@ -69,6 +131,19 @@ def rot2d(theta):
                         torch.stack([s, c], dim=-1)], dim=-2)
 
 
+def rotate2d(theta, v):
+    """Rotate 2-vector(s) ``v [..., 2]`` by angle(s) ``theta [...]``."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    x, y = v[..., 0], v[..., 1]
+    return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
+
+
+def angle_of_rotation(q):
+    """Total rotation angle of a quaternion
+    (``Eigen::AngleAxisd(R).angle()``)."""
+    return 2.0 * torch.arccos(q[..., 0].abs().clamp(0.0, 1.0))
+
+
 def pose_matrix_2p5d(xy, yaw, z):
     """Per-particle ``(R [..., 3, 3], t [..., 3])`` of
     ``Translation3d(x, y, z) * AngleAxisd(yaw, UnitZ())``
@@ -81,3 +156,8 @@ def pose_matrix_2p5d(xy, yaw, z):
     ).reshape(yaw.shape + (3, 3))
     t = torch.cat([xy, z[..., None]], dim=-1)
     return r, t
+
+
+def transform_points(rot, trans, points):
+    """Apply ``(R [..., 3, 3], t [..., 3])`` to ``points [..., P, 3]``."""
+    return torch.einsum("...ij,...pj->...pi", rot, points) + trans[..., None, :]

@@ -3,7 +3,10 @@ K3 (``csrc/block_merge.cu``, and through its second entry point the merge
 on a packed block image, P4), K5 (``csrc/select_cells.cu``) and K7
 (``csrc/block_copy.cu``) against their plain PyTorch versions on the
 card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
-of the application API's contact update.  K2, K5 and K7 must match bit
+of the application API's contact update.  The backend: every pose-graph
+solver and ``scan_align`` on the card against the CPU port, the solvers
+under a global TF32 flag, no host sync in the dense and PCG solves, and
+a checkpoint resumed on the card.  K2, K5 and K7 must match bit
 for bit; K3 bit for bit on cells one point hits and within rtol 1e-6
 elsewhere (the plain version sums with atomics on the card), on a
 bfloat16 pool within one bfloat16 ulp there.  Marked ``cuda``; without a CUDA device every test
@@ -928,3 +931,139 @@ def test_chain_lookup_slot_counts(dev, k, dtype):
     found, _, _, _ = chain_vs_plain(pool, sim.chain_queries(pool, 8, seed=k),
                                     k, f"k={k}")
     assert 0.05 < float(found.float().mean()) < 0.95
+
+
+# ---------------------------------------------------------------- backend
+
+def _pose_err(a, b):
+    d = a.double().cpu() - b.double().cpu()
+    d[:, -1] = torch.atan2(torch.sin(d[:, -1]), torch.cos(d[:, -1]))
+    return float(d.abs().max())
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+@pytest.mark.parametrize("solver", ["dense", "dense dcs", "pcg", "schur"])
+def test_pose_graph_solvers_match_cpu(dev, dim, solver):
+    """Every solver on a 256-node circle with closures and an outlier
+    closure: the card within 1e-3 (m, rad) of the CPU port, chi2 history
+    within rtol 1e-4 (the card's scatter-adds sum in another order)."""
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+
+    solve = {"dense": lambda g: pg.optimize(g, 10),
+             "dense dcs": lambda g: pg.optimize(g, 10, robust="dcs"),
+             "pcg": lambda g: pg.optimize_cg(g, 10, cg_iters=64),
+             "schur": lambda g: pg.optimize_schur(g, 10, segments=8,
+                                                  boundary_cap=32)}[solver]
+    g, _ = sim.circle_pose_graph(dim, 256, seed=3, outlier=True, device=dev)
+    got, hist = solve(g)
+    ref, ref_hist = solve(tree.to(g, "cpu"))
+    assert got.nodes.device == dev
+    assert _pose_err(got.nodes, ref.nodes) < 1e-3
+    np.testing.assert_allclose(hist.cpu().numpy(), ref_hist.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_pose_graph_ignores_the_global_tf32_flag(dev):
+    """The solvers compute in float32 without TF32 whatever the caller's
+    ``allow_tf32``, and give the flag back as they found it."""
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+
+    g, _ = sim.circle_pose_graph(3, 256, seed=3, outlier=True, device=dev)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off, off_hist = pg.optimize(g, 10)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on, on_hist = pg.optimize(g, 10)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert _pose_err(on.nodes, off.nodes) < 1e-5
+    np.testing.assert_allclose(on_hist.cpu().numpy(),
+                               off_hist.cpu().numpy(), rtol=1e-6)
+
+
+def test_dense_and_pcg_optimize_put_no_host_sync(dev):
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+
+    g, _ = sim.circle_pose_graph(3, 256, seed=3, outlier=True, device=dev)
+    pg.optimize(g, 2)
+    pg.optimize_cg(g, 2, cg_iters=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pg.optimize(g, 3, robust="dcs")
+        pg.optimize_cg(g, 3, cg_iters=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("steps_xy", [9, 31])
+def test_scan_align_matches_cpu(dev, steps_xy):
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+
+    grid = sim.terrain_grid(terrain, nx=48, ny=48, resolution=0.2,
+                            origin=(-4.8, -4.8), k=2)
+    rng = np.random.default_rng(4)
+    n = 1024
+    xy = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    z = terrain(xy[:, 0] + 0.2, xy[:, 1] - 0.1).astype(np.float32)
+    cloud = PatchCloud.create(
+        xy=torch.from_numpy(xy), z=torch.from_numpy(z),
+        stdev=torch.full((n,), 0.05),
+        valid=torch.from_numpy(np.arange(n) < 900))
+    kw = dict(search_xy=0.5 * steps_xy / 9, steps_xy=steps_xy, steps_yaw=7,
+              return_ratio=True)
+    ref = pg.scan_align(grid, cloud, torch.zeros(2), 0.0, 0.0, **kw)
+    got = pg.scan_align(tree.to(grid, dev), tree.to(cloud, dev),
+                        torch.zeros(2, device=dev), 0.0, 0.0, **kw)
+    np.testing.assert_allclose(got[0].cpu().numpy(), ref[0].numpy(),
+                               atol=1e-6)
+    assert abs(float(got[1]) - float(ref[1])) <= 1e-6
+    for a, b in zip(got[2:], ref[2:]):
+        assert abs(float(a) - float(b)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_resume_on_the_card(dev, tmp_path, dtype):
+    """Save mid-stream, run 20 frames, restore into a fresh filter on the
+    card and run them again: the same centroids and pool."""
+    from slam_eslam_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = dataclasses.replace(
+        Config(), particle_count=256, min_effective=128, grid_size=4.0,
+        grid_resolution=0.25, map_pool_blocks=1024, map_chain_length=3,
+        map_pool_dtype=dtype,
+        contact_model=ContactModelConfig(contact_point_radius=0.0,
+                                         min_contacts=2))
+    asg = AsguardSim(terrain=terrain)
+    z0 = float(asg.position[2])
+    q = np.array([1.0, 0, 0, 0], np.float32)
+    meta = (np.float32(-np.pi / 2), np.float32(np.pi / 32))
+    fr = []
+
+    def cb(s):
+        fr.append([s.contact_state(), q, s.position.astype(np.float32),
+                   np.full(32, 1.5, np.float32), meta, False])
+
+    for _ in range(8):
+        asg.step(wheel_delta=0.5, substeps=5, on_substep=cb)
+        fr[-1][5] = True
+    frames = tree.to(streaming.stack_frames([tuple(f) for f in fr]), dev)
+
+    def make():
+        return EmbodiedSlamFilter(config=cfg, device=dev).init(
+            pose=(np.array([0.0, 0.0, z0]), 0.0),
+            use_shared_map=False)
+
+    f = make()
+    f.run_stream(frames.at(slice(0, 20)))
+    ckpt.save_filter(tmp_path / "f.pt", f)
+    a1 = f.run_stream(frames.at(slice(20, 40)))
+    g = make()
+    ckpt.restore_filter(tmp_path / "f.pt", g)
+    assert g.pool.mean.device == dev
+    a2 = g.run_stream(frames.at(slice(20, 40)))
+    assert torch.equal(a1["centroid"], a2["centroid"])
+    for name in ("mean", "stdev", "height", "meta", "chain", "origin"):
+        assert torch.equal(getattr(f.pool, name), getattr(g.pool, name)), name

@@ -10,6 +10,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 MODULES = [
     "slam_eslam_tpu_torch",
+    "slam_eslam_tpu_torch.backend.keyframes",
+    "slam_eslam_tpu_torch.backend.pose_graph",
     "slam_eslam_tpu_torch.bench",
     "slam_eslam_tpu_torch.config",
     "slam_eslam_tpu_torch.convert",
@@ -17,6 +19,8 @@ MODULES = [
     "slam_eslam_tpu_torch.core.filter",
     "slam_eslam_tpu_torch.core.gmm",
     "slam_eslam_tpu_torch.core.state",
+    "slam_eslam_tpu_torch.examples.localize_demo",
+    "slam_eslam_tpu_torch.examples.loop_closure_demo",
     "slam_eslam_tpu_torch.examples.slam_demo",
     "slam_eslam_tpu_torch.filter.eslam_filter",
     "slam_eslam_tpu_torch.filter.pose_estimator",
@@ -32,6 +36,7 @@ MODULES = [
     "slam_eslam_tpu_torch.models.odometry",
     "slam_eslam_tpu_torch.models.sim",
     "slam_eslam_tpu_torch.models.terrain",
+    "slam_eslam_tpu_torch.online",
     "slam_eslam_tpu_torch.ops._build",
     "slam_eslam_tpu_torch.ops.block_copy",
     "slam_eslam_tpu_torch.ops.block_merge",
@@ -40,6 +45,7 @@ MODULES = [
     "slam_eslam_tpu_torch.ops.select_cells",
     "slam_eslam_tpu_torch.tools.probe_merge_overhead",
     "slam_eslam_tpu_torch.tools.stat_map_test",
+    "slam_eslam_tpu_torch.utils.checkpoint",
     "slam_eslam_tpu_torch.utils.device",
     "slam_eslam_tpu_torch.utils.geometry",
     "slam_eslam_tpu_torch.utils.kernel_eff",

@@ -68,18 +68,22 @@ def test_steady_state_tier(seed, spread):
                                   (), (400, 400)) == (400, 400)
 
 
-def test_slope_time_cancels_the_constant_cost():
+def test_slope_time_cancels_the_constant_cost(monkeypatch):
     """A stub that costs 2 ms per application, plus 30 ms once per chain
-    (at its first application): the slope is the 2 ms."""
+    (at its first application): the slope is the 2 ms.  The stub advances
+    a fake clock instead of sleeping, so the machine's load cannot move
+    the result."""
     calls = []
+    now = [0.0]
 
     def fn(x):
-        time.sleep(0.002 + (0.03 if x == 0 else 0.0))
+        now[0] += 0.002 + (0.03 if x == 0 else 0.0)
         calls.append(x)
         return x + 1
 
+    monkeypatch.setattr(teff.time, "perf_counter", lambda: now[0])
     got = teff._slope_time(fn, 0, iters=3, repeats=2, device="cpu")
-    assert got == pytest.approx(0.002, rel=0.25)
+    assert got == pytest.approx(0.002, rel=1e-9)
     # (1 warm-up + 2 repeats) chains of 12 and of 3 applications, each
     # chained from x0 through fn's result
     assert len(calls) == 3 * (12 + 3)

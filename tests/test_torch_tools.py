@@ -9,6 +9,11 @@ against the JAX script's on the same seeds, raw per-step arrays within
 1e-5 m (float32 contact model and grid on both sides; the noise comes from
 the same numpy generator), and the result file's ten columns.
 ``examples.slam_demo``: a few steps, scans merged.
+``examples.localize_demo``: the JAX demo's loop (40 steps, 96 particles)
+run here with its key, and the port's loop fed the same draws: centroids
+within 1e-3 m at every step.  ``examples.loop_closure_demo``: the same
+closures (index pairs, scores within 1e-5) and y drift (within 1e-4 m)
+before and after optimisation as the JAX demo's loop.
 """
 
 import argparse
@@ -20,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from slam_eslam_tpu_torch.examples import slam_demo
+from slam_eslam_tpu_torch.examples import (localize_demo,
+                                           loop_closure_demo, slam_demo)
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
 from slam_eslam_tpu_torch.tools import stat_map_test
@@ -181,3 +187,130 @@ def test_slam_demo_runs_on_the_cpu(capsys):
     patches = [r[4] for r in rows]
     assert patches[0] > 0 and patches[-1] >= patches[0]
     assert all(np.isfinite(r[2]) and r[2] < 1.0 for r in rows)
+
+
+def jax_localize(steps, n):
+    """``examples/localize_demo.py``'s loop; returns its centroids and
+    the draws it took: the start normals (key 7) and, per step,
+    ``project``'s draws and the resampling uniforms of the state key."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from slam_eslam_tpu import Config, ContactModelConfig
+    from slam_eslam_tpu.filter import pose_estimator as pe
+    from slam_eslam_tpu.mapping.lookup import shared_grid_lookup
+    from slam_eslam_tpu.models import sim as simlib
+    from slam_eslam_tpu.utils import geometry
+    from slam_eslam_tpu_torch.filter import pose_estimator as tpe
+
+    t = lambda a: torch.from_numpy(np.array(a))
+    cfg = dataclasses.replace(
+        Config(), particle_count=n, min_effective=n // 2,
+        contact_model=ContactModelConfig(contact_point_radius=0.0))
+    grid = simlib.terrain_grid(localize_demo.terrain, nx=160, ny=160,
+                               resolution=0.1, origin=(-8.0, -8.0))
+    lookup = shared_grid_lookup(grid)
+    sim = simlib.TrajectorySim(localize_demo.terrain, speed=0.06)
+    state = pe.PoseEstimatorState.create(cfg, 20)
+    kxy, kyaw = jax.random.split(jax.random.PRNGKey(7))
+    normals = (t(jax.random.normal(kxy, (n, 2))),
+               t(jax.random.normal(kyaw, (n,))))
+    state = dataclasses.replace(state, particles=pe.init_gaussian(
+        jax.random.PRNGKey(7), n, sim.position[:2], 0.0, (0.4, 0.4), 0.05,
+        sim.position[2], 0.3))
+
+    @jax.jit
+    def step_fn(state, cs, q, delta_xy, dyaw, dz):
+        o = dataclasses.replace(
+            state.odometry, delta_xy=delta_xy, delta_yaw=dyaw, delta_z=dz,
+            sigma_xy=jnp.array([0.01, 0.02]), sigma_yaw=jnp.asarray(0.01),
+            sigma_z=jnp.asarray(0.01), initialized=jnp.ones((), bool))
+        state = dataclasses.replace(state, odometry=o)
+        state = pe.project(state, q, cfg)
+        state, _ = pe.update(state, cs, q, lookup, cfg)
+        return state, pe.centroid(state.particles, q)[0]
+
+    cents, per_step = [], []
+    for _ in range(steps):
+        key, k_delta, k_slip1, k_slip2, k_sxy, k_syaw = jax.random.split(
+            state.key, 6)
+        k1, k2 = jax.random.split(k_delta)
+        normal = lambda k, s: t(jax.random.normal(k, s, jnp.float32))
+        uniform = lambda k, s: t(jax.random.uniform(k, s, jnp.float32))
+        proj = tpe.ProjectDraws(
+            delta_xy=normal(k1, (n, 2)), delta_yaw=normal(k2, (n,)),
+            slip=uniform(k_slip1, (n,)), shrink=uniform(k_slip2, (n,)),
+            spread_xy=normal(k_sxy, (n, 2)), spread_yaw=normal(k_syaw, (n,)))
+        per_step.append((proj, uniform(jax.random.split(key)[1], (n,))))
+        (pos, yaw), (d_body, dyaw, dz) = sim.step()
+        state, c = step_fn(
+            state, sim.contact_state(noise=0.005),
+            geometry.quat_from_yaw(jnp.asarray(yaw, jnp.float32)),
+            jnp.asarray(d_body, jnp.float32), jnp.asarray(dyaw, jnp.float32),
+            jnp.asarray(dz, jnp.float32))
+        cents.append(np.asarray(c))
+    return np.stack(cents), (normals, per_step)
+
+
+def test_localize_demo_matches_jax(capsys):
+    steps, n = 40, 96
+    ref, draws = jax_localize(steps, n)
+    got = localize_demo.localize(steps, n, "cpu", draws=draws)
+    np.testing.assert_allclose(got["centroids"], ref, atol=1e-3)
+    assert got["errors"][-10:, 0].mean() < 0.4
+    out = capsys.readouterr().out
+    assert "final-10 mean xy ATE" in out and "select_cells" in out
+    # the command line, the generators' own draws
+    res = localize_demo.main(["--cpu", "--steps", "3", "--particles", "8"])
+    assert res["errors"].shape == (3, 2) and res["launches"] == 0
+
+
+def jax_loop_closure():
+    """``examples/loop_closure_demo.py``'s loop."""
+    import jax.numpy as jnp
+
+    from slam_eslam_tpu.backend.keyframes import KeyframeManager
+    from slam_eslam_tpu.mapping.mls_grid import PatchCloud
+
+    rng = np.random.default_rng(0)
+
+    def scan_cloud(true_pose, n=400):
+        local = rng.uniform(-1.5, 1.5, (n, 2)).astype(np.float32)
+        c, s = np.cos(true_pose[2]), np.sin(true_pose[2])
+        world = np.stack(
+            [c * local[:, 0] - s * local[:, 1] + true_pose[0],
+             s * local[:, 0] + c * local[:, 1] + true_pose[1]], axis=1)
+        z = loop_closure_demo.terrain(world[:, 0], world[:, 1]).astype(
+            np.float32)
+        return PatchCloud.create(
+            xy=jnp.asarray(local), z=jnp.asarray(z - 0.2),
+            stdev=jnp.full((n,), 0.05), valid=jnp.ones((n,), bool))
+
+    km = KeyframeManager(keyframe_distance=0.45, closure_radius=1.0,
+                         min_separation=4, min_score=0.3, closure_info=2000.0)
+    xs = list(np.arange(0, 3.1, 0.5)) + list(np.arange(2.5, -0.1, -0.5))
+    drift, believed = 0.0, []
+    for x in xs:
+        true_pose = np.array([x, 0.0, 0.0])
+        belief = true_pose + np.array([0.0, drift, 0.0])
+        added, _ = km.maybe_add_keyframe(belief, scan_cloud(true_pose), z=0.2)
+        if added:
+            drift += 0.06
+            believed.append(belief)
+    traj, _ = km.optimize(iters=15)
+    return (km.closures, np.abs(np.array(believed)[:, 1]).max(),
+            np.abs(np.asarray(traj)[: len(believed), 1]).max())
+
+
+def test_loop_closure_demo_matches_jax(capsys):
+    closures, before, after = jax_loop_closure()
+    got = loop_closure_demo.main(["--cpu"])
+    assert [c[:2] for c in got["closures"]] == [c[:2] for c in closures]
+    np.testing.assert_allclose([c[2] for c in got["closures"]],
+                               [c[2] for c in closures], atol=1e-5)
+    assert abs(got["err_before"] - before) < 1e-12
+    assert abs(got["err_after"] - after) < 1e-4
+    assert got["closures"] and got["err_after"] < got["err_before"]
+    assert "max |y| drift after" in capsys.readouterr().out
