@@ -89,7 +89,27 @@ Phases (any failure raises and exits non-zero):
    of the shared 400x400 map at 100,000 particles
    (``update_distance_image`` in shared-map mode) and check that the
    contacts of the next ``update_contact`` find the new patches, against
-   a twin filter that merged the same image 4 m to the side.
+   a twin filter that merged the same image 4 m to the side;
+10. the loop-closure backend: the pose-graph solvers (dense, DCS, PCG,
+   Schur) at 1,024 nodes and ``scan_align`` against the CPU port, the
+   loop-closure demo, ``OnlineSlam`` at 4,096 particles in chunks (K2/K3
+   against the gates, a checkpoint resumed bit for bit, the CPU port on
+   the same draws) and the localisation demo (K5);
+11. the log runtime and the record -> replay -> report path: build the
+   native log library from ``native/eslam_log.cpp`` into
+   ``build/torch_kernels/``; write and read back every record type,
+   ``select``/``gather``, ``compact``, ``load_stream`` and the feeder;
+   ``examples.full_demo`` at 4,096 particles on 16,384 blocks with the
+   demo's route (record, ``frames_from_log`` onto the card equal bit for
+   bit to the CPU read, ``OnlineSlam`` in chunks of 60 with K2/K3 against
+   the gates, the first chunk and its best particle's map layers against
+   the CPU port on the same draws) and on a route of two out-and-back laps
+   that must close a loop; ``tools.closure_lab`` on that run's graph,
+   every policy against the CPU port; ``examples.replay_demo`` at 100,000
+   particles (one K1 launch per measurement update, no K5; 20 frames at
+   4,096 against the CPU port); ``viz.render.chain_layers`` on a
+   400,000-block bfloat16 pool within 64 MB of device memory.  Nothing is
+   written under ``slam_eslam_tpu/``.
 
 Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
 launches (a kernel module's ``launch``: no check, no allocation) captured
@@ -2997,6 +3017,527 @@ def phase10(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the log runtime and the record -> replay -> report path
+# ---------------------------------------------------------------------------
+
+# examples.full_demo at the SLAM bench's 4,096 particles and its four blocks
+# per particle (a 2.94 GB float32 pool with colour); the rest at the demo's
+# defaults: 48 scans, 481 frames, camera and texture, chunks of 60
+FULL_DEMO_ARGS = ("--particles", "4096", "--pool-blocks", "16384")
+REPLAY_N = 100_000                   # the application's size (phase 7)
+REPLAY_CHECK_N, REPLAY_CHECK_FRAMES = 4096, 20
+# the demo's default route closes no loop: one keyframe a chunk gives at
+# most 8 keyframes, and the automatic min separation of 8 lets keyframe i
+# look only before i - 8 (PERF.md, section 6).  This route drives the
+# out-and-back twice (4 legs, 8-step U-turns) at 0.8 rad a step: 961
+# frames, 16 chunks of 60, revisits of lap 1 on lap 2
+CLOSURE_ROUTE = ("--steps", "96", "--wheel-delta", "0.8", "--legs", "4",
+                 "--turn-steps", "8")
+LAYER_RISE_MAX = 64 << 20            # bytes chain_layers may add on the card
+# chi2 below this is float32 rounding: a consistent chain of a few metres
+# leaves residuals of ~1e-7 at an information of 1e4 per edge (the lab's
+# policies without priors or closures end there)
+CHI2_ZERO = 1e-6
+
+
+def tree_snapshot(root):
+    """``{path: (size, mtime_ns)}`` of every file under ``root``."""
+    return {str(p): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def native_library(card):
+    """(a) The port's own build of ``native/eslam_log.cpp``."""
+    from slam_eslam_tpu_torch.io import logio
+    from slam_eslam_tpu_torch.ops import _build
+
+    path = logio.library_path()
+    t0 = time.perf_counter()
+    logio.lib()
+    seconds = time.perf_counter() - t0
+    if _build.BUILD_DIR not in path.parents or not path.exists():
+        raise RuntimeError(f"native log library at {path}, not built under "
+                           f"{_build.BUILD_DIR}")
+    print(f"native log library: {path.relative_to(Path.cwd())} built in "
+          f"{seconds:.2f} s with g++ {' '.join(logio.CXX_FLAGS)} [{card}]")
+
+
+def log_round_trip(tmp, card):
+    """(b) Every record type written and read back equal; select, gather,
+    compact, load_stream; the feeder in order."""
+    from slam_eslam_tpu_torch.core.state import BodyContactState
+    from slam_eslam_tpu_torch.io import logio
+
+    rng = np.random.default_rng(11)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    cs = BodyContactState.create(
+        f32(6, 3), contact=f32(6), slip=f32(6),
+        group_id=rng.integers(-1, 3, 6).astype(np.int32))
+    q, pos, ranges = f32(4), f32(3), f32(180)
+    dimg, tex = f32(12, 16), rng.uniform(size=(12, 16, 3)).astype(np.float32)
+    intr = (0.09, 0.08, -0.675, -0.44)
+    path = tmp / "all.eslg"
+    with logio.LogWriter(path) as w:
+        w.write_contact_state(cs, 10)
+        w.write_orientation(q, 20)
+        w.write_scan(ranges, -2.356, 0.026, 30)
+        w.write_pose(pos, q, 40)
+        w.write_distance_image(dimg, *intr, 50)
+        w.write_texture_image(tex, 60)
+    faults = []
+    with logio.LogReader(path) as r:
+        recs = [r.get(i) for i in range(len(r))]
+    if [(t, ts) for t, ts, _ in recs] != [(i, 10 * i) for i in range(1, 7)]:
+        faults.append(f"record types/timestamps {[rec[:2] for rec in recs]}")
+    got = logio.decode_contact_state(recs[0][2])
+    for name in ("position", "contact", "slip", "group_id", "valid"):
+        if not torch.equal(getattr(got, name), getattr(cs, name)):
+            faults.append(f"contact state {name}")
+    scan = logio.decode_scan(recs[2][2])
+    image = logio.decode_distance_image(recs[4][2])
+    for label, a, b in (
+            ("orientation", logio.decode_orientation(recs[1][2]), q),
+            ("scan", scan[0], ranges),
+            ("scan meta", scan[1:], np.float32([-2.356, 0.026])),
+            ("pose", np.concatenate(logio.decode_pose(recs[3][2])),
+             np.concatenate([pos, q])),
+            ("distance image", image[0], dimg),
+            ("intrinsics", image[1:], np.float32(intr)),
+            ("texture", logio.decode_texture_image(recs[5][2]), tex)):
+        if not np.array_equal(np.asarray(a, np.float32), b):
+            faults.append(label)
+
+    # a traverse: contact + orientation + pose per frame, a scan and an
+    # image on every fourth
+    path = tmp / "traverse.eslg"
+    n, every = 40, 4
+    with logio.LogWriter(path) as w:
+        for i in range(n):
+            ts = 1000 + 10 * i
+            w.write_contact_state(dataclasses.replace(
+                cs, position=cs.position + i), ts)
+            w.write_orientation([1.0, 0, 0, float(i)], ts)
+            w.write_pose([float(i), 0, 0], [1, 0, 0, 0], ts)
+            if i % every == every - 1:
+                w.write_scan(np.full(8, 2.0 + i), -0.5, 0.1, ts + 1)
+                w.write_distance_image(np.full((12, 16), 1.0 + i), *intr,
+                                       ts + 1)
+    with logio.LogReader(path) as r:
+        idx, ts = r.select(logio.ORIENTATION)
+        quats = np.frombuffer(r.gather(idx, 16).tobytes(),
+                              np.float32).reshape(-1, 4)
+        if (r.count_type(logio.CONTACT_STATE) != n
+                or not np.array_equal(ts, 1000 + 10 * np.arange(n))
+                or not np.array_equal(quats[:, 3], np.arange(n))):
+            faults.append("select/gather")
+    dst = tmp / "compacted.eslg"
+    kept = logio.compact(path, dst, types=(logio.CONTACT_STATE,
+                                           logio.ORIENTATION), stride=2)
+    with logio.LogReader(dst) as r:
+        idx, _ = r.select(logio.CONTACT_STATE)
+        second = logio.decode_contact_state(r.get(int(idx[1]))[2])
+        if (kept != n or r.count_type(logio.POSE) != 0
+                or r.count_type(logio.ORIENTATION) != n // 2
+                or not torch.equal(second.position, cs.position + 2)):
+            faults.append("compact")
+    s = logio.load_stream(path)
+    marked = np.arange(every - 1, n, every)
+    if (s["contact"].shape != (n, 6) or s["pose"].shape != (n, 7)
+            or not np.array_equal(np.nonzero(s["has_scan"])[0], marked)
+            or not np.array_equal(np.nonzero(s["has_dimg"])[0], marked)
+            or not np.array_equal(s["scan_ranges"][marked, 0], 2.0 + marked)
+            or not np.array_equal(s["dimg"][marked, 0, 0], 1.0 + marked)
+            or s["dimg_meta"] != tuple(float(np.float32(v)) for v in intr)):
+        faults.append("load_stream")
+    with logio.LogReader(path) as r, logio.AsyncFeeder(r, slots=4) as feed:
+        order = [(t, ts) for t, ts, _ in feed]
+    with logio.LogReader(path) as r:
+        if order != [r.get(i)[:2] for i in range(len(r))]:
+            faults.append("AsyncFeeder order")
+    print(f"log round trip: 6 record types equal, select/gather, compact "
+          f"({kept} records), load_stream ({n} frames, {len(marked)} scans "
+          f"and images), the feeder in order over {len(order)} records"
+          + (f"; FAULTS {faults}" if faults else "") + f" [{card}]")
+    if faults:
+        raise RuntimeError(f"log round trip: {faults}")
+
+
+def frames_equal(a, b):
+    """The ``SlamFrames`` fields that differ between ``a`` and ``b`` (the
+    tensors compared on the host, bit for bit)."""
+    differ = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "contact":
+            differ += [f"contact.{g}" for g in ("position", "contact", "slip",
+                                                "group_id", "valid")
+                       if not torch.equal(getattr(x, g).cpu(),
+                                          getattr(y, g).cpu())]
+        elif isinstance(x, torch.Tensor):
+            if not torch.equal(x.cpu(), y.cpu()):
+                differ.append(f.name)
+        elif not np.array_equal(x, y):
+            differ.append(f.name)
+    return differ
+
+
+def demo_draws(n, n_frames, seed=5):
+    """Seeded start normals and per-frame ``StepDraws``, on the host."""
+    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    from slam_eslam_tpu_torch.filter.step import StepDraws
+
+    gen = torch.Generator().manual_seed(seed)
+    normals = (torch.randn((n, 2), generator=gen),
+               torch.randn((n,), generator=gen))
+    return normals, [StepDraws(pe.ProjectDraws.sample(n, gen, "cpu"),
+                               torch.rand(n, generator=gen))
+                     for _ in range(n_frames)]
+
+
+def layers_agree(got, ref):
+    """``chain_layers`` of the card against the CPU port's: the same
+    blocks, cells with a patch within PATCH_COUNT_RTOL, and heights within
+    CENTROID_ATOL where both have one.  Returns ``(ok, cells, max height
+    difference)``."""
+    if len(got) != len(ref):
+        return False, None, None
+    ok, cells, diff = True, 0, 0.0
+    for (z_g, ext_g), (z_r, ext_r) in zip(got, ref):
+        f_g, f_r = np.isfinite(z_g), np.isfinite(z_r)
+        both = f_g & f_r
+        cells += int(f_r.sum())
+        if both.any():
+            diff = max(diff, float(np.abs(z_g[both] - z_r[both]).max()))
+        ok &= (ext_g == ext_r
+               and abs(int(f_g.sum()) - int(f_r.sum()))
+               <= PATCH_COUNT_RTOL * f_r.sum())
+    return ok and diff <= CENTROID_ATOL, cells, diff
+
+
+def merged_runs(a, b):
+    """Two ``full_demo.replay`` results as one run."""
+    return dict(centroids=np.concatenate([a["centroids"], b["centroids"]]),
+                auxes=a["auxes"] + b["auxes"],
+                chunk_s=a["chunk_s"] + b["chunk_s"], wall=a["wall"] + b["wall"])
+
+
+def demo_launches(slam, run):
+    """K2 and K3 launches since the counters were reset, the gates summed
+    from a ``full_demo.replay`` run, and the launches the gates want: a
+    chain lookup per measurement frame (and per laser mapping frame with
+    the scan match), a merge per laser or camera mapping frame."""
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    launches = {"chain_lookup": cl.chain_lookup.launches,
+                "block_merge": bm.block_merge.launches}
+    gates = {name: sum(int(a[name].sum()) for a in run["auxes"])
+             for name in ("updated", "mapped", "cam_mapped")}
+    want = {"chain_lookup": gates["updated"] + (
+        gates["mapped"] if slam.filter.config.use_visual_update else 0),
+        "block_merge": gates["mapped"] + gates["cam_mapped"]}
+    return launches, gates, want
+
+
+def full_demo_run(dev, card, tmp):
+    """(c) ``examples.full_demo``: record, ``frames_from_log`` on the card,
+    ``OnlineSlam`` in chunks, the report; K2/K3 launches against the gates,
+    the first chunk and its best particle's map layers against the CPU
+    port on the same draws.  Returns what (d) and the kernels line need."""
+    from slam_eslam_tpu_torch.examples import full_demo as fd
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+    from slam_eslam_tpu_torch.viz import render
+
+    args = fd.parser().parse_args([*FULL_DEMO_ARGS, "--out",
+                                   str(tmp / "out")])
+    path = tmp / "loop.eslg"
+    t0 = time.perf_counter()
+    truth = fd.record(path, args, fd.World(args.extent))
+    record_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames, ts, intr = streaming.frames_from_log(path, camera=True,
+                                                 texture=True, device=dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    frames_h, ts_h, intr_h = streaming.frames_from_log(
+        path, camera=True, texture=True, device="cpu")
+    differ = frames_equal(frames, frames_h)
+    print(f"full_demo record: {len(truth)} frames, "
+          f"{int(frames.host_has_scan.sum())} scans, "
+          f"{int(frames.host_has_dimg.sum())} textured images in "
+          f"{record_s:.2f} s ({path.stat().st_size / 1e6:.2f} MB); "
+          f"frames_from_log onto the card {read_s * 1e3:.2f} ms, "
+          + ("equal bit for bit to the CPU read" if not differ
+             and np.array_equal(ts, ts_h) and intr == intr_h
+             else f"DIFFERS from the CPU read in {differ}") + f" [{card}]")
+    if differ or not np.array_equal(ts, ts_h) or intr != intr_h:
+        raise RuntimeError(f"frames_from_log: card and CPU differ {differ}")
+
+    n, chunk = args.particles, args.chunk
+    normals, draws = demo_draws(n, len(frames))
+    slam = fd.make_slam(args, truth[0], dev, normals)
+    stream_s, run_stream = [], slam.filter.run_stream
+
+    def timed_stream(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        aux = run_stream(*a, **kw)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t1)
+        return aux
+
+    slam.filter.run_stream = timed_stream
+    cl.chain_lookup.launches = 0
+    bm.block_merge.launches = 0
+    first = fd.replay(slam, frames.at(slice(0, chunk)), chunk, draws[:chunk])
+    best = slam.filter.get_best_particle_index()
+    layers = render.chain_layers(slam.filter.pool, best)
+    patches = int(slam.filter.pool.count_valid())
+    rest = fd.replay(slam, frames.at(slice(chunk, None)), chunk,
+                     draws[chunk:])
+    run = merged_runs(first, rest)
+    launches, gates, want = demo_launches(slam, run)
+    result, extra = fd.report(slam, truth, run, args)
+    n_chunks = len(run["chunk_s"])
+    ms = lambda xs: f"{min(xs) * 1e3:.1f}-{max(xs) * 1e3:.1f}"
+    keyframe_s = [c - s for c, s in zip(run["chunk_s"], stream_s)]
+    print(f"full_demo: {result['frames']} frames x {n} particles in "
+          f"{n_chunks} chunks of {chunk}: {gates['updated']} measurement, "
+          f"{gates['mapped']} laser and {gates['cam_mapped']} camera mapping "
+          f"frames, launches {launches} (gates want {want}); per chunk "
+          f"run_stream {ms(stream_s)} ms (first {stream_s[0] * 1e3:.1f}), "
+          f"keyframes {ms(keyframe_s)} ms; optimize (40 iterations) "
+          f"{extra['optimize_s'] * 1e3:.1f} ms; {result['keyframes']} "
+          f"keyframes, {result['closures']} closures; "
+          f"{result['fps_incl_host']} frames/s; pool "
+          f"{slam.filter.pool.storage_bytes() / 1e9:.2f} GB [{card}]")
+    if launches != want:
+        raise RuntimeError(f"full_demo: launches {launches}, gates want "
+                           f"{want}")
+
+    # ---- the first chunk against the CPU port on the same draws ----
+    ref = fd.make_slam(args, truth[0], "cpu", normals)
+    rrun = fd.replay(ref, frames_h.at(slice(0, chunk)), chunk, draws[:chunk],
+                     log=lambda *a: None)
+    gates_equal = all(np.array_equal(rrun["auxes"][0][name],
+                                     run["auxes"][0][name])
+                      for name in ("updated", "mapped", "cam_mapped"))
+    err = float(np.abs(rrun["centroids"] - first["centroids"]).max())
+    p_cpu = int(ref.filter.pool.count_valid())
+    ok_layers, cells, z_diff = layers_agree(
+        layers, render.chain_layers(ref.filter.pool, best))
+    print(f"full_demo: first chunk GPU vs CPU port: gates "
+          f"{'equal' if gates_equal else 'DIFFER'}, centroids {err:.3e} m, "
+          f"patches {patches} vs {p_cpu}; "
+          f"particle {best}'s chain_layers {len(layers)} blocks, {cells} "
+          f"cells with a patch, heights {z_diff:.3e} m apart [{card}]")
+    if (not gates_equal or err > CENTROID_ATOL or not ok_layers
+            or abs(patches - p_cpu) > PATCH_COUNT_RTOL * p_cpu):
+        raise RuntimeError("full_demo: the card and the CPU port differ")
+    return dict(launches=launches, result=result, stream_s=stream_s,
+                keyframe_s=keyframe_s, optimize_s=extra["optimize_s"])
+
+
+def closure_route_run(dev, card, tmp):
+    """(c) continued: ``examples.full_demo`` on CLOSURE_ROUTE at the same
+    size, through its generator's draws as a user runs it: K2/K3 against
+    the gates, at least one loop closure (each audited against the true
+    relative pose in the demo's lines), the graph dumped for (d)."""
+    from slam_eslam_tpu_torch.examples import full_demo as fd
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import chain_lookup as cl
+
+    graph = tmp / "graph.npz"
+    args = fd.parser().parse_args([*FULL_DEMO_ARGS, *CLOSURE_ROUTE,
+                                   "--save-graph", str(graph),
+                                   "--out", str(tmp / "out")])
+    path = tmp / "laps.eslg"
+    truth = fd.record(path, args, fd.World(args.extent))
+    frames, _, _ = streaming.frames_from_log(path, camera=True, texture=True,
+                                             device=dev)
+    slam = fd.make_slam(args, truth[0], dev)
+    cl.chain_lookup.launches = 0
+    bm.block_merge.launches = 0
+    run = fd.replay(slam, frames, args.chunk, log=lambda *a: None)
+    launches, gates, want = demo_launches(slam, run)
+    result, extra = fd.report(slam, truth, run, args)
+    print(f"full_demo[{' '.join(CLOSURE_ROUTE)}]: {result['frames']} frames "
+          f"x {args.particles} particles, route {result['route_m']} m, "
+          f"launches {launches} (gates want {want}); {result['keyframes']} "
+          f"keyframes, {result['closures']} closures ({result['false_closures']}"
+          f" false) of {result['revisit_opportunities']} revisits; kf ATE "
+          f"{result['kf_xy_before_m']} -> {result['kf_xy_after_m']} m; "
+          f"{result['fps_incl_host']} frames/s, optimize "
+          f"{extra['optimize_s'] * 1e3:.1f} ms [{card}]")
+    if launches != want:
+        raise RuntimeError(f"full_demo laps: launches {launches}, gates "
+                           f"want {want}")
+    if result["closures"] < 1:
+        raise RuntimeError("full_demo laps: no loop closure")
+    return dict(graph=graph, launches=launches, result=result)
+
+
+def closure_lab_run(graph, dev, card):
+    """(d) ``tools.closure_lab`` on (c)'s graph: every policy on the card
+    against the CPU port (the keyframe ATE within CENTROID_ATOL, the chi2
+    history as phase 10 holds it)."""
+    from slam_eslam_tpu_torch.tools import closure_lab
+
+    quiet = lambda *a, **k: None
+    d = closure_lab.load(graph)
+    t0 = time.perf_counter()
+    got = closure_lab.lab(d, device=dev, log=quiet)
+    seconds = time.perf_counter() - t0
+    ref = closure_lab.lab(d, device="cpu", log=quiet)
+    faults, ate_diff, chi2_rel = [], 0.0, 0.0
+    for (name, ate, hist), (_, r_ate, r_hist) in zip(got, ref):
+        ate_diff = max(ate_diff, abs(ate - r_ate))
+        above = np.abs(r_hist) > CHI2_ZERO
+        if above.any():
+            chi2_rel = max(chi2_rel, float(np.max(
+                np.abs(hist - r_hist)[above] / np.abs(r_hist[above]))))
+        if abs(ate - r_ate) > CENTROID_ATOL or not np.allclose(
+                hist, r_hist, rtol=PG_CHI2_RTOL,
+                atol=max(PG_CHI2_ATOL * abs(r_hist[0]), CHI2_ZERO)):
+            faults.append(f"{name}: ATE {ate} / {r_ate}, chi2 "
+                          f"{hist.tolist()} / {r_hist.tolist()}")
+    n_nodes = int(d["node_valid"].sum())
+    print(f"closure_lab: {len(got)} policies on {n_nodes} keyframes and "
+          f"{len(d['closures'])} closures in {seconds:.2f} s on the card; "
+          f"kf ATE after {dict((r[0], r[1]) for r in got)['none']:.3f} m "
+          f"with every closure, {d['kf_truth'].shape[0]} truth poses; GPU "
+          f"vs CPU port: ATE {ate_diff:.3e} m, "
+          f"chi2 {chi2_rel:.3e} relative where above {CHI2_ZERO} [{card}]")
+    if faults:
+        raise RuntimeError(f"closure_lab: card and CPU differ in {faults}")
+
+
+def replay_draws(n, frames, seed=6):
+    """Seeded start normals and one ``ContactDraws`` per frame, host."""
+    from slam_eslam_tpu_torch.filter import pose_estimator as pe
+    from slam_eslam_tpu_torch.filter.eslam_filter import ContactDraws
+
+    gen = torch.Generator().manual_seed(seed)
+    normals = (torch.randn((n, 2), generator=gen),
+               torch.randn((n,), generator=gen))
+    return normals, [ContactDraws(pe.ProjectDraws.sample(n, gen, "cpu"),
+                                  torch.rand(n, generator=gen))
+                     for _ in range(frames)]
+
+
+def replay_run(dev, card, tmp):
+    """(e) ``examples.replay_demo`` at 100k particles: one launch of the
+    contact fold K1 per measurement update and none of K5 (the filter's
+    shared-map lookup folds: ``Config.fold_lookup``, no debug capture, no
+    Chitta weighting, no terrain labels); its first frames at 4,096
+    particles against the CPU port on the same draws."""
+    from slam_eslam_tpu_torch.examples import replay_demo
+    from slam_eslam_tpu_torch.ops import contact_fold as cf
+    from slam_eslam_tpu_torch.ops import select_cells as sc
+
+    quiet = lambda *a, **k: None
+    path = tmp / "replay.eslg"
+    n_frames = replay_demo.record(path, 15)
+    sc.select_cells.launches = 0
+    cf.contact_fold.launches = 0
+    got = replay_demo.replay(path, REPLAY_N, dev)
+    launches = {"select_cells": sc.select_cells.launches,
+                "contact_fold": cf.contact_fold.launches}
+    frames = len(got["errors"])
+    draws = replay_draws(REPLAY_CHECK_N, REPLAY_CHECK_FRAMES)
+    a = replay_demo.replay(path, REPLAY_CHECK_N, dev, draws,
+                           REPLAY_CHECK_FRAMES, log=quiet)
+    b = replay_demo.replay(path, REPLAY_CHECK_N, "cpu", draws,
+                           REPLAY_CHECK_FRAMES, log=quiet)
+    err = float(np.abs(a["centroids"] - b["centroids"]).max())
+    print(f"replay_demo: {n_frames} frames recorded, {frames} replayed at "
+          f"{REPLAY_N} particles in {got['seconds']:.3f} s = "
+          f"{frames / got['seconds']:.1f} frames/s, feeder wait "
+          f"{got['wait'] / got['seconds']:.2%}; {got['updates']} measurement "
+          f"updates, launches {launches}; first {REPLAY_CHECK_FRAMES} frames "
+          f"at {REPLAY_CHECK_N} GPU vs CPU port {err:.3e} m [{card}]")
+    if launches != {"select_cells": 0, "contact_fold": got["updates"]} \
+            or not got["updates"]:
+        raise RuntimeError(f"replay_demo: launches {launches} for "
+                           f"{got['updates']} measurement updates")
+    if not err <= CENTROID_ATOL:
+        raise RuntimeError(f"replay_demo: GPU and CPU differ by {err} m")
+    return dict(launches=launches, fps=frames / got["seconds"],
+                wait=got["wait"] / got["seconds"])
+
+
+def big_pool_layers(dev, card):
+    """(f) ``chain_layers`` of one particle of phase 8's 400,000-block
+    bfloat16 pool reads its chain's blocks, never a pool-sized mask."""
+    from slam_eslam_tpu_torch.mapping.map_pool import MapPool
+    from slam_eslam_tpu_torch.mapping.mls_grid import MLSGrid
+    from slam_eslam_tpu_torch.viz import render
+
+    g = SLAM_POOL
+    template = MLSGrid.create(g["nx"], g["ny"], g["resolution"],
+                              (-5.0, -5.0), g["k"], device=dev)
+    pool = MapPool.from_template(template, BIG_N, 4 * BIG_N, g["chain_len"],
+                                 with_color=False, dtype=torch.bfloat16,
+                                 device=dev)
+    last = pool.b - 1
+    pool.chain[0, 1] = last
+    for blk, z in ((0, 0.25), (last, -0.5)):
+        pool.mean[blk, :, 0::g["k"]] = z
+        pool.meta[blk, :, 0::g["k"]] |= 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    layers = render.chain_layers(pool, 0)
+    rise = torch.cuda.max_memory_allocated() - base
+    mask_bytes = pool.meta.numel() * pool.meta.element_size()
+    heights = [float(np.nanmax(z)) for z, _ in layers]
+    print(f"chain_layers[100k bf16]: {pool.b} blocks "
+          f"({pool.storage_bytes() / 1e9:.1f} GB), particle 0's {len(layers)} "
+          f"layers at heights {heights}, max_memory_allocated rose "
+          f"{rise / 1e6:.3f} MB (the whole-pool mask would be "
+          f"{mask_bytes / 1e9:.2f} GB) [{card}]")
+    if rise >= LAYER_RISE_MAX or heights != [0.25, -0.5]:
+        raise RuntimeError(f"chain_layers on the 100k pool: {rise} bytes, "
+                           f"heights {heights}")
+    return rise
+
+
+def phase11(dev, card):
+    """The log runtime and the record -> replay -> report path."""
+    import gc
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    jax_pkg = Path(__file__).resolve().parent / "slam_eslam_tpu"
+    before = tree_snapshot(jax_pkg)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        native_library(card)
+        log_round_trip(tmp, card)
+        out = dict(demo=full_demo_run(dev, card, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["laps"] = closure_route_run(dev, card, tmp)
+        closure_lab_run(out["laps"]["graph"], dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["replay"] = replay_run(dev, card, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["layer_rise"] = big_pool_layers(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if tree_snapshot(jax_pkg) != before:
+        raise RuntimeError("phase 11 wrote under slam_eslam_tpu/")
+    return out
+
+
 def profile_frames(fn, n_frames, label, out, stem):
     """``fn()`` under ``torch.profiler``: the table and the trace into
     ``out`` as ``<stem>_profile.txt`` and ``<stem>_trace.json``, and a line
@@ -3193,10 +3734,29 @@ def main():
           f"{p10['solvers']['pcg 3']['ms']:.3f} ms, Schur "
           f"{p10['solvers']['schur 3']['ms']:.3f} ms at {PG_NODES} nodes; "
           f"closure sweep {p10['align']['fine 9x9x7']['ms']:.3f} ms [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p11 = phase11(dev, card)
+    p11_s = time.perf_counter() - t0
+    demo = p11["demo"]
+    print(f"log replay: full_demo {demo['result']['frames']} frames at "
+          f"4096 particles, {demo['result']['fps_incl_host']} frames/s incl. "
+          f"host; on two laps {p11['laps']['result']['closures']} closures, "
+          f"kf ATE {p11['laps']['result']['kf_xy_before_m']} -> "
+          f"{p11['laps']['result']['kf_xy_after_m']} m; replay_demo "
+          f"{p11['replay']['fps']:.1f} frames/s at {REPLAY_N} particles, "
+          f"feeder wait {p11['replay']['wait']:.2%}; chain_layers on the 100k "
+          f"pool +{p11['layer_rise'] / 1e6:.3f} MB; phase 11 {p11_s:.1f} s "
+          f"[{card}]")
     online_launches = lambda name: {
-        "launches_online": online["launches"][name]}
+        "launches_online": online["launches"][name],
+        "launches_full_demo": demo["launches"][name],
+        "launches_full_demo_laps": p11["laps"]["launches"][name]}
     demo_launches = lambda name: {
-        "launches_localize_demo": p10["localize"]["launches"][name]}
+        "launches_localize_demo": p10["localize"]["launches"][name],
+        **({"launches_replay_demo": p11["replay"]["launches"][name]}
+           if name in p11["replay"]["launches"] else {})}
 
     f32c, bf16c = k7[""], k7["_bf16"]
 

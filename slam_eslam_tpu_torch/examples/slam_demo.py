@@ -6,17 +6,22 @@ The robot rolls forward (kinematic Asguard simulator); a contact update
 per sub-step localises against each particle's own map while simulated
 laser scans of the surrounding terrain merge into the per-particle maps
 (``update_contact`` per sub-step, ``update_scan`` per scan).  Prints the
-per-step table; the JAX demo's PNG renders need its ``viz`` package, which
-the port does not have yet.
+per-step table, then renders the best particle's map and the particle
+cloud to ``--out/slam_demo.png`` and, with ``--snapshot-every N``, the
+running filter every N steps to ``--out/frames``; where matplotlib is
+not installed the images are skipped with a note.
 
 Run:  python -m slam_eslam_tpu_torch.examples.slam_demo
-          [--steps 20] [--particles 24] [--cpu]
+          [--steps 20] [--particles 24] [--cpu] [--out DIR]
+          [--snapshot-every N]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -83,6 +88,13 @@ def main(argv=None):
     ap.add_argument("--particles", type=int, default=24)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA device)")
+    ap.add_argument("--out",
+                    default=os.path.join(tempfile.gettempdir(), "slam_demo"))
+    ap.add_argument("--snapshot-every", "--render-every", type=int,
+                    default=0, dest="snapshot_every",
+                    help="render the running filter every N steps (the "
+                    "offline analog of the reference's 10 Hz live viz; "
+                    "frames land in --out/frames)")
     args = ap.parse_args(argv)
 
     f = EmbodiedSlamFilter(config=demo_config(args.particles),
@@ -92,6 +104,12 @@ def main(argv=None):
            use_shared_map=False)
     q = np.array([1.0, 0, 0, 0], np.float32)
     laser2body = laser_mount()
+    recorder = None
+    if args.snapshot_every:
+        from slam_eslam_tpu_torch.viz.snapshots import SnapshotRecorder
+
+        recorder = SnapshotRecorder(os.path.join(args.out, "frames"),
+                                    every=args.snapshot_every)
 
     rows = []
     for i in range(args.steps):
@@ -99,6 +117,8 @@ def main(argv=None):
             (q, s.position.astype(np.float64)), s.contact_state()))
         mapped = f.update_scan((q, sim.position.astype(np.float64)),
                                make_scan(sim, f.device), laser2body)
+        if recorder is not None:
+            recorder.maybe(f, truth=sim.position)
         c_pos, _ = f.get_centroid()
         err = float(np.linalg.norm(c_pos.cpu().numpy()[:2]
                                    - sim.position[:2]))
@@ -107,8 +127,36 @@ def main(argv=None):
         print(f"step {i:3d}  truth y={sim.position[1]:6.2f}  "
               f"xy_err={err:6.3f}  mapped={'*' if mapped else ' '}  "
               f"map_patches={patches}")
-    print(f"best particle: {f.get_best_particle_index()}")
+    best = f.get_best_particle_index()
+    print(f"best particle: {best}")
+    render_png(f, best, args.out)
     return rows
+
+
+def render_png(f, best, out_dir):
+    """The best particle's map beside the particle cloud, to
+    ``out_dir/slam_demo.png``; skipped where matplotlib is missing."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        print(f"(no images: {e})")
+        return None
+    from slam_eslam_tpu_torch.viz import render
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    fig, axes = plt.subplots(1, 2, figsize=(14, 7))
+    render.draw_particle_map(f.pool, best, ax=axes[0])
+    axes[0].set_title(f"best particle ({best}) map")
+    render.draw_particles(f.state.particles, ax=axes[1], best_index=best)
+    axes[1].set_title("particle cloud")
+    out = os.path.join(out_dir, "slam_demo.png")
+    fig.savefig(out, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    print(f"saved {out}")
+    return out
 
 
 if __name__ == "__main__":

@@ -24,8 +24,8 @@ carry counts its steps on the host, and the step branches in Python.
 Nothing in a step reads a device value back to the host, and the map
 pool is updated in place (a runner consumes the pool of the carry it is
 given).  A device mesh belongs to the multi-GPU slice and raises
-``NotImplementedError``; ``frames_from_log`` waits for the port of
-``io.logio``.
+``NotImplementedError``.  ``frames_from_log`` reads a recorded traverse
+(``io.logio``) into ``SlamFrames`` on the device.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ from slam_eslam_tpu_torch.mapping import map_pool as mp
 from slam_eslam_tpu_torch.mapping import projection
 from slam_eslam_tpu_torch.models import odometry as odom
 from slam_eslam_tpu_torch.utils import tree
-from slam_eslam_tpu_torch.utils.device import to_device_async
+from slam_eslam_tpu_torch.utils.device import entry_device, to_device_async
 
 f32 = np.float32
 
@@ -116,7 +116,8 @@ class SlamFrames:
         return self.q.shape[0]
 
     def at(self, t):
-        """Frame ``t`` (the tensors indexed, the host copies too)."""
+        """Frame ``t``, or the frames of a slice ``t`` (the tensors
+        indexed, the host copies too)."""
         return dataclasses.replace(
             tree.index(self, t), host_q=self.host_q[t],
             host_body_pos=self.host_body_pos[t],
@@ -149,6 +150,63 @@ def stack_frames(frames):
         start_angle=meta(0), angular_resolution=meta(1), has_scan=has_scan,
         host_q=q.numpy().copy(), host_body_pos=pos.numpy().copy(),
         host_has_scan=has_scan.numpy().copy(), **camera)
+
+
+def frames_from_log(path, camera=False, texture=False, device=None):
+    """A recorded traverse (``io.logio`` native log) -> ``SlamFrames`` on
+    ``device`` (the CUDA device unless given), through the batched C
+    gather (``logio.load_stream``): the whole log becomes a handful of
+    contiguous host arrays, each copied to the device once.  Pose records
+    are required (the motion gates read them).
+
+    Returns ``(frames, ts [T])``.  With ``camera=True`` the frames carry
+    the distance images (DISTANCE_IMAGE records required) and the return
+    is ``(frames, ts, intrinsics)``: pass ``intrinsics`` as
+    ``camera_intrinsics`` to the runner.  With ``texture=True`` they also
+    carry the RGB textures (TEXTURE_IMAGE records; the runner's
+    ``camera_texture=True`` needs a colour-carrying pool)."""
+    from slam_eslam_tpu_torch.io import logio
+
+    device = entry_device(device)
+    s = logio.load_stream(path)
+    if s["pose"] is None:
+        raise ValueError(
+            "streaming replay needs pose records (the motion-gate input)")
+    if s["orientation"] is None:
+        raise ValueError("streaming replay needs orientation records")
+    if camera and s["dimg"] is None:
+        raise ValueError(
+            f"camera=True but {path} has no DISTANCE_IMAGE records")
+    if camera and texture and s["timg"] is None:
+        raise ValueError(
+            f"texture=True but {path} has no TEXTURE_IMAGE records")
+    put = lambda a: torch.from_numpy(np.array(a)).to(device)
+    contact = s["contact"]
+    t = contact.shape[0]
+    cs = BodyContactState(
+        position=put(contact["position"]), contact=put(contact["contact"]),
+        slip=put(contact["slip"]), group_id=put(contact["group_id"]),
+        valid=torch.ones(contact.shape, dtype=torch.bool, device=device))
+    if s["scan_ranges"] is not None:
+        ranges, (start, res) = s["scan_ranges"], s["scan_meta"]
+    else:  # no scans: empty rays, the mapping gate never fires
+        ranges, start, res = np.zeros((t, 1), f32), 0.0, 1.0
+    q, body_pos = s["orientation"], s["pose"][:, :3]
+    full = lambda v: torch.full((t,), v, dtype=torch.float32, device=device)
+    frames = dict(
+        contact=cs, q=put(q), body_pos=put(body_pos), ranges=put(ranges),
+        start_angle=full(start), angular_resolution=full(res),
+        has_scan=put(s["has_scan"]), host_q=q.copy(),
+        host_body_pos=body_pos.copy(), host_has_scan=s["has_scan"].copy())
+    if camera:
+        frames.update(dimg=put(s["dimg"]), has_dimg=put(s["has_dimg"]),
+                      host_has_dimg=s["has_dimg"].copy())
+        if texture:
+            frames["timg"] = put(s["timg"])
+    frames = SlamFrames(**frames)
+    if not camera:
+        return frames, s["ts"]
+    return frames, s["ts"], s["dimg_meta"]
 
 
 def _quat_angle(qa, qb):

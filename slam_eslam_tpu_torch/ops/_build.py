@@ -50,38 +50,44 @@ def nvcc_path():
                        "CUDA_HOME")
 
 
-def library_path(name):
-    """Where the library built from the current ``csrc/<name>.cu`` goes
-    (named by a hash of the source, the shared ``csrc/*.cuh`` headers
-    and the flags)."""
+def library_path(name, sources=None, flags=NVCC_FLAGS):
+    """Where the library ``name`` built from ``sources`` with ``flags``
+    goes, named by a hash of both.  The default sources of a kernel are
+    ``csrc/<name>.cu`` and the shared ``csrc/*.cuh`` headers."""
+    if sources is None:
+        sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(Path(src).read_bytes())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_library(lib, compiler, flags, source):
+    """Compile ``source`` with ``compiler`` and ``flags`` into ``lib``
+    through a temporary file renamed into place (a failed or concurrent
+    build never leaves a partial library), and keep the compiler's output
+    beside it.  Raises with that output if the build fails."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"{compiler} failed to build {source} (exit {proc.returncode}):"
+            f"\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
 
 
 @functools.cache
 def load(name):
     """Compile ``csrc/<name>.cu`` if needed and return the loaded
     ``ctypes.CDLL``.  Raises with nvcc's output if the build fails."""
-    src = CSRC / f"{name}.cu"
     lib = library_path(name)
     if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
+        build_library(lib, nvcc_path(), NVCC_FLAGS, CSRC / f"{name}.cu")
     return ctypes.CDLL(str(lib))
 
 

@@ -6,7 +6,10 @@ card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
 of the application API's contact update.  The backend: every pose-graph
 solver and ``scan_align`` on the card against the CPU port, the solvers
 under a global TF32 flag, no host sync in the dense and PCG solves, and
-a checkpoint resumed on the card.  K2, K5 and K7 must match bit
+a checkpoint resumed on the card.  The log runtime: a log read onto the
+card by ``frames_from_log`` equals the CPU read bit for bit, and
+``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  K2, K5
+and K7 must match bit
 for bit; K3 bit for bit on cells one point hits and within rtol 1e-6
 elsewhere (the plain version sums with atomics on the card), on a
 bfloat16 pool within one bfloat16 ulp there.  Marked ``cuda``; without a CUDA device every test
@@ -1067,3 +1070,79 @@ def test_checkpoint_resume_on_the_card(dev, tmp_path, dtype):
     assert torch.equal(a1["centroid"], a2["centroid"])
     for name in ("mean", "stdev", "height", "meta", "chain", "origin"):
         assert torch.equal(getattr(f.pool, name), getattr(g.pool, name)), name
+
+
+def record_log(path, steps=2, image_every=4):
+    """A traverse through the native log: contact, orientation and pose on
+    every frame, a scan, a distance image and a texture on every fourth."""
+    from slam_eslam_tpu_torch.io import logio
+
+    s = AsguardSim(terrain=terrain)
+    q = np.array([1.0, 0, 0, 0], np.float32)
+    count = [0]
+    with logio.LogWriter(path) as w:
+
+        def frame(sim_):
+            ts = 1000 + 10 * count[0]
+            count[0] += 1
+            w.write_contact_state(sim_.contact_state(), ts)
+            w.write_orientation(q, ts)
+            w.write_pose(sim_.position, q, ts)
+            if count[0] % image_every == 0:
+                w.write_scan(np.full(16, 2.0 + 0.01 * count[0]), -1.5, 0.2,
+                             ts)
+                w.write_distance_image(np.full((4, 6), 1.5), 0.1, 0.1,
+                                       -0.25, -0.15, ts)
+                w.write_texture_image(np.full((4, 6, 3), 0.3), ts)
+
+        for _ in range(steps):
+            s.step(wheel_delta=0.3, on_substep=frame)
+    return count[0]
+
+
+def test_frames_from_log_onto_the_card(dev, tmp_path):
+    """The log read onto the card equals, bit for bit, the same log read
+    onto the CPU, host copies included."""
+    path = str(tmp_path / "log.eslg")
+    n = record_log(path)
+    got, ts, intr = streaming.frames_from_log(path, camera=True,
+                                              texture=True, device=dev)
+    ref, ts_h, intr_h = streaming.frames_from_log(path, camera=True,
+                                                  texture=True, device="cpu")
+    assert len(got) == n and got.q.device == dev
+    assert np.array_equal(ts, ts_h) and intr == intr_h
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        if f.name == "contact":
+            for g in ("position", "contact", "slip", "group_id", "valid"):
+                assert getattr(a, g).device == dev
+                assert torch.equal(getattr(a, g).cpu(), getattr(b, g)), g
+        elif isinstance(b, torch.Tensor):
+            assert a.device == dev and torch.equal(a.cpu(), b), f.name
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+def test_chain_layers_on_a_bfloat16_pool(dev):
+    """``viz.render.chain_layers`` on a bfloat16 pool on the card equals
+    the CPU's, and adds only its blocks' rows to the card's memory."""
+    from slam_eslam_tpu_torch.viz import render
+
+    pool = sim.random_pool(64, 256, 10, 8, k=4, resolution=0.25,
+                           chain_len=3, seed=5, device="cpu",
+                           dtype=torch.bfloat16)
+    on_card = tree.to(pool, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(pool.n):
+        got, ref = render.chain_layers(on_card, i), render.chain_layers(
+            pool, i)
+        assert len(got) == len(ref)
+        for (z, ext), (z_r, ext_r) in zip(got, ref):
+            np.testing.assert_array_equal(z, z_r)
+            assert ext == ext_r
+    rise = torch.cuda.max_memory_allocated() - base
+    # three blocks' meta and mean rows a call, with the allocator's
+    # rounding: far below the pool's 0.35 MB mask
+    assert rise < (2 << 20)

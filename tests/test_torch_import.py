@@ -19,14 +19,17 @@ MODULES = [
     "slam_eslam_tpu_torch.core.filter",
     "slam_eslam_tpu_torch.core.gmm",
     "slam_eslam_tpu_torch.core.state",
+    "slam_eslam_tpu_torch.examples.full_demo",
     "slam_eslam_tpu_torch.examples.localize_demo",
     "slam_eslam_tpu_torch.examples.loop_closure_demo",
+    "slam_eslam_tpu_torch.examples.replay_demo",
     "slam_eslam_tpu_torch.examples.slam_demo",
     "slam_eslam_tpu_torch.filter.eslam_filter",
     "slam_eslam_tpu_torch.filter.pose_estimator",
     "slam_eslam_tpu_torch.filter.step",
     "slam_eslam_tpu_torch.filter.streaming",
     "slam_eslam_tpu_torch.filter.surface_hash",
+    "slam_eslam_tpu_torch.io.logio",
     "slam_eslam_tpu_torch.mapping.lookup",
     "slam_eslam_tpu_torch.mapping.map_pool",
     "slam_eslam_tpu_torch.mapping.mls_grid",
@@ -43,6 +46,8 @@ MODULES = [
     "slam_eslam_tpu_torch.ops.chain_lookup",
     "slam_eslam_tpu_torch.ops.contact_fold",
     "slam_eslam_tpu_torch.ops.select_cells",
+    "slam_eslam_tpu_torch.tools.closure_lab",
+    "slam_eslam_tpu_torch.tools.convert_dataset",
     "slam_eslam_tpu_torch.tools.probe_merge_overhead",
     "slam_eslam_tpu_torch.tools.stat_map_test",
     "slam_eslam_tpu_torch.utils.checkpoint",
@@ -51,6 +56,8 @@ MODULES = [
     "slam_eslam_tpu_torch.utils.kernel_eff",
     "slam_eslam_tpu_torch.utils.profiling",
     "slam_eslam_tpu_torch.utils.tree",
+    "slam_eslam_tpu_torch.viz.render",
+    "slam_eslam_tpu_torch.viz.snapshots",
 ]
 
 
@@ -93,3 +100,19 @@ def test_port_sources_never_import_jax():
                         and words[1].split(".")[0] in (
                             "jax", "jaxlib", "slam_eslam_tpu")), (
                 f"{path}: {line}")
+
+
+def test_matplotlib_is_imported_only_to_draw():
+    """A GPU host may lack matplotlib: importing the port (its plots and
+    demos included) must not need it."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

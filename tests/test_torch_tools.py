@@ -14,10 +14,25 @@ run here with its key, and the port's loop fed the same draws: centroids
 within 1e-3 m at every step.  ``examples.loop_closure_demo``: the same
 closures (index pairs, scores within 1e-5) and y drift (within 1e-4 m)
 before and after optimisation as the JAX demo's loop.
+``examples.replay_demo``: a tiny run on the CPU, its recording the JAX
+demo's records (timestamps aside).  ``examples.full_demo`` on the CPU at
+8 particles and 12 steps: it exits 0 and prints the JAX demo's JSON keys; its log reads
+bit for bit the same through the JAX ``frames_from_log``; its first chunk
+follows the JAX ``OnlineSlam`` of the same configuration on the same log
+and the JAX draws (centroids within 1e-3 m, gates and keyframe frames
+equal).  ``tools.closure_lab`` on that run's graph: every policy's solve
+equals the JAX ``pose_graph.optimize`` / ``optimize_schur`` on the same
+edge masks (keyframe ATE and chi2 history within rtol 1e-4), and its edge
+classes differ from the JAX lab's exactly on the keyframe-0 -> node-1 yaw
+prior of a hand-made graph.
 """
 
 import argparse
+import dataclasses
 import importlib.util
+import json
+import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -25,9 +40,11 @@ import numpy as np
 import pytest
 import torch
 
-from slam_eslam_tpu_torch.examples import (localize_demo,
-                                           loop_closure_demo, slam_demo)
+from slam_eslam_tpu_torch.examples import (full_demo, localize_demo,
+                                           loop_closure_demo, replay_demo,
+                                           slam_demo)
 from slam_eslam_tpu_torch.ops import block_merge as bm
+from slam_eslam_tpu_torch.tools import closure_lab
 from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
 from slam_eslam_tpu_torch.tools import stat_map_test
 from slam_eslam_tpu_torch.utils import kernel_eff
@@ -314,3 +331,276 @@ def test_loop_closure_demo_matches_jax(capsys):
     assert abs(got["err_after"] - after) < 1e-4
     assert got["closures"] and got["err_after"] < got["err_before"]
     assert "max |y| drift after" in capsys.readouterr().out
+
+
+def test_replay_demo_runs_on_the_cpu(capsys):
+    res = replay_demo.main(["--cpu", "--steps", "2", "--particles", "8"])
+    out = capsys.readouterr().out
+    assert "recorded 21 frames" in out and "replayed 20 frames" in out
+    assert res["errors"].shape == (20,) and np.isfinite(res["errors"]).all()
+    assert res["centroids"].shape == (20, 3) and res["updates"] >= 1
+    assert 0 <= res["wait"] <= res["seconds"]
+
+
+def test_replay_demo_records_the_jax_demos_records(tmp_path):
+    """The recording of ``examples/replay_demo.py`` (lines 47-64), made
+    with the JAX package, holds the port's records (timestamps come from
+    the wall clock, so they are left out)."""
+    from slam_eslam_tpu.io import logio as jlogio
+    from slam_eslam_tpu.models.asguard import AsguardSim as JSim
+
+    path = tmp_path / "port.eslg"
+    assert replay_demo.record(path, 2) == 21
+    ref = tmp_path / "jax.eslg"
+    sim = JSim(terrain=replay_demo.terrain)
+    with jlogio.LogWriter(ref) as w:
+
+        def record(s):
+            w.write_contact_state(s.contact_state(), 0)
+            w.write_orientation([1.0, 0, 0, 0], 0)
+            w.write_pose(s.position, [1.0, 0, 0, 0], 0)
+
+        record(sim)
+        for _ in range(2):
+            sim.step(wheel_delta=0.3, on_substep=record)
+    with jlogio.LogReader(path) as a, jlogio.LogReader(ref) as b:
+        assert len(a) == len(b) == 63
+        for i in range(len(a)):
+            (ta, _, pa), (tb, _, pb) = a.get(i), b.get(i)
+            assert (ta, pa) == (tb, pb)
+
+
+DEMO_ARGS = ["--cpu", "--steps", "12", "--particles", "8", "--chunk", "20",
+             "--keyframe-distance", "0.1", "--min-separation", "2"]
+
+
+@pytest.fixture(scope="module")
+def demo_run(tmp_path_factory):
+    """``full_demo`` run as a module on the CPU, its log and truth kept
+    (``--log-cache``) and its graph dumped (``--save-graph``)."""
+    tmp = tmp_path_factory.mktemp("full_demo")
+    proc = subprocess.run(
+        [sys.executable, "-m", "slam_eslam_tpu_torch.examples.full_demo",
+         *DEMO_ARGS, "--log-cache", str(tmp / "loop"), "--save-graph",
+         str(tmp / "graph.npz"), "--out", str(tmp / "out")],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    return dict(proc=proc, log=tmp / "loop.eslg",
+                truth=np.load(tmp / "loop.truth.npy"), graph=tmp / "graph.npz",
+                args=full_demo.parser().parse_args(DEMO_ARGS))
+
+
+def test_full_demo_prints_the_jax_demos_json_keys(demo_run):
+    proc = demo_run["proc"]
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1]
+    got = json.loads(line)
+    src = (REPO / "examples" / "full_demo.py").read_text()
+    block = src[src.index("print(json.dumps({"):]
+    keys = re.findall(r'^\s+"(\w+)":', block[:block.index("}))")], re.M)
+    assert list(got) == keys and len(keys) == 21
+    assert got["particles"] == 8 and got["frames"] == 120
+    assert got["keyframes"] >= 2 and got["pool_dtype"] == "float32"
+    assert "graph dump ->" in proc.stdout
+    assert (Path(demo_run["graph"].parent / "out" / "full_demo.png")
+            .exists())
+
+
+def test_full_demo_log_reads_equal_through_jax(demo_run):
+    from slam_eslam_tpu.filter import streaming as jst
+    from slam_eslam_tpu_torch.filter import streaming
+
+    path = str(demo_run["log"])
+    frames, ts, intr = streaming.frames_from_log(path, camera=True,
+                                                 texture=True, device="cpu")
+    jframes, jts, jintr = jst.frames_from_log(path, camera=True,
+                                              texture=True)
+    cs = jframes[0]
+    pairs = [(getattr(frames.contact, f), getattr(cs, f)) for f in (
+        "position", "contact", "slip", "group_id", "valid")]
+    pairs += list(zip(
+        [frames.q, frames.body_pos, frames.ranges, frames.start_angle,
+         frames.angular_resolution, frames.has_scan, frames.dimg,
+         frames.has_dimg, frames.timg], [*jframes[1:4], *jframes[4],
+                                         *jframes[5:]]))
+    assert len(pairs) == 14
+    for a, b in pairs:
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(ts, np.asarray(jts))
+    assert intr == jintr
+    np.testing.assert_allclose(intr, full_demo.rigs()["intrinsics"],
+                               atol=1e-6)
+    truth = demo_run["truth"]
+    assert len(frames) == len(truth) == 121
+    np.testing.assert_allclose(frames.host_body_pos, truth[:, :3],
+                               atol=1e-6)
+    assert frames.host_has_scan.sum() == 12
+    assert frames.host_has_dimg.sum() == 6
+
+
+def to_jax(obj):
+    """A port configuration dataclass as the JAX package's."""
+    from slam_eslam_tpu import config as jconfig
+
+    cls = getattr(jconfig, type(obj).__name__)
+    return cls(**{f.name: (to_jax(v) if dataclasses.is_dataclass(v) else v)
+                  for f in dataclasses.fields(obj)
+                  for v in [getattr(obj, f.name)]})
+
+
+def jax_draws(key, updated, n):
+    """The JAX filter's key splits of a stream: ``project``'s draws per
+    frame, then the resampling uniforms where the measurement gate
+    fired."""
+    import jax
+    import jax.numpy as jnp
+
+    from slam_eslam_tpu_torch.filter import pose_estimator as tpe
+    from slam_eslam_tpu_torch.filter.step import StepDraws
+
+    t = lambda a: torch.from_numpy(np.array(a))
+    out = []
+    for up in updated:
+        key, k_delta, k_slip1, k_slip2, k_sxy, k_syaw = jax.random.split(
+            key, 6)
+        kxy, kyaw = jax.random.split(k_delta)
+        normal = lambda k, s: t(jax.random.normal(k, s, jnp.float32))
+        uniform = lambda k, s: t(jax.random.uniform(k, s, jnp.float32))
+        proj = tpe.ProjectDraws(
+            delta_xy=normal(kxy, (n, 2)), delta_yaw=normal(kyaw, (n,)),
+            slip=uniform(k_slip1, (n,)), shrink=uniform(k_slip2, (n,)),
+            spread_xy=normal(k_sxy, (n, 2)), spread_yaw=normal(k_syaw, (n,)))
+        u = None
+        if up:
+            key, k_rs = jax.random.split(key)
+            u = uniform(k_rs, (n,))
+        out.append(StepDraws(proj, u))
+    return out
+
+
+def test_full_demo_chunk_follows_jax_online_slam(demo_run):
+    """One chunk of the demo's ``OnlineSlam`` against the JAX one built
+    with the same configuration, on the same log, fed the JAX draws."""
+    import jax
+
+    from slam_eslam_tpu.config import OdometryConfig as JOdometry
+    from slam_eslam_tpu.filter import streaming as jst
+    from slam_eslam_tpu.online import OnlineSlam as JOnline
+    from slam_eslam_tpu_torch.filter import streaming
+
+    args, truth = demo_run["args"], demo_run["truth"]
+    path, n, chunk = str(demo_run["log"]), args.particles, args.chunk
+    rig = full_demo.rigs()
+    js = JOnline(config=to_jax(full_demo.demo_config(args)), submap_scans=3,
+                 odometry_config=JOdometry(dist_error_xy=0.35,
+                                           const_error_xy=0.004),
+                 laser2body=rig["laser"], camera2body=rig["camera"],
+                 camera_intrinsics=rig["intrinsics"], camera_texture=True,
+                 keyframe_kw=full_demo.keyframe_kw(args))
+    js.init(pose=(truth[0][:3], truth[0][3]))
+    _, k_init = jax.random.split(jax.random.PRNGKey(js.filter.config.seed))
+    kxy, kyaw = jax.random.split(k_init)
+    t = lambda a: torch.from_numpy(np.array(a))
+    slam = full_demo.make_slam(args, truth[0], "cpu", normals=(
+        t(jax.random.normal(kxy, (n, 2))), t(jax.random.normal(kyaw, (n,)))))
+    jframes, _, _ = jst.frames_from_log(path, camera=True, texture=True)
+    frames, _, _ = streaming.frames_from_log(path, camera=True,
+                                             texture=True, device="cpu")
+    sl = slice(0, chunk)
+    key = js.filter.state.key
+    jaux = js.process_chunk(jax.tree_util.tree_map(lambda a: a[sl],
+                                                   jframes))
+    run = full_demo.replay(slam, frames.at(sl), chunk,
+                           jax_draws(key, np.asarray(jaux["updated"]), n))
+    taux = run["auxes"][0]
+    for name in ("updated", "mapped", "cam_mapped"):
+        np.testing.assert_array_equal(taux[name], np.asarray(jaux[name]))
+    assert taux["mapped"].any() and taux["cam_mapped"].any()
+    np.testing.assert_allclose(run["centroids"], np.asarray(jaux["centroid"]),
+                               atol=1e-3)
+    assert slam.keyframe_frames == js.keyframe_frames == [chunk - 1]
+    np.testing.assert_allclose(slam.keyframes.keyframes[0].pose,
+                               js.keyframes.keyframes[0].pose, atol=1e-3)
+
+
+# chi2 below this is float32 rounding: an exactly consistent chain of a
+# few metres leaves residuals of ~1e-7 at an information of 1e4 per edge
+CHI2_ZERO = 1e-6
+
+
+def jax_solve(g, solver, iters, robust, delta):
+    import jax.numpy as jnp
+
+    from slam_eslam_tpu.backend import pose_graph as jpg
+
+    graph = jpg.PoseGraph(**{k: jnp.asarray(v) for k, v in g.items()})
+    opt = jpg.optimize_schur if solver == "schur" else jpg.optimize
+    out, hist = opt(graph, iters=iters, robust=robust, robust_delta=delta)
+    return np.asarray(out.nodes), np.asarray(hist)
+
+
+@pytest.mark.parametrize("solver", ["dense", "schur"])
+def test_closure_lab_matches_jax_optimize(demo_run, solver, capsys):
+    d = closure_lab.load(demo_run["graph"])
+    iters = 5
+    got = closure_lab.lab(d, iters=iters, solver=solver, device="cpu")
+    assert "kf ATE after" in capsys.readouterr().out
+    n_nodes = int(d["node_valid"].sum())
+    n_edges = int(d["edge_valid"].sum())
+    assert n_nodes >= 4
+    classes = closure_lab.classify_edges(
+        d["edge_i"][:n_edges], d["edge_j"][:n_edges],
+        d["edge_info"][:n_edges])
+    assert len(classes["odometry"]) == n_nodes - 1
+    assert len(classes["prior"]) == n_nodes - 1
+    policies = closure_lab.policies(d, 1.0)
+    assert [row[0] for row in got] == [p[0] for p in policies]
+    assert len(policies) == 39
+    for (name, keep, robust, delta, priors, yaw_scale), (_, ate, hist) in zip(
+            policies, got):
+        nodes, ref = jax_solve(
+            closure_lab.masked_graph(d, classes, keep, priors, yaw_scale),
+            solver, iters, robust, delta)
+        ref_ate = np.linalg.norm(nodes[:n_nodes, :2] - d["kf_truth"][:, :2],
+                                 axis=1).mean()
+        np.testing.assert_allclose(ate, ref_ate, rtol=1e-4, err_msg=name)
+        np.testing.assert_allclose(hist, ref, rtol=1e-4,
+                                   atol=max(1e-6 * abs(ref[0]), CHI2_ZERO),
+                                   err_msg=name)
+
+
+def test_edge_classes_differ_from_the_jax_lab_on_the_first_prior():
+    """A hand-made graph of four keyframes: odometry 0-1, 1-2, 2-3, yaw
+    priors kf0 -> 1, 2, 3 and a closure 0 -> 3.  The JAX lab
+    (``tools/closure_lab.py:83-106``) counts the kf0 -> node-1 prior as
+    odometry; the port calls it a prior, and nothing else differs."""
+    xy = np.diag([100.0, 100.0, 1e4]).astype(np.float32)
+    yaw_only = np.diag([0.0, 0.0, 1e4]).astype(np.float32)
+    edges = [(0, 1, xy), (0, 1, yaw_only), (1, 2, xy), (0, 2, yaw_only),
+             (2, 3, xy), (0, 3, yaw_only), (0, 3, xy)]
+    ei = np.array([e[0] for e in edges], np.int32)
+    ej = np.array([e[1] for e in edges], np.int32)
+    info = np.stack([e[2] for e in edges])
+    mine = closure_lab.classify_edges(ei, ej, info)
+    has_xy = info[:, 0, 0] > 0
+    jax_lab = dict(odometry=np.nonzero((ej - ei) == 1)[0],
+                   prior=np.nonzero(((ej - ei) != 1) & ~has_xy)[0],
+                   closure=np.nonzero(((ej - ei) != 1) & has_xy)[0])
+    np.testing.assert_array_equal(mine["odometry"], [0, 2, 4])
+    np.testing.assert_array_equal(mine["prior"], [1, 3, 5])
+    np.testing.assert_array_equal(mine["closure"], [6])
+    np.testing.assert_array_equal(mine["closure"], jax_lab["closure"])
+    assert set(jax_lab["odometry"]) - set(mine["odometry"]) == {1}
+    assert set(mine["prior"]) - set(jax_lab["prior"]) == {1}
+    assert not set(mine["odometry"]) - set(jax_lab["odometry"])
+    # without priors the first prior goes too; a softer odometry yaw
+    # leaves it as it is
+    d = dict(nodes=np.zeros((4, 3), np.float32),
+             node_valid=np.ones(4, bool), edge_i=ei, edge_j=ej,
+             edge_z=np.zeros((7, 3), np.float32), edge_info=info,
+             edge_valid=np.ones(7, bool))
+    g = closure_lab.masked_graph(d, mine, np.ones(1, bool), priors=False,
+                                 yaw_scale=0.1)
+    np.testing.assert_array_equal(g["edge_valid"],
+                                  [1, 0, 1, 0, 1, 0, 1])
+    np.testing.assert_allclose(g["edge_info"][:, 2, 2],
+                               [1e3, 1e4, 1e3, 1e4, 1e3, 1e4, 1e4])
