@@ -109,7 +109,23 @@ Phases (any failure raises and exits non-zero):
    particles (one K1 launch per measurement update, no K5; 20 frames at
    4,096 against the CPU port); ``viz.render.chain_layers`` on a
    400,000-block bfloat16 pool within 64 MB of device memory.  Nothing is
-   written under ``slam_eslam_tpu/``.
+   written under ``slam_eslam_tpu/``;
+12. the measurement tools of ``tools/``, ported
+   (``slam_eslam_tpu_torch.tools``), in process on the card at full width,
+   depth cut where their defaults would take most of the phase
+   (``TOOL_CUTS``): ``bench_kernels`` (K5 at Q = 2,000,000 bit for bit
+   against its plain version, beside its bound), ``probe_chain_parity``
+   (K2 at 4,096 x 8 equal to the plain chain walk), ``profile_slam`` at
+   4,096 and at 100,000 particles (K2 and K3 in the trace's table under
+   their kernel names as often as the gates fired; the block copies' share
+   of device time on a 41 GB float32 pool), ``profile_filter`` and
+   ``probe_spread`` (one K1 launch per measurement update, no K5),
+   ``profile_step`` (every stage finite), ``profile_resample`` (every
+   ancestor index brackets its position in the cumsum searched),
+   ``bench_pool_ops`` (every row), ``bench_surface_hash`` (the hash's
+   valid candidates equal to the CPU port's) and ``ab_pool_dtype`` (both
+   pool types' stats finite).  Nothing is written under
+   ``slam_eslam_tpu/``.
 
 Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
 launches (a kernel module's ``launch``: no check, no allocation) captured
@@ -3538,6 +3554,184 @@ def phase11(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the measurement tools of tools/ on the card
+# ---------------------------------------------------------------------------
+
+# each tool runs in process at full width; depth is cut where a tool's
+# defaults would take most of the phase (PERF.md, PR 10, has the default
+# runs): profile_slam at 100,000 particles 4 of 10 steps (40 frames; at
+# 4,096 it runs at its defaults), probe_spread 50 of 150 steps,
+# bench_surface_hash 10 of 20 steps and 2 of 3 repeats, ab_pool_dtype 2 of
+# 10 runs and 40 of 120 steps, profile_step 3 of 5 repeats
+BIG_PROFILE_CUT = ("--steps", "4")
+TOOL_CUTS = {
+    "probe_spread": ("--steps", "50"),
+    "bench_surface_hash": ("--steps", "10", "--repeats", "2"),
+    "ab_pool_dtype": ("--runs", "2", "--steps", "40"),
+    "profile_step": ("--repeats", "3"),
+}
+# a float32 pool of 4 blocks per particle at 100,000 particles: 400,000
+# blocks of 40x40x4 slots x 4 fields = 40.96 GB of the card's 80 GB
+TOOLS_BIG_N = 100_000
+
+
+def check(cond, label, message):
+    if not cond:
+        raise RuntimeError(f"{label}: {message}")
+
+
+def run_tool(name, argv):
+    """``slam_eslam_tpu_torch.tools.<name>.main(argv)`` on the card; returns
+    its result, the kernel launches it made and its seconds."""
+    import importlib
+
+    from slam_eslam_tpu_torch import ops
+
+    tool = importlib.import_module(f"slam_eslam_tpu_torch.tools.{name}")
+    argv = list(argv) + list(TOOL_CUTS.get(name, ()))
+    print(f"--- tools.{name} {' '.join(argv)}", flush=True)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    res = tool.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    print(f"tools.{name}: {seconds:.1f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    gc_cuda()
+    return res, launches, seconds
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slam_profile_run(card, n, tmp):
+    """``profile_slam``: K2 and K3 in the aggregated table under their
+    kernel names, as often as the measurement and mapping gates fired."""
+    res, launches, _ = run_tool("profile_slam", (
+        "--particles", str(n), "--trace-dir", str(tmp / f"slam_{n}"),
+        "--top", "12") + (BIG_PROFILE_CUT if n == TOOLS_BIG_N else ()))
+    label = f"profile_slam[{n}]"
+    check(res["kind"] == "device", label, "the trace holds no device event")
+    rows = dict(res["rows_all"])
+    for kernel, want in (("chain_lookup_kernel", res["fired"]),
+                         ("block_merge_kernel", res["mapped"])):
+        hits = [(name, cnt) for name, (_, cnt) in rows.items()
+                if kernel in name]
+        check(len(hits) == 1 and hits[0][1] == want > 0, label,
+              f"{kernel} rows {hits}, gates {want}")
+    check(launches["chain_lookup"] == 3 * res["fired"]
+          and launches["block_merge"] == 3 * res["mapped"], label,
+          f"launches {launches} over three runs for {res['fired']} "
+          f"measurement and {res['mapped']} mapping frames a run")
+    check(0.0 < res["copy_share"] < 1.0, label,
+          f"block copies' share {res['copy_share']}")
+    top = "; ".join(f"{name.split('(')[0][:60]} {ms:.3f} ms x{cnt}"
+                    for name, (ms, cnt) in res["rows_all"][:5])
+    rate = res["frames"] / res["steady_s"]
+    print(f"{label}: {res['frames']} frames, {res['fired']} measurement and "
+          f"{res['mapped']} mapping frames, {rate:.1f} frames/s; device "
+          f"{res['total_ms']:.3f} ms, block copies "
+          f"{res['copy_ms']:.3f} ms = {res['copy_share']:.2%}; top: {top} "
+          f"[{card}]")
+    return res, launches
+
+
+def lookup_run(name, card, argv=()):
+    """``profile_filter`` / ``probe_spread``: the lookup they name ran, one
+    K1 launch per measurement update and no K5."""
+    from slam_eslam_tpu_torch.tools.profile_filter import FOLD
+
+    res, launches, _ = run_tool(name, argv)
+    # profile_filter counts its steady run, probe_spread its one run
+    check(res["lookup"] == FOLD and res["launches"]["contact_fold"]
+          == res["updates"] > 0 and res["launches"]["select_cells"] == 0,
+          name, f"lookup {res['lookup']!r}, launches {res['launches']} for "
+                f"{res['updates']} measurement updates")
+    print(f"{name}: {res['lookup']}, {res['launches']['contact_fold']} "
+          f"contact_fold launches for {res['updates']} measurement updates "
+          f"[{card}]")
+    return res, launches
+
+
+def phase12(dev, card):
+    """The measurement tools of ``tools/``, ported, on the card."""
+    import tempfile
+
+    from slam_eslam_tpu_torch.tools import bench_surface_hash
+
+    gc_cuda()
+    jax_pkg = Path(__file__).resolve().parent / "slam_eslam_tpu"
+    before = tree_snapshot(jax_pkg)
+    print(f"phase 12 cuts (depth only): {TOOL_CUTS}, profile_slam at "
+          f"{TOOLS_BIG_N} particles {BIG_PROFILE_CUT}")
+    out = {"launches": {}}
+    launches = out["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        res, launches["bench_kernels"], _ = run_tool("bench_kernels", ())
+        sel = res["select"]
+        check(sel["equal"], "bench_kernels", "K5 differs from its plain "
+              "version")
+        print(f"bench_kernels: K5 at Q = 2,000,000 {sel['ms']:.5f} ms "
+              f"against its bound {sel['bound_ms']:.5f} ms "
+              f"({sel['bound_ms'] / sel['ms']:.3f} of it), x"
+              f"{sel['speedup']:.1f} the gather, bit for bit [{card}]")
+        out["k5"] = sel
+
+        res, launches["probe_chain_parity"], _ = run_tool(
+            "probe_chain_parity", ())
+        check(res["found_equal"] and res["max_dmean"] == 0.0
+              == res["max_dstdev"], "probe_chain_parity",
+              f"K2 against the plain walk: {res}")
+        out["chain"] = res
+
+        for n in (SLAM_N, TOOLS_BIG_N):
+            out[f"slam_{n}"], launches[f"profile_slam_{n}"] = (
+                slam_profile_run(card, n, tmp))
+        _, launches["profile_filter"] = lookup_run(
+            "profile_filter", card, ("--trace-dir", str(tmp / "filter")))
+        _, launches["probe_spread"] = lookup_run("probe_spread", card)
+
+        res, launches["profile_step"], _ = run_tool("profile_step", ())
+        bad = [name for name, r in res.items() if not r["finite"]]
+        check(not bad, "profile_step", f"stages {bad} not finite")
+
+        # the tool raises where an index does not bracket its position
+        run_tool("profile_resample", ())
+
+        res, _, _ = run_tool("bench_pool_ops", ())
+        check(len(res) == 7 and all(ms > 0 for ms in res.values()),
+              "bench_pool_ops", f"rows {res}")
+
+        res, launches["bench_surface_hash"], _ = run_tool(
+            "bench_surface_hash", ())
+        t0 = time.perf_counter()
+        cpu_hash, _ = bench_surface_hash.create_hash(400, 16, "cpu")
+        cpu_s = time.perf_counter() - t0
+        check(int(cpu_hash.n_valid) == res["n_valid_candidates"],
+              "bench_surface_hash", f"{res['n_valid_candidates']} valid "
+              f"candidates on the card, {int(cpu_hash.n_valid)} on the CPU")
+        print(f"bench_surface_hash: {res['n_valid_candidates']} valid "
+              f"candidates on the card and on the CPU port (its create "
+              f"{cpu_s:.2f} s); reinjection "
+              f"{res['reinjection_cost_ms_per_frame']} ms a frame [{card}]")
+        out["hash"] = res
+
+        res, launches["ab_pool_dtype"], _ = run_tool("ab_pool_dtype", ())
+        stats = [v for d in ("float32", "bfloat16") for v in res[d].values()]
+        check(all(np.isfinite(stats)), "ab_pool_dtype", f"stats {res}")
+        out["ab"] = res
+    gc_cuda()
+    if tree_snapshot(jax_pkg) != before:
+        raise RuntimeError("phase 12 wrote under slam_eslam_tpu/")
+    return out
+
+
 def profile_frames(fn, n_frames, label, out, stem):
     """``fn()`` under ``torch.profiler``: the table and the trace into
     ``out`` as ``<stem>_profile.txt`` and ``<stem>_trace.json``, and a line
@@ -3749,14 +3943,37 @@ def main():
           f"feeder wait {p11['replay']['wait']:.2%}; chain_layers on the 100k "
           f"pool +{p11['layer_rise'] / 1e6:.3f} MB; phase 11 {p11_s:.1f} s "
           f"[{card}]")
+    t0 = time.perf_counter()
+    p12 = phase12(dev, card)
+    p12_s = time.perf_counter() - t0
+    slam_big = p12[f"slam_{TOOLS_BIG_N}"]
+    k2_frame = p12["chain"]["kernel (K2)"]["ms_per_frame"]
+    print(f"tools: K5 at Q = 2,000,000 {p12['k5']['ms']:.5f} ms (bound "
+          f"{p12['k5']['bound_ms']:.5f} ms); K2 parity 0 at 4096 x 8, "
+          f"{k2_frame:.4f} ms/frame; block copies "
+          f"{slam_big['copy_share']:.2%} of device time at {TOOLS_BIG_N} "
+          f"particles; reinjection "
+          f"{p12['hash']['reinjection_cost_ms_per_frame']} ms a frame; "
+          f"bfloat16 - float32 ATE {p12['ab']['delta']['ate_mean']:.3e} m "
+          f"over {p12['ab']['config']['runs']} runs; phase 12 {p12_s:.1f} s "
+          f"[{card}]")
+    # each tool's launches, those of its timing loops included
+    tool_launches = lambda name, tools: {
+        f"launches_{tool}": p12["launches"][tool][name] for tool in tools}
     online_launches = lambda name: {
         "launches_online": online["launches"][name],
         "launches_full_demo": demo["launches"][name],
-        "launches_full_demo_laps": p11["laps"]["launches"][name]}
+        "launches_full_demo_laps": p11["laps"]["launches"][name],
+        **tool_launches(name, (f"profile_slam_{SLAM_N}",
+                               f"profile_slam_{TOOLS_BIG_N}",
+                               "probe_chain_parity", "bench_surface_hash",
+                               "ab_pool_dtype"))}
     demo_launches = lambda name: {
         "launches_localize_demo": p10["localize"]["launches"][name],
         **({"launches_replay_demo": p11["replay"]["launches"][name]}
-           if name in p11["replay"]["launches"] else {})}
+           if name in p11["replay"]["launches"] else {}),
+        **tool_launches(name, ("profile_filter", "probe_spread",
+                               "profile_step", "bench_kernels"))}
 
     f32c, bf16c = k7[""], k7["_bf16"]
 

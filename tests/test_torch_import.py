@@ -46,9 +46,19 @@ MODULES = [
     "slam_eslam_tpu_torch.ops.chain_lookup",
     "slam_eslam_tpu_torch.ops.contact_fold",
     "slam_eslam_tpu_torch.ops.select_cells",
+    "slam_eslam_tpu_torch.tools.ab_pool_dtype",
+    "slam_eslam_tpu_torch.tools.bench_kernels",
+    "slam_eslam_tpu_torch.tools.bench_pool_ops",
+    "slam_eslam_tpu_torch.tools.bench_surface_hash",
     "slam_eslam_tpu_torch.tools.closure_lab",
     "slam_eslam_tpu_torch.tools.convert_dataset",
+    "slam_eslam_tpu_torch.tools.probe_chain_parity",
     "slam_eslam_tpu_torch.tools.probe_merge_overhead",
+    "slam_eslam_tpu_torch.tools.probe_spread",
+    "slam_eslam_tpu_torch.tools.profile_filter",
+    "slam_eslam_tpu_torch.tools.profile_resample",
+    "slam_eslam_tpu_torch.tools.profile_slam",
+    "slam_eslam_tpu_torch.tools.profile_step",
     "slam_eslam_tpu_torch.tools.stat_map_test",
     "slam_eslam_tpu_torch.utils.checkpoint",
     "slam_eslam_tpu_torch.utils.device",

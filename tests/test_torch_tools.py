@@ -29,7 +29,6 @@ prior of a hand-made graph.
 
 import argparse
 import dataclasses
-import importlib.util
 import json
 import re
 import subprocess
@@ -49,23 +48,13 @@ from slam_eslam_tpu_torch.tools import probe_merge_overhead as probe
 from slam_eslam_tpu_torch.tools import stat_map_test
 from slam_eslam_tpu_torch.utils import kernel_eff
 
+from torch_jax_draws import jax_tool
+
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = ["--cpu", "--particles", "16", "--rays", "8", "--nx", "8", "--ny",
         "8", "--k", "4", "--iters", "2"]
-
-
-def jax_tool(name):
-    spec = importlib.util.spec_from_file_location(
-        f"jax_tools_{name}", REPO / "tools" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    path = list(sys.path)
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        sys.path[:] = path
-    return mod
 
 
 def test_probe_prints_every_variant(capsys):

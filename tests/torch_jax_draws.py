@@ -1,8 +1,12 @@
 """Shared helpers of the port's parity tests: JAX pytrees as numpy dicts,
-numpy to torch, and the JAX package's random draws rebuilt by repeating
-its key splits, so the port can be fed the same numbers."""
+numpy to torch, the JAX package's scripts under ``tools/`` loaded as
+modules, and the JAX package's random draws rebuilt by repeating its key
+splits, so the port can be fed the same numbers."""
 
 import dataclasses
+import importlib.util
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +22,21 @@ def as_dict(pytree):
 
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+def jax_tool(name):
+    """The JAX package's ``tools/<name>.py`` as a module (the scripts that
+    put the repository on ``sys.path`` leave it as it was)."""
+    repo = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        f"jax_tools_{name}", repo / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    path = list(sys.path)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = path
+    return mod
 
 
 def project_draws(key, n):
@@ -52,3 +71,19 @@ def randint_draws(key, n, count):
     """``jax.random.randint(key, (n,), 0, max(count, 1))``: the hash's
     integer draws (``surface_hash.py:218-219,237``)."""
     return t(jax.random.randint(key, (n,), 0, jnp.maximum(count, 1)))
+
+
+def slam_draws(key, n, updated):
+    """Per frame of a streaming SLAM run without a hash: ``project``'s
+    draws, then the resampling uniforms (``pose_estimator.py:305``) where
+    the measurement gate ``updated[frame]`` fired."""
+    from slam_eslam_tpu_torch.filter.step import StepDraws
+
+    out = []
+    for up in updated:
+        key, proj = project_draws(key, n)
+        u = None
+        if up:
+            key, u = resample_draws(key, n)
+        out.append(StepDraws(proj, u))
+    return out
