@@ -125,7 +125,24 @@ Phases (any failure raises and exits non-zero):
    ``bench_pool_ops`` (every row), ``bench_surface_hash`` (the hash's
    valid candidates equal to the CPU port's) and ``ab_pool_dtype`` (both
    pool types' stats finite).  Nothing is written under
-   ``slam_eslam_tpu/``.
+   ``slam_eslam_tpu/``;
+13. the ordered scan S1 (``csrc/ordered_scan.cu``, the resampling's
+   repeatable cumulative sum) bit for bit against its plain version on the
+   card and the CPU at 100,000, 1, 127, 129, 100,003, 8,193 and 2,100,000
+   elements, two calls alike, every ancestor bracketing its position,
+   timed beside its byte bound and ``torch.cumsum``, and
+   ``profile_resample`` with no index moving between two calls; then the
+   multi-rank path (``slam_eslam_tpu_torch.parallel``): a world of one
+   NCCL rank runs the localisation runner (100k particles, 150 steps) and
+   the SLAM runner (4,096 particles, 200 frames) with ``mesh=`` bit for bit
+   equal to the unmeshed runners (K1, K2, K3 and S1 launches against the
+   gates) and the meshed PCG and Schur solves at 1,024 nodes against the
+   CPU port; ``dryrun_multichip(4)`` (NCCL with a card per rank, else four
+   gloo ranks sharing this card, ``transport host``, tensors and kernels
+   on the card; the split SLAM pool equal to one process with
+   ``map_pool_shards = 4``), printing its backend and transport; what
+   NCCL does with two ranks on one card (a probe, reported either way);
+   and ``tools.bench_scaling --devices 1 2 4`` with its notes.
 
 Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
 launches (a kernel module's ``launch``: no check, no allocation) captured
@@ -213,7 +230,7 @@ APP_PROFILE_FRAMES = 20
 APP_HASH_PERIOD = 5      # steps between hash reinjections
 CP_OK_RTOL = 1e-3        # cp_ok counts per update, GPU vs CPU port
 KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
-           "block_copy")
+           "block_copy", "ordered_scan")
 # every wrapper that counts launches: block_merge's source has two
 WRAPPERS = KERNELS + ("block_merge_packed",)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -594,10 +611,10 @@ def fresh_state(cfg, particles, dev):
 
 
 def main_path(dev, profile):
+    from slam_eslam_tpu_torch import ops
     from slam_eslam_tpu_torch.filter import pose_estimator as pe
     from slam_eslam_tpu_torch.filter import step as steplib
     from slam_eslam_tpu_torch.mapping.lookup import make_lookup
-    from slam_eslam_tpu_torch.ops import contact_fold as cf
     from slam_eslam_tpu_torch.utils import tree
 
     cfg, grid, css, qs, truth, particles = bench_setup(N_BENCH, STEPS)
@@ -609,7 +626,7 @@ def main_path(dev, profile):
     state0 = fresh_state(cfg, particles, dev)
     torch.cuda.synchronize()
 
-    cf.contact_fold.launches = 0
+    ops.reset_launch_counts()
     # any host sync inside the step raises here
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
@@ -617,11 +634,13 @@ def main_path(dev, profile):
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cf.contact_fold.launches
+    counts = ops.launch_counts()
+    launches, scan_launches = counts["contact_fold"], counts["ordered_scan"]
 
-    if launches != STEPS:
-        raise RuntimeError(f"contact_fold launched {launches} times in "
-                           f"{STEPS} steps")
+    # a contact fold (K1) and an ordered scan (S1) in every step
+    if counts != dict(dict.fromkeys(WRAPPERS, 0), contact_fold=STEPS,
+                      ordered_scan=STEPS):
+        raise RuntimeError(f"main path: launches {counts} in {STEPS} steps")
     if cents.shape != (STEPS, 3) or not torch.isfinite(cents).all():
         raise RuntimeError("main path: non-finite or misshaped centroids")
     if not torch.isfinite(final.particles.weight).all():
@@ -629,7 +648,8 @@ def main_path(dev, profile):
     err = np.linalg.norm(cents[:, :2].cpu().numpy() - truth, axis=1)
     final10 = float(err[-10:].mean())
     print(f"main path: {STEPS} steps x {N_BENCH} particles in "
-          f"{elapsed:.4f} s, contact_fold launches {launches}")
+          f"{elapsed:.4f} s, contact_fold launches {launches}, ordered_scan "
+          f"launches {scan_launches}")
 
     # the first CHECK_STEPS steps against the CPU port on the same draws
     gen = torch.Generator().manual_seed(1)
@@ -651,8 +671,8 @@ def main_path(dev, profile):
 
     if profile:
         profile_steps(run, cfg, particles, css_d, qs_d, dev, Path(profile))
-    return dict(elapsed=elapsed, launches=launches, final10=final10,
-                dev_err=dev_err)
+    return dict(elapsed=elapsed, launches=launches,
+                scan_launches=scan_launches, final10=final10, dev_err=dev_err)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1031,11 +1051,8 @@ def check_slam_state(carry, aux, n_frames, label):
 
 
 def slam_path(dev, profile):
-    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch import bench, ops
     from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.ops import block_merge as bm
-    from slam_eslam_tpu_torch.ops import chain_lookup as cl
-    from slam_eslam_tpu_torch.ops import contact_fold as cf
     from slam_eslam_tpu_torch.utils import tree
 
     cfg = slam_config()
@@ -1050,9 +1067,7 @@ def slam_path(dev, profile):
     carry0 = slam_carry(cfg, z0, dev)
     torch.cuda.synchronize()
 
-    cf.contact_fold.launches = 0
-    cl.chain_lookup.launches = 0
-    bm.block_merge.launches = 0
+    ops.reset_launch_counts()
     # any host sync inside a frame raises here
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
@@ -1062,14 +1077,14 @@ def slam_path(dev, profile):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"contact_fold": cf.contact_fold.launches,
-                "chain_lookup": cl.chain_lookup.launches,
-                "block_merge": bm.block_merge.launches}
+    launches = ops.launch_counts()
     del carry0
 
     n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
-    want = {"chain_lookup": n_meas + (n_map if cfg.use_visual_update else 0),
-            "block_merge": n_map, "contact_fold": 0}
+    # one ordered scan (S1) per measurement update's resampling
+    want = dict(dict.fromkeys(WRAPPERS, 0),
+                chain_lookup=n_meas + (n_map if cfg.use_visual_update else 0),
+                block_merge=n_map, ordered_scan=n_meas)
     if launches != want or not n_meas or not n_map:
         raise RuntimeError(f"SLAM path: launches {launches}, gates want "
                            f"{want}")
@@ -1861,11 +1876,14 @@ def bench_filter_runs(card):
            f"merge floor fraction {floor}: the merge's twin (K7, cells "
            f"mode) must not take longer than the merge")
     want = dict.fromkeys(WRAPPERS, 0)
-    expect(detail["run_launches"] == dict(want, contact_fold=runs), "filter",
+    # one ordered scan (S1) per resampling update
+    expect(detail["run_launches"] == dict(want, contact_fold=runs,
+                                          ordered_scan=runs), "filter",
            f"launches in the timed runs {detail['run_launches']}")
     merge_iters = (4 * 20 + 20) * (1 + 3)
     want.update(contact_fold=runs + roofline_iters, block_merge=merge_iters,
-                block_copy=len(block_copy.MODES) * merge_iters)
+                block_copy=len(block_copy.MODES) * merge_iters,
+                ordered_scan=runs)
     expect(launches == want, "filter", f"launches {launches}, want {want}")
     cents = detail["centroids"]
     expect(cents.shape == (STEPS, 3) and bool(torch.isfinite(cents).all())
@@ -1893,7 +1911,8 @@ def bench_filter_runs(card):
         ["--fold", "off", "--steps", str(steps)], "fold off")
     want = dict.fromkeys(WRAPPERS, 0)
     expect(detail["run_launches"] == dict(
-        want, select_cells=steps * (1 + repeats)), "fold off",
+        want, select_cells=steps * (1 + repeats),
+        ordered_scan=steps * (1 + repeats)), "fold off",
         f"launches in the timed runs {detail['run_launches']}")
     expect(launches["select_cells"] == steps * (1 + repeats)
            and launches["contact_fold"] == roofline_iters, "fold off",
@@ -1927,7 +1946,8 @@ def bench_slam_run(card, n, steps, extra, label):
     n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
     want = dict.fromkeys(WRAPPERS, 0)
     want.update(chain_lookup=n_meas * (1 + repeats),
-                block_merge=n_map * (1 + repeats))
+                block_merge=n_map * (1 + repeats),
+                ordered_scan=n_meas * (1 + repeats))
     expect(launches == want and n_meas and n_map, label,
            f"launches {launches}, gates want {want}")
     patches, failed = check_slam_state(carry, aux, detail["frames"],
@@ -2364,7 +2384,8 @@ def map_pass(cfg, setup, dev, start, card, number):
     n_meas, n_map, n_cam = (int(gates[k].sum())
                             for k in ("updated", "mapped", "cam_mapped"))
     want = dict.fromkeys(WRAPPERS, 0)
-    want.update(chain_lookup=n_meas + n_map, block_merge=n_map + n_cam)
+    want.update(chain_lookup=n_meas + n_map, block_merge=n_map + n_cam,
+                ordered_scan=n_meas)
     labelled = sum(map_labels(i) is not None for i in range(n_frames))
     expect_launches(launches, want, "mapping path")
     if n_meas < labelled or n_map != SLAM_STEPS or not 1 < n_cam < n_map:
@@ -2603,7 +2624,7 @@ def shared_camera_merge(dev, card):
     # two filters, a measurement update each at the first frame and at
     # the next frame whose gate fired
     want = dict.fromkeys(WRAPPERS, 0)
-    want.update(contact_fold=4)
+    want.update(contact_fold=4, ordered_scan=4)
     expect_launches(launches, want, "shared camera merge")
 
 
@@ -3732,6 +3753,261 @@ def phase12(dev, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+SCAN_SIZES = (N_BENCH, 1, 127, 129, N_RAGGED, 8193, 2_100_000)
+DRYRUN_RANKS = 4
+SCALING_ARGS = ("--devices", "1", "2", "4", "--repeats", "3")
+
+
+def check_ordered_scan(dev, card):
+    """(a) S1 against its plain version, bit for bit (on the card and the
+    CPU) at SCAN_SIZES, two calls alike; every ancestor the resampling
+    search finds brackets its position in the scan; S1's device time at
+    100,000 beside its byte bound and torch.cumsum's; profile_resample
+    rerun: no index moves between two calls.  Returns ``(max_abs_err,
+    times, library_ms, profile_resample's result)``: the error is the
+    largest difference from the plain version on the card at any size."""
+    from slam_eslam_tpu_torch.core import filter as pf
+    from slam_eslam_tpu_torch.ops import ordered_scan as osc
+    from slam_eslam_tpu_torch.tools import profile_resample
+
+    max_err = 0.0
+    for n in SCAN_SIZES:
+        g = torch.Generator().manual_seed(n)
+        w = torch.softmax(2.5 * torch.randn((n,), generator=g), 0)
+        wd = w.to(dev)
+        a, b = osc.ordered_scan(wd), osc.ordered_scan(wd)
+        plain = osc.ordered_scan_reference(wd)
+        err = float((a - plain).abs().max())
+        max_err = max(max_err, err)
+        same = torch.equal(a, b)
+        plain_dev = torch.equal(a, plain)
+        plain_cpu = torch.equal(a.cpu(), osc.ordered_scan_reference(w))
+        print(f"ordered_scan[{n}]: two calls equal {same}, plain version on "
+              f"the card equal {plain_dev} (max_abs_err {err:.3e}), on the "
+              f"CPU equal {plain_cpu}")
+        if not (same and plain_dev and plain_cpu):
+            raise RuntimeError(f"ordered_scan[{n}] is not bit for bit its "
+                               f"plain version or not repeatable")
+    w, pos = profile_resample.weights_and_positions(N_BENCH, dev)
+    idx = pf.resample_from_positions(w, pos)
+    mism, worst = profile_resample.check_search(
+        idx, profile_resample.searched_cumsum(w), pos)
+    print(f"ordered_scan: {N_BENCH} ancestors bracket their positions in "
+          f"the scan; a host bisect stops elsewhere at {mism} (at most "
+          f"{worst} apart)")
+    n = N_BENCH
+    out, scratch = torch.empty_like(w), torch.empty(
+        osc.scratch_size(n), dtype=torch.float32, device=dev)
+    times = kernel_times(
+        "ordered_scan[100k]", lambda: osc.ordered_scan(w),
+        lambda: osc.launch(w, out, scratch), None,
+        lambda: osc.ordered_scan_reference(w), bound(8 * n))
+    library_ms = device_ms_of(lambda: torch.cumsum(w, 0))
+    library_call = cuda_ms(lambda: torch.cumsum(w, 0), 50)
+    print(f"ordered_scan[100k]: torch.cumsum {library_ms:.5f} ms on the "
+          f"card (profiler), {library_call:.4f} ms a call; S1 "
+          f"{times['ms']:.5f} ms, bound {times['bound_ms']:.5f} ms [{card}]")
+    res, launches, _ = run_tool("profile_resample",
+                                ("--particles", str(n), "--iters", "50"))
+    check(res["differs"] == 0, "profile_resample",
+          f"{res['differs']} indices differ between two calls")
+    return max_err, dict(times, library_call_ms=library_call), library_ms, res
+
+
+def one_rank_world(dev, card):
+    """(b) A world of one NCCL rank on the card: the localisation runner
+    at the benchmark shape and the SLAM runner at 4,096 particles over
+    200 frames, each on the mesh and off it from the same generator
+    state, bit for bit, with the kernels' launches counted on the meshed
+    run; the meshed PCG and Schur solves at 1,024 nodes against the CPU
+    port.  Returns the launches and the runs' seconds."""
+    import torch.distributed as dist
+
+    from slam_eslam_tpu_torch import bench, ops
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+    from slam_eslam_tpu_torch.filter import step as steplib
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.mapping.lookup import make_lookup
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.parallel import sharding as shd
+    from slam_eslam_tpu_torch.utils import tree
+
+    mesh = shd.make_mesh(1, device=dev)
+    t = torch.ones(4, device=dev)
+    dist.all_reduce(t)
+    print(f"one-rank world: {mesh.describe()}; NCCL all_reduce on the card "
+          f"{t.tolist()}")
+    check(mesh.backend == "nccl" and mesh.transport == "nccl"
+          and bool((t == 1).all()), "one-rank world", mesh.describe())
+    out = {"mesh": mesh.describe()}
+    try:
+        cfg, grid, css, qs, _, particles = bench_setup(N_BENCH, STEPS)
+        grid_d, css_d, qs_d = tree.to(grid, dev), tree.to(css, dev), qs.to(dev)
+        plain = steplib.make_scan_runner(cfg, make_lookup(cfg, grid_d))
+        meshed = steplib.make_scan_runner(cfg, make_lookup(cfg, grid_d, mesh),
+                                          mesh=mesh)
+        ref, ref_c = plain(fresh_state(cfg, particles, dev), css_d, qs_d)
+        state0 = shd.shard_state(fresh_state(cfg, particles, dev), mesh)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, got_c = meshed(state0, css_d, qs_d)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        equal = (torch.equal(got_c, ref_c) and torch.equal(
+            got.particles.weight, ref.particles.weight)
+            and torch.equal(got.particles.x, ref.particles.x))
+        print(f"one-rank world: make_scan_runner(mesh=) {STEPS} steps x "
+              f"{N_BENCH} particles in {secs:.4f} s, equal bit for bit to "
+              f"the unmeshed runner: {equal}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        check(equal and launches["contact_fold"] == STEPS
+              and launches["ordered_scan"] == STEPS, "one-rank localisation",
+              f"equal {equal}, launches {launches}")
+        out.update(localize_launches=launches, localize_s=secs)
+        del ref, got, state0
+
+        cfg = slam_config()
+        z0, frames, full, qs = slam_setup()
+        frames_d = tree.to(frames, dev)
+        odos = streaming.precompute_odometry(20, tree.to(full, dev),
+                                             qs.to(dev), cfg=cfg)
+        ref, ref_aux = bench.make_slam_runner(cfg)(
+            slam_carry(cfg, z0, dev), frames_d, odos)
+        carry = slam_carry(cfg, z0, dev)
+        carry = dataclasses.replace(
+            carry, filter=shd.shard_state(carry.filter, mesh))
+        run = streaming.make_slam_scan_runner(
+            cfg, laser2body=(np.eye(3), np.zeros(3)), external_odometry=True,
+            mesh=mesh)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, aux = run(carry, frames_d, odos)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
+        want = dict.fromkeys(WRAPPERS, 0)
+        want.update(chain_lookup=n_meas + (n_map if cfg.use_visual_update
+                                           else 0),
+                    block_merge=n_map, ordered_scan=n_meas)
+        equal = all(torch.equal(getattr(got.pool, f), getattr(ref.pool, f))
+                    for f in ("chain", "meta", "mean", "stdev", "height"))
+        equal = equal and torch.equal(aux["centroid"], ref_aux["centroid"])
+        print(f"one-rank world: make_slam_scan_runner(mesh=) "
+              f"{len(frames)} frames x {SLAM_N} particles in {secs:.4f} s, "
+              f"pool and centroids equal bit for bit to the unmeshed "
+              f"runner: {equal}; launches "
+              f"{ {k: v for k, v in launches.items() if v} } (gates "
+              f"{n_meas} measurement, {n_map} mapping) [{card}]")
+        check(equal and launches == want and n_meas and n_map,
+              "one-rank SLAM", f"equal {equal}, launches {launches}, want "
+              f"{want}")
+        out.update(slam_launches=launches, slam_s=secs, n_meas=n_meas,
+                   n_map=n_map)
+        del ref, got, carry
+
+        g_dev, _ = sim.circle_pose_graph(3, PG_NODES, seed=2, outlier=True,
+                                         device=dev)
+        g_cpu = tree.to(g_dev, "cpu")
+        for name, solve in (
+                ("pcg", lambda g, m: pg.optimize_cg(
+                    g, PG_ITERS, cg_iters=PG_CG_ITERS, mesh=m)),
+                ("schur", lambda g, m: pg.optimize_schur(
+                    g, PG_ITERS, segments=PG_SEGMENTS, boundary_cap=PG_CAP,
+                    mesh=m))):
+            solve(g_dev, mesh)                               # warm-up
+            (res, _), ms, _, _ = timed_call(lambda: solve(g_dev, mesh))
+            err = pose_err(res.nodes.cpu(), solve(g_cpu, None)[0].nodes)
+            print(f"one-rank world: {name}(mesh=) at {PG_NODES} nodes, "
+                  f"{ms:.4f} ms per optimize (events), vs the CPU port "
+                  f"{err:.3e} [{card}]")
+            check(err <= PG_NODE_ATOL, f"one-rank {name}", f"nodes {err}")
+            out[f"{name}_err"] = err
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def nccl_probe(mesh):
+    """A rank of the shared-card NCCL probe: one all_reduce."""
+    import torch.distributed as dist
+
+    t = torch.full((4,), float(mesh.rank + 1), device=mesh.device)
+    dist.all_reduce(t)
+    torch.cuda.synchronize(mesh.device)
+    return t.tolist()
+
+
+def shared_card_nccl(card):
+    """What NCCL does with two ranks on one card (the reason ranks that
+    share a card take gloo): a two-rank NCCL world on card 0, one
+    all_reduce, 60 s at most.  Prints and returns the outcome."""
+    from slam_eslam_tpu_torch.parallel.distributed import run_world
+
+    try:
+        out = run_world(nccl_probe, 2, device="cuda", backend="nccl",
+                        timeout=60)
+        msg = f"works: all_reduce of 1 and 2 gave {out[0]}"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        said = [ln for ln in lines if "NCCL" in ln or "nccl" in ln]
+        msg = "fails: " + " | ".join((said or lines)[-3:])[:600]
+    print(f"NCCL with two ranks on one card: {msg} [{card}]", flush=True)
+    return msg
+
+
+def phase13(dev, card):
+    """The ordered scan S1 and the multi-rank path (``parallel/``): (a)
+    S1; (b) a world of one NCCL rank; (c) ``dryrun_multichip`` over
+    DRYRUN_RANKS ranks (NCCL with a card each, else gloo ranks sharing
+    this card, ``transport host``); (d) ``tools.bench_scaling``."""
+    from slam_eslam_tpu_torch.dryrun import dryrun_multichip, remote_rows
+
+    t0 = time.perf_counter()
+    err, s1, s1_library, resample = check_ordered_scan(dev, card)
+    world = one_rank_world(dev, card)
+    gc_cuda()
+    ranks = dryrun_multichip(DRYRUN_RANKS, device=dev.type, timeout=300)
+    r0 = ranks[0]
+    moved = remote_rows(ranks, "migrate")
+    print(f"dryrun_multichip({DRYRUN_RANKS}): backend {r0['backend']}, "
+          f"transport {r0['transport']}, ranks on "
+          f"{[r['device'] for r in ranks]}"
+          f"; rank 0's launches "
+          f"{ {k: v for k, v in r0['launches'].items() if v} }; host reads "
+          f"{r0['slam']['reads']}; on the migrating drive, rows from other "
+          f"ranks {moved} [{card}]")
+    check(all(r["launches"]["contact_fold"] > 0
+              and r["launches"]["chain_lookup"] > 0
+              and r["launches"]["block_merge"] > 0
+              and r["launches"]["ordered_scan"] > 0 for r in ranks),
+          "dryrun_multichip", "every rank's kernels ran on the card")
+    # block rows and chain levels crossed ranks (dryrun_multichip checks
+    # this too)
+    check(moved.get("block copy", 0) > 0 and moved.get("chain lookup", 0) > 0,
+          "dryrun_multichip", f"rows from other ranks {moved}")
+    nccl_shared = (shared_card_nccl(card) if torch.cuda.device_count() < 2
+                   else "not probed: a card per rank")
+    scaling, _, _ = run_tool("bench_scaling", SCALING_ARGS)
+    rows = scaling["weak_scaling"]
+    print(f"bench_scaling: " + "; ".join(
+        f"{k} ranks {v['sec'] * 1e3:.3f} ms ({v['transport']}"
+        + (f", note {v['note']}" if "note" in v else "") + ")"
+        for k, v in rows.items()) + f" [{card}]")
+    check(all(np.isfinite(v["sec"]) for v in rows.values()), "bench_scaling",
+          f"rows {rows}")
+    secs = time.perf_counter() - t0
+    print(f"phase 13: {secs:.1f} s [{card}]")
+    return dict(err=err, s1=s1, s1_library=s1_library, resample=resample,
+                world=world, dryrun=ranks, scaling=scaling, seconds=secs,
+                nccl_shared=nccl_shared)
+
+
 def profile_frames(fn, n_frames, label, out, stem):
     """``fn()`` under ``torch.profiler``: the table and the trace into
     ``out`` as ``<stem>_profile.txt`` and ``<stem>_trace.json``, and a line
@@ -3957,6 +4233,15 @@ def main():
           f"bfloat16 - float32 ATE {p12['ab']['delta']['ate_mean']:.3e} m "
           f"over {p12['ab']['config']['runs']} runs; phase 12 {p12_s:.1f} s "
           f"[{card}]")
+    p13 = phase13(dev, card)
+    w13 = p13["world"]
+    print(f"multi-rank: S1 {p13['s1']['ms']:.5f} ms at {N_BENCH} (bound "
+          f"{p13['s1']['bound_ms']:.5f} ms, torch.cumsum "
+          f"{p13['s1_library']:.5f} ms); one NCCL rank: localisation "
+          f"{w13['localize_s']:.3f} s and SLAM {w13['slam_s']:.3f} s bit for "
+          f"bit unmeshed; dryrun_multichip({DRYRUN_RANKS}) over "
+          f"{p13['dryrun'][0]['backend']} ({p13['dryrun'][0]['transport']}); "
+          f"phase 13 {p13['seconds']:.1f} s [{card}]")
     # each tool's launches, those of its timing loops included
     tool_launches = lambda name, tools: {
         f"launches_{tool}": p12["launches"][tool][name] for tool in tools}
@@ -4045,6 +4330,14 @@ def main():
           "library_call_ms_bf16": bf16c["call"]["library"],
           "bound_ms_bf16": bf16c["bound_whole"][0]}),
         p4_row,
+        # no TPU kernel: the port's repair of torch.cumsum, in the order of
+        # the JAX package's (XLA) cumsum of core/filter.py
+        ("ordered_scan", "slam_eslam_tpu/core/filter.py:85",
+         res["scan_launches"], p13["err"], p13["s1"], p13["s1_library"],
+         {"launches_slam_path": slam["launches"]["ordered_scan"],
+          "launches_one_rank_localisation":
+              w13["localize_launches"]["ordered_scan"],
+          "launches_one_rank_slam": w13["slam_launches"]["ordered_scan"]}),
     )
     # block_merge_packed is the second entry point of block_merge's source
     source = lambda name: name.removesuffix("_packed")

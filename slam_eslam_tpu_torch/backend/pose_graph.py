@@ -31,9 +31,14 @@ the card:
   sync on the card.  ``optimize_schur`` has none either.
 * ``index_add_`` accumulates in a nondeterministic order on the card, so
   the card matches the CPU within tolerance, not bit for bit.
-* ``mesh=`` (the JAX package's ``shard_map`` over edges or segments)
-  belongs to the port's multi-GPU slice and raises
-  ``NotImplementedError``.
+* ``mesh=`` (``parallel.sharding.make_mesh``; the JAX package's
+  ``shard_map``): the graph is held whole on every rank.  The PCG splits
+  the edges over the ranks (the edge capacity must divide by the mesh
+  size) and ``all_reduce``s every scatter-added product, so each rank
+  ends with the same nodes; the Schur solver splits the segments over
+  the ranks, ``all_reduce``s their contributions to the boundary system
+  and all-gathers their interior deltas.  Equal to the single-rank solve
+  up to the order of float sums.
 """
 
 from __future__ import annotations
@@ -46,8 +51,6 @@ import torch
 
 from slam_eslam_tpu_torch.utils.device import entry_device
 
-_MULTI_GPU = ("mesh= (a device mesh) belongs to the port's multi-GPU slice "
-              "(ROADMAP.md queue 1, item 7)")
 PIN = 1e9   # diagonal weight that freezes a node
 
 
@@ -297,25 +300,30 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
     ends, applies the per-edge ``D x D`` blocks and scatter-adds.
     ``cg_iters`` iterations always run (no convergence test, no host
     read).  Returns ``(graph', chi2_before)``; the same math as
-    ``gauss_newton_step`` up to the CG tolerance."""
+    ``gauss_newton_step`` up to the CG tolerance.  ``mesh``: this rank
+    takes its slice of the edges, and every edge sum is ``all_reduce``d
+    (JAX ``pose_graph.py:264-275``)."""
+    edge_sl, psum = slice(None), (lambda x: x)
     if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+        edge_sl = slice(*mesh.bounds(graph.edge_i.shape[0]))
+        psum = mesh.all_reduce
     with exact_float32():
         out_graph = graph
         graph = _robustified(graph, robust, robust_delta)
         m, d = graph.nodes.shape
         pin = _pin_diag(graph, fix_first, fix_mask) + damping
-        r, ji, jj, info = _edge_terms(graph)
-        ei, ej = graph.edge_i.long(), graph.edge_j.long()
-        chi2 = _chi2_edges(r, info).sum()
+        r, ji, jj, info = _edge_terms(graph, edge_sl)
+        ei = graph.edge_i[edge_sl].long()
+        ej = graph.edge_j[edge_sl].long()
+        chi2 = psum(_chi2_edges(r, info).sum())
 
         hii, _, hjj, bi, bj = _blocks(ji, jj, info, r)
-        b = _scatter_nodes(m, d, ei, ej, bi, bj)       # J^T W r
+        b = psum(_scatter_nodes(m, d, ei, ej, bi, bj))  # J^T W r
         # the block diagonal of H for the preconditioner
         diag = r.new_zeros((m, d, d))
         diag.index_add_(0, ei, hii)
         diag.index_add_(0, ej, hjj)
-        diag = diag + pin[:, None, None] * torch.eye(d, dtype=r.dtype,
+        diag = psum(diag) + pin[:, None, None] * torch.eye(d, dtype=r.dtype,
                                                      device=r.device)
         pre = torch.linalg.inv_ex(diag).inverse          # [M, D, D]
 
@@ -327,7 +335,8 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
                 + torch.einsum("ekj,ej->ek", jj, x[ej]))
             vi = torch.einsum("eki,ek->ei", ji, ye)
             vj = torch.einsum("eki,ek->ei", jj, ye)
-            return _scatter_nodes(m, d, ei, ej, vi, vj) + pin[:, None] * x
+            return psum(_scatter_nodes(m, d, ei, ej, vi, vj)) \
+                + pin[:, None] * x
 
         apply_pre = lambda v: torch.einsum("mij,mj->mi", pre, v)
 
@@ -350,12 +359,11 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
 
 def optimize_cg(graph: PoseGraph, iters=10, damping=1e-6, fix_mask=None,
                 cg_iters=32, mesh=None, robust=None, robust_delta=1.0):
-    """``optimize`` with the matrix-free PCG inner solver."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+    """``optimize`` with the matrix-free PCG inner solver (edges split
+    over ``mesh``)."""
     return _loop(lambda g: gauss_newton_step_cg(
-        g, damping, fix_mask=fix_mask, cg_iters=cg_iters, robust=robust,
-        robust_delta=robust_delta), graph, iters)
+        g, damping, fix_mask=fix_mask, cg_iters=cg_iters, mesh=mesh,
+        robust=robust, robust_delta=robust_delta), graph, iters)
 
 
 # --------------------------------------------------------------------------
@@ -414,9 +422,9 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
     NL*D]``; (2) the boundary system ``S_BB = A_BB - sum_s A_BI A_II^-1
     A_IB``; (3) back-substitution gives the interior deltas.  Exact up to
     round-off: matches ``gauss_newton_step``.  Returns ``(graph',
-    chi2_before)``."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+    chi2_before)``.  ``mesh``: each rank factors its slice of the
+    segments; their Schur contributions are ``all_reduce``d and their
+    interior deltas all-gathered (JAX ``pose_graph.py:432-444``)."""
     with exact_float32():
         out_graph = graph
         graph = _robustified(graph, robust, robust_delta)
@@ -496,15 +504,22 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
         a = _dense(a_ii, nl, nl, d) + torch.diag_embed(
             expand(pin_ii.reshape(s_n, nl), nl))
         c = _dense(a_ib, nl, nb, d)                     # [S, NL*D, NB*D]
-        yw = _spd_solve(a, torch.cat([c, b_int.reshape(s_n, nl * d, 1)],
-                                     dim=-1))
+        rhs = torch.cat([c, b_int.reshape(s_n, nl * d, 1)], dim=-1)
+        psum = lambda x: x
+        if mesh is not None:                  # this rank's segments
+            seg_sl = slice(*mesh.bounds(s_n))
+            a, c, rhs = a[seg_sl], c[seg_sl], rhs[seg_sl]
+            psum = mesh.all_reduce
+        yw = _spd_solve(a, rhs)
         y, w = yw[..., :-1], yw[..., -1]
         ct = c.transpose(-1, -2)
-        s_bb = a_bb_d - (ct @ y).sum(0)
-        rhs_b = b_bnd_d - (ct @ w[..., None])[..., 0].sum(0)
+        s_bb = a_bb_d - psum((ct @ y).sum(0))
+        rhs_b = b_bnd_d - psum((ct @ w[..., None])[..., 0].sum(0))
         delta_b = _spd_solve(s_bb, -rhs_b[:, None])[:, 0]
         # back-substitute: delta_I = -w - Y delta_b  (H delta = -b)
         delta_i = -w - torch.einsum("sij,j->si", y, delta_b)
+        if mesh is not None:
+            delta_i = mesh.all_gather(delta_i)
 
         # boundary nodes read their slot, interior nodes their segment
         delta_i_nodes = delta_i.reshape(m, d)
@@ -516,13 +531,12 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
 def optimize_schur(graph: PoseGraph, iters=10, segments=4, boundary_cap=64,
                    damping=1e-6, fix_mask=None, mesh=None, robust=None,
                    robust_delta=1.0):
-    """``optimize`` with the Schur-partitioned solver."""
-    if mesh is not None:
-        raise NotImplementedError(_MULTI_GPU)
+    """``optimize`` with the Schur-partitioned solver (segments split over
+    ``mesh``)."""
     return _loop(lambda g: gauss_newton_step_schur(
         g, segments=segments, boundary_cap=boundary_cap, damping=damping,
-        fix_mask=fix_mask, robust=robust, robust_delta=robust_delta),
-        graph, iters)
+        fix_mask=fix_mask, mesh=mesh, robust=robust,
+        robust_delta=robust_delta), graph, iters)
 
 
 # --------------------------------------------------------------------------
@@ -642,16 +656,16 @@ class PoseGraphBuilder:
                  cg_iters=32, mesh=None, robust=None, robust_delta=1.0):
         """``solver='dense'``: Cholesky of the normal matrix; ``'cg'``:
         matrix-free block-Jacobi PCG.  ``robust``: 'huber'/'dcs' edge
-        reweighting.  Returns the chi2 history."""
-        if mesh is not None:
-            raise NotImplementedError(_MULTI_GPU)
+        reweighting.  ``mesh`` splits the PCG's edges over the ranks (the
+        dense solve ignores it, as the JAX package's does).  Returns the
+        chi2 history."""
         if fix_mask is None:
             fix_mask = torch.zeros((self.graph.nodes.shape[0],),
                                    dtype=torch.bool, device=self.device)
         if solver == "cg":
             self.graph, hist = optimize_cg(
                 self.graph, iters, fix_mask=fix_mask, cg_iters=cg_iters,
-                robust=robust, robust_delta=robust_delta)
+                mesh=mesh, robust=robust, robust_delta=robust_delta)
         else:
             self.graph, hist = optimize(
                 self.graph, iters, fix_mask=fix_mask, robust=robust,

@@ -184,7 +184,8 @@ class Config:
     # max grids chained per particle map (MLSMap grid chain)
     map_chain_length: int = 4
     # block-allocation locality ranges for a device mesh; 1 = global
-    # allocation (the port's multi-GPU slice is not written yet)
+    # allocation; the mesh size = a co-located, block-sharded pool
+    # (parallel.sharding.shard_pool)
     map_pool_shards: int = 1
     # kernel selection and grouping knobs of the JAX package's map-pool
     # kernels: accepted and ignored (one CUDA kernel each serves every

@@ -133,7 +133,8 @@ def pose_estimator_state_from(d, device=None,
 def map_pool_from(d, device=None) -> MapPool:
     """A JAX ``MapPool`` dict (``color`` None for a colourless pool).  A
     pool stored in bfloat16 comes across bit for bit (module docstring)."""
-    return _from(MapPool, d, device, resolution=float(d["resolution"]),
+    return _from(MapPool, d, device, mesh=None,
+                 resolution=float(d["resolution"]),
                  nx=int(d["nx"]), ny=int(d["ny"]), k=int(d["k"]),
                  color=(None if d["color"] is None
                         else _tensor(d["color"], device)))

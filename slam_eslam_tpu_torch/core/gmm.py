@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from slam_eslam_tpu_torch.ops.ordered_scan import ordered_scan
+
 
 def _inv_det(cov):
     """Closed-form inverse and determinant of ``[K, 2, 2]`` matrices."""
@@ -47,7 +49,7 @@ def fit_gmm(xy, weights, n_components=3, n_iters=25, min_var=1e-6,
     w = weights / weights.sum().clamp(min=1e-30)
     if first is None:
         u = torch.rand((1,), generator=generator, device=dev, dtype=dtype)
-        first = torch.searchsorted(torch.cumsum(w, 0), u).clamp(max=n - 1)
+        first = torch.searchsorted(ordered_scan(w), u).clamp(max=n - 1)
     first = torch.as_tensor(first, device=dev).reshape(1).long()
 
     # init: farthest-point (k-means++-style) means, so every seed does

@@ -453,7 +453,7 @@ class EmbodiedSlamFilter:
 
     def run_stream(self, frames: streaming.SlamFrames, laser2body=None,
                    mesh=None, camera2body=None, camera_intrinsics=None,
-                   camera_texture=False, draws=None):
+                   camera_texture=False, draws=None, donate=False):
         """A whole frame stream (``streaming.stack_frames``, on the
         filter's device) through ``filter.streaming``: every update this
         class would run frame by frame, gates included.  Per-particle
@@ -462,7 +462,12 @@ class EmbodiedSlamFilter:
         ``step.StepDraws`` per frame.  Returns the per-frame ``aux``
         (centroids, gate flags) plus ``alloc_failed_total``, the count of
         pool exhaustion over the stream (also reported on stderr when it
-        is not 0)."""
+        is not 0).  ``mesh``: this filter holds the rank's particles and
+        pool (``parallel.sharding.shard_state`` / ``shard_pool``; see
+        ``filter.streaming``); every rank calls with the same frames.
+        ``donate``: the pool is always updated in place, so the JAX
+        flag is accepted and changes nothing."""
+        del donate
         if self.use_shared_map:
             raise ValueError(
                 "run_stream requires per-particle-map mode "
@@ -472,7 +477,7 @@ class EmbodiedSlamFilter:
                           np.asarray(e[0], np.float32).tobytes()
                           + np.asarray(e[1], np.float32).tobytes())
         key = (extr(laser2body), extr(camera2body), camera_intrinsics,
-               camera_texture, self.odometry_config)
+               camera_texture, self.odometry_config, id(mesh))
         if key not in self._runners:
             self._runners[key] = streaming.make_slam_scan_runner(
                 self.config, laser2body=laser2body, hash_=self.hash,

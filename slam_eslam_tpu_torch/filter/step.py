@@ -6,6 +6,13 @@ propagation -> (gated) measurement update, the main path of
 The JAX ``lax.cond`` gate becomes a device-side ``torch.where`` over
 the two states and ``lax.scan`` a Python loop; no step reads a device
 value back to the host, so a step can be captured in a CUDA graph.
+
+``mesh=`` (``parallel.sharding.make_mesh``) runs a step on this rank's
+slice of the particles (``parallel.sharding.shard_state``) with the
+global draws; the lookup's kernels (K1, or K5 under ``--fold off``) run
+on the rank's own particles against the replicated grid, and the
+reductions over particles cross the mesh (``filter.pose_estimator``).
+The ring-hop ``resampler`` hook takes ``(u, weights, particles)``.
 """
 
 from __future__ import annotations
@@ -35,15 +42,15 @@ def cfg_odo(cfg: Config):
     return OdometryConfig(seed=cfg.seed)
 
 
-def _propagate(state, contact_state, orientation, cfg, draws):
+def _propagate(state, contact_state, orientation, cfg, draws, mesh=None):
     new_odo = odom.update(state.odometry, contact_state, orientation,
                           cfg_odo(cfg))
     state = dataclasses.replace(state, odometry=new_odo)
     return pe.project(state, orientation, cfg,
-                      None if draws is None else draws.project)
+                      None if draws is None else draws.project, mesh=mesh)
 
 
-def make_filter_step(cfg: Config, map_lookup):
+def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None):
     """Build ``step(state, contact_state, orientation, gate_ref,
     draws=None) -> (state, aux)``.
 
@@ -51,17 +58,22 @@ def make_filter_step(cfg: Config, map_lookup):
     ``gate_ref = (distance, angle)`` passes
     ``cfg.measurement_threshold`` (``EmbodiedSlamFilter.cpp:360``, with
     the intended distance/angle argument order).  Both outcomes are
-    computed and selected on the device.
+    computed and selected on the device.  ``mesh``: the state is this
+    rank's (``parallel.sharding.shard_state``) and ``draws`` the global
+    ones.  ``resampler``: forwarded to ``pose_estimator.update`` (e.g.
+    ``parallel.resample.make_ppermute_resampler(mesh)``).
     """
 
     def step(state, contact_state, orientation, gate_ref, draws=None):
-        state = _propagate(state, contact_state, orientation, cfg, draws)
+        state = _propagate(state, contact_state, orientation, cfg, draws,
+                           mesh)
         dist, angle = (torch.as_tensor(v, device=state.step.device)
                        for v in gate_ref)
         do_update = cfg.measurement_threshold.test(dist, angle)
         updated, aux = pe.update(
             state, contact_state, orientation, map_lookup, cfg,
             None if draws is None else draws.resample_u,
+            resampler=resampler, mesh=mesh,
         )
         state = tree.where(do_update, updated, state)
         ess = torch.where(do_update, aux["ess"],
@@ -71,7 +83,7 @@ def make_filter_step(cfg: Config, map_lookup):
     return step
 
 
-def make_scan_runner(cfg: Config, map_lookup):
+def make_scan_runner(cfg: Config, map_lookup, mesh=None):
     """Roll a trajectory with a measurement update on every step (the
     benchmark regime).
 
@@ -79,7 +91,8 @@ def make_scan_runner(cfg: Config, map_lookup):
     per-step ``BodyContactState`` stacked along a leading time axis
     (``utils.tree.stack``), ``orientations [T, 4]`` and optionally a
     sequence of T ``StepDraws``.  Returns ``(final_state, centroids
-    [T, 3])``.
+    [T, 3])``.  ``mesh``: as for ``make_filter_step``; the centroids are
+    global, the same on every rank.
     """
 
     def run(state, contact_states, orientations, draws=None):
@@ -88,11 +101,13 @@ def make_scan_runner(cfg: Config, map_lookup):
             cs = tree.index(contact_states, t)
             q = orientations[t]
             d = None if draws is None else draws[t]
-            state = _propagate(state, cs, q, cfg, d)
+            state = _propagate(state, cs, q, cfg, d, mesh)
             state, _ = pe.update(state, cs, q, map_lookup, cfg,
-                                 None if d is None else d.resample_u)
+                                 None if d is None else d.resample_u,
+                                 mesh=mesh)
             c_pos, _ = pe.centroid(state.particles, q,
-                                   wrap_safe=cfg.wrap_safe_centroid)
+                                   wrap_safe=cfg.wrap_safe_centroid,
+                                   mesh=mesh)
             cents.append(c_pos)
         return state, torch.stack(cents)
 

@@ -55,12 +55,17 @@ def shared_grid_lookup(grid, z_window=3.0, packed=True):
     return lookup
 
 
-def make_lookup(cfg, grid):
+def make_lookup(cfg, grid, mesh=None):
     """Shared-grid lookup ``lookup(map_id, points)`` for ``cfg``
     (``shared_grid_lookup``).  ``lookup.fold`` is the contact fold
     (kernel K1 on CUDA tensors).  ``use_slip_update`` returns the
     unpacked colour-carrying lookup, without a fold, as the JAX package
-    does.  ``grid`` is an ``MLSGrid`` or a ``PackedLookup``."""
+    does.  ``grid`` is an ``MLSGrid`` or a ``PackedLookup``.  On a device
+    ``mesh`` the grid is replicated on every rank and the lookup answers
+    this rank's particles' queries, K1 (and K5) shard-locally: a query
+    reads the grid and nothing of another particle, so nothing crosses
+    the mesh (the JAX package's ``shard_map`` of its window kernel)."""
+    del mesh  # every rank holds the whole grid
     if cfg.lookup_mode not in ("gather", "window", "auto"):
         raise ValueError(f"unknown lookup_mode {cfg.lookup_mode!r}")
     z_window = cfg.mls_z_window

@@ -29,8 +29,26 @@ Differences from the JAX package, all for the GPU:
   lookup takes ``[N, C, 3]`` points and also returns the hit patch's
   colour: one plain gather by the slot index that K2 returns
   (``ops.chain_lookup.chain_color``).
-  ``shards > 1`` and ``mesh`` belong to the multi-GPU slice and raise
-  ``NotImplementedError``.
+* ``shards`` (``Config.map_pool_shards``) splits particles and blocks
+  into equal ranges, and a particle takes blocks only from its own range
+  (the JAX package's co-location).  The allocation depends on
+  ``shards``, never on the device count.
+
+**On a device mesh** (``parallel.sharding.shard_pool``, ``shards`` equal
+to the mesh size) each rank holds its range of blocks and its particles'
+chain rows, with global block ids, and ``pool.mesh`` is set.  The chain
+metadata (refcounts, owners, allocation) is computed from all-gathered
+chain rows, identically on every rank; a block copy whose source lives on
+another rank moves by ``all_to_all`` of block rows; a chain lookup runs K2
+on the levels the rank holds and sends the others to their owners, whose
+K2 answers on a one-level view, and the answers combine head first; the
+merge runs K3 on the rank's own blocks (heads are co-located by
+``ensure_unique_active``).  A meshed pool operation reads the sizes of
+its exchanges to the host (``Mesh.reads``); it equals the single-device
+run with the same ``shards`` bit for bit.  A pool held whole on every
+rank with particles split (``shards == 1`` on a mesh, the replicated
+mode) is driven by ``filter.streaming`` with gathered chain rows and
+poses.
 """
 
 from __future__ import annotations
@@ -47,13 +65,6 @@ from slam_eslam_tpu_torch.ops import chain_lookup as cl
 _FIELDS = ("mean", "stdev", "height", "meta")
 
 
-def _single_shard(shards):
-    if shards > 1:
-        raise NotImplementedError(
-            "map_pool_shards > 1 (block-range co-location on a device "
-            "mesh) belongs to the port's multi-GPU slice")
-
-
 @dataclasses.dataclass
 class MapPool:
     mean: torch.Tensor          # [B, nx, ny*K] float32 or bfloat16
@@ -68,6 +79,8 @@ class MapPool:
     nx: int
     ny: int
     k: int
+    # a block-sharded pool: this rank's block range and chain rows
+    mesh: object = None
 
     @property
     def valid(self):
@@ -83,7 +96,24 @@ class MapPool:
 
     @property
     def b(self):
+        """Blocks of the whole pool (over every rank of a meshed one)."""
+        return self.mean.shape[0] * (1 if self.mesh is None
+                                     else self.mesh.size)
+
+    @property
+    def bl(self):
+        """Blocks this rank holds (all of them without a mesh)."""
         return self.mean.shape[0]
+
+    @property
+    def block_offset(self):
+        """Global id of this rank's first block."""
+        return 0 if self.mesh is None else self.mesh.rank * self.bl
+
+    @property
+    def s(self):
+        """Patch slots per block (``nx * ny * K``)."""
+        return self.nx * self.ny * self.k
 
     @property
     def n(self):
@@ -96,6 +126,13 @@ class MapPool:
     def active(self):
         return self.chain[:, 0]
 
+    def field_grid(self, name):
+        """A field as ``[B, nx, ny, K]`` (``[B, nx, ny, K, 3]`` for
+        ``color``): a view, for the host and the viewers."""
+        a = getattr(self, name)
+        trail = (3,) if name == "color" else ()
+        return a.reshape((self.bl, self.nx, self.ny, self.k) + trail)
+
     def count_valid(self, chunk=16384):
         """Number of valid patch slots in the pool, ``[]`` int64 on the
         device, counted ``chunk`` blocks at a time (``valid.sum()`` would
@@ -103,7 +140,7 @@ class MapPool:
         total = torch.zeros((), dtype=torch.int64, device=self.meta.device)
         for part in self.meta.split(chunk):
             total += (part & 1).sum()
-        return total
+        return total if self.mesh is None else self.mesh.all_reduce(total)
 
     def storage_bytes(self):
         """Bytes of the per-slot fields."""
@@ -120,12 +157,16 @@ class MapPool:
                       device=None):
         """Every particle starts with its own copy of ``template`` in
         block ``i`` (``PoseEstimator.cpp:47-62``; a prebuilt environment
-        grid gives the clone-from-env seed).  ``dtype``: storage dtype of
-        the float fields, float32 or bfloat16 (a ``torch.dtype`` or its
-        name; default the template's)."""
-        _single_shard(shards)
+        grid gives the clone-from-env seed).  ``shards``: particle i's
+        first block lies in block range ``i * shards // N``, so a pool of
+        ``shards`` ranges starts co-located (``Config.map_pool_shards``).
+        ``dtype``: storage dtype of the float fields, float32 or bfloat16
+        (a ``torch.dtype`` or its name; default the template's)."""
         if num_blocks < n_particles:
             raise ValueError("the pool must hold one block per particle")
+        if shards > 1 and (n_particles % shards or num_blocks % shards):
+            raise ValueError(f"shards={shards} must divide particles "
+                             f"({n_particles}) and blocks ({num_blocks})")
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         dtype = dtype or template.mean.dtype
@@ -133,19 +174,23 @@ class MapPool:
         nx, ny, k = template.nx, template.ny, template.k
         b, n = num_blocks, n_particles
 
+        i = torch.arange(n, dtype=torch.int32, device=device)
+        nl, bl = n // max(shards, 1), b // max(shards, 1)
+        assign = i if shards <= 1 else (i // nl) * bl + i % nl
+
         def tile(x, dt):
             x = x.reshape(nx, -1).to(device=device, dtype=dt)
             out = torch.zeros((b,) + x.shape, dtype=dt, device=device)
-            out[:n] = x
+            out[assign.long()] = x
             return out
 
         meta = pack_meta(template.valid, template.horizontal,
                          template.update_idx)
         chain = torch.full((n, chain_len), -1, dtype=torch.int32,
                            device=device)
-        chain[:, 0] = torch.arange(n, dtype=torch.int32, device=device)
+        chain[:, 0] = assign
         allocated = torch.zeros(b, dtype=torch.bool, device=device)
-        allocated[:n] = True
+        allocated[assign.long()] = True
         return MapPool(
             mean=tile(template.mean, dtype),
             stdev=tile(template.stdev, dtype),
@@ -158,26 +203,41 @@ class MapPool:
             resolution=template.resolution, nx=nx, ny=ny, k=k,
         )
 
-    def refcounts(self):
-        """References to each block over all chain entries ``[B]``."""
-        flat = self.chain.reshape(-1).long()
-        idx = torch.where(flat >= 0, flat, torch.full_like(flat, self.b))
-        counts = torch.zeros(self.b + 1, dtype=torch.int32,
-                             device=flat.device)
-        counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-        return counts[:self.b]
+    def global_chain(self):
+        """Every particle's chain row ``[N, L]``: the rows of every rank
+        of a meshed pool, gathered."""
+        return (self.chain if self.mesh is None
+                else self.mesh.all_gather(self.chain))
 
-    def resample(self, idx):
+    def refcounts(self):
+        """References to each block over all chain entries ``[B]`` (of
+        every rank's particles on a mesh)."""
+        return _refcounts(self.global_chain(), self.b)
+
+    def resample(self, idx, mesh=None):
         """Duplicate chains along a resampling index map (O(N) ints; the
         reference deep-copies maps, ``cloneMaps``).  The fields are
-        shared with ``self``."""
-        return dataclasses.replace(self, chain=self.chain.index_select(0, idx))
+        shared with ``self``.  On a mesh (``mesh``, or the pool's own)
+        ``idx`` holds the global source of each of this rank's rows, and
+        the chain rows are all-gathered first."""
+        mesh = mesh or self.mesh
+        chain = self.chain if mesh is None else mesh.all_gather(self.chain)
+        return dataclasses.replace(self, chain=chain.index_select(0, idx))
 
 
 def _copy_blocks(pool: MapPool, dst, src, mask):
     """``pool[dst[i]] <- pool[src[i]]`` where ``mask[i]``, in place (unique
     masked ``dst``, none of them a ``src``).  Rows with ``mask`` off copy
-    their source onto itself."""
+    their source onto itself.  On a mesh ``dst`` lies in this rank's range
+    and ``src`` anywhere (``fetch_rows``)."""
+    if pool.mesh is not None:
+        sel = mask.nonzero().squeeze(1)
+        rows = fetch_rows(pool, src.index_select(0, sel),
+                           pool.data_fields() + ("origin",), "block copy")
+        d = (dst.index_select(0, sel) - pool.block_offset).long()
+        for f, r in rows.items():
+            getattr(pool, f).index_copy_(0, d, r)
+        return
     d = torch.where(mask, dst, src).long()
     s = src.long()
     for f in pool.data_fields():
@@ -186,42 +246,119 @@ def _copy_blocks(pool: MapPool, dst, src, mask):
     pool.origin.index_copy_(0, d, pool.origin.index_select(0, s))
 
 
-def _allocate(pool: MapPool, want_mask, shards=1):
-    """A distinct free (unreferenced) block for each particle with
-    ``want_mask``, lowest ids first.  Returns ``(new_block [N] int32, -1
-    where none was free, n_failed [] int32)``."""
-    _single_shard(shards)
-    free = pool.refcounts() == 0
-    order = torch.argsort((~free).to(torch.int8), stable=True)  # frees first
-    n_free = free.sum()
-    rank = torch.cumsum(want_mask.to(torch.int32), 0) - 1
-    ok = want_mask & (rank < n_free)
-    picked = order.index_select(0, rank.clamp(0, pool.b - 1).long())
-    new_block = torch.where(ok, picked, -1).to(torch.int32)
+def fetch_rows(pool: MapPool, ids, names, what):
+    """Rows of global blocks ``ids [M]`` of the fields ``names`` of a
+    meshed pool, wherever they live: each rank sends the ids it needs to
+    their owners, which send the rows back (``all_to_all``; the sizes are
+    one host read, counted as ``what``).  Returns ``{name: [M, ...]}``."""
+    mesh, bl = pool.mesh, pool.bl
+    owner = (ids.long() // bl)
+    order = torch.argsort(owner, stable=True)
+    send, recv = mesh.exchange_counts(
+        torch.bincount(owner, minlength=mesh.size), what)
+    req = mesh.all_to_all((ids.long() - owner * bl).index_select(0, order),
+                          send, recv)
+    out = {}
+    for name in names:
+        back = mesh.all_to_all(getattr(pool, name).index_select(0, req),
+                               recv, send)
+        out[name] = torch.empty_like(back).index_copy_(0, order, back)
+    return out
+
+
+def _refcounts(chain, b):
+    """References to each of ``b`` blocks over the entries of ``chain``."""
+    flat = chain.reshape(-1).long()
+    idx = torch.where(flat >= 0, flat, torch.full_like(flat, b))
+    counts = torch.zeros(b + 1, dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return counts[:b]
+
+
+def _allocate_chains(chain, b, want_mask, shards=1):
+    """``_allocate`` over every particle's chain row ``chain [N, L]`` and a
+    pool of ``b`` blocks."""
+    free = _refcounts(chain, b) == 0
+    n = chain.shape[0]
+    s = max(shards, 1)
+    nl, bl = n // s, b // s
+    free_r, want_r = free.reshape(s, bl), want_mask.reshape(s, nl)
+    # every range's free blocks first, lowest ids first
+    order = torch.argsort((~free_r).to(torch.int8), dim=1, stable=True)
+    n_free = free_r.sum(1, keepdim=True)
+    rank = torch.cumsum(want_r.to(torch.int32), 1) - 1
+    ok = want_r & (rank < n_free)
+    picked = order.gather(1, rank.clamp(0, bl - 1).long()) + (
+        torch.arange(s, device=chain.device) * bl)[:, None]
+    new_block = torch.where(ok, picked, -1).to(torch.int32).reshape(n)
     n_failed = (want_mask.sum() - ok.sum()).to(torch.int32)
     return new_block, n_failed
 
 
+def _allocate(pool: MapPool, want_mask, shards=1):
+    """A distinct free (unreferenced) block for each particle with
+    ``want_mask``, lowest ids first; with ``shards`` ranges, particle range
+    ``s`` takes blocks of block range ``s`` only.  Returns ``(new_block
+    [N] int32, -1 where none was free, n_failed [] int32)``.  On a mesh
+    the masks and chain rows of every rank are gathered, every rank
+    computes the same allocation, and ``new_block`` is this rank's rows;
+    ``n_failed`` counts every rank's particles."""
+    mesh = pool.mesh
+    if mesh is None:
+        return _allocate_chains(pool.chain, pool.b, want_mask, shards)
+    if shards != mesh.size:
+        raise ValueError(f"a pool split over {mesh.size} ranks allocates in "
+                         f"{mesh.size} block ranges, not {shards} "
+                         f"(Config.map_pool_shards)")
+    new_block, n_failed = _allocate_chains(
+        pool.global_chain(), pool.b, mesh.all_gather(want_mask), shards)
+    return mesh.local(new_block), n_failed
+
+
 def ensure_unique_active(pool: MapPool, shards=1):
     """Copy-on-write: give every particle an exclusively owned head
-    block (the lowest-index particle keeps a shared one).  In place;
-    returns ``(pool, n_failed)`` -- ``n_failed`` particles stay on a
-    shared block because the pool ran out."""
-    active = pool.active()
-    n = pool.n
-    idx = torch.arange(n, dtype=torch.int32, device=active.device)
-    owner = torch.full((pool.b,), n, dtype=torch.int32, device=active.device)
-    owner.scatter_reduce_(0, active.long(), idx, reduce="amin",
+    block (the lowest-index particle keeps a shared one).  With ``shards >
+    1`` a head outside the particle's block range (a resample moved the
+    particle across ranges) is re-homed into its own range, the
+    co-location a meshed merge relies on.  In place; returns ``(pool,
+    n_failed)`` -- ``n_failed`` particles stay on a shared or foreign
+    block because the pool ran out."""
+    chain = pool.global_chain()
+    active_all = chain[:, 0]
+    n, b = chain.shape[0], pool.b
+    dev = active_all.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    owner = torch.full((b,), n, dtype=torch.int32, device=dev)
+    owner.scatter_reduce_(0, active_all.long(), idx, reduce="amin",
                           include_self=True)
-    is_dup = idx != owner.index_select(0, active.long())
+    is_dup = idx != owner.index_select(0, active_all.long())
+    if shards > 1:
+        is_dup |= (idx // (n // shards)) != (active_all // (b // shards))
 
-    new_block, n_failed = _allocate(pool, is_dup, shards)
+    new_block, n_failed = _allocate_chains(chain, b, is_dup, shards)
+    active = pool.active()
+    if pool.mesh is not None:
+        if shards != pool.mesh.size:
+            raise ValueError(f"a pool split over {pool.mesh.size} ranks "
+                             f"needs shards={pool.mesh.size}")
+        new_block = pool.mesh.local(new_block)
     do = new_block >= 0
     _copy_blocks(pool, new_block, active, do)
     head = torch.where(do, new_block, active)
-    pool.allocated.index_fill_(0, head.long(), True)
+    if pool.mesh is None:
+        pool.allocated.index_fill_(0, head.long(), True)
+    else:
+        pool.allocated.index_fill_(
+            0, (new_block[do] - pool.block_offset).long(), True)
     pool.chain[:, 0] = head
     return pool, n_failed
+
+
+def _head_origins(pool: MapPool, active):
+    """Origins ``[N, 2]`` of the blocks ``active [N]`` (global ids)."""
+    if pool.mesh is None:
+        return pool.origin.index_select(0, active.long())
+    return fetch_rows(pool, active, ("origin",), "head origins")["origin"]
 
 
 def rollover(pool: MapPool, xy, threshold, shards=1):
@@ -234,26 +371,116 @@ def rollover(pool: MapPool, xy, threshold, shards=1):
     # blocking host-to-device copy
     hx, hy = pool.nx * pool.resolution / 2.0, pool.ny * pool.resolution / 2.0
     active = pool.active()
-    org = pool.origin.index_select(0, active.long())
+    org = _head_origins(pool, active)
     need = (((xy[:, 0] - (org[:, 0] + hx)).abs() > threshold)
             | ((xy[:, 1] - (org[:, 1] + hy)).abs() > threshold))
 
     new_block, n_failed = _allocate(pool, need, shards)
     do = new_block >= 0
-    d = torch.where(do, new_block, active).long()
-    keep = ~do[:, None, None]
-    pool.meta.index_copy_(0, d, torch.where(
-        keep, pool.meta.index_select(0, d), 0))
     new_origin = torch.stack([xy[:, 0] - hx, xy[:, 1] - hy], dim=-1)
-    pool.origin.index_copy_(0, d, torch.where(
-        do[:, None], new_origin, pool.origin.index_select(0, d)))
-    pool.allocated.index_copy_(0, d, do | pool.allocated.index_select(0, d))
+    if pool.mesh is None:
+        d = torch.where(do, new_block, active).long()
+        keep = ~do[:, None, None]
+        pool.meta.index_copy_(0, d, torch.where(
+            keep, pool.meta.index_select(0, d), 0))
+        pool.origin.index_copy_(0, d, torch.where(
+            do[:, None], new_origin, pool.origin.index_select(0, d)))
+        pool.allocated.index_copy_(0, d,
+                                   do | pool.allocated.index_select(0, d))
+    else:
+        # every new block lies in this rank's range
+        d = (new_block[do] - pool.block_offset).long()
+        pool.meta.index_fill_(0, d, 0)
+        pool.origin.index_copy_(0, d, new_origin[do])
+        pool.allocated.index_fill_(0, d, True)
     shifted = torch.cat([new_block[:, None], pool.chain[:, :-1]], dim=1)
     pool.chain.copy_(torch.where(do[:, None], shifted, pool.chain))
     return pool, n_failed
 
 
-def make_chain_lookup(pool: MapPool, z_window=3.0):
+def _chain_lookup_meshed(pool: MapPool, chain, queries, z_window):
+    """K2 over a meshed pool: ``chain [N, L]`` (global ids, this rank's
+    particles) and SoA ``queries``.  The levels this rank holds run here;
+    every other level goes, with its particle's queries, to the rank that
+    holds its block, whose K2 answers on a one-level view; the answers
+    combine head first.  Returns ``(found, mean, stdev, color or None)``,
+    what ``chain_lookup`` and ``chain_color`` give on the whole pool, bit
+    for bit."""
+    mesh, off, bl = pool.mesh, pool.block_offset, pool.bl
+    n, levels = chain.shape
+    xq, yq, zq = queries
+    c = xq.shape[1]
+    with_color = pool.color is not None
+    fields = (pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution)
+    here = (chain >= off) & (chain < off + bl)
+    chain_here = torch.where(here, chain - off, -1).to(torch.int32)
+    found, mean, stdev, slot = cl.chain_lookup(
+        *fields, chain_here.contiguous(), queries, k=pool.k,
+        z_window=z_window, with_slot=True)
+    # the level of each local hit, from the block of its slot
+    blk = torch.div(slot, pool.s, rounding_mode="floor")
+    level = torch.argmax(
+        (chain_here[:, :, None] == blk[:, None, :]).to(torch.int8), dim=1)
+    level = torch.where(found, level, levels)
+
+    # the other levels, on the ranks that hold them
+    far = (chain >= 0) & ~here
+    item = far.nonzero()                                       # [M, 2]
+    p, lv = item[:, 0], item[:, 1]
+    ids = chain[p, lv].long()
+    owner = ids // bl
+    order = torch.argsort(owner, stable=True)
+    p, lv, ids, owner = p[order], lv[order], ids[order], owner[order]
+    send, recv = mesh.exchange_counts(
+        torch.bincount(owner, minlength=mesh.size), "chain lookup")
+    go = lambda t: mesh.all_to_all(t, send, recv)
+    r_blk = go((ids - owner * bl).to(torch.int32))
+    r_q = tuple(go(q.index_select(0, p).contiguous()) for q in queries)
+    if r_blk.shape[0]:
+        a = cl.chain_lookup(*fields, r_blk[:, None].contiguous(), r_q,
+                            k=pool.k, z_window=z_window,
+                            with_slot=with_color)
+    else:
+        e = r_q[0]
+        a = (torch.zeros_like(e, dtype=torch.bool), e, e,
+             torch.zeros_like(e, dtype=torch.int64))
+    back = lambda t: mesh.all_to_all(t.contiguous(), recv, send)
+    parts = [back(a[0]), back(a[1]), back(a[2])]
+    if with_color:
+        parts.append(back(cl.chain_color(pool.color, a[3])))
+
+    # every level's answer [N, L + 1, C] (level L: no local hit), then the
+    # first level that hits
+    rows = torch.arange(n, device=chain.device)[:, None] * (levels + 1)
+    cols = torch.arange(c, device=chain.device)
+    at_local = ((rows + level) * c + cols).reshape(-1)    # element (p, c)
+    at_far = p * (levels + 1) + lv                        # row (p, level)
+
+    def spread(local, far_part, trail=()):
+        out = local.new_zeros((n * (levels + 1), c) + trail)
+        out.view(-1, *trail)[at_local] = local.reshape(-1, *trail)
+        out[at_far] = far_part
+        return out.view(n, levels + 1, c, *trail)[:, :levels]
+
+    hit = spread(found, parts[0])
+    first = torch.argmax(hit.to(torch.int8), dim=1, keepdim=True)  # [N,1,C]
+    out_found = hit.any(1)
+    pick = lambda t: torch.where(out_found, t.gather(1, first)[:, 0],
+                                 torch.zeros((), dtype=t.dtype,
+                                             device=t.device))
+    out = (out_found, pick(spread(mean, parts[1])),
+           pick(spread(stdev, parts[2])))
+    if not with_color:
+        return out + (None,)
+    col = spread(cl.chain_color(pool.color, torch.where(found, slot, -1)),
+                 parts[3], (3,))
+    col = torch.where(out_found[..., None],
+                      col.gather(1, first[..., None].expand(-1, -1, -1, 3))
+                      [:, 0], 0.0)
+    return out + (col,)
+
+
+def make_chain_lookup(pool: MapPool, z_window=3.0, mesh=None):
     """The per-particle map lookup of the measurement update:
     ``lookup(map_id [N], points)`` searches each particle's chain head
     first (``MLSMap::getPatch``), through kernel K2 on CUDA tensors and
@@ -264,14 +491,25 @@ def make_chain_lookup(pool: MapPool, z_window=3.0):
     and the result is ``(found, mean, stdev)``.  On a colour-carrying pool
     ``points`` is ``[N, C, 3]`` and the result ``(found, mean, stdev,
     color [N, C, 3])``, as the JAX package's ``chain_lookup`` returns it
-    (the slip update reads the terrain class off the patch colour)."""
+    (the slip update reads the terrain class off the patch colour).
+
+    On a mesh (``mesh``, or the pool's own) ``map_id`` holds global
+    particle ids and ``pool.chain`` this rank's rows; a meshed pool's
+    lookup reaches the levels other ranks hold (``_chain_lookup_meshed``)."""
     with_color = pool.color is not None
+    mesh = mesh or pool.mesh
 
     def lookup(map_id, points):
         if with_color:
             points = points.unbind(-1)
         queries = tuple(q.contiguous() for q in points)
-        chain = pool.chain.index_select(0, map_id.long()).contiguous()
+        rows = map_id.long()
+        if mesh is not None:
+            rows = rows - mesh.rank * pool.n
+        chain = pool.chain.index_select(0, rows).contiguous()
+        if pool.mesh is not None:
+            out = _chain_lookup_meshed(pool, chain, queries, z_window)
+            return out if with_color else out[:3]
         out = cl.chain_lookup(pool.mean, pool.stdev, pool.meta, pool.origin,
                               pool.resolution, chain, queries, k=pool.k,
                               z_window=z_window, with_slot=with_color)
@@ -281,6 +519,33 @@ def make_chain_lookup(pool: MapPool, z_window=3.0):
 
     lookup.batched = True
     lookup.soa = not with_color
+    return lookup
+
+
+def chain_lookup(pool: MapPool, z_window=3.0):
+    """The JAX package's per-particle chain lookup callback:
+    ``lookup(particle_idx, points [..., C, 3]) -> (found, mean, stdev,
+    color)``, head first, for one particle (a scalar index) or a batch
+    (``particle_idx [N]`` with ``points [N, C, 3]``).  ``color`` is zeros
+    on a colourless pool.  Through ``make_chain_lookup`` (K2 on CUDA
+    tensors)."""
+    lk = make_chain_lookup(pool, z_window)
+
+    def lookup(particle_idx, points):
+        idx = torch.as_tensor(particle_idx, device=pool.chain.device)
+        single = idx.dim() == 0
+        pts = torch.as_tensor(points, dtype=torch.float32,
+                              device=pool.chain.device)
+        if single:
+            idx, pts = idx[None], pts[None]
+        if pool.color is None:
+            f, m, s = lk(idx, tuple(pts.unbind(-1)))
+            col = m.new_zeros(m.shape + (3,))
+        else:
+            f, m, s, col = lk(idx, pts)
+        out = (f, m, s, col)
+        return tuple(t[0] for t in out) if single else out
+
     return lookup
 
 
@@ -295,13 +560,23 @@ def _world_points(cloud_xy, xy, yaw):
 
 def _active_cells(pool: MapPool, wx, wy):
     """Cells of ``[N, P]`` world points in each particle's active block:
-    ``(active, ix, iy, in_bounds)``."""
+    ``(active, ix, iy, in_bounds)``, with ``active`` the block's row in
+    this rank's fields.  On a mesh a head that lies on another rank (one
+    that pool exhaustion left un-homed) has no point in bounds: the rank
+    cannot write it, as the JAX package's shard-local merge cannot."""
     active = pool.active()
+    here = None
+    if pool.mesh is not None:
+        active = active - pool.block_offset
+        here = (active >= 0) & (active < pool.bl)
+        active = torch.where(here, active, 0)
     origin = pool.origin.index_select(0, active.long())
     inv = inverse_resolution(pool.resolution)
     ix = torch.floor((wx - origin[:, 0:1]) * inv).to(torch.int32)
     iy = torch.floor((wy - origin[:, 1:2]) * inv).to(torch.int32)
     inb = (ix >= 0) & (ix < pool.nx) & (iy >= 0) & (iy < pool.ny)
+    if here is not None:
+        inb &= here[:, None]
     return active, ix, iy, inb
 
 
@@ -331,10 +606,11 @@ def merge_cloud_all(pool: MapPool, xy, yaw, z_offset, offset_stdev,
     operands of ``merge_operands`` fused by kernel K3 (CUDA) or its plain
     version (CPU).  ``update_idx`` is a Python int; heads must be unique
     (``ensure_unique_active``).  One kernel serves every pool, colour
-    included (``Config.merge_group`` has no counterpart)."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh belongs to the port's "
-                                  "multi-GPU slice")
+    included (``Config.merge_group`` has no counterpart).  A meshed pool
+    merges each rank's particles into its own blocks, K3 run shard-locally
+    with ``blk = active - rank * B/P`` (JAX ``map_pool.py:581-593``);
+    ``mesh`` is accepted for the JAX call shape and the pool's own is
+    used."""
     bm.block_merge(
         pool.mean, pool.stdev, pool.height, pool.meta, pool.color,
         *merge_operands(pool, xy, yaw, z_offset, offset_stdev, cloud),
@@ -391,11 +667,15 @@ def match_cloud_all(pool: MapPool, xy, yaw, z_offset, offset_stdev,
     sstd, sval = cloud.stdev[sel], cloud.valid[sel]
     wx, wy = _world_points(sxy, xy, yaw)
     wz = sz[None, :] + z_offset[:, None]                        # [N, Ps]
-    found, mean, stdev = cl.chain_lookup(
-        pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
-        pool.active()[:, None].contiguous(),
-        (wx.contiguous(), wy.contiguous(), wz.contiguous()), k=pool.k,
-        z_window=z_window)
+    heads = pool.active()[:, None].contiguous()
+    queries = (wx.contiguous(), wy.contiguous(), wz.contiguous())
+    if pool.mesh is not None:
+        found, mean, stdev, _ = _chain_lookup_meshed(pool, heads, queries,
+                                                     z_window)
+    else:
+        found, mean, stdev = cl.chain_lookup(
+            pool.mean, pool.stdev, pool.meta, pool.origin, pool.resolution,
+            heads, queries, k=pool.k, z_window=z_window)
     var = (sigma ** 2 + stdev ** 2 + (sstd ** 2)[None, :]
            + (offset_stdev ** 2)[:, None])
     score = torch.exp(-0.5 * (wz - mean) ** 2 / var)

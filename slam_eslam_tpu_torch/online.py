@@ -17,7 +17,12 @@ Typical use::
         slam.process_chunk(chunk)
     traj, hist = slam.optimize()        # corrected keyframe trajectory
 
-Everything runs on the CUDA device unless ``device`` is given.  The JAX
+Everything runs on the CUDA device unless ``device`` is given.  With a
+device ``mesh`` the filter holds this rank's particles and pool (pass
+them through ``parallel.sharding.shard_state`` / ``shard_pool`` after
+``init``); every rank runs the same chunks, finds the same best particle
+over the mesh, reads its map blocks from the ranks that hold them and
+keeps the same keyframes and pose graph.  The JAX
 package's raw-scan keyframes (its shared-map branch of
 ``process_chunk``) are not ported: ``run_stream`` raises in shared-map
 mode in both packages, so that branch never runs.
@@ -30,13 +35,11 @@ import torch
 
 from slam_eslam_tpu_torch.backend.keyframes import KeyframeManager
 from slam_eslam_tpu_torch.config import Config
+from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
+from slam_eslam_tpu_torch.mapping.map_pool import fetch_rows
 from slam_eslam_tpu_torch.mapping.mls_grid import PatchCloud
 from slam_eslam_tpu_torch.utils import geometry, tree
-
-_MULTI_GPU = ("OnlineSlam(mesh=...) belongs to the port's multi-GPU slice "
-              "(ROADMAP.md queue 1, item 7)")
-
 
 class OnlineSlam:
     """``donate``: the JAX package donates the scan carry per chunk to
@@ -50,8 +53,7 @@ class OnlineSlam:
                  camera_intrinsics=None, camera_texture=False,
                  odometry_config=None, submap_scans=1, donate=False,
                  probe_recent=60, device=None):
-        if mesh is not None:
-            raise NotImplementedError(_MULTI_GPU)
+        self.mesh = mesh
         self.filter = EmbodiedSlamFilter(odometry_config=odometry_config,
                                          config=config, device=device)
         self.device = self.filter.device
@@ -87,7 +89,7 @@ class OnlineSlam:
             frames, laser2body=self.laser2body,
             camera2body=self.camera2body,
             camera_intrinsics=self.camera_intrinsics,
-            camera_texture=self.camera_texture, draws=draws)
+            camera_texture=self.camera_texture, draws=draws, mesh=self.mesh)
         mapped = aux["mapped"]
         frame_base = self._frame_base
         n_chunk = mapped.shape[0]
@@ -96,8 +98,13 @@ class OnlineSlam:
             return aux
         # the end-of-chunk state, where the pool, the best particle and
         # its pose are consistent
-        bi = self.filter.get_best_particle_index()
         p = self.filter.state.particles
+        if self.mesh is None:
+            bi = self.filter.get_best_particle_index()
+        else:
+            bi = int(torch.argmax(self.mesh.all_gather(p.weight)))
+            p = pf.take(p, torch.tensor([bi], device=self.device), self.mesh)
+            bi = 0
         pose = np.array(torch.stack([p.x[bi], p.y[bi], p.yaw[bi],
                                      p.z[bi]]).tolist())
         kf_cloud = self._local_map_cloud(pose, best=bi)
@@ -121,19 +128,32 @@ class OnlineSlam:
         pool = self.filter.pool
         if pool is None:
             return None
-        if best is None:
-            best = self.filter.get_best_particle_index()
-        chain = pool.chain[best].cpu().numpy()
+        if self.mesh is not None:
+            # ``best`` is the row of the gathered best particle: its chain
+            # comes from every rank's rows
+            w = self.mesh.all_gather(self.filter.state.particles.weight)
+            chain = pool.resample(torch.argmax(w).reshape(1), self.mesh).chain
+            chain = chain[0].cpu().numpy()
+        else:
+            if best is None:
+                best = self.filter.get_best_particle_index()
+            chain = pool.chain[best].cpu().numpy()
         blocks = chain[chain >= 0]
         if blocks.size == 0:
             return None
         idx = torch.from_numpy(blocks.astype(np.int64)).to(self.device)
-        take = lambda a: a.index_select(0, idx).float().cpu().numpy()
+        names = ("meta", "mean", "stdev", "origin")
+        if pool.mesh is None:
+            rows = {f: getattr(pool, f).index_select(0, idx) for f in names}
+        else:
+            rows = fetch_rows(pool, idx, names, "keyframe blocks")
+        host = lambda f: rows[f].float().cpu().numpy() if f != "meta" \
+            else rows[f].cpu().numpy()
         shape = (len(blocks), pool.nx, pool.ny, pool.k)
-        metas = pool.meta.index_select(0, idx).cpu().numpy().reshape(shape)
-        means = take(pool.mean).reshape(shape)
-        stdevs = take(pool.stdev).reshape(shape)
-        origins = pool.origin.index_select(0, idx).cpu().numpy()
+        metas = host("meta").reshape(shape)
+        means = host("mean").reshape(shape)
+        stdevs = host("stdev").reshape(shape)
+        origins = host("origin")
         cur = int(self.filter.update_idx)
         min_uidx = (cur - self.probe_recent
                     if self.probe_recent is not None else 0)

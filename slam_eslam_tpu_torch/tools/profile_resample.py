@@ -5,12 +5,13 @@ particles with the same kind of weights (a log-normal concentration,
 ``softmax(2.5 * normal)``) and stratum positions, both drawn from seeded
 torch generators: the ancestor search (``core.filter.
 resample_from_positions``, ``torch.searchsorted`` on the cumulative
-weights), the particle gather (the ten lanes packed into one ``[N, 10]``
-int32 row gather, beside the port's ``core.filter.take``, ten
-``index_select`` calls), the whole gated resample when it fires, the
-cumulative sum alone, a ``[N, 128]`` row gather and a single ``[N]``
-gather.  On the card each piece's time is its device time: ``--iters``
-calls captured into a CUDA graph and replayed
+weights of the ordered scan S1), the particle gather (the ten lanes
+packed into one ``[N, 10]`` int32 row gather, beside the port's
+``core.filter.take``, ten ``index_select`` calls), the whole gated
+resample when it fires, the cumulative sum alone (S1, and
+``torch.cumsum`` beside it), a ``[N, 128]`` row gather and a single
+``[N]`` gather.  On the card each piece's time is its device time:
+``--iters`` calls captured into a CUDA graph and replayed
 (``utils.profiling.device_time``); on the CPU, the host clock.
 
 The exactness line holds the search to the bracket that defines it
@@ -18,8 +19,9 @@ The exactness line holds the search to the bracket that defines it
 a host binary search of the same cumsum stops elsewhere, which it may only
 where the float cumsum dips (the JAX script allows +-1 between its two
 searches of one cumsum); it also counts where two calls of
-``core.filter.resample_from_positions`` differ, since two cumulative sums
-of the same weights on the card may differ in their last bits.
+``core.filter.resample_from_positions`` differ, which must be none: S1
+adds in one fixed order (``torch.cumsum`` on the card does not, and two of
+its sums of the same weights may differ in their last bits).
 
 The JAX rows ``wide block=64/128/256``, ``cumsum+level1 compare-all`` and
 ``cond(take)`` are workarounds for the TPU (a two-level search where a
@@ -38,6 +40,8 @@ import time
 
 import numpy as np
 import torch
+
+from slam_eslam_tpu_torch.ops.ordered_scan import ordered_scan
 
 NO_COUNTERPART = {
     "wide block=64": "the TPU's two-level search; the port searches with "
@@ -94,8 +98,8 @@ def take_packed(particles, idx):
 
 def searched_cumsum(w):
     """The cumulative weights that ``core.filter.resample_from_positions``
-    searches: the last raised to cover 1."""
-    cs = torch.cumsum(w, 0)
+    searches (the ordered scan S1): the last raised to cover 1."""
+    cs = ordered_scan(w)
     return torch.cat([cs[:-1], cs[-1:].clamp(min=1.0 + 1e-6)])
 
 
@@ -171,7 +175,8 @@ def main(argv=None):
         "take, ten index_select (identity idx)":
             lambda: pf.take(particles, ident),
         "normalize+idx-cond+take (fires)": fires,
-        "cumsum only": lambda: torch.cumsum(w, 0),
+        "cumsum only": lambda: ordered_scan(w),
+        "torch.cumsum (library)": lambda: torch.cumsum(w, 0),
         "row gather [N,128]": rowgather,
         "single [N] f32 gather": onegather,
     }
@@ -181,7 +186,8 @@ def main(argv=None):
              "take, ten index_select (random sorted idx)",
              "take, ten index_select (identity idx)",
              "normalize+idx-cond+take (fires)", "cumsum only",
-             "cumsum+level1 compare-all", "row gather [N,128]",
+             "torch.cumsum (library)", "cumsum+level1 compare-all",
+             "row gather [N,128]",
              "single [N] f32 gather", "cond(take) skip-side",
              "cond(take) fire-side"]
 
@@ -209,8 +215,7 @@ def main(argv=None):
 
     # the search on one cumsum, held to the bracket that defines it and
     # beside a host bisect of the same cumsum; and the library's search
-    # against it (on the card two cumsums of the same weights may differ in
-    # their last bits)
+    # against it, which must repeat it bit for bit
     cs = searched_cumsum(w)
     idx = torch.searchsorted(cs, positions).clamp(0, n - 1)
     mismatches, worst = check_search(idx, cs, positions)

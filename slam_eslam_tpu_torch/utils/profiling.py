@@ -59,6 +59,9 @@ def trace(path="slam_eslam_trace"):
         prof.key_averages().table(sort_by=sort_by, row_limit=50))
 
 
+# idle seconds between a profiler session's start and its launches (see
+# ``profiler_kernel_time``)
+PROFILER_PAD_S = 0.05
 # launches before a capture: the build, the library load and the first
 # launch cannot be captured
 DEVICE_TIME_WARMUP = 3
@@ -138,7 +141,16 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
     kernel's own time, without the gap between launches), or, with no
     name, of every kernel the call puts on the card (the device time of a
     function made of many PyTorch operations, whatever its host time).
-    Raises if the profiler saw no such kernel."""
+
+    On an H100 host the tracer loses device records: most often those of
+    launches made just after a session starts, so the launches wait
+    ``PROFILER_PAD_S`` after the start, and now and then every record of
+    a session while the host traced its launches.  Such an empty session
+    is said on stderr and traced again, at most three sessions in all.
+    Raises if the trace holds no kernel of the name, naming what it did
+    hold; says so on stderr if it holds fewer device records than the
+    host traced launches (then a reading with no name is of the kept
+    records alone)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -146,21 +158,39 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
         raise RuntimeError("profiler_kernel_time needs a CUDA device")
     launch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            launch()
-        torch.cuda.synchronize()
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILER_PAD_S)
+            for _ in range(calls):
+                launch()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        seen = {e.key: e.count for e in events
+                if e.device_type == DeviceType.CUDA}
+        launched = {e.key: e.count for e in events
+                    if e.device_type != DeviceType.CUDA
+                    and "LaunchKernel" in e.key}
+        said = (f"{sum(seen.values())} device records for "
+                f"{sum(launched.values())} kernel launches in {calls} calls "
+                f"(kernel *{kernel_name or ''}*)")
+        if seen or not launched:
+            break
+        print(f"profiler_kernel_time: torch.profiler kept {said} in session "
+              f"{session + 1}", file=sys.stderr)
     total_us, count = 0.0, 0
-    for e in prof.key_averages():
+    for e in events:
         if e.device_type == DeviceType.CUDA and (kernel_name is None
                                                  or kernel_name in e.key):
             total_us += getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0))
             count += e.count
     if not count:
-        raise RuntimeError(f"torch.profiler saw no kernel named "
-                           f"*{kernel_name or ''}* in {calls} calls")
+        raise RuntimeError(f"torch.profiler kept {said}: device events "
+                           f"{seen}, host launch calls {launched}")
+    if sum(seen.values()) < sum(launched.values()):
+        print(f"profiler_kernel_time: torch.profiler kept {said}",
+              file=sys.stderr)
     return total_us * 1e-6 / (calls if kernel_name is None else count)
 
 

@@ -8,7 +8,9 @@ solver and ``scan_align`` on the card against the CPU port, the solvers
 under a global TF32 flag, no host sync in the dense and PCG solves, and
 a checkpoint resumed on the card.  The log runtime: a log read onto the
 card by ``frames_from_log`` equals the CPU read bit for bit, and
-``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  K2, K5
+``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  The
+ordered scan S1 (``csrc/ordered_scan.cu``) equals its plain version bit
+for bit on the card and on the CPU, call after call.  K2, K5
 and K7 must match bit
 for bit; K3 bit for bit on cells one point hits and within rtol 1e-6
 elsewhere (the plain version sums with atomics on the card), on a
@@ -41,6 +43,7 @@ from slam_eslam_tpu_torch.ops import block_copy as bc
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
 from slam_eslam_tpu_torch.ops import contact_fold as cf
+from slam_eslam_tpu_torch.ops import ordered_scan as osc
 from slam_eslam_tpu_torch.ops import select_cells as sc
 from slam_eslam_tpu_torch.utils import tree
 
@@ -1146,3 +1149,34 @@ def test_chain_layers_on_a_bfloat16_pool(dev):
     # three blocks' meta and mean rows a call, with the allocator's
     # rounding: far below the pool's 0.35 MB mask
     assert rise < (2 << 20)
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 127, 129, 8192, 8193, 100_000,
+                               100_003, 2_100_000])
+def test_ordered_scan_matches_plain_bitwise(dev, n):
+    """S1 against its plain version (run on the card and on the CPU) bit
+    for bit, across the one-CTA size and every level of the recursion;
+    two calls on the same weights give the same bits."""
+    g = torch.Generator().manual_seed(n)
+    w = torch.softmax(2.5 * torch.randn((n,), generator=g), 0)
+    wd = w.to(dev)
+    got = osc.ordered_scan(wd)
+    again = osc.ordered_scan(wd)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), osc.ordered_scan_reference(w))
+    assert torch.equal(got, osc.ordered_scan_reference(wd))
+
+
+def test_ordered_scan_resample_repeats(dev):
+    """The resampling search on the card finds the same ancestors twice,
+    and the CPU's."""
+    from slam_eslam_tpu_torch.core import filter as pf
+    from slam_eslam_tpu_torch.tools import profile_resample
+
+    w, pos = profile_resample.weights_and_positions(100_000, "cpu")
+    a = pf.resample_from_positions(w.to(dev), pos.to(dev))
+    b = pf.resample_from_positions(w.to(dev), pos.to(dev))
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), pf.resample_from_positions(w, pos))
+    with pytest.raises(TypeError, match="float32"):
+        osc.ordered_scan(w.to(dev, torch.float64))

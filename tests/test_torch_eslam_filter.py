@@ -548,9 +548,9 @@ def test_process_map_reports_pool_exhaustion(capsys):
 
 def test_queued_entry_points_raise():
     """Nothing of the mapping API is queued any more: every entry point
-    runs, ``update_featurecloud`` stays the reference's stub, and what
-    still raises is the multi-GPU slice and a slip update on a pool
-    without colours."""
+    runs (``run_stream`` on a one-rank mesh too), ``update_featurecloud``
+    stays the reference's stub, and what still raises is a slip update on
+    a pool without colours."""
     cfg = config(particle_count=N_MAP, map_pool_blocks=2 * N_MAP)
     tf = tef.EmbodiedSlamFilter(config=cfg, device="cpu").init(
         (np.array([0.0, 0.0, 0.3]), 0.0), use_shared_map=False)
@@ -568,8 +568,12 @@ def test_queued_entry_points_raise():
                         camera2body=CAMERA, camera_intrinsics=INTRINSICS,
                         camera_texture=False)
     assert aux["centroid"].shape == (2, 3) and tf.steps == 2
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tf.run_stream(tst.stack_frames(frames), mesh=object())
+    from slam_eslam_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"),
+                backend="gloo", transport="gloo")
+    aux = tf.run_stream(tst.stack_frames(frames), mesh=mesh, donate=True)
+    assert aux["centroid"].shape == (2, 3) and tf.steps == 4
     slip = config(contact_model=ContactModelConfig(use_slip_update=True))
     tf = tef.EmbodiedSlamFilter(config=slip, device="cpu").init(
         (np.zeros(3), 0.0), use_shared_map=False)

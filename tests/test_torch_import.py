@@ -58,8 +58,14 @@ MODULES = [
     "slam_eslam_tpu_torch.tools.profile_filter",
     "slam_eslam_tpu_torch.tools.profile_resample",
     "slam_eslam_tpu_torch.tools.profile_slam",
+    "slam_eslam_tpu_torch.tools.bench_scaling",
     "slam_eslam_tpu_torch.tools.profile_step",
     "slam_eslam_tpu_torch.tools.stat_map_test",
+    "slam_eslam_tpu_torch.parallel.sharding",
+    "slam_eslam_tpu_torch.parallel.resample",
+    "slam_eslam_tpu_torch.parallel.distributed",
+    "slam_eslam_tpu_torch.dryrun",
+    "slam_eslam_tpu_torch.ops.ordered_scan",
     "slam_eslam_tpu_torch.utils.checkpoint",
     "slam_eslam_tpu_torch.utils.device",
     "slam_eslam_tpu_torch.utils.geometry",

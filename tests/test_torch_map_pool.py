@@ -518,3 +518,123 @@ def test_dedup_fuse_rows_and_fuse_slot_rows():
     got = tmls.fuse_slot_rows(*(t(a) for a in args), 9)
     for a, b_ in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+
+
+# ---- the JAX package's per-particle lookup and pool views --------------
+
+def _lookup_scenarios():
+    """The nine uses of JAX ``map_pool.chain_lookup`` in
+    ``tests/test_map_pool.py``: the pool each builds and the queries
+    ``(particle, points [C, 3], z_window)`` it makes."""
+    from test_map_pool import make_pool, write_cell
+
+    def unique_copies():
+        pool = write_cell(make_pool(), 0, 0.0, 0.0, 7.0)
+        pool, _ = jmp.ensure_unique_active(pool.resample(
+            jnp.array([0, 0, 0, 3])))
+        return pool, [(i, [[0.0, 0.0, 7.0]], 3.0) for i in range(3)]
+
+    def rolled(z_window, probe):
+        pool = write_cell(make_pool(), 1, 0.0, 0.0, 2.5)
+        xy = jnp.array([[0.0, 0.0], [8.0, 0.0], [0.0, 0.0], [0.0, 0.0]])
+        pool, _ = jmp.rollover(pool, xy, threshold=3.0)
+        if probe:
+            head = int(pool.chain[1, 0])
+            pool = write_cell(pool, head, 4.0, 0.0, 9.0)
+            pool = write_cell(pool, 1, 4.0, 0.0, 1.0)
+            return pool, [(1, [[4.0, 0.0, 5.0]], z_window)]
+        return pool, [(1, [[0.0, 0.0, 2.5]], z_window)]
+
+    def merged(dtype=None, with_color=True):
+        xy = jax.random.uniform(jax.random.PRNGKey(3), (32, 2), minval=-2.0,
+                                maxval=2.0)
+        cloud = jmls.PatchCloud.create(
+            xy=xy, z=jnp.full((32,), 1.0), stdev=jnp.full((32,), 0.1),
+            valid=jnp.ones((32,), bool))
+        if dtype is None:
+            pool = make_pool(with_color=with_color)
+        else:
+            pool = jmp.MapPool.from_template(
+                jmls.MLSGrid.create(20, 20, 0.5, (-5.0, -5.0), k=2), 4, 10,
+                3, with_color=False, dtype=dtype)
+        pool = jmp.merge_cloud_all(
+            pool, jnp.zeros((4, 2)), jnp.zeros((4,)),
+            jnp.array([0.0, 10.0, 0.0, 0.0]), jnp.zeros((4,)), cloud, 5,
+            kernel="xla")
+        pt = np.asarray(cloud.xy[0])
+        return pool, [(0, [[pt[0], pt[1], 1.0]], 3.0),
+                      (1, [[pt[0], pt[1], 11.0]], 3.0),
+                      (0, [[pt[0], pt[1], 11.0]], 3.0)]
+
+    def negative(pts, mask, z=0.0):
+        pool = write_cell(make_pool(n=1, with_color=False), 0, 1.0, 1.0, 2.0)
+        out = jmp.apply_negative_cloud_all(
+            pool, jnp.zeros((1, 2)), jnp.zeros(1), jnp.full((1,), z),
+            jnp.array(pts), jnp.array(mask))
+        return out, [(0, [[1.0, 1.0, 2.0]], 3.0)]
+
+    def two_particles():
+        pool = make_pool(n=2, with_color=False)
+        pool = write_cell(write_cell(pool, 0, 1.0, 1.0, 2.0), 1, -2.0, 0.0,
+                          0.5)
+        out = jmp.apply_negative_cloud_all(
+            pool, jnp.array([[0.0, 0.0], [-3.0, 0.0]]), jnp.zeros(2),
+            jnp.array([0.0, 0.5]), jnp.array([[1.0, 1.0, 2.0],
+                                              [1.0, 0.0, 0.0]]),
+            jnp.ones(2, bool))
+        return out, [(0, [[1.0, 1.0, 2.0]], 3.0),
+                     (1, [[-2.0, 0.0, 0.5]], 3.0)]
+
+    def tail_block():
+        pool = write_cell(make_pool(n=1, b=10, with_color=False), 5, 1.0,
+                          1.0, 2.0)
+        pool = dataclasses.replace(pool, chain=jnp.array([[0, 5, -1]],
+                                                         jnp.int32))
+        out = jmp.apply_negative_cloud_all(
+            pool, jnp.zeros((1, 2)), jnp.zeros(1), jnp.zeros(1),
+            jnp.array([[1.0, 1.0, 2.0]]), jnp.ones(1, bool))
+        return out, [(0, [[1.0, 1.0, 2.0]], 3.0)]
+
+    return {
+        "ensure_unique_copies": unique_copies,
+        "rollover_tail": lambda: rolled(3.0, False),
+        "chain_head_priority": lambda: rolled(20.0, True),
+        "merge_isolated": merged,
+        "negative_two_particles": two_particles,
+        "negative_outside_margin": lambda: negative([[1.0, 1.0, 1.5]], [1]),
+        "negative_masked": lambda: negative([[1.0, 1.0, 2.0]], [0]),
+        "negative_tail_survives": tail_block,
+        "bf16_pool": lambda: merged(jnp.bfloat16),
+    }
+
+
+@pytest.mark.parametrize("scenario", sorted(_lookup_scenarios()))
+def test_per_particle_chain_lookup_matches_jax(scenario):
+    """``map_pool.chain_lookup(pool, z_window)(particle, points)``: the JAX
+    package's per-particle callback, on each pool its tests build, equal
+    to JAX's ``(found, mean, stdev, color)`` (colour zeros without a
+    colour field), one particle at a time and batched."""
+    jpool, queries = _lookup_scenarios()[scenario]()
+    tpool = port_pool(jpool)
+    for particle, pts, zw in queries:
+        ref = jmp.chain_lookup(jpool, z_window=zw)(jnp.asarray(particle),
+                                                   jnp.asarray(pts))
+        got = tmp.chain_lookup(tpool, z_window=zw)(particle, pts)
+        batched = tmp.chain_lookup(tpool, z_window=zw)(
+            torch.tensor([particle]), torch.tensor([pts]))
+        for g, b, r in zip(got, batched, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+            np.testing.assert_array_equal(b[0].numpy(), np.asarray(r))
+
+
+def test_slot_count_and_field_grid_match_jax():
+    """``MapPool.s`` and ``MapPool.field_grid`` (JAX ``map_pool.py:127,
+    142``), colour included."""
+    jpool = random_pool(11, with_color=True)
+    tpool = port_pool(jpool)
+    assert tpool.s == jpool.s == NX * NY * K
+    for name in ("mean", "stdev", "meta", "color"):
+        got = tpool.field_grid(name)
+        ref = np.asarray(jpool.field_grid(name))
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got.numpy(), ref)

@@ -7,8 +7,9 @@ on both packages from the same graph (the JAX graph converted with
 package's within 1e-4 (m and rad; float32 Gauss-Newton, where XLA and
 PyTorch round the einsums and the Cholesky differently), its chi2
 history within rtol 1e-4 (atol 1e-4 where chi2 has converged to ~0), and
-it must pass the JAX test's own assertions.  The mesh-only cases are one
-test that ``mesh=`` raises.  ``scan_align`` must find the same best
+it must pass the JAX test's own assertions.  The mesh cases run on 8
+ranks in ``tests/test_torch_parallel_pose_graph.py``; here one test holds
+a one-rank mesh to the local solves.  ``scan_align`` must find the same best
 offset, with score and peak ratio within 1e-5.
 """
 
@@ -237,24 +238,31 @@ class TestSolverVariants:
         assert not np.allclose(tf.nodes[8:].numpy(), tg.nodes[8:].numpy())
 
     def test_mesh_raises(self):
-        """The JAX package's mesh cases (edge-sharded PCG, segment-sharded
-        Schur) wait for the port's multi-GPU slice."""
+        """Nothing raises for a mesh any more: on a one-rank mesh the
+        edge-sharded PCG and the segment-sharded Schur solve (and the
+        PoseGraphBuilder's PCG) equal the local solves bit for bit; OnlineSlam
+        takes the mesh.  Meshes of 8 ranks: tests/test_torch_parallel_
+        pose_graph.py."""
         from slam_eslam_tpu_torch.online import OnlineSlam
+        from slam_eslam_tpu_torch.parallel.sharding import Mesh
 
         g, _ = circle_graph(3)
         tg = port_graph(g)
-        mesh = object()
-        calls = [lambda: tpg.optimize_cg(tg, 1, mesh=mesh),
-                 lambda: tpg.gauss_newton_step_cg(tg, mesh=mesh),
-                 lambda: tpg.optimize_schur(tg, 1, segments=4,
-                                            boundary_cap=16, mesh=mesh),
-                 lambda: tpg.gauss_newton_step_schur(tg, mesh=mesh),
-                 lambda: tpg.PoseGraphBuilder(device="cpu").optimize(
-                     mesh=mesh),
-                 lambda: OnlineSlam(mesh=mesh, device="cpu")]
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="multi-GPU"):
-                call()
+        mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"),
+                    backend="gloo", transport="gloo")
+        pairs = [(lambda m: tpg.optimize_cg(tg, 2, mesh=m)[0].nodes),
+                 (lambda m: tpg.gauss_newton_step_cg(tg, mesh=m)[0].nodes),
+                 (lambda m: tpg.optimize_schur(tg, 2, segments=4,
+                                               boundary_cap=16,
+                                               mesh=m)[0].nodes),
+                 (lambda m: tpg.gauss_newton_step_schur(tg, mesh=m)[0].nodes)]
+        for call in pairs:
+            assert torch.equal(call(mesh), call(None))
+        b = tpg.PoseGraphBuilder(device="cpu")
+        b.graph = tg
+        assert torch.isfinite(b.optimize(iters=1, solver="cg",
+                                         mesh=mesh)).all()
+        assert OnlineSlam(mesh=mesh, device="cpu").mesh is mesh
 
     def test_edge_residuals_and_schur_structure(self):
         g, _ = circle_graph(4)

@@ -387,10 +387,15 @@ def test_textured_camera_run():
 
 
 def test_camera_arguments():
+    """A camera needs its intrinsics; a mesh no longer raises (the meshed
+    runs: tests/test_torch_parallel_slam.py)."""
+    from slam_eslam_tpu_torch.parallel.sharding import Mesh
+
     with pytest.raises(ValueError, match="camera_intrinsics"):
         tst.make_slam_step(config(False), camera2body=CAMERA)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tst.make_slam_step(config(False), mesh=object())
+    mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"),
+                backend="gloo", transport="gloo")
+    assert callable(tst.make_slam_step(config(False), mesh=mesh))
 
 
 def test_bf16_pool_run():
@@ -447,6 +452,60 @@ def test_precompute_odometry(runs):
         np.testing.assert_allclose(got[name], val, rtol=1e-5, atol=1e-6,
                                    err_msg=name)
     assert np.abs(ref["delta_xy"]).max() > 0.01      # the robot moves
+
+
+def test_precompute_odometry_odo_cfg():
+    """``precompute_odometry(..., odo_cfg=...)`` (JAX ``streaming.py:442``)
+    with a non-default ``OdometryConfig``, against the JAX package's; the
+    default ``odo_cfg`` is the one ``cfg`` gives (the test above)."""
+    from slam_eslam_tpu.config import OdometryConfig as JOdo
+
+    from torch_jax_draws import port_config
+
+    traj = trajectory()
+    full = [fr[0] for fr in traj]
+    qs = np.stack([fr[2] for fr in traj])
+    odo = JOdo(seed=7, const_error_xy=0.01, dist_error_xy=0.2,
+               const_error_yaw=0.005, dist_error_yaw=0.1,
+               contact_threshold=0.4)
+    ref = as_dict(jst.precompute_odometry(
+        20, jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *full),
+        jnp.asarray(qs), odo_cfg=odo))
+    got = convert.to_numpy(tst.precompute_odometry(
+        20, tree.stack([convert.body_contact_state_from(as_dict(c))
+                        for c in full]), t(qs), odo_cfg=port_config(odo)))
+    for name, val in ref.items():
+        np.testing.assert_allclose(got[name], val, rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_runner_accepts_donate():
+    """``make_slam_scan_runner(donate=...)`` (JAX ``streaming.py:403``):
+    the port always updates the carry's pool in place, so both values run
+    the same frames to the same result."""
+    from slam_eslam_tpu_torch.models.asguard import AsguardSim as PSim
+
+    cfg = port_config_of(config(False))
+    outs = []
+    for donate in (False, True):
+        f = TFilter(config=cfg, device="cpu")
+        f.init(pose=(np.array([0.0, 0.0, PSim(terrain=terrain).position[2]]),
+                     0.0), use_shared_map=False)
+        traj = trajectory()[:6]
+        frames = tst.stack_frames([
+            (convert.body_contact_state_from(as_dict(full)), q, pos, r,
+             SCAN_META, hs) for full, _, q, pos, r, hs in traj])
+        run = tst.make_slam_scan_runner(cfg, laser2body=LASER, donate=donate)
+        carry, aux = run(tst.StreamingState.create(f.state, f.pool), frames)
+        outs.append((carry.pool.chain.clone(), aux["centroid"]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def port_config_of(jcfg):
+    from torch_jax_draws import port_config
+
+    return port_config(jcfg)
 
 
 def test_asguard_contact_states():

@@ -24,6 +24,19 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
+def port_config(c):
+    """A JAX package configuration dataclass rebuilt as the port's class
+    of the same name, field for field (nested ones too), so it can go to
+    a process that has no JAX."""
+    import slam_eslam_tpu_torch.config as tc
+
+    if dataclasses.is_dataclass(c):
+        return getattr(tc, type(c).__name__)(**{
+            f.name: port_config(getattr(c, f.name))
+            for f in dataclasses.fields(c)})
+    return c
+
+
 def jax_tool(name):
     """The JAX package's ``tools/<name>.py`` as a module (the scripts that
     put the repository on ``sys.path`` leave it as it was)."""
