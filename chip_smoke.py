@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py [--profile DIR]
+[--prior-scan CU]
 
 Phases (any failure raises and exits non-zero):
 
@@ -127,10 +128,14 @@ Phases (any failure raises and exits non-zero):
    pool types' stats finite).  Nothing is written under
    ``slam_eslam_tpu/``;
 13. the ordered scan S1 (``csrc/ordered_scan.cu``, the resampling's
-   repeatable cumulative sum) bit for bit against its plain version on the
-   card and the CPU at 100,000, 1, 127, 129, 100,003, 8,193 and 2,100,000
-   elements, two calls alike, every ancestor bracketing its position,
-   timed beside its byte bound and ``torch.cumsum``, and
+   repeatable cumulative sum, one launch a call) bit for bit against its
+   plain version on the card and the CPU at 100,000, 1, 127, 129, 100,003,
+   8,193 and 2,100,000 elements and, with zeros of both signs, at its
+   level and tile boundaries, two calls alike, graph replays and 1,000
+   calls back to back alike, every ancestor bracketing its position;
+   timed at 100,000 and 2,100,000 beside its byte bound, ``torch.cumsum``
+   (both in CUDA graphs), an empty kernel's launch and, given
+   ``--prior-scan``, an earlier source of the scan in turns; and
    ``profile_resample`` with no index moving between two calls; then the
    multi-rank path (``slam_eslam_tpu_torch.parallel``): a world of one
    NCCL rank runs the localisation runner (100k particles, 150 steps) and
@@ -149,13 +154,19 @@ launches (a kernel module's ``launch``: no check, no allocation) captured
 into a CUDA graph and replayed between two CUDA events, so that no Python
 runs between two launches.  ``device_ms_profiler`` is the cross-check:
 ``torch.profiler``'s time of the kernel by its name over 20 eager
-launches, which leaves out the gap between two graph nodes.  ``call_ms``
+launches, which leaves out the gap between two graph nodes (null, and
+said, where the tracer kept no device record in any of its sessions: the
+kernel ran, the cross-check is missing).  ``call_ms``
 is CUDA events around a Python loop of calls of the public wrapper, which
 is the wrapper's host time wherever that exceeds the kernel's (what an
-eager loop pays per call).  ``plain_ms`` and ``library_ms`` are device times too: every
-kernel the plain version, or the one PyTorch call, puts on the card, as
-``torch.profiler`` sums them (``plain_call_ms``, ``library_call_ms``: the
-events around the calls).  Each time stands beside its bound: the bytes
+eager loop pays per call).  ``plain_ms`` and ``library_ms`` are device
+times on the same clock where the plain version, or the one PyTorch call,
+captures (reads nothing back, does not synchronise): 20 calls in a CUDA
+graph, replayed; where it does not, ``torch.profiler``'s sum of every
+kernel it puts on the card, and ``plain_clock`` / ``library_clock`` say
+which and why.  ``plain_ms_profiler`` / ``library_ms_profiler`` keep the
+profiler's sum beside a graph's reading (``plain_call_ms``,
+``library_call_ms``: the events around the calls).  Each time stands beside its bound: the bytes
 the call must move (each input read once, each output written once,
 counted from this run's inputs) over the card's published memory rate,
 or its operations over the published float32 rate (for K1: the
@@ -240,6 +251,7 @@ PEAK_FLOPS_F32 = 67e12
 # a kernel's device time: raw launches per CUDA graph; the graph's and the
 # profiler's readings are said to differ beyond this
 GRAPH_REPS = 200
+PLAIN_GRAPH_REPS = 20    # calls of a plain version or library call a graph
 BIG_GRAPH_REPS = 50      # at the 100,000-particle shapes
 COPY_GRAPH_REPS = 100    # the whole-block copy moves 671 MB a launch
 CROSS_CHECK_RTOL = 0.25
@@ -312,13 +324,70 @@ def bound(nbytes, flops=0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms_of(fn, calls=5):
-    """Device milliseconds per call of ``fn``, a function of many PyTorch
-    operations: every kernel it puts on the card, summed by
-    ``torch.profiler``."""
+def sync_free(fn):
+    """None if ``fn()`` runs with no host read and no synchronise (once,
+    under ``set_sync_debug_mode("error")``), else the first line of what
+    it raised."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        return str(err).strip().splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    return None
+
+
+def profiler_ms(fn, kernel_name=None, calls=20):
+    """``torch.profiler``'s milliseconds per call of ``fn``
+    (``profiling.profiler_kernel_time``), or None where the tracer lost
+    every device record of its sessions (``ProfilerLostRecords``): the
+    kernel ran, only the cross-check is missing, and that is said."""
     from slam_eslam_tpu_torch.utils import profiling
 
-    return profiling.profiler_kernel_time(fn, None, calls) * 1e3
+    try:
+        return profiling.profiler_kernel_time(fn, kernel_name, calls) * 1e3
+    except profiling.ProfilerLostRecords as err:
+        print(f"profiler reading not measured "
+              f"({kernel_name or 'all kernels'}): {err}")
+        return None
+
+
+def ms_text(ms, digits=5):
+    """``ms`` with ``digits`` decimals, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
+def device_ms_of(fn, calls=5, reps=PLAIN_GRAPH_REPS):
+    """Device milliseconds per call of ``fn``, a function of many PyTorch
+    operations, on the clock of a kernel's ``ms`` where ``fn`` captures:
+    ``reps`` calls in a CUDA graph, replayed (``profiling.device_time``).
+    ``fn`` captures when it reads nothing back and does not synchronise
+    (``sync_free``) and the capture succeeds; else the reading is
+    ``torch.profiler``'s sum of every kernel it puts on the card, or,
+    where the tracer lost every record, CUDA events around ``calls``
+    eager calls, and the clock says which and why.  Returns ``(ms, clock,
+    the profiler's ms or None)``: the profiler's reading is kept beside
+    the graph's as a cross-check."""
+    from slam_eslam_tpu_torch.utils import profiling
+
+    prof = profiler_ms(fn, None, calls)
+    reason = sync_free(fn)
+    if reason is None:
+        stream = torch.cuda.current_stream()
+        try:
+            return profiling.device_time(fn, reps, replays=3) * 1e3, \
+                "graph", prof
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as err:
+            torch.cuda.set_stream(stream)
+            torch.cuda.synchronize()
+            reason = f"capture failed: {str(err).strip().splitlines()[0]}"
+    if prof is None:
+        return cuda_ms(fn, calls), (f"events around {calls} calls (the "
+                                    f"profiler lost its records; does not "
+                                    f"capture: {reason})"), prof
+    return prof, f"profiler (does not capture: {reason})", prof
 
 
 def kernel_times(label, call, launch, kernel_name, plain, bnd, n_call=50,
@@ -332,29 +401,34 @@ def kernel_times(label, call, launch, kernel_name, plain, bnd, n_call=50,
     events around a Python loop of ``call()``, the public wrapper (what an
     eager loop pays per call: the wrapper's host time where that exceeds
     the kernel's), in turns with ``plain()``, the plain version
-    (``plain_call_ms``); ``plain_ms``: the plain version's kernels on the
-    card, summed by the profiler; ``bound_ms``, ``bound_by`` from
+    (``plain_call_ms``); ``plain_ms``: the plain version on the card, from
+    a graph where it captures (``device_ms_of``: ``plain_clock`` says
+    which clock, ``plain_ms_profiler`` is the profiler's sum of its
+    kernels beside it); ``bound_ms``, ``bound_by`` from
     ``bnd``; with ``sectors`` (the 32-byte sectors the call touches) also
     ``bound_ms_sectors`` and its share of ``ms``."""
     from slam_eslam_tpu_torch.utils import profiling
 
     call_ms, plain_call, runs = alternate(call, plain, n_call, n_plain)
-    plain_ms = device_ms_of(plain)
+    plain_ms, plain_clock, plain_prof = device_ms_of(plain)
     dev = profiling.device_time(launch, reps) * 1e3
-    prof = profiling.profiler_kernel_time(launch, kernel_name) * 1e3
+    prof = profiler_ms(launch, kernel_name)
     print(f"{label} device {dev:.5f} ms (graph of {reps} launches), "
-          f"{prof:.5f} ms (profiler, {kernel_name}); call {call_ms:.4f} ms "
+          f"{ms_text(prof)} ms (profiler, {kernel_name}); call "
+          f"{call_ms:.4f} ms "
           f"({runs[1]:.4f}, {runs[2]:.4f}: events around the wrapper), plain "
-          f"{plain_ms:.4f} ms on the card (profiler, all its kernels), "
+          f"{plain_ms:.4f} ms on the card ({plain_clock}; profiler "
+          f"{ms_text(plain_prof, 4)}, all its kernels), "
           f"{plain_call:.4f} ms a call ({runs[0]:.4f}, {runs[3]:.4f}), bound "
           f"{bnd[0]:.5f} ms ({bnd[1]}): {bnd[0] / dev:.3f} of the bound")
-    if abs(dev - prof) > CROSS_CHECK_RTOL * prof:
+    if prof is not None and abs(dev - prof) > CROSS_CHECK_RTOL * prof:
         print(f"{label}: graph and profiler readings differ by "
               f"{abs(dev - prof) / prof:.0%}; ms takes the graph's, which "
               f"holds the gap between two graph nodes that a captured step "
               f"pays too; the profiler's is the kernel alone")
     times = dict(ms=dev, device_ms=dev, device_ms_profiler=prof,
-                 call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call,
+                 call_ms=call_ms, plain_ms=plain_ms, plain_clock=plain_clock,
+                 plain_ms_profiler=plain_prof, plain_call_ms=plain_call,
                  bound_ms=bnd[0], bound_by=bnd[1])
     if sectors is not None:
         times.update(sector_times(label, sectors, dev))
@@ -1621,19 +1695,26 @@ def check_block_copy(dev, cfg):
                                               **kw)
         dev_ms = {name: profiling.device_time(f, COPY_GRAPH_REPS) * 1e3
                   for name, f in launches.items()}
-        prof_ms = {name: profiling.profiler_kernel_time(
+        prof_ms = {name: profiler_ms(
             f, "block_merge_kernel" if name == "merge"
-            else f"block_copy_{name}_kernel") * 1e3
+            else f"block_copy_{name}_kernel")
             for name, f in launches.items()}
-        # the plain versions and the library call on the card: all their
-        # kernels, summed by the profiler
-        dev_ms.update(
-            plain=device_ms_of(lambda: bc.block_copy_reference(
-                fields, blk, points, mode="whole", k=k)),
-            plain_cells=device_ms_of(lambda: bc.block_copy_reference(
-                fields, blk, points, mode="cells", k=k)),
-            library=device_ms_of(library))
+        # the plain versions and the library call on the card: from a graph
+        # where they capture, else all their kernels summed by the profiler
+        clocks = {}
+        for name, fn in (
+                ("plain", lambda: bc.block_copy_reference(
+                    fields, blk, points, mode="whole", k=k)),
+                ("plain_cells", lambda: bc.block_copy_reference(
+                    fields, blk, points, mode="cells", k=k)),
+                ("library", library)):
+            dev_ms[name], clocks[name], prof_ms[name] = device_ms_of(fn)
+        print(f"block_copy[bench] {dtype} plain, plain cells, library: "
+              + "; ".join(f"{name} {dev_ms[name]:.4f} ms ({clock}; profiler "
+                          f"{ms_text(prof_ms[name], 4)})"
+                          for name, clock in clocks.items()))
         timing[tag] = dict(call=ms, device=dev_ms, profiler=prof_ms,
+                           clock=clocks,
                            bound_whole=b_whole, bound_cells=b_cells,
                            bound_points=b_points, sectors=copy_sectors)
         for mode in ("cells", "points", "merge"):
@@ -1641,15 +1722,15 @@ def check_block_copy(dev, cfg):
                          dev_ms[mode])
         print(f"block_copy[bench] {dtype} device (graph of "
               f"{COPY_GRAPH_REPS} launches / profiler): whole "
-              f"{dev_ms['whole']:.4f} / {prof_ms['whole']:.4f} ms (bound "
+              f"{dev_ms['whole']:.4f} / {ms_text(prof_ms['whole'], 4)} ms (bound "
               f"{b_whole[0]:.4f} ms by {b_whole[1]}; plain "
               f"{dev_ms['plain']:.4f}, library {dev_ms['library']:.4f} ms on "
               f"the card), cells "
-              f"{dev_ms['cells']:.4f} / {prof_ms['cells']:.4f} ms (bound "
+              f"{dev_ms['cells']:.4f} / {ms_text(prof_ms['cells'], 4)} ms (bound "
               f"{b_cells[0]:.5f} ms; plain {dev_ms['plain_cells']:.4f}), "
               f"points {dev_ms['points']:.4f} / "
-              f"{prof_ms['points']:.4f} ms (bound {b_points[0]:.5f} ms), "
-              f"merge {dev_ms['merge']:.4f} / {prof_ms['merge']:.4f} ms; "
+              f"{ms_text(prof_ms['points'], 4)} ms (bound {b_points[0]:.5f} ms), "
+              f"merge {dev_ms['merge']:.4f} / {ms_text(prof_ms['merge'], 4)} ms; "
               f"cells / merge {dev_ms['cells'] / dev_ms['merge']:.3f}, "
               f"points / merge {dev_ms['points'] / dev_ms['merge']:.3f}")
         if dev_ms["whole"] < b_whole[0]:
@@ -2073,23 +2154,25 @@ def check_merge_packed(dev):
                                         **kw)
     (d_unpacked, d_packed), runs = in_turns_device(unpacked_launch,
                                                    packed_launch)
-    prof = profiling.profiler_kernel_time(packed_launch,
-                                          "block_merge_kernel") * 1e3
-    plain_ms = device_ms_of(lambda: bm.block_merge_packed_reference(
-        plain, blk, *points, uidx, nx=nx, **kw))
+    prof = profiler_ms(packed_launch, "block_merge_kernel")
+    plain_ms, plain_clock, plain_prof = device_ms_of(
+        lambda: bm.block_merge_packed_reference(plain, blk, *points, uidx,
+                                                nx=nx, **kw))
     print(f"block_merge_packed[probe] device {d_packed:.5f} ms (graph of "
-          f"{GRAPH_REPS} launches), {prof:.5f} ms (profiler), block_merge on "
+          f"{GRAPH_REPS} launches), {ms_text(prof)} ms (profiler), block_merge on "
           f"the unpacked fields {d_unpacked:.5f} ms (unpacked, packed, "
           f"packed, unpacked: {', '.join(f'{r:.5f}' for r in runs)}), packed "
           f"/ unpacked {d_packed / d_unpacked:.3f}; calls (events around the "
           f"wrappers) {ms['packed']:.4f} ms ({first['packed']:.4f}, "
           f"{second['packed']:.4f}) and {ms['unpacked']:.4f} ms "
           f"({first['unpacked']:.4f}, {second['unpacked']:.4f}), plain "
-          f"{plain_ms:.4f} ms on the card, {ms['plain']:.4f} ms a call, bound "
+          f"{plain_ms:.4f} ms on the card ({plain_clock}; profiler "
+          f"{ms_text(plain_prof, 4)}), {ms['plain']:.4f} ms a call, bound "
           f"{b_ms:.5f} ms ({b_by})")
     times = dict(
         ms=d_packed, device_ms=d_packed, device_ms_profiler=prof,
-        call_ms=ms["packed"], plain_ms=plain_ms, plain_call_ms=ms["plain"],
+        call_ms=ms["packed"], plain_ms=plain_ms, plain_clock=plain_clock,
+        plain_ms_profiler=plain_prof, plain_call_ms=ms["plain"],
         bound_ms=b_ms,
         bound_by=b_by, ms_unpacked_in_turns=d_unpacked,
         call_ms_unpacked_in_turns=ms["unpacked"])
@@ -3756,40 +3839,261 @@ def phase12(dev, card):
 # ---------------------------------------------------------------- phase 13
 
 SCAN_SIZES = (N_BENCH, 1, 127, 129, N_RAGGED, 8193, 2_100_000)
+# the one-launch kernel's level and tile boundaries (4,096 elements a tile)
+# and a size with more than 16 tiles per level above the tile
+SCAN_EDGES = (2, 16, 17, 256, 257, 4095, 4096, 4097, 65_536, 65_537,
+              140_000, 16 * 4096 * 17 + 3)
+SCAN_TIMED = (N_BENCH, 2_100_000)
+SCAN_REPLAY_SIZES = (1, 4097, N_BENCH, 2_100_000)
+SCAN_REPLAYS = 3
+SCAN_REPEAT_SIZES = (N_BENCH, 4097)
+SCAN_TURN_SIZES = (2_100_000, N_BENCH, 8193, 4096, 5000)
+SCAN_REPEATS = 1000
+# an earlier source of the scan, outside the tree (``--prior-scan PATH``):
+# timed in turns with S1 when given
+PRIOR_SCAN = None
+PRIOR_SMALL = 8192     # the three-launch scan's one-CTA size
 DRYRUN_RANKS = 4
 SCALING_ARGS = ("--devices", "1", "2", "4", "--repeats", "3")
 
 
-def check_ordered_scan(dev, card):
-    """(a) S1 against its plain version, bit for bit (on the card and the
-    CPU) at SCAN_SIZES, two calls alike; every ancestor the resampling
-    search finds brackets its position in the scan; S1's device time at
-    100,000 beside its byte bound and torch.cumsum's; profile_resample
-    rerun: no index moves between two calls.  Returns ``(max_abs_err,
-    times, library_ms, profile_resample's result)``: the error is the
-    largest difference from the plain version on the card at any size."""
-    from slam_eslam_tpu_torch.core import filter as pf
+def scan_weights(n, signed=False):
+    """Resampling weights of ``n`` particles (a softmax of normal draws
+    seeded by ``n``); ``signed`` puts zeros of both signs in the first 15
+    elements of every tile of 4,096 and, above two tiles, makes the first
+    tile all ``-0.0``."""
+    g = torch.Generator().manual_seed(n)
+    w = torch.softmax(2.5 * torch.randn((n,), generator=g), 0)
+    if signed:
+        i = torch.arange(n)
+        w = torch.where(i % 4096 < 15,
+                        torch.where(i % 3 == 1, 0.0, -0.0), w)
+        if n > 2 * 4096:
+            w[:4096] = -0.0
+    return w
+
+
+def bitwise(a, b):
+    """Equal bit for bit (``-0.0`` is not ``+0.0``)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def launches_per_call(fn, calls=10):
+    """Kernel launches, memsets and copies one call of ``fn`` puts on its
+    stream: the runtime calls ``torch.profiler`` traces on the host over
+    ``calls`` calls (the host's records, which the tracer keeps), and
+    their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type != DeviceType.CUDA
+             and any(k in e.key for k in ("LaunchKernel", "Memset",
+                                          "Memcpy"))}
+    return sum(names.values()) / calls, names
+
+
+def prior_scan(path):
+    """``make(x, out)``: a launcher of an earlier source of the scan built
+    from ``path``, with the C entry ``ordered_scan_launch(x, y, buffer, n,
+    stream)``: the three-launch scan's buffer is its row totals above
+    PRIOR_SMALL elements, a one-launch scan's its zeroed state of
+    ``state_words(n)`` int64 words; one zeroed buffer of its own, as large
+    as either, serves both."""
+    import ctypes
+
+    from slam_eslam_tpu_torch.ops import _build
     from slam_eslam_tpu_torch.ops import ordered_scan as osc
-    from slam_eslam_tpu_torch.tools import profile_resample
+
+    lib = _build.library_path(f"ordered_scan_prior_{Path(path).stem}",
+                              [path])
+    if not lib.exists():
+        _build.build_library(lib, _build.nvcc_path(), _build.NVCC_FLAGS,
+                             path)
+    fn = ctypes.CDLL(str(lib)).ordered_scan_launch
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ptr]
+    fn.restype = ctypes.c_int
+
+    def make(x, out):
+        n, m, rows = x.shape[0], x.shape[0], 0
+        while m > PRIOR_SMALL:
+            m = -(-m // 16)
+            rows += m
+        buffer = torch.zeros(max(-(-rows // 2), osc.state_words(n), 1),
+                             dtype=torch.int64, device=x.device)
+
+        def launch():
+            err = fn(x.data_ptr(), out.data_ptr(), buffer.data_ptr(), n,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"prior scan {path}: CUDA error {err}")
+        return launch
+    return make
+
+
+def scan_exactness(dev):
+    """S1 against its plain version bit for bit, on the card and the CPU,
+    two calls alike, at SCAN_SIZES on weights and at SCAN_EDGES (and the
+    timed sizes) with signed zeros; a graph of one launch replayed
+    SCAN_REPLAYS times, each replay the eager result; SCAN_TURN_SIZES in
+    turn, larger and smaller launches sharing the state; SCAN_REPEATS calls
+    back to back all alike (a ticket or tag left behind would show).
+    Returns the largest difference from the plain version on the card."""
+    from slam_eslam_tpu_torch.ops import ordered_scan as osc
 
     max_err = 0.0
-    for n in SCAN_SIZES:
-        g = torch.Generator().manual_seed(n)
-        w = torch.softmax(2.5 * torch.randn((n,), generator=g), 0)
+    cases = ([(n, False) for n in SCAN_SIZES]
+             + [(n, True) for n in SCAN_EDGES + SCAN_TIMED])
+    for n, signed in cases:
+        w = scan_weights(n, signed)
         wd = w.to(dev)
         a, b = osc.ordered_scan(wd), osc.ordered_scan(wd)
         plain = osc.ordered_scan_reference(wd)
         err = float((a - plain).abs().max())
         max_err = max(max_err, err)
-        same = torch.equal(a, b)
-        plain_dev = torch.equal(a, plain)
-        plain_cpu = torch.equal(a.cpu(), osc.ordered_scan_reference(w))
-        print(f"ordered_scan[{n}]: two calls equal {same}, plain version on "
-              f"the card equal {plain_dev} (max_abs_err {err:.3e}), on the "
-              f"CPU equal {plain_cpu}")
+        same, plain_dev = bitwise(a, b), bitwise(a, plain)
+        plain_cpu = bitwise(a.cpu(), osc.ordered_scan_reference(w))
+        print(f"ordered_scan[{n}{' signed zeros' if signed else ''}]: two "
+              f"calls equal {same}, plain version on the card equal "
+              f"{plain_dev} (max_abs_err {err:.3e}), on the CPU equal "
+              f"{plain_cpu}")
         if not (same and plain_dev and plain_cpu):
             raise RuntimeError(f"ordered_scan[{n}] is not bit for bit its "
                                f"plain version or not repeatable")
+    for n in SCAN_REPLAY_SIZES:
+        wd = scan_weights(n).to(dev)
+        want = osc.ordered_scan(wd)
+        out, state = torch.empty_like(wd), osc.device_state(dev, n)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            osc.launch(wd, out, state)
+        equal = []
+        for _ in range(SCAN_REPLAYS):
+            out.zero_()
+            graph.replay()
+            equal.append(bitwise(out, want))
+        print(f"ordered_scan[{n}]: graph replays equal to the eager call "
+              f"{equal}")
+        check(all(equal), f"ordered_scan[{n}]", f"graph replays {equal}")
+        del graph
+    # larger and smaller launches in turn share the device's state
+    turns = {n: scan_weights(n, True) for n in SCAN_TURN_SIZES}
+    turn_want = {n: osc.ordered_scan_reference(w) for n, w in turns.items()}
+    turns = {n: w.to(dev) for n, w in turns.items()}
+    equal = all(bitwise(osc.ordered_scan(turns[n]).cpu(), turn_want[n])
+                for _ in range(3) for n in SCAN_TURN_SIZES)
+    print(f"ordered_scan: sizes {SCAN_TURN_SIZES} in turn, three rounds, "
+          f"each bit for bit its plain version on the CPU: {equal}")
+    check(equal, "ordered_scan", "sizes in turn")
+    for n in SCAN_REPEAT_SIZES:
+        wd = scan_weights(n).to(dev)
+        want = osc.ordered_scan(wd).view(torch.int32)
+        differ = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(SCAN_REPEATS):
+            differ += (osc.ordered_scan(wd).view(torch.int32) != want).sum()
+        print(f"ordered_scan[{n}]: {SCAN_REPEATS} calls back to back, "
+              f"{int(differ)} elements differ from the first")
+        check(int(differ) == 0, f"ordered_scan[{n}]",
+              f"{int(differ)} elements differ over {SCAN_REPEATS} calls")
+    return max_err
+
+
+def scan_times(dev, card):
+    """S1's times: at 100,000 every time of a kernel row
+    (``kernel_times``: ``ms`` from a graph of raw launches, the plain
+    version from a graph too), ``torch.cumsum`` in a graph and by the
+    profiler, an empty kernel as one graph node (``launch_floor_ms``) and
+    the launches a call puts on the stream; at 2,100,000 S1 and
+    ``torch.cumsum`` in graphs; with PRIOR_SCAN, that earlier source in
+    turns with S1 (old, new, new, old) at both sizes, equal to it bit for
+    bit."""
+    import ctypes
+
+    from slam_eslam_tpu_torch.ops import _build
+    from slam_eslam_tpu_torch.ops import ordered_scan as osc
+    from slam_eslam_tpu_torch.utils import profiling
+
+    empty = _build.load("ordered_scan").ordered_scan_floor_launch
+    empty.argtypes = [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    floor = lambda: empty(torch.cuda.current_stream().cuda_stream)
+    check(floor() == 0, "launch floor", "the empty kernel did not launch")
+    floor_ms = profiling.device_time(floor) * 1e3
+    prior = prior_scan(PRIOR_SCAN) if PRIOR_SCAN else None
+    times = {}
+    for n in SCAN_TIMED:
+        w = scan_weights(n).to(dev)
+        out, state = torch.empty_like(w), osc.device_state(dev, n)
+        launch = lambda: osc.launch(w, out, state)
+        cumsum = lambda: torch.cumsum(w, 0)
+        tag = "" if n == N_BENCH else f"_{n // 100_000 * 100}k"
+        if n == N_BENCH:
+            row = kernel_times(
+                f"ordered_scan[{n}]", lambda: osc.ordered_scan(w), launch,
+                "scan_tiles", lambda: osc.ordered_scan_reference(w),
+                bound(8 * n))
+        else:
+            ms = profiling.device_time(launch) * 1e3
+            row = dict(ms=ms, bound_ms=bound(8 * n)[0])
+        lib_ms, lib_clock, lib_prof = device_ms_of(cumsum)
+        per_call, names = launches_per_call(launch)
+        row.update(library_ms=lib_ms, library_clock=lib_clock,
+                   library_ms_profiler=lib_prof,
+                   kernel_launches_per_call=per_call)
+        if n == N_BENCH:
+            row.update(library_call_ms=cuda_ms(cumsum, 50),
+                       launch_floor_ms=floor_ms)
+        print(f"ordered_scan[{n}]: S1 {row['ms']:.5f} ms (graph), "
+              f"{per_call:g} launches a call ({names}); torch.cumsum "
+              f"{lib_ms:.5f} ms ({lib_clock}; profiler {ms_text(lib_prof)}); "
+              f"bound {row['bound_ms']:.5f} ms; an empty kernel "
+              f"{floor_ms:.5f} ms [{card}]")
+        check(per_call == 1, f"ordered_scan[{n}]",
+              f"{per_call} launches a call, not one")
+        if prior is not None:
+            old_out = torch.empty_like(w)
+            old = prior(w, old_out)
+            old()
+            launch()
+            check(bitwise(old_out, out), f"ordered_scan[{n}]",
+                  f"the prior scan {PRIOR_SCAN} gives other bits")
+            (old_ms, new_ms), runs = in_turns_device(old, launch)
+            old_calls, _ = launches_per_call(old)
+            row.update(prior_source=PRIOR_SCAN, prior_ms_in_turns=old_ms,
+                       ms_in_turns=new_ms,
+                       prior_launches_per_call=old_calls)
+            print(f"ordered_scan[{n}]: prior scan {PRIOR_SCAN} "
+                  f"{old_ms:.5f} ms ({old_calls:g} launches a call), S1 "
+                  f"{new_ms:.5f} ms in "
+                  f"turns (old, new, new, old: "
+                  f"{', '.join(f'{r:.5f}' for r in runs)}), equal bit for "
+                  f"bit [{card}]")
+        else:
+            row.update(prior_ms_in_turns=None,
+                       prior_note="not measured: no --prior-scan")
+        times.update({key + tag: value for key, value in row.items()})
+    return times
+
+
+def check_ordered_scan(dev, card):
+    """(a) S1: ``scan_exactness``; every ancestor the resampling search
+    finds brackets its position in the scan; ``scan_times``;
+    profile_resample rerun: no index moves between two calls.  Returns
+    ``(max_abs_err, times, library_ms, profile_resample's result)``: the
+    error is the largest difference from the plain version on the card
+    at any size."""
+    from slam_eslam_tpu_torch.core import filter as pf
+    from slam_eslam_tpu_torch.tools import profile_resample
+
+    max_err = scan_exactness(dev)
     w, pos = profile_resample.weights_and_positions(N_BENCH, dev)
     idx = pf.resample_from_positions(w, pos)
     mism, worst = profile_resample.check_search(
@@ -3797,23 +4101,13 @@ def check_ordered_scan(dev, card):
     print(f"ordered_scan: {N_BENCH} ancestors bracket their positions in "
           f"the scan; a host bisect stops elsewhere at {mism} (at most "
           f"{worst} apart)")
-    n = N_BENCH
-    out, scratch = torch.empty_like(w), torch.empty(
-        osc.scratch_size(n), dtype=torch.float32, device=dev)
-    times = kernel_times(
-        "ordered_scan[100k]", lambda: osc.ordered_scan(w),
-        lambda: osc.launch(w, out, scratch), None,
-        lambda: osc.ordered_scan_reference(w), bound(8 * n))
-    library_ms = device_ms_of(lambda: torch.cumsum(w, 0))
-    library_call = cuda_ms(lambda: torch.cumsum(w, 0), 50)
-    print(f"ordered_scan[100k]: torch.cumsum {library_ms:.5f} ms on the "
-          f"card (profiler), {library_call:.4f} ms a call; S1 "
-          f"{times['ms']:.5f} ms, bound {times['bound_ms']:.5f} ms [{card}]")
+    times = scan_times(dev, card)
     res, launches, _ = run_tool("profile_resample",
-                                ("--particles", str(n), "--iters", "50"))
+                                ("--particles", str(N_BENCH), "--iters",
+                                 "50"))
     check(res["differs"] == 0, "profile_resample",
           f"{res['differs']} indices differ between two calls")
-    return max_err, dict(times, library_call_ms=library_call), library_ms, res
+    return max_err, times, times.pop("library_ms"), res
 
 
 def one_rank_world(dev, card):
@@ -4094,7 +4388,12 @@ def main():
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the localisation, SLAM, application "
                          "and mapping paths into DIR")
+    ap.add_argument("--prior-scan", metavar="CU",
+                    help="an earlier source of the ordered scan (outside the "
+                         "tree, same C entry): time it in turns with S1")
     args = ap.parse_args()
+    global PRIOR_SCAN
+    PRIOR_SCAN = args.prior_scan
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU: "
                          "torch.cuda.is_available() is False")
@@ -4235,9 +4534,10 @@ def main():
           f"[{card}]")
     p13 = phase13(dev, card)
     w13 = p13["world"]
-    print(f"multi-rank: S1 {p13['s1']['ms']:.5f} ms at {N_BENCH} (bound "
-          f"{p13['s1']['bound_ms']:.5f} ms, torch.cumsum "
-          f"{p13['s1_library']:.5f} ms); one NCCL rank: localisation "
+    print(f"multi-rank: S1 {p13['s1']['ms']:.5f} ms at {N_BENCH} (one "
+          f"launch, bound {p13['s1']['bound_ms']:.5f} ms, torch.cumsum "
+          f"{p13['s1_library']:.5f} ms, both graphs); one NCCL rank: "
+          f"localisation "
           f"{w13['localize_s']:.3f} s and SLAM {w13['slam_s']:.3f} s bit for "
           f"bit unmeshed; dryrun_multichip({DRYRUN_RANKS}) over "
           f"{p13['dryrun'][0]['backend']} ({p13['dryrun'][0]['transport']}); "
@@ -4266,7 +4566,8 @@ def main():
         """A row's times at another storage type or shape, keys tagged."""
         return {f"{key}_{tag}": times[key]
                 for key in ("ms", "device_ms_profiler", "call_ms",
-                            "plain_ms", "bound_ms", "bound_ms_sectors",
+                            "plain_ms", "plain_clock", "plain_ms_profiler",
+                            "bound_ms", "bound_ms_sectors",
                             "share_sectors")}
 
     def pool_rows(name, f32, bf16, big, big_err, bf16_err):
@@ -4299,11 +4600,16 @@ def main():
               device_ms_profiler=f32c["profiler"]["whole"],
               call_ms=f32c["call"]["whole"],
               plain_ms=f32c["device"]["plain"],
+              plain_clock=f32c["clock"]["plain"],
+              plain_ms_profiler=f32c["profiler"]["plain"],
               plain_call_ms=f32c["call"]["plain"],
               bound_ms=f32c["bound_whole"][0],
               bound_by=f32c["bound_whole"][1]),
          f32c["device"]["library"],
          {"library_call_ms": f32c["call"]["library"],
+          "library_clock": f32c["clock"]["library"],
+          "library_ms_profiler": f32c["profiler"]["library"],
+          "plain_clock_cells": f32c["clock"]["plain_cells"],
           "ms_cells": f32c["device"]["cells"],
           "device_ms_profiler_cells": f32c["profiler"]["cells"],
           "call_ms_cells": f32c["call"]["cells"],
@@ -4331,7 +4637,8 @@ def main():
           "bound_ms_bf16": bf16c["bound_whole"][0]}),
         p4_row,
         # no TPU kernel: the port's repair of torch.cumsum, in the order of
-        # the JAX package's (XLA) cumsum of core/filter.py
+        # the JAX package's (XLA) cumsum of core/filter.py; one launch a
+        # call, timed against torch.cumsum on the same clock (graphs)
         ("ordered_scan", "slam_eslam_tpu/core/filter.py:85",
          res["scan_launches"], p13["err"], p13["s1"], p13["s1_library"],
          {"launches_slam_path": slam["launches"]["ordered_scan"],

@@ -62,6 +62,13 @@ def trace(path="slam_eslam_trace"):
 # idle seconds between a profiler session's start and its launches (see
 # ``profiler_kernel_time``)
 PROFILER_PAD_S = 0.05
+# profiler sessions ``profiler_kernel_time`` takes before it gives up
+PROFILER_SESSIONS = 3
+
+
+class ProfilerLostRecords(RuntimeError):
+    """``torch.profiler`` kept no device record in any session while the
+    host traced the launches: the tracer lost them, the kernel ran."""
 # launches before a capture: the build, the library load and the first
 # launch cannot be captured
 DEVICE_TIME_WARMUP = 3
@@ -146,10 +153,11 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
     launches made just after a session starts, so the launches wait
     ``PROFILER_PAD_S`` after the start, and now and then every record of
     a session while the host traced its launches.  Such an empty session
-    is said on stderr and traced again, at most three sessions in all.
-    Raises if the trace holds no kernel of the name, naming what it did
-    hold; says so on stderr if it holds fewer device records than the
-    host traced launches (then a reading with no name is of the kept
+    is said on stderr and traced again, at most ``PROFILER_SESSIONS`` in
+    all; raises ``ProfilerLostRecords`` if every one was empty.  Raises
+    ``RuntimeError`` if the trace holds no kernel of the name, naming what
+    it did hold; says so on stderr if it holds fewer device records than
+    the host traced launches (then a reading with no name is of the kept
     records alone)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -158,7 +166,7 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
         raise RuntimeError("profiler_kernel_time needs a CUDA device")
     launch()
     torch.cuda.synchronize()
-    for session in range(3):
+    for session in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_PAD_S)
@@ -185,6 +193,9 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
             total_us += getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0))
             count += e.count
+    if not seen and launched:
+        raise ProfilerLostRecords(f"torch.profiler kept {said} in "
+                                  f"{PROFILER_SESSIONS} sessions")
     if not count:
         raise RuntimeError(f"torch.profiler kept {said}: device events "
                            f"{seen}, host launch calls {launched}")

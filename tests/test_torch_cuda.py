@@ -9,8 +9,10 @@ under a global TF32 flag, no host sync in the dense and PCG solves, and
 a checkpoint resumed on the card.  The log runtime: a log read onto the
 card by ``frames_from_log`` equals the CPU read bit for bit, and
 ``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  The
-ordered scan S1 (``csrc/ordered_scan.cu``) equals its plain version bit
-for bit on the card and on the CPU, call after call.  K2, K5
+ordered scan S1 (``csrc/ordered_scan.cu``, one launch) equals its plain
+version bit for bit on the card and on the CPU, signed zeros included,
+call after call, 1,000 calls in a row and replay after replay of a CUDA
+graph.  K2, K5
 and K7 must match bit
 for bit; K3 bit for bit on cells one point hits and within rtol 1e-6
 elsewhere (the plain version sums with atomics on the card), on a
@@ -678,8 +680,9 @@ def test_select_cells_small_counts_and_views(dev, count, offset):
 
 
 def test_launches_capture_into_a_cuda_graph(dev):
-    """The raw launches of K1 and K5 allocate nothing and read nothing
-    back, so a CUDA graph captures them; a replay gives the eager result."""
+    """The raw launches of K1, K5, K2, K3 and S1 allocate nothing and read
+    nothing back, so a CUDA graph captures them; a replay gives the eager
+    result, and S1's every replay."""
     packed, q, act, mv, onehot = fold_case(4096, 1.0, 11, dev)
     seg = cf.segment_ids(onehot)
     ref = cf.contact_fold(packed, q, act, mv, seg=seg, correction=0.33)
@@ -716,6 +719,22 @@ def test_launches_capture_into_a_cuda_graph(dev):
     for a, b in zip(outs + chain_outs + tuple(work),
                     sel_ref + chain_ref + tuple(merged)):
         assert torch.equal(a, b)
+    # S1 at one tile and at many: each replay gives the eager bits again
+    for n in (4096, 100_000, 2_100_000):
+        w = scan_weights(n, signed=True).to(dev)
+        scan_ref = osc.ordered_scan(w)
+        scan_out = torch.zeros_like(w)
+        state = osc.device_state(dev, n)
+        scan_graph = torch.cuda.CUDAGraph()
+        before = osc.ordered_scan.launches
+        with torch.cuda.graph(scan_graph):
+            osc.launch(w, scan_out, state)
+        assert osc.ordered_scan.launches == before + 1
+        for _ in range(3):
+            scan_out.zero_()
+            scan_graph.replay()
+            torch.cuda.synchronize()
+            assert bitwise(scan_out, scan_ref)
 
 
 def test_device_time_reads_below_the_call_time(dev):
@@ -1151,20 +1170,93 @@ def test_chain_layers_on_a_bfloat16_pool(dev):
     assert rise < (2 << 20)
 
 
-@pytest.mark.parametrize("n", [1, 16, 17, 127, 129, 8192, 8193, 100_000,
-                               100_003, 2_100_000])
-def test_ordered_scan_matches_plain_bitwise(dev, n):
-    """S1 against its plain version (run on the card and on the CPU) bit
-    for bit, across the one-CTA size and every level of the recursion;
-    two calls on the same weights give the same bits."""
+def scan_weights(n, signed=False):
+    """Softmax weights seeded by ``n``; ``signed``: zeros of both signs in
+    the first 15 elements of every tile of 4,096 and, above two tiles, a
+    first tile of ``-0.0``."""
     g = torch.Generator().manual_seed(n)
     w = torch.softmax(2.5 * torch.randn((n,), generator=g), 0)
+    if signed:
+        i = torch.arange(n)
+        w = torch.where(i % osc.TILE < 15,
+                        torch.where(i % 3 == 1, 0.0, -0.0), w)
+        if n > 2 * osc.TILE:
+            w[:osc.TILE] = -0.0
+    return w
+
+
+def bitwise(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 127, 129, 256, 257, 4095, 4096,
+                               4097, 8192, 8193, 65_536, 65_537, 100_000,
+                               100_003, 140_000, 16 * 4096 * 17 + 3,
+                               2_100_000])
+def test_ordered_scan_matches_plain_bitwise(dev, n, signed):
+    """S1 against its plain version (run on the card and on the CPU) bit
+    for bit, signed zeros included, across the tile size, the levels of
+    the order and more than 16 tiles per level above the tile; two calls
+    on the same weights give the same bits; one kernel launch a call."""
+    w = scan_weights(n, signed)
     wd = w.to(dev)
+    before = osc.ordered_scan.launches
     got = osc.ordered_scan(wd)
+    assert osc.ordered_scan.launches == before + 1
     again = osc.ordered_scan(wd)
-    assert torch.equal(got, again)
-    assert torch.equal(got.cpu(), osc.ordered_scan_reference(w))
-    assert torch.equal(got, osc.ordered_scan_reference(wd))
+    assert bitwise(got, again)
+    assert bitwise(got.cpu(), osc.ordered_scan_reference(w))
+    assert bitwise(got, osc.ordered_scan_reference(wd))
+
+
+def test_ordered_scan_of_an_unaligned_view(dev):
+    """A view that starts one float into its storage (no 16-byte row
+    loads) scans like a fresh tensor."""
+    w = scan_weights(100_001)
+    got = osc.ordered_scan(w.to(dev)[1:])
+    assert bitwise(got.cpu(), osc.ordered_scan_reference(w[1:].clone()))
+
+
+@pytest.mark.parametrize("n", [4097, 100_000])
+def test_ordered_scan_repeats_back_to_back(dev, n):
+    """1,000 calls in a row give the same bits: every launch leaves the
+    ticket reset and tags its records with its own generation."""
+    wd = scan_weights(n).to(dev)
+    want = osc.ordered_scan(wd).view(torch.int32)
+    differ = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(1000):
+        differ += (osc.ordered_scan(wd).view(torch.int32) != want).sum()
+    assert int(differ) == 0
+
+
+def test_ordered_scan_sizes_in_turn(dev):
+    """Larger and smaller launches in turn share the state: a launch that
+    leaves records of a larger one unused clears them, so no later launch
+    takes one for its own."""
+    sizes = (2_100_000, 100_000, 8193, 4096, 100_000, 2_100_000, 5000)
+    weights = {n: scan_weights(n, signed=True) for n in set(sizes)}
+    want = {n: osc.ordered_scan_reference(w) for n, w in weights.items()}
+    on_card = {n: w.to(dev) for n, w in weights.items()}
+    for _ in range(3):
+        for n in sizes:
+            assert bitwise(osc.ordered_scan(on_card[n]).cpu(), want[n])
+
+
+def test_ordered_scan_state_serves_one_stream(dev):
+    """The device's state serves one stream: an eager call from another
+    raises, and a call too large for the state inside a capture raises."""
+    wd = scan_weights(5000).to(dev)
+    osc.ordered_scan(wd)
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        with pytest.raises(RuntimeError, match="one stream"):
+            osc.ordered_scan(wd)
+    big = scan_weights(osc.TILE * 4096 + 1).to(dev)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="before the capture"):
+        with torch.cuda.graph(graph):
+            osc.ordered_scan(big)
+    torch.cuda.synchronize()
 
 
 def test_ordered_scan_resample_repeats(dev):

@@ -143,6 +143,57 @@ def test_device_timers_need_the_card():
         tprof.device_time_cold(lambda: None, fill_bytes=1 << 20)
 
 
+class _HostOnlyTrace:
+    """A ``torch.profiler.profile`` stand-in whose trace holds the host's
+    launch calls and, as ``kept`` says, the kernel's device records."""
+
+    sessions = 0
+    kept = False
+
+    def __init__(self, activities):
+        type(self).sessions += 1
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def key_averages(self):
+        from torch.autograd import DeviceType
+
+        event = lambda key, device: types.SimpleNamespace(
+            key=key, count=4, device_type=device, self_device_time_total=8.0)
+        rows = [event("cudaLaunchKernel", DeviceType.CPU)]
+        if type(self).kept:
+            rows.append(event("some_kernel", DeviceType.CUDA))
+        return rows
+
+
+@pytest.mark.parametrize("kept", [False, True])
+def test_profiler_lost_records(monkeypatch, kept):
+    """Sessions whose traces keep the host's launch calls and no device
+    record are traced again, ``PROFILER_SESSIONS`` in all, and then raise
+    ``ProfilerLostRecords`` (a cross-check the caller may go without);
+    a session that kept its records reads on the first try (8 us over 4
+    launches)."""
+    import torch.profiler
+
+    trace = type("Trace", (_HostOnlyTrace,), dict(sessions=0, kept=kept))
+    monkeypatch.setattr(torch.profiler, "profile", trace)
+    monkeypatch.setattr(tprof, "PROFILER_PAD_S", 0.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    if kept:
+        got = tprof.profiler_kernel_time(lambda: None, "some_kernel", 4)
+        assert got == pytest.approx(2e-6, rel=1e-12)
+        assert trace.sessions == 1
+    else:
+        with pytest.raises(tprof.ProfilerLostRecords, match="0 device"):
+            tprof.profiler_kernel_time(lambda: None, "some_kernel", 4)
+        assert trace.sessions == tprof.PROFILER_SESSIONS
+
+
 def test_instruction_bound():
     # 800,000 queries of 300 instructions at 67 TFLOP/s, a fused
     # multiply-add counted as two: 33.5e12 instructions a second
