@@ -19,9 +19,16 @@ Phases (any failure raises and exits non-zero):
    on the card (see below), back to back and with a cold L2;
 4. drive the localisation path: the benchmark trajectory (100k
    particles, 20 m x 20 m map at 0.05 m, contacts compacted to 8, 150
-   steps) through ``filter.step.make_scan_runner`` on the card; count K1
-   launches, check the centroids, and hold the first 20 steps against
-   the CPU port fed the same random draws;
+   steps) through ``filter.step.make_scan_runner`` on the card twice from
+   one state and one generator seed, as the eager loop (``graph=False``)
+   and as CUDA graphs (``graph=True``: one step captured, replayed 150
+   times), each with host syncs forbidden; count K1 and S1 launches in
+   each (the graphed run's credited by its replays), print each run's
+   ms per step and the host's kernel-launch and graph-launch calls per
+   step (``torch.profiler``'s host records of 10 steps), hold the graphed
+   run's centroids and every final-state tensor bit for bit to the eager
+   run's, check the centroids, and hold the first 20 steps against the
+   CPU port fed the same random draws;
 5. check the chain lookup (K2) and the block merge (K3) against their
    plain versions at the SLAM benchmark shapes (N = 4,096 particles,
    C = 8 contacts, chains of 3, P = 64 scan points, a 16,384-block pool
@@ -31,10 +38,16 @@ Phases (any failure raises and exits non-zero):
    order as the kernel's do; and time both;
 6. drive the SLAM path: 4,096 particles with per-particle maps over 200
    frames (20 laser scans) through ``filter.streaming.
-   make_slam_scan_runner`` on the card with host syncs forbidden; count
-   K2 and K3 launches against the measurement and mapping gates, check
-   that centroids, weights and the pool are finite, and hold the first
-   60 frames against the CPU port fed the same random draws;
+   make_slam_scan_runner`` on the card, as the eager loop and as CUDA
+   graphs (one per gate combination met, captured in the warm-up), from
+   one state and one generator seed, each with host syncs forbidden;
+   count K2, K3 and S1 launches against the measurement and mapping gates
+   in each, print each run's ms per frame and host launch calls per frame
+   (50 frames traced), hold the graphed run bit for bit to the eager one
+   (centroids, best poses, the filter, every pool field with ``meta``, the
+   chains, ``alloc_failed``), check that centroids, weights and the pool
+   are finite, and hold the first 60 frames against the CPU port fed the
+   same random draws;
 7. check the unfolded lookup's select (K5) against its plain version,
    bit for bit, at 800,000 queries (100k particles x 8 contacts) on the
    400x400x4 grid, at a ragged count, on a spread cloud with out-of-grid
@@ -63,7 +76,10 @@ Phases (any failure raises and exits non-zero):
    (100k particles, 150 steps; K1 launches, the fold and merge rooflines
    with K7), filter mode with ``--fold off`` (K5, no K1), SLAM mode at
    4,096 particles on a bfloat16 pool (200 frames) and SLAM mode at
-   100,000 particles on a bfloat16 pool of 400,000 blocks (50 frames);
+   100,000 particles on a bfloat16 pool of 400,000 blocks (50 frames),
+   every mode on its graphed runner, each SLAM run's last (replayed) run
+   held bit for bit to one timed run of the eager runner on the same
+   frames;
    and hold the first 60 SLAM frames on a bfloat16 pool against the CPU
    port and against the float32 pool, fed the same random draws;
 9. check the merge on a packed block image (P4, the second entry point of
@@ -204,6 +220,7 @@ N_BENCH = 100_000
 N_RAGGED = 100_003
 STEPS = 150
 CHECK_STEPS = 20
+LAUNCH_STEPS = 10        # steps traced for the host's launch calls
 CONTACT_CAP = 8
 GRID = dict(nx=400, ny=400, resolution=0.05, origin=(-10.0, -10.0))
 KERNEL_RTOL = 1e-4
@@ -220,6 +237,7 @@ SLAM_RAYS = 64
 SLAM_STEPS = 20            # scans, 10 contact frames each
 SLAM_CHECK_FRAMES = 60
 SLAM_PROFILE_FRAMES = 50
+SLAM_LAUNCH_FRAMES = 50    # frames traced for the host's launch calls
 # K3 against its plain version: bitwise on cells one point hits; the
 # plain version sums multi-point cells with atomics on the card, so
 # those agree to float32 rounding: rtol 1e-6 (mean, stdev), atol 1e-6 m
@@ -302,6 +320,71 @@ def nvidia_smi():
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def runtime_calls(fn, trace=None):
+    """The CUDA runtime calls ``fn()`` makes on the host, by name:
+    ``torch.profiler``'s host records (the tracer keeps them) of one call
+    ending in a device sync.  ``trace`` (a dict) also receives the
+    session's wall seconds and the device time of the kernels it traced
+    (ms; a profiler that lost device records reads low)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    if trace is not None:
+        trace.update(wall=wall, device_ms=sum(
+            e.self_device_time_total for e in events
+            if e.device_type == DeviceType.CUDA) / 1e3)
+    return {e.key: e.count for e in events
+            if e.device_type != DeviceType.CUDA and e.key.startswith("cu")}
+
+
+def host_launches(fn, steps):
+    """Per step of ``fn()`` (a run of ``steps`` steps): the host's
+    kernel-launch calls, graph-launch calls and copies/memsets, and the
+    device's busy share of the traced run (kernel time over wall time)."""
+    trace = {}
+    calls = runtime_calls(fn, trace)
+    per = lambda *keys: sum(v for k, v in calls.items()
+                            if any(key in k for key in keys)) / steps
+    return dict(kernel=per("LaunchKernel"), graph=per("GraphLaunch"),
+                copy=per("Memcpy", "Memset"),
+                device_ms=trace["device_ms"] / steps,
+                busy=trace["device_ms"] / 1e3 / trace["wall"])
+
+
+def calls_text(calls, unit):
+    return (f"per {unit}: host {calls['kernel']:.2f} kernel-launch, "
+            f"{calls['graph']:.2f} graph-launch and {calls['copy']:.2f} copy "
+            f"calls, device {calls['device_ms']:.4f} ms of kernels (busy "
+            f"{calls['busy']:.1%} of the traced run)")
+
+
+def equal_bits(got, ref):
+    """Every tensor of ``got`` equal to ``ref``'s bit for bit (NaNs by
+    their bits); returns ``(all equal, tensors compared)``."""
+    from slam_eslam_tpu_torch.utils import graphs
+
+    a, b = graphs.leaves(got), graphs.leaves(ref)
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(
+            x.view(torch.uint8) if x.dim() else x, y.view(torch.uint8)
+            if y.dim() else y)) for x, y in zip(a, b))
+    return same, len(a)
+
+
+def device_index(value, dev):
+    """An update index as K3's raw launch reads it: a 0-d int32 tensor on
+    the card (``ops.block_merge.device_update_idx``)."""
+    return torch.full((), value, dtype=torch.int32, device=dev)
 
 
 def cuda_ms(fn, iters):
@@ -692,38 +775,69 @@ def main_path(dev, profile):
     from slam_eslam_tpu_torch.utils import tree
 
     cfg, grid, css, qs, truth, particles = bench_setup(N_BENCH, STEPS)
-    run = steplib.make_scan_runner(cfg, make_lookup(cfg, tree.to(grid, dev)))
+    lookup = make_lookup(cfg, tree.to(grid, dev))
     css_d, qs_d = tree.to(css, dev), qs.to(dev)
-
-    run(fresh_state(cfg, particles, dev), css_d, qs_d)     # warm-up
-    torch.cuda.synchronize()
-    state0 = fresh_state(cfg, particles, dev)
-    torch.cuda.synchronize()
-
-    ops.reset_launch_counts()
-    # any host sync inside the step raises here
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    final, cents = run(state0, css_d, qs_d)
-    torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    launches, scan_launches = counts["contact_fold"], counts["ordered_scan"]
-
+    window = (tree.index(css_d, slice(0, LAUNCH_STEPS)), qs_d[:LAUNCH_STEPS])
     # a contact fold (K1) and an ordered scan (S1) in every step
-    if counts != dict(dict.fromkeys(WRAPPERS, 0), contact_fold=STEPS,
-                      ordered_scan=STEPS):
-        raise RuntimeError(f"main path: launches {counts} in {STEPS} steps")
+    want = dict(dict.fromkeys(WRAPPERS, 0), contact_fold=STEPS,
+                ordered_scan=STEPS)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        run = steplib.make_scan_runner(cfg, lookup, graph=mode == "graphed")
+        # the warm-up; the graphed runner captures its step here
+        run(fresh_state(cfg, particles, dev), css_d, qs_d)
+        torch.cuda.synchronize()
+        state0 = fresh_state(cfg, particles, dev)
+        torch.cuda.synchronize()
+
+        ops.reset_launch_counts()
+        # any host sync inside the step raises here
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            final, cents = run(state0, css_d, qs_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if counts != want:
+            raise RuntimeError(f"main path[{mode}]: launches {counts} in "
+                               f"{STEPS} steps")
+        if mode == "graphed" and run.graphs.counts() != dict(
+                eager=1, captured=1, replayed=2 * STEPS - 1):
+            raise RuntimeError(f"main path[graphed]: steps "
+                               f"{run.graphs.counts()}: the timed run did "
+                               f"not only replay")
+        start = fresh_state(cfg, particles, dev)
+        calls = host_launches(lambda: run(start, *window), LAUNCH_STEPS)
+        print(f"main path[{mode}]: {STEPS} steps x {N_BENCH} particles in "
+              f"{elapsed:.4f} s = {elapsed / STEPS * 1e3:.4f} ms/step, "
+              f"contact_fold launches {counts['contact_fold']}, "
+              f"ordered_scan launches {counts['ordered_scan']}; "
+              f"{calls_text(calls, 'step')}")
+        runs[mode] = dict(run=run, final=final, cents=cents,
+                          gen=state0.generator, elapsed=elapsed,
+                          counts=counts, calls=calls)
+    eager, graphed = runs["eager"], runs["graphed"]
+    same, n_fields = equal_bits((graphed["cents"], graphed["final"]),
+                                (eager["cents"], eager["final"]))
+    same_gen = torch.equal(graphed["gen"].get_state(), eager["gen"].get_state())
+    print(f"main path: graphed vs eager over {STEPS} steps from one state "
+          f"and seed: centroids and {n_fields - 1} final-state tensors equal "
+          f"bit for bit: {same}; generator states equal: {same_gen}")
+    if not (same and same_gen):
+        raise RuntimeError("main path: the graphed run differs from the "
+                           "eager run")
+    run, cents, final = eager["run"], eager["cents"], eager["final"]
+    launches = eager["counts"]["contact_fold"]
+    scan_launches = eager["counts"]["ordered_scan"]
     if cents.shape != (STEPS, 3) or not torch.isfinite(cents).all():
         raise RuntimeError("main path: non-finite or misshaped centroids")
     if not torch.isfinite(final.particles.weight).all():
         raise RuntimeError("main path: non-finite particle weights")
     err = np.linalg.norm(cents[:, :2].cpu().numpy() - truth, axis=1)
     final10 = float(err[-10:].mean())
-    print(f"main path: {STEPS} steps x {N_BENCH} particles in "
-          f"{elapsed:.4f} s, contact_fold launches {launches}, ordered_scan "
-          f"launches {scan_launches}")
 
     # the first CHECK_STEPS steps against the CPU port on the same draws
     gen = torch.Generator().manual_seed(1)
@@ -745,8 +859,11 @@ def main_path(dev, profile):
 
     if profile:
         profile_steps(run, cfg, particles, css_d, qs_d, dev, Path(profile))
-    return dict(elapsed=elapsed, launches=launches,
-                scan_launches=scan_launches, final10=final10, dev_err=dev_err)
+    return dict(elapsed=eager["elapsed"], elapsed_graph=graphed["elapsed"],
+                launches=launches, scan_launches=scan_launches,
+                launches_graphed=graphed["counts"], calls=eager["calls"],
+                calls_graph=graphed["calls"], final10=final10,
+                dev_err=dev_err)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -932,11 +1049,13 @@ def check_block_merge(dev, pool, cfg):
               f"max_abs_err={max_err:.3e}")
         if name == "bench":
             traffic = merge_traffic(pool, blk, lx, ly)
+            uidx = device_index(7, dev)
             timing = kernel_times(
                 "block_merge[bench]",
                 lambda: bm.block_merge(*kern, None, blk, lx, ly, w, wz, 7,
                                        **kw),
-                lambda: bm.launch(*kern, None, blk, lx, ly, w, wz, 7, **kw),
+                lambda: bm.launch(*kern, None, blk, lx, ly, w, wz, uidx,
+                                  **kw),
                 "block_merge_kernel",
                 lambda: bm.block_merge_reference(*plain, None, blk, lx, ly,
                                                  w, wz, 7, **kw),
@@ -996,8 +1115,10 @@ def check_merge_points(dev, pool, cfg):
         if not written:
             raise RuntimeError(f"{label}: nothing written")
         traffic = merge_traffic(pool, blk, lx, ly)
+        uidx = device_index(7, dev)
         ms = profiling.device_time(
-            lambda: bm.launch(*fields, None, blk, lx, ly, w, wz, 7, **kw)) * 1e3
+            lambda: bm.launch(*fields, None, blk, lx, ly, w, wz, uidx,
+                              **kw)) * 1e3
         b_ms = bound(traffic["bytes"], traffic["flops"])[0]
         print(f"{label} N={blk.shape[0]} {pool.mean.dtype}: {written} slots "
               f"written, meta, mean and height equal bit for bit to the plain "
@@ -1124,6 +1245,36 @@ def check_slam_state(carry, aux, n_frames, label):
     return patches, int(carry.alloc_failed)
 
 
+def slam_gates_want(aux, cfg, runs=1):
+    """K2, K3 and S1 launches the gates of ``aux`` call for, in ``runs``
+    runs: one K2 and one S1 per measurement update (and one K2 per mapping
+    frame with the scan match), one K3 per mapping frame."""
+    n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
+    return dict(dict.fromkeys(WRAPPERS, 0),
+                chain_lookup=runs * (n_meas + (
+                    n_map if cfg.use_visual_update else 0)),
+                block_merge=runs * n_map, ordered_scan=runs * n_meas)
+
+
+def slam_equal(got, ref):
+    """Two SLAM runs ``(carry, aux)`` bit for bit: gates, centroids, best
+    poses, the filter, every pool field (``meta`` with its update
+    indices), the chains, ``alloc_failed``, the host fields and the
+    generator.  Returns ``(equal, tensors compared)``."""
+    (gc, ga), (rc, ra) = got, ref
+    same, n = equal_bits(
+        (ga["centroid"], ga["best_pose"], gc.filter, gc.pool,
+         gc.alloc_failed),
+        (ra["centroid"], ra["best_pose"], rc.filter, rc.pool,
+         rc.alloc_failed))
+    same &= all((ga[k] == ra[k]).all() for k in ("updated", "mapped"))
+    same &= (gc.update_idx, gc.steps) == (rc.update_idx, rc.steps)
+    gens = gc.filter.generator, rc.filter.generator
+    same &= None in gens or torch.equal(gens[0].get_state(),
+                                        gens[1].get_state())
+    return bool(same), n
+
+
 def slam_path(dev, profile):
     from slam_eslam_tpu_torch import bench, ops
     from slam_eslam_tpu_torch.filter import streaming
@@ -1135,39 +1286,80 @@ def slam_path(dev, profile):
     frames_d = tree.to(frames, dev)
     odos = streaming.precompute_odometry(20, tree.to(full, dev), qs.to(dev),
                                          cfg=cfg)
-    run = bench.make_slam_runner(cfg)
-    warm = slice(0, 30)
-    run(slam_carry(cfg, z0, dev), frames_d.at(warm), tree.index(odos, warm))
-    carry0 = slam_carry(cfg, z0, dev)
-    torch.cuda.synchronize()
+    window = slice(0, SLAM_LAUNCH_FRAMES)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        run = bench.make_slam_runner(cfg, graph=mode == "graphed")
+        if mode == "eager":
+            warm = slice(0, 30)
+            run(slam_carry(cfg, z0, dev), frames_d.at(warm),
+                tree.index(odos, warm))
+        else:
+            # every gate combination met twice: captured before the timed run
+            for _ in range(2):
+                run(slam_carry(cfg, z0, dev), frames_d, odos)
+                if run.settled():
+                    break
+        carry0 = slam_carry(cfg, z0, dev)
+        torch.cuda.synchronize()
 
-    ops.reset_launch_counts()
-    # any host sync inside a frame raises here
-    torch.cuda.set_sync_debug_mode("error")
-    t0 = time.perf_counter()
-    try:
-        carry, aux = run(carry0, frames_d, odos)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    del carry0
+        ops.reset_launch_counts()
+        before = run.counts() if mode == "graphed" else None
+        # any host sync inside a frame raises here
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            carry, aux = run(carry0, frames_d, odos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        del carry0
 
-    n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
-    # one ordered scan (S1) per measurement update's resampling
-    want = dict(dict.fromkeys(WRAPPERS, 0),
-                chain_lookup=n_meas + (n_map if cfg.use_visual_update else 0),
-                block_merge=n_map, ordered_scan=n_meas)
-    if launches != want or not n_meas or not n_map:
-        raise RuntimeError(f"SLAM path: launches {launches}, gates want "
-                           f"{want}")
-    patches, failed = check_slam_state(carry, aux, n_frames, "SLAM path")
-    print(f"SLAM path: {n_frames} frames x {SLAM_N} particles in "
-          f"{elapsed:.4f} s = {n_frames / elapsed:.2f} frames/s; "
-          f"{n_meas} measurement and {n_map} mapping frames; launches "
-          f"{launches}; patches {patches}, alloc_failed {failed}")
-    del carry
+        n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
+        want = slam_gates_want(aux, cfg)
+        if launches != want or not n_meas or not n_map:
+            raise RuntimeError(f"SLAM path[{mode}]: launches {launches}, "
+                               f"gates want {want}")
+        if before is not None and (
+                run.counts()["eager"], run.counts()["captured"]) != (
+                before["eager"], before["captured"]):
+            raise RuntimeError(f"SLAM path[graphed]: frames {run.counts()}: "
+                               f"the timed run did not only replay")
+        patches, failed = check_slam_state(carry, aux, n_frames,
+                                           f"SLAM path[{mode}]")
+        runs[mode] = dict(run=run, out=(carry, aux), elapsed=elapsed,
+                          launches=launches, patches=patches, failed=failed,
+                          n_meas=n_meas, n_map=n_map)
+        del carry
+    eager, graphed = runs["eager"], runs["graphed"]
+    same, n_tensors = slam_equal(graphed["out"], eager["out"])
+    del graphed["out"], eager["out"]
+    for mode, r in runs.items():
+        # the graphed runner's pool is its own: traced after the comparison
+        start = slam_carry(cfg, z0, dev)
+        r["calls"] = host_launches(
+            lambda: r["run"](start, frames_d.at(window),
+                             tree.index(odos, window)), SLAM_LAUNCH_FRAMES)
+        del start
+        print(f"SLAM path[{mode}]: {n_frames} frames x {SLAM_N} particles "
+              f"in {r['elapsed']:.4f} s = {n_frames / r['elapsed']:.2f} "
+              f"frames/s, {r['elapsed'] / n_frames * 1e3:.4f} ms/frame; "
+              f"{r['n_meas']} measurement and {r['n_map']} mapping frames; "
+              f"launches {r['launches']}; patches {r['patches']}, "
+              f"alloc_failed {r['failed']}; "
+              f"{calls_text(r['calls'], 'frame')}"
+              + (f"; frames {r['run'].counts()}" if mode == "graphed"
+                 else ""))
+    print(f"SLAM path: graphed vs eager over {n_frames} frames from one "
+          f"state and seed: gates, centroids, best poses and {n_tensors - 2} "
+          f"filter, pool (meta and chains included) and alloc_failed tensors "
+          f"equal bit for bit: {same}")
+    if not same:
+        raise RuntimeError("SLAM path: the graphed run differs from the "
+                           "eager run")
+    run = eager["run"]
 
     # the first frames against the CPU port on the same draws
     dev_err, _ = slam_compare(run, cfg, z0, frames, full, qs, dev,
@@ -1175,9 +1367,13 @@ def slam_path(dev, profile):
 
     if profile:
         profile_slam(run, cfg, z0, frames_d, odos, dev, Path(profile))
-    return dict(elapsed=elapsed, frames=n_frames, launches=launches,
-                patches=patches, failed=failed, dev_err=dev_err,
-                n_meas=n_meas, n_map=n_map)
+    return dict(elapsed=eager["elapsed"], elapsed_graph=graphed["elapsed"],
+                frames=n_frames, launches=eager["launches"],
+                launches_graphed=graphed["launches"],
+                patches=eager["patches"], failed=eager["failed"],
+                dev_err=dev_err, n_meas=eager["n_meas"],
+                n_map=eager["n_map"], calls=eager["calls"],
+                calls_graph=graphed["calls"])
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1691,8 +1887,9 @@ def check_block_copy(dev, cfg):
         # profiler's reading of each kernel by its name
         launches = {mode: (lambda mode=mode: bc.launch(
             fields, blk, points, fields, mode=mode, k=k)) for mode in bc.MODES}
-        launches["merge"] = lambda: bm.launch(*fields, None, blk, *points, 3,
-                                              **kw)
+        uidx = device_index(3, dev)
+        launches["merge"] = lambda: bm.launch(*fields, None, blk, *points,
+                                              uidx, **kw)
         dev_ms = {name: profiling.device_time(f, COPY_GRAPH_REPS) * 1e3
                   for name, f in launches.items()}
         prof_ms = {name: profiler_ms(
@@ -1885,10 +2082,12 @@ def check_big_kernels(dev, cfg):
           f"inside, max_abs_err={k3_err:.3e}; {far_written} slots written "
           f"past 2^31 elements")
     traffic = merge_traffic(pool, blk, lx, ly)
+    uidx = device_index(7, dev)
     k3 = kernel_times(
         "block_merge[100k]",
         lambda: bm.block_merge(*kern, None, *ops, 7, **kw),
-        lambda: bm.launch(*kern, None, *ops, 7, **kw), "block_merge_kernel",
+        lambda: bm.launch(*kern, None, *ops, uidx, **kw),
+        "block_merge_kernel",
         lambda: bm.block_merge_reference(*plain, None, *ops, 7, **kw),
         bound(traffic["bytes"], traffic["flops"]),
         n_call=20, n_plain=3, reps=BIG_GRAPH_REPS, sectors=traffic["sectors"])
@@ -1938,6 +2137,10 @@ def bench_filter_runs(card):
     repeats, roofline_iters = 3, (1 + profiling.DEVICE_TIME_WARMUP
                                   + profiling.DEVICE_TIME_REPS)
     result, detail, launches, secs = run_bench([], "filter")
+    expect(detail["warmups"] == 1 and detail["graphs"] == dict(
+        eager=1, captured=1, replayed=STEPS * (1 + repeats) - 1), "filter",
+        f"warm-up runs {detail['warmups']}, steps {detail['graphs']}: the "
+        f"timed runs did not only replay")
     runs = STEPS * (1 + repeats)
     for key in ("merge_dma_floor_fraction", "merge_us_per_block",
                 "merge_unsorted_twin_us_per_block", "fold_kernel_us", "fold_roofline_fraction", "copy_gbps",
@@ -1983,7 +2186,7 @@ def bench_filter_runs(card):
           f"whole-block copy "
           f"{detail['merge']['whole_us_per_block'] * 1e3:.2f} ns/block = "
           f"{detail['merge']['copy_gbps']:.1f} GB/s; launches {launches}; "
-          f"{secs:.1f} s [{card}]")
+          f"graphed steps {detail['graphs']}; {secs:.1f} s [{card}]")
     out = dict(result=result, launches=launches, merge=detail["merge"],
                fold=detail["fold"])
 
@@ -2010,8 +2213,13 @@ def bench_filter_runs(card):
 
 def bench_slam_run(card, n, steps, extra, label):
     """SLAM mode on a bfloat16 pool; every run starts from a fresh filter,
-    so each fires the same gates."""
+    so each fires the same gates.  The last (replayed) run is held bit for
+    bit to the eager runner from a fresh filter on the same frames."""
     import gc
+
+    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.utils import tree
 
     argv = slam_args(n, steps, "bfloat16", extra)
     repeats = int(extra[extra.index("--repeats") + 1]) if extra else 3
@@ -2020,15 +2228,45 @@ def bench_slam_run(card, n, steps, extra, label):
     peak = torch.cuda.max_memory_allocated()
     carry, aux = detail.pop("carry"), detail["aux"]
     pool = carry.pool
+    runs = detail["warmups"] + repeats
+    # the last timed run replayed every frame, from a fresh filter: the
+    # eager runner on the same frames from a fresh filter gives its bits
+    graphed = detail["graphs"]
+    expect(graphed["replayed"] >= repeats * detail["frames"], label,
+           f"frames {graphed} in {runs} runs: a timed run did not only "
+           f"replay")
+    cfg = detail["cfg"]
+    z0, frames, full, qs = bench.slam_trajectory(steps, CONTACT_CAP)
+    dev = pool.meta.device
+    gc.collect()       # the bench's graphs and their memory pool
+    torch.cuda.empty_cache()
+    twin = bench.slam_carry(cfg, z0, dev)
+    frames_d = tree.to(frames, dev)
+    odos = streaming.precompute_odometry(20, tree.to(full, dev), qs.to(dev),
+                                         cfg=cfg)
+    # one eager run, after the bench's runs in this process (no warm-up of
+    # its own): host syncs forbidden, timed as the bench times a run
+    eager_s, ref = bench.timed_run(
+        lambda: bench.make_slam_runner(cfg)(twin, frames_d, odos), dev)
+    del twin
+    same, n_tensors = slam_equal((carry, aux), ref)
+    del ref, frames, frames_d
+    eager_fps = detail["frames"] / eager_s
+    print(f"bench[{label}]: the graphed run vs the eager runner over "
+          f"{detail['frames']} frames from a fresh filter: gates, centroids, "
+          f"best poses and {n_tensors - 2} filter, pool and alloc_failed "
+          f"tensors equal bit for bit: {same} ({detail['warmups']} warm-up "
+          f"run(s), frames {graphed}); the eager run "
+          f"{eager_s / detail['frames'] * 1e3:.4f} ms/frame = "
+          f"{eager_fps:.2f} frames/s, the graphed best "
+          f"{min(detail['seconds']) / detail['frames'] * 1e3:.4f} ms/frame")
+    expect(same, label, "the graphed run differs from the eager runner")
     expect(result["metric"] == "slam_frames_per_sec"
            and result["pool_dtype"] == "bfloat16" and result["card"] == card
            and pool.mean.dtype == torch.bfloat16 and pool.b == 4 * n
            and pool.n == n, label, f"unexpected result {result}")
     n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
-    want = dict.fromkeys(WRAPPERS, 0)
-    want.update(chain_lookup=n_meas * (1 + repeats),
-                block_merge=n_map * (1 + repeats),
-                ordered_scan=n_meas * (1 + repeats))
+    want = slam_gates_want(aux, cfg, runs)
     expect(launches == want and n_meas and n_map, label,
            f"launches {launches}, gates want {want}")
     patches, failed = check_slam_state(carry, aux, detail["frames"],
@@ -2046,7 +2284,7 @@ def bench_slam_run(card, n, steps, extra, label):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(result=result, launches=launches, peak=peak, patches=patches,
-                n_meas=n_meas, n_map=n_map, pool_gb=gb)
+                n_meas=n_meas, n_map=n_map, pool_gb=gb, eager_fps=eager_fps)
 
 
 def bf16_path(dev):
@@ -2148,9 +2386,10 @@ def check_merge_packed(dev):
     }, dict(plain=5, unpacked=50, packed=50))
     traffic = kernel_eff.merge_traffic(shape, blk, lx, ly)
     b_ms, b_by = bound(traffic["bytes"], traffic["flops"])
-    packed_launch = lambda: bm.launch_packed(kern, blk, *points, uidx, nx=nx,
+    duidx = device_index(uidx, dev)
+    packed_launch = lambda: bm.launch_packed(kern, blk, *points, duidx, nx=nx,
                                              **kw)
-    unpacked_launch = lambda: bm.launch(*unpacked, None, blk, *points, uidx,
+    unpacked_launch = lambda: bm.launch(*unpacked, None, blk, *points, duidx,
                                         **kw)
     (d_unpacked, d_packed), runs = in_turns_device(unpacked_launch,
                                                    packed_launch)
@@ -2192,7 +2431,7 @@ def check_merge_packed(dev):
             raise RuntimeError(f"block_merge_packed[P={count}]: differs from "
                                f"the merge on the unpacked fields")
         t = profiling.device_time(lambda: bm.launch_packed(
-            image, b2, *pts2, uidx, nx=nx, **kw)) * 1e3
+            image, b2, *pts2, duidx, nx=nx, **kw)) * 1e3
         print(f"block_merge_packed[P={count}] N={n}: equal bit for bit to "
               f"block_merge on the unpacked fields; device {t:.5f} ms")
         times[f"ms_p{count}"] = t
@@ -3883,20 +4122,10 @@ def launches_per_call(fn, calls=10):
     stream: the runtime calls ``torch.profiler`` traces on the host over
     ``calls`` calls (the host's records, which the tracer keeps), and
     their names."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = {e.key: e.count for e in prof.key_averages()
-             if e.device_type != DeviceType.CUDA
-             and any(k in e.key for k in ("LaunchKernel", "Memset",
-                                          "Memcpy"))}
+    names = {k: v for k, v in runtime_calls(
+        lambda: [fn() for _ in range(calls)]).items()
+        if any(s in k for s in ("LaunchKernel", "Memset", "Memcpy"))}
     return sum(names.values()) / calls, names
 
 
@@ -4419,8 +4648,13 @@ def main():
     max_err, k1 = check_contact_fold(dev, Config())
     res = main_path(dev, args.profile)
     ms_step = res["elapsed"] / STEPS * 1e3
-    print(f"main path: {ms_step:.4f} ms/step, "
-          f"{N_BENCH * STEPS / res['elapsed']:.1f} particle-updates/s, "
+    print(f"main path: eager {ms_step:.4f} ms/step "
+          f"({res['calls']['kernel']:.2f} kernel-launch calls a step), "
+          f"graphed {res['elapsed_graph'] / STEPS * 1e3:.4f} ms/step "
+          f"({res['calls_graph']['kernel']:.2f} kernel-launch and "
+          f"{res['calls_graph']['graph']:.2f} graph-launch calls), "
+          f"{N_BENCH * STEPS / res['elapsed']:.1f} / "
+          f"{N_BENCH * STEPS / res['elapsed_graph']:.1f} particle-updates/s, "
           f"contact_fold {k1['device_ms'] * 1e3:.2f} us/step on the card "
           f"({k1['call_ms'] * 1e3:.2f} us per eager call, plain "
           f"{k1['plain_ms'] * 1e3:.2f} us), final-10 xy error "
@@ -4428,9 +4662,15 @@ def main():
 
     (k2_err, k2), (k3_err, k3) = check_slam_kernels(dev, slam_config())
     slam = slam_path(dev, args.profile)
-    print(f"SLAM path: {slam['frames'] / slam['elapsed']:.2f} frames/s at "
-          f"{SLAM_N} particles, {slam['elapsed'] / slam['frames'] * 1e3:.4f}"
-          f" ms/frame; chain_lookup {k2['device_ms'] * 1e3:.2f} us (plain "
+    print(f"SLAM path: eager {slam['frames'] / slam['elapsed']:.2f} "
+          f"frames/s at {SLAM_N} particles, "
+          f"{slam['elapsed'] / slam['frames'] * 1e3:.4f} ms/frame "
+          f"({slam['calls']['kernel']:.2f} kernel-launch calls a frame); "
+          f"graphed {slam['frames'] / slam['elapsed_graph']:.2f} frames/s, "
+          f"{slam['elapsed_graph'] / slam['frames'] * 1e3:.4f} ms/frame "
+          f"({slam['calls_graph']['kernel']:.2f} kernel-launch and "
+          f"{slam['calls_graph']['graph']:.2f} graph-launch calls); "
+          f"chain_lookup {k2['device_ms'] * 1e3:.2f} us (plain "
           f"{k2['plain_ms'] * 1e3:.2f} us), block_merge "
           f"{k3['device_ms'] * 1e3:.2f} us (plain "
           f"{k3['plain_ms'] * 1e3:.2f} us) [{card}]")
@@ -4472,7 +4712,9 @@ def main():
                              "slam 100k bf16")
     print(f"bench: filter {drv['result']['value']} particle-updates/s; "
           f"SLAM bf16 {drv['slam']['result']['value']} frames/s at {SLAM_N} "
-          f"and {drv['big']['result']['value']} frames/s at {BIG_N} "
+          f"(eager {drv['slam']['eager_fps']:.2f}) and "
+          f"{drv['big']['result']['value']} frames/s at {BIG_N} (eager "
+          f"{drv['big']['eager_fps']:.2f}) "
           f"particles (pool {drv['big']['pool_gb']:.2f} GB, peak "
           f"{drv['big']['peak'] / 1e9:.2f} GB); bf16 vs CPU "
           f"{bf16_err:.3e} m, vs float32 {bf16_diff:.3e} m [{card}]")
@@ -4577,17 +4819,22 @@ def main():
                 "launches_100k": drv["big"]["launches"][name],
                 **other(big, "100k"), "max_abs_err_100k": big_err}
 
+    # the graphed main paths' launches, credited by the replays
+    graphed = lambda name: {"launches_graphed": (
+        res["launches_graphed"] if name in ("contact_fold", "ordered_scan")
+        else slam["launches_graphed"])[name]}
     rows = (
         ("contact_fold", "slam_eslam_tpu/ops/pallas_gather.py:578",
-         res["launches"], max_err, k1, None, demo_launches("contact_fold")),
+         res["launches"], max_err, k1, None,
+         {**demo_launches("contact_fold"), **graphed("contact_fold")}),
         ("chain_lookup", "slam_eslam_tpu/ops/pallas_chain.py:36",
          slam["launches"]["chain_lookup"], k2_err, k2, None,
          {**pool_rows("chain_lookup", k2, k2b, k2c, k2c_err, k2b_err),
-          **online_launches("chain_lookup")}),
+          **online_launches("chain_lookup"), **graphed("chain_lookup")}),
         ("block_merge", "slam_eslam_tpu/ops/pallas_merge.py:211",
          slam["launches"]["block_merge"], k3_err, k3, None,
          {**pool_rows("block_merge", k3, k3b, k3c, k3c_err, k3b_err),
-          **online_launches("block_merge")}),
+          **online_launches("block_merge"), **graphed("block_merge")}),
         ("select_cells", "slam_eslam_tpu/ops/pallas_gather.py:277",
          app["launches"]["select_cells"], k5_err, k5, None,
          demo_launches("select_cells")),
@@ -4641,7 +4888,10 @@ def main():
         # call, timed against torch.cumsum on the same clock (graphs)
         ("ordered_scan", "slam_eslam_tpu/core/filter.py:85",
          res["scan_launches"], p13["err"], p13["s1"], p13["s1_library"],
-         {"launches_slam_path": slam["launches"]["ordered_scan"],
+         {**graphed("ordered_scan"),
+          "launches_graphed_slam_path": slam["launches_graphed"][
+              "ordered_scan"],
+          "launches_slam_path": slam["launches"]["ordered_scan"],
           "launches_one_rank_localisation":
               w13["localize_launches"]["ordered_scan"],
           "launches_one_rank_slam": w13["slam_launches"]["ordered_scan"]}),

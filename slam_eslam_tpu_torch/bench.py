@@ -16,8 +16,15 @@ Prints ONE JSON line on stdout and a ``#`` summary on stderr.
 ``vs_baseline`` normalises against the target operating point: 100k
 particles at real-time rate (10 Hz) = 1e6 particle-updates/s, and 100
 SLAM frames/s.  Timing is the host clock around a run that ends in
-``torch.cuda.synchronize()``, best of ``--repeats`` after one warm-up
-run; on a GPU any host synchronisation inside a timed run raises.
+``torch.cuda.synchronize()``, best of ``--repeats`` after the warm-up;
+on a GPU any host synchronisation inside a timed run raises.
+
+On the card both modes run their runners as CUDA graphs (``graph=True``,
+``utils.graphs``), as the JAX package's bench runs its runners compiled:
+the warm-up run meets each gate combination eagerly once and captures it
+at its second meeting, and a second warm-up run follows only when the
+first left a combination met once (a SLAM gate that fires once a run);
+the timed runs replay.  On the CPU they run the eager loop.
 
 The run is on the CUDA device unless ``--device cpu`` is given (the
 plain versions of the kernels, for tests; the roofline keys are then
@@ -259,37 +266,73 @@ constant_lookup.batched = True
 constant_lookup.soa = True
 
 
-def make_filter_runner(cfg, lookup, ablate="none"):
+def make_filter_runner(cfg, lookup, ablate="none", graph=False):
     """``run(state, contact_states, orientations, draws=None) ->
     (state, centroids [T, 3])``: ``step.make_scan_runner`` (a measurement
     update on every step), with the map lookup replaced by a constant
     (``nolookup``) or the update left out (``noupdate``: odometry,
-    propagation and centroid only)."""
+    propagation and centroid only).  ``graph``: as ``make_scan_runner``'s
+    (CUDA graphs on the card); the runner's ``graphs`` is its
+    ``utils.graphs.ScanRunner``, None for the eager loop."""
     from slam_eslam_tpu_torch.filter import pose_estimator as pe
     from slam_eslam_tpu_torch.filter import step as steplib
     from slam_eslam_tpu_torch.models import odometry as odom
-    from slam_eslam_tpu_torch.utils import tree
+    from slam_eslam_tpu_torch.utils import graphs, tree
 
-    if ablate == "nolookup":
-        return steplib.make_scan_runner(cfg, constant_lookup)
     if ablate != "noupdate":
-        return steplib.make_scan_runner(cfg, lookup)
+        return steplib.make_scan_runner(
+            cfg, constant_lookup if ablate == "nolookup" else lookup,
+            graph=graph)
     odo_cfg = steplib.cfg_odo(cfg)
+
+    def step(state, cs, q, d):
+        state = dataclasses.replace(state, odometry=odom.update(
+            state.odometry, cs, q, odo_cfg))
+        state = pe.project(state, q, cfg, None if d is None else d.project)
+        c_pos, _ = pe.centroid(state.particles, q,
+                               wrap_safe=cfg.wrap_safe_centroid)
+        return state, c_pos
+
+    def per_step(contact_states, orientations, draws):
+        return [(tree.index(contact_states, t), orientations[t],
+                 None if draws is None else draws[t])
+                for t in range(orientations.shape[0])]
+
+    capture = graphs.capture_of(graph)
+    if capture is not None:
+        runner = graphs.ScanRunner(lambda s, x: step(s, *x), capture,
+                                   "make_filter_runner")
+
+        def graphed(state, contact_states, orientations, draws=None):
+            state, (cents,) = runner.run(
+                state, per_step(contact_states, orientations, draws))
+            return state, cents
+
+        graphed.graphs = runner
+        return graphed
 
     def run(state, contact_states, orientations, draws=None):
         cents = []
-        for t in range(orientations.shape[0]):
-            q = orientations[t]
-            state = dataclasses.replace(state, odometry=odom.update(
-                state.odometry, tree.index(contact_states, t), q, odo_cfg))
-            state = pe.project(state, q, cfg,
-                               None if draws is None else draws[t].project)
-            c_pos, _ = pe.centroid(state.particles, q,
-                                   wrap_safe=cfg.wrap_safe_centroid)
+        for x in per_step(contact_states, orientations, draws):
+            state, c_pos = step(state, *x)
             cents.append(c_pos)
         return state, torch.stack(cents)
 
+    run.graphs = None
     return run
+
+
+def warm_up(run_once, settled, device):
+    """The warm-up: one run, and a second when ``settled()`` says a gate
+    combination met in it has not been captured yet (``settled`` None: an
+    eager runner, one run).  Returns ``(seconds of each run, the last
+    run's result)``."""
+    seconds = []
+    while True:
+        dt, out = timed_run(run_once, device, forbid_sync=False)
+        seconds.append(dt)
+        if settled is None or settled() or len(seconds) == 2:
+            return seconds, out
 
 
 def bench_filter(args, detail=None):
@@ -313,12 +356,14 @@ def bench_filter(args, detail=None):
                                                        args.contact_cap)
     css_d, qs_d = tree.to(css, device), qs.to(device)
     particles = filter_particles(n)
-    run = make_filter_runner(cfg, lookup, args.ablate)
+    run = make_filter_runner(cfg, lookup, args.ablate,
+                             graph=device.type == "cuda")
     fresh = lambda: filter_state(cfg, particles, args.contact_cap, device)
 
     launched = ops.launch_counts()
-    warm_s, _ = timed_run(lambda: run(fresh(), css_d, qs_d), device,
-                          forbid_sync=False)
+    warm, _ = warm_up(lambda: run(fresh(), css_d, qs_d),
+                      run.graphs and run.graphs.settled, device)
+    warm_s = sum(warm)
     seconds = []
     for _ in range(args.repeats):
         state0 = fresh()
@@ -366,12 +411,14 @@ def bench_filter(args, detail=None):
     }
     print(json.dumps(result))
     print(f"# {n} particles x {args.steps} steps: best {best:.3f}s "
-          f"(first run {warm_s:.1f}s), device={device_name(device)}",
-          file=sys.stderr)
+          f"(warm-up {warm_s:.1f}s in {len(warm)} run(s)), "
+          f"device={device_name(device)}", file=sys.stderr)
     if detail is not None:
         detail.update(state=out_state, centroids=cents, truth=truth,
                       seconds=seconds, run_launches=launched, fold=fold,
-                      merge=merge, cfg=cfg)
+                      merge=merge, cfg=cfg, warmups=len(warm),
+                      graphs=None if run.graphs is None
+                      else run.graphs.counts())
     return result
 
 
@@ -449,20 +496,27 @@ def slam_carry(cfg, z0, device, normals=None):
     return streaming.StreamingState.create(f.state, f.pool)
 
 
-def make_slam_runner(cfg):
+def make_slam_runner(cfg, graph=False):
+    """The SLAM runner of ``--mode slam``; ``graph`` as
+    ``streaming.make_slam_scan_runner``'s (CUDA graphs on the card)."""
     from slam_eslam_tpu_torch.filter import streaming
 
     return streaming.make_slam_scan_runner(
-        cfg, laser2body=(np.eye(3), np.zeros(3)), external_odometry=True)
+        cfg, laser2body=(np.eye(3), np.zeros(3)), external_odometry=True,
+        graph=graph)
 
 
 def bench_slam(args, detail=None):
     """SLAM mode: contact updates + motion-gated per-particle scan merges,
     the whole loop on the device; returns the result dict.  ``detail`` (a
     dict) also receives the last run's carry and aux, the frame count,
-    the seconds of every repeat and the patch and failure counts."""
+    the seconds of every repeat, the warm-up runs, the graphs' counts and
+    the patch and failure counts.  A repeat without ``--donate`` starts
+    from a fresh filter; on the card its pool is written into the pool
+    the graphs were captured on (the runner's, in place), the same bits
+    as a new pool."""
     from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.utils import tree
+    from slam_eslam_tpu_torch.utils import graphs, tree
 
     device = entry_device(args.device)
     n = args.particles
@@ -473,7 +527,8 @@ def bench_slam(args, detail=None):
     frames_d = tree.to(frames, device)
     odos = streaming.precompute_odometry(
         FULL_CONTACTS, tree.to(full, device), qs.to(device), cfg=cfg)
-    run = make_slam_runner(cfg)
+    graph = device.type == "cuda"
+    run = make_slam_runner(cfg, graph=graph)
 
     carry = slam_carry(cfg, z0, device)
     box = [carry]
@@ -485,12 +540,22 @@ def bench_slam(args, detail=None):
         box.append(out[0])
         return out[1]
 
-    warm_s, aux = timed_run(once, device, forbid_sync=False)
+    def fresh():
+        carry = slam_carry(cfg, z0, device)
+        if graph:
+            # the pool the graphs write, refilled in place
+            pool = box.pop().pool
+            graphs.copy_into(pool, carry.pool)
+            carry = dataclasses.replace(carry, pool=pool)
+        box.clear()
+        box.append(carry)
+
+    warm, aux = warm_up(once, run.settled if graph else None, device)
+    warm_s = sum(warm)
     seconds = []
     for _ in range(args.repeats):
         if not args.donate:
-            box.clear()
-            box.append(slam_carry(cfg, z0, device))
+            fresh()
         dt, aux = timed_run(once, device)
         seconds.append(dt)
     dt = min(seconds)
@@ -512,13 +577,14 @@ def bench_slam(args, detail=None):
     print(f"# {n_frames} contact frames ({steps} scan frames, "
           f"{int(aux['mapped'].sum())} merges gated in, "
           f"{int(aux['updated'].sum())} measurement updates) "
-          f"in {dt:.3f}s (first run {warm_s:.1f}s), "
+          f"in {dt:.3f}s (warm-up {warm_s:.1f}s in {len(warm)} run(s)), "
           f"map patches={patches}, alloc_failed={failed}, "
           f"device={device_name(device)}", file=sys.stderr)
     if detail is not None:
         detail.update(carry=carry, aux=aux, frames=n_frames,
                       seconds=seconds, patches=patches, failed=failed,
-                      cfg=cfg)
+                      cfg=cfg, warmups=len(warm),
+                      graphs=run.counts() if graph else None)
     return result
 
 

@@ -16,7 +16,9 @@
 //          gap_size, else (c) insert into the lowest free slot, else evict
 //          the highest-stdev slot;
 //   3. write the chosen slot's mean, stdev, height and
-//      meta = 1 | horizontal << 1 | update_idx << 2, and, when the pool
+//      meta = 1 | horizontal << 1 | update_idx << 2 (update_idx read from a
+//      device int32, so a launch captured into a CUDA graph stamps the
+//      value the scalar holds at each replay), and, when the pool
 //      carries colour, the w-weighted mean colour of the cell's points (the
 //      XLA branch's colour rule; the TPU kernel cannot carry colour).
 //
@@ -88,7 +90,7 @@ block_merge_kernel(S* __restrict__ pool_mean, S* __restrict__ pool_stdev,
                    const float* __restrict__ wz,
                    const float* __restrict__ point_color, int p, int p_pad,
                    int num_blocks, size_t block_stride, int nx, int ny,
-                   int update_idx,
+                   const int* __restrict__ update_idx,
                    float patch_thickness, float gap_size) {
   extern __shared__ unsigned long long keys[];
   const int n = blockIdx.x;
@@ -189,7 +191,7 @@ block_merge_kernel(S* __restrict__ pool_mean, S* __restrict__ pool_stdev,
     slot_select::store_value(pool_mean + at, new_mean);
     slot_select::store_value(pool_stdev + at, new_stdev);
     slot_select::store_value(pool_height + at, new_height);
-    pool_meta[at] = 1 | (horizontal << 1) | (update_idx << 2);
+    pool_meta[at] = 1 | (horizontal << 1) | (__ldg(update_idx) << 2);
     if (pool_color != nullptr) {
       slot_select::store_value(pool_color + 3 * at, __fdiv_rn(cr, wsafe));
       slot_select::store_value(pool_color + 3 * at + 1, __fdiv_rn(cg, wsafe));
@@ -213,7 +215,8 @@ struct Operands {
   const float* point_color;
   int n, p, num_blocks;
   size_t block_stride;  // elements between a field's successive blocks
-  int nx, ny, update_idx;
+  int nx, ny;
+  const int* update_idx;  // [] int32 on the device
   float patch_thickness, gap_size;
 };
 
@@ -254,7 +257,7 @@ int dispatch(const Operands& a, int k, void* stream) {
 // Plain C entry points (loaded with ctypes).  Both update the pool in place
 // on `stream` and return cudaGetLastError(); cudaErrorInvalidValue for a k
 // other than 1, 2 or 4 or for more than kMaxPoints points.  blk [n] int32;
-// lx, ly [n, p] int32; w, wz [n, p] float32.
+// lx, ly [n, p] int32; w, wz [n, p] float32; update_idx [] int32.
 
 // Pool fields are [num_blocks, nx, ny*k] (mean/stdev/height float32, or
 // bfloat16 when `bf16` is not 0; int32 meta) and, when pool_color is not
@@ -266,7 +269,7 @@ extern "C" int block_merge_launch(void* pool_mean, void* pool_stdev,
                                   const int* lx, const int* ly, const float* w,
                                   const float* wz, const float* point_color,
                                   int n, int p, int num_blocks, int nx, int ny,
-                                  int k, int bf16, int update_idx,
+                                  int k, int bf16, const int* update_idx,
                                   float patch_thickness, float gap_size,
                                   void* stream) {
   const Operands a = {pool_mean, pool_stdev, pool_height, pool_meta,
@@ -284,7 +287,8 @@ extern "C" int block_merge_packed_launch(float* packed, const int* blk,
                                          const int* lx, const int* ly,
                                          const float* w, const float* wz,
                                          int n, int p, int num_blocks, int nx,
-                                         int ny, int k, int update_idx,
+                                         int ny, int k,
+                                         const int* update_idx,
                                          float patch_thickness, float gap_size,
                                          void* stream) {
   const size_t field = (size_t)nx * ny * k;

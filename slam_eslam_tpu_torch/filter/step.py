@@ -4,8 +4,12 @@ Port of ``slam_eslam_tpu.filter.step``: odometry update -> particle
 propagation -> (gated) measurement update, the main path of
 ``EmbodiedSlamFilter::update`` (``EmbodiedSlamFilter.cpp:353-369``).
 The JAX ``lax.cond`` gate becomes a device-side ``torch.where`` over
-the two states and ``lax.scan`` a Python loop; no step reads a device
-value back to the host, so a step can be captured in a CUDA graph.
+the two states.  No step reads a device value back to the host, so a
+step is captured in a CUDA graph: with ``graph=True`` (the counterpart
+of the JAX package's ``jax.jit`` and jitted ``lax.scan``) the step is
+captured once per input shape and replayed (``utils.graphs``); with
+``graph=False`` it runs as a Python loop of eager launches, the
+counterpart of ``make_filter_step(jit=False)`` and what the CPU runs.
 
 ``mesh=`` (``parallel.sharding.make_mesh``) runs a step on this rank's
 slice of the particles (``parallel.sharding.shard_state``) with the
@@ -24,7 +28,7 @@ import torch
 from slam_eslam_tpu_torch.config import Config, OdometryConfig
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.models import odometry as odom
-from slam_eslam_tpu_torch.utils import tree
+from slam_eslam_tpu_torch.utils import graphs, tree
 
 
 @dataclasses.dataclass
@@ -50,7 +54,18 @@ def _propagate(state, contact_state, orientation, cfg, draws, mesh=None):
                       None if draws is None else draws.project, mesh=mesh)
 
 
-def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None):
+def _graph_capture(graph, what, mesh, resampler=None):
+    """The capture object of ``graph=`` (None for the eager loop); a mesh
+    or a resampler hook is not captured yet."""
+    capture = graphs.capture_of(graph)
+    if capture is not None:
+        graphs.refuse(what, mesh=(mesh, "item 4, mesh= under NCCL capture"),
+                      resampler=(resampler, "item 4, with the mesh"))
+    return capture
+
+
+def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None,
+                     graph=False):
     """Build ``step(state, contact_state, orientation, gate_ref,
     draws=None) -> (state, aux)``.
 
@@ -62,13 +77,19 @@ def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None):
     rank's (``parallel.sharding.shard_state``) and ``draws`` the global
     ones.  ``resampler``: forwarded to ``pose_estimator.update`` (e.g.
     ``parallel.resample.make_ppermute_resampler(mesh)``).
+
+    ``graph=True`` (CUDA only; neither ``mesh`` nor ``resampler``):
+    every call copies its inputs into static buffers and replays the step
+    captured at the second call with draws given or not (the first runs
+    eagerly); ``gate_ref`` is written into a device buffer (two fill
+    kernels from host numbers, or a copy of a device tensor).  The state
+    and ``aux`` returned are new tensors, and the state's generator
+    advances as the eager step advances it.
     """
 
-    def step(state, contact_state, orientation, gate_ref, draws=None):
+    def gated(state, contact_state, orientation, dist, angle, draws):
         state = _propagate(state, contact_state, orientation, cfg, draws,
                            mesh)
-        dist, angle = (torch.as_tensor(v, device=state.step.device)
-                       for v in gate_ref)
         do_update = cfg.measurement_threshold.test(dist, angle)
         updated, aux = pe.update(
             state, contact_state, orientation, map_lookup, cfg,
@@ -80,10 +101,43 @@ def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None):
                           torch.full_like(aux["ess"], float("inf")))
         return state, {"ess": ess, "updated": do_update}
 
-    return step
+    capture = _graph_capture(graph, "make_filter_step", mesh, resampler)
+    if capture is None:
+        def step(state, contact_state, orientation, gate_ref, draws=None):
+            dist, angle = (torch.as_tensor(v, device=state.step.device)
+                           for v in gate_ref)
+            return gated(state, contact_state, orientation, dist, angle,
+                         draws)
+
+        return step
+
+    def body(state, x):
+        contact_state, orientation, gate, draws = x
+        state, aux = gated(state, contact_state, orientation, gate[0],
+                           gate[1], draws)
+        return state, (aux["ess"], aux["updated"])
+
+    runner = graphs.ScanRunner(body, capture, "make_filter_step")
+    gates = {}
+
+    def graphed(state, contact_state, orientation, gate_ref, draws=None):
+        device = state.step.device
+        gate = gates.get(device)
+        if gate is None:
+            gate = gates[device] = torch.zeros(2, device=device)
+        for i, v in enumerate(gate_ref):
+            if torch.is_tensor(v):
+                gate[i].copy_(v)
+            else:
+                gate[i].fill_(v)
+        state, (ess, updated) = runner.run(
+            state, [(contact_state, orientation, gate, draws)])
+        return state, {"ess": ess[0], "updated": updated[0]}
+
+    return graphed
 
 
-def make_scan_runner(cfg: Config, map_lookup, mesh=None):
+def make_scan_runner(cfg: Config, map_lookup, mesh=None, graph=False):
     """Roll a trajectory with a measurement update on every step (the
     benchmark regime).
 
@@ -93,22 +147,47 @@ def make_scan_runner(cfg: Config, map_lookup, mesh=None):
     sequence of T ``StepDraws``.  Returns ``(final_state, centroids
     [T, 3])``.  ``mesh``: as for ``make_filter_step``; the centroids are
     global, the same on every rank.
+
+    ``graph=True`` (CUDA only, no ``mesh``): the step is captured once
+    per input shape (draws given or not) and replayed T times, the
+    JAX package's jitted ``lax.scan``; each replay's inputs are copied
+    from ``contact_states[t]``, ``orientations[t]`` and ``draws[t]``.
+    The result equals the eager loop's bit for bit (the state's
+    generator advanced alike); the state returned and the centroids are
+    new tensors.
     """
+
+    def step(state, cs, q, d):
+        state = _propagate(state, cs, q, cfg, d, mesh)
+        state, _ = pe.update(state, cs, q, map_lookup, cfg,
+                             None if d is None else d.resample_u, mesh=mesh)
+        c_pos, _ = pe.centroid(state.particles, q,
+                               wrap_safe=cfg.wrap_safe_centroid, mesh=mesh)
+        return state, c_pos
+
+    capture = _graph_capture(graph, "make_scan_runner", mesh)
+    if capture is not None:
+        runner = graphs.ScanRunner(lambda s, x: step(s, *x), capture,
+                                   "make_scan_runner")
+
+        def graphed(state, contact_states, orientations, draws=None):
+            xs = [(tree.index(contact_states, t), orientations[t],
+                   None if draws is None else draws[t])
+                  for t in range(orientations.shape[0])]
+            state, (cents,) = runner.run(state, xs)
+            return state, cents
+
+        graphed.graphs = runner
+        return graphed
 
     def run(state, contact_states, orientations, draws=None):
         cents = []
         for t in range(orientations.shape[0]):
-            cs = tree.index(contact_states, t)
-            q = orientations[t]
-            d = None if draws is None else draws[t]
-            state = _propagate(state, cs, q, cfg, d, mesh)
-            state, _ = pe.update(state, cs, q, map_lookup, cfg,
-                                 None if d is None else d.resample_u,
-                                 mesh=mesh)
-            c_pos, _ = pe.centroid(state.particles, q,
-                                   wrap_safe=cfg.wrap_safe_centroid,
-                                   mesh=mesh)
+            state, c_pos = step(state, tree.index(contact_states, t),
+                                orientations[t],
+                                None if draws is None else draws[t])
             cents.append(c_pos)
         return state, torch.stack(cents)
 
+    run.graphs = None
     return run

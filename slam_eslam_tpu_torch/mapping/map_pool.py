@@ -224,6 +224,15 @@ class MapPool:
         chain = self.chain if mesh is None else mesh.all_gather(self.chain)
         return dataclasses.replace(self, chain=chain.index_select(0, idx))
 
+    def resample_(self, idx):
+        """``resample`` in place: the new chain rows are written into
+        ``self.chain``, whose storage a captured CUDA graph keeps (no
+        mesh).  Returns ``self``."""
+        if self.mesh is not None:
+            raise ValueError("resample_ takes a pool without a mesh")
+        self.chain.copy_(self.chain.index_select(0, idx))
+        return self
+
 
 def _copy_blocks(pool: MapPool, dst, src, mask):
     """``pool[dst[i]] <- pool[src[i]]`` where ``mask[i]``, in place (unique
@@ -604,7 +613,9 @@ def merge_cloud_all(pool: MapPool, xy, yaw, z_offset, offset_stdev,
     (the reference's per-particle ``pgrid->merge(scanMap, C_s2p,
     offsetPatch)``, ``EmbodiedSlamFilter.cpp:222-227``), in place: the
     operands of ``merge_operands`` fused by kernel K3 (CUDA) or its plain
-    version (CPU).  ``update_idx`` is a Python int; heads must be unique
+    version (CPU).  ``update_idx`` is a Python int or a 0-d int32 tensor
+    on the pool's device (what a CUDA graph replays: the merge stamps the
+    value the tensor holds then); heads must be unique
     (``ensure_unique_active``).  One kernel serves every pool, colour
     included (``Config.merge_group`` has no counterpart).  A meshed pool
     merges each rank's particles into its own blocks, K3 run shard-locally

@@ -291,8 +291,10 @@ def fuse_slot_rows(means, stdevs, heights, valids, horiz, uidx,
     horizontal patch within ``patch_thickness``; (b) else extend the
     nearest patch within ``gap_size`` vertically; (c) else insert into
     the lowest free slot, or evict the highest-stdev patch.  The lowest
-    slot wins every tie.  Only rows with ``keep`` write.  Returns the
-    updated rows and the written-slot mask ``upd [M, K]``."""
+    slot wins every tie.  Only rows with ``keep`` write, stamped with
+    ``update_idx`` (a Python int or a 0-d integer tensor on the rows'
+    device).  Returns the updated rows and the written-slot mask ``upd
+    [M, K]``."""
     k = means.shape[-1]
     dist = (means - z[:, None]).abs()
     inf = torch.full_like(dist, float("inf"))
@@ -339,7 +341,9 @@ def fuse_slot_rows(means, stdevs, heights, valids, horiz, uidx,
     heights = torch.where(upd, new_height[:, None], heights)
     valids = valids | upd
     horiz = torch.where(upd, new_horiz[:, None], horiz)
-    uidx = torch.where(upd, torch.full_like(uidx, int(update_idx)), uidx)
+    stamp = (update_idx.to(uidx.dtype) if torch.is_tensor(update_idx)
+             else torch.full_like(uidx, int(update_idx)))
+    uidx = torch.where(upd, stamp, uidx)
     return means, stdevs, heights, valids, horiz, uidx, upd
 
 

@@ -28,3 +28,11 @@ def reset_launch_counts():
     """Set every wrapper's launch count to 0."""
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def set_launch_counts(counts):
+    """Set each wrapper's launch count to ``counts[name]`` (a
+    ``launch_counts`` dict): a CUDA graph's replay credits the launches its
+    capture recorded (``utils.graphs``)."""
+    for name, fn in _wrappers().items():
+        fn.launches = counts[name]

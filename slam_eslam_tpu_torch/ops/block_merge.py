@@ -10,6 +10,10 @@ inverse-variance weights ``w`` and ``wz = w * z`` into its active block
 ``blk[n]``: per hit cell, ``z = sum wz / sum w`` and ``var = 1 / sum w``
 go through the envire slot rules (``mls_grid.fuse_slot_rows``) and the
 written slot is stamped ``meta = 1 | horizontal << 1 | update_idx << 2``.
+The kernel reads ``update_idx`` from a 0-d int32 tensor on the device, so a
+merge captured into a CUDA graph stamps whatever that tensor holds at each
+replay; the wrappers also take a Python int, which they write into a new
+device scalar (one fill kernel, no host-to-device copy).
 A colour-carrying pool also takes the w-weighted mean ``point_color`` of
 the cell's points in the written slot (the JAX XLA branch's rule).
 
@@ -95,11 +99,23 @@ def block_merge_reference(mean, stdev, height, meta, color, blk, lx, ly, w,
         color.view(-1)[flat3] = cell_colors.to(color.dtype)
 
 
+def device_update_idx(update_idx, device):
+    """``update_idx`` as the kernel reads it: a 0-d int32 tensor on
+    ``device`` (checked), or a Python int written into a new one with a
+    fill kernel (a tensor built from a host value would be a blocking
+    copy)."""
+    if not torch.is_tensor(update_idx):
+        return torch.full((), int(update_idx), dtype=torch.int32,
+                          device=device)
+    _build.check_operand("update_idx", update_idx, (), torch.int32, device)
+    return update_idx
+
+
 @functools.cache
 def _launcher():
     fn = _build.load("block_merge").block_merge_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 11 + [i32] * 8 + [f32] * 2 + [ptr]
+    fn.argtypes = [ptr] * 11 + [i32] * 7 + [ptr] + [f32] * 2 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -107,8 +123,9 @@ def _launcher():
 def launch(mean, stdev, height, meta, color, blk, lx, ly, w, wz, update_idx,
            point_color=None, *, k, patch_thickness=0.1, gap_size=1.5):
     """Launch the merge kernel on PyTorch's current stream: operands as
-    ``block_merge`` takes them, already checked.  In place; allocates
-    nothing and reads nothing back."""
+    ``block_merge`` takes them, already checked, ``update_idx`` a 0-d
+    int32 tensor on the device.  In place; allocates nothing and reads
+    nothing back."""
     b, nx, nyk = mean.shape
     n, p = lx.shape
     device = mean.device
@@ -121,7 +138,7 @@ def launch(mean, stdev, height, meta, color, blk, lx, ly, w, wz, update_idx,
             meta.data_ptr(), color_ptr, blk.data_ptr(), lx.data_ptr(),
             ly.data_ptr(), w.data_ptr(), wz.data_ptr(), pcolor_ptr,
             n, p, b, nx, nyk // k, k, int(mean.dtype == torch.bfloat16),
-            int(update_idx), float(patch_thickness), float(gap_size),
+            update_idx.data_ptr(), float(patch_thickness), float(gap_size),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
@@ -139,8 +156,8 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
     (``[B, nx, ny*k*3]`` of the same dtype, or None; then ``point_color
     [P, 3]`` float32), in place.  A bfloat16 pool is read up to float32,
     fused in float32 and rounded once (to nearest even) where a slot is
-    written.  ``update_idx`` is a Python int.  See the module docstring
-    for the semantics."""
+    written.  ``update_idx`` is a Python int or a 0-d int32 tensor on the
+    pool's device.  See the module docstring for the semantics."""
     device = mean.device
     kw = dict(k=k, patch_thickness=patch_thickness, gap_size=gap_size)
     if device.type == "cpu":
@@ -170,6 +187,7 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
             ("lx", lx, (n, p), torch.int32), ("ly", ly, (n, p), torch.int32),
             ("w", w, (n, p), f32), ("wz", wz, (n, p), f32)):
         _build.check_operand(name, t, shape, dtype, device)
+    update_idx = device_update_idx(update_idx, device)
     if color is not None:
         _build.check_operand("color", color, (b, nx, nyk * 3), mean.dtype,
                              device)
@@ -239,7 +257,7 @@ def block_merge_packed_reference(packed, blk, lx, ly, w, wz, update_idx, *,
 def _packed_launcher():
     fn = _build.load("block_merge").block_merge_packed_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 6 + [i32] * 7 + [f32] * 2 + [ptr]
+    fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] + [f32] * 2 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -248,7 +266,8 @@ def launch_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
                   patch_thickness=0.1, gap_size=1.5):
     """Launch the merge kernel's packed entry point on PyTorch's current
     stream: operands as ``block_merge_packed`` takes them, already
-    checked.  In place; allocates nothing and reads nothing back."""
+    checked, ``update_idx`` a 0-d int32 tensor on the device.  In place;
+    allocates nothing and reads nothing back."""
     b, _, nyk = packed.shape
     n, p = lx.shape
     device = packed.device
@@ -256,7 +275,7 @@ def launch_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
         err = _packed_launcher()(
             packed.data_ptr(), blk.data_ptr(), lx.data_ptr(), ly.data_ptr(),
             w.data_ptr(), wz.data_ptr(), n, p, b, nx, nyk // k, k,
-            int(update_idx), float(patch_thickness), float(gap_size),
+            update_idx.data_ptr(), float(patch_thickness), float(gap_size),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_merge_packed kernel launch failed: CUDA "
@@ -270,7 +289,7 @@ def block_merge_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
     float32 (module docstring), in place: point operands ``blk [N]``,
     ``lx, ly [N, P]`` int32 and ``w, wz [N, P]`` float32 as ``block_merge``
     takes them, unique active blocks, no colour.  ``update_idx`` is a
-    Python int."""
+    Python int or a 0-d int32 tensor on the image's device."""
     device = packed.device
     kw = dict(nx=nx, k=k, patch_thickness=patch_thickness, gap_size=gap_size)
     if device.type == "cpu":
@@ -298,6 +317,7 @@ def block_merge_packed(packed, blk, lx, ly, w, wz, update_idx, *, nx, k,
             ("lx", lx, (n, p), torch.int32), ("ly", ly, (n, p), torch.int32),
             ("w", w, (n, p), f32), ("wz", wz, (n, p), f32)):
         _build.check_operand(name, t, shape, dtype, device)
+    update_idx = device_update_idx(update_idx, device)
     launch_packed(packed, blk, lx, ly, w, wz, update_idx, **kw)
 
 

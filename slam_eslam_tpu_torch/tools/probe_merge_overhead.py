@@ -109,13 +109,15 @@ def main(argv=None):
     b = fields[0].shape[0]
     packed = pack_fields(*fields)
     merge_kw = dict(k=k, patch_thickness=0.1, gap_size=1.5)
+    # the update index on the device, as the SLAM step passes it to K3
+    uidx = torch.full((), UPDATE_IDX, dtype=torch.int32, device=device)
 
     def merge(c):
-        block_merge(*c, None, blk, *points, UPDATE_IDX, **merge_kw)
+        block_merge(*c, None, blk, *points, uidx, **merge_kw)
         return c
 
     def merge_packed(c):
-        block_merge_packed(c, blk, *points, UPDATE_IDX, nx=nx, **merge_kw)
+        block_merge_packed(c, blk, *points, uidx, nx=nx, **merge_kw)
         return c
 
     def copy(with_points):

@@ -1,0 +1,347 @@
+"""CUDA graphs: the port's counterpart of the JAX package's compiled runners.
+
+The JAX package never runs its benchmark paths as a loop of host
+dispatches: ``filter.step.make_filter_step`` returns ``jax.jit(step)``,
+``make_scan_runner`` is one jitted ``lax.scan`` and
+``streaming.make_slam_scan_runner`` a jitted, donated ``lax.scan``.  Here
+a step's launches are captured into a CUDA graph once per shape and per
+gate combination (a *key*), and replayed: the host issues one graph
+launch a step in place of the step's few hundred kernel launches.
+
+The discipline (``StepGraphs``):
+
+* A step reads **static buffers**: the carry (the runner's own copy of
+  the state, or for a map pool the caller's tensors, updated in place)
+  and the per-step inputs, which each step first fills with ``copy_``
+  (device to device; ``copy_into`` groups the copies by dtype, one
+  ``torch._foreach_copy_`` a group).  The captured region ends by
+  writing the new carry back into the carry's own tensors and the step's
+  outputs into static output tensors, which the runner copies into its
+  per-run ``[T, ...]`` outputs after every step: nothing a caller keeps
+  is a view of a static buffer.
+* A key's **first meeting runs eagerly** on the static buffers: that run
+  builds the kernels (``nvcc``), fills the lazy caches (the extrinsics of
+  ``streaming.make_slam_step``, the ordered scan's state) and warms the
+  allocator.  The **second meeting captures** and then replays, since a
+  capture records the step's work and runs none of it; every later
+  meeting replays.  A failed capture raises: nothing falls back to eager.
+* Every graph of a runner allocates from **one memory pool**
+  (``torch.cuda.graph_pool_handle``): a graph keeps the temporaries of
+  its capture for as long as it lives (at 100,000 particles the block
+  copies' ``index_select`` of every head block is gigabytes), and graphs
+  that never run at once can share them.
+* The state's own ``torch.Generator`` draws inside the graph: the runner
+  keeps a static generator, registered with every graph
+  (``CUDAGraph.register_generator_state``), loads the caller's
+  generator state into it before a run and writes it back after, so a
+  replay advances the generator's offset exactly as the eager step does
+  and a graphed run draws the numbers an eager run draws from the same
+  seed.
+* The kernel wrappers count launches on the host (``ops.launch_counts``),
+  which a replay never reaches: the launches a capture records are
+  credited on every replay, and the capture itself counts none.
+
+``Capture`` is what captures and replays, on the card.  A runner takes
+another object with its methods (``graph=`` of the runners), so the CPU
+tests can drive the discipline with a stand-in that runs the step at each
+replay.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+from slam_eslam_tpu_torch import ops
+
+
+class Capture:
+    """CUDA graphs on the card: ``torch.cuda.CUDAGraph``, one memory pool
+    for every graph of the runner that owns this object."""
+
+    def __init__(self):
+        self._pool = None
+
+    def check(self, device, what):
+        """Raise unless ``device`` is a CUDA device."""
+        if torch.device(device).type != "cuda":
+            raise ValueError(
+                f"{what}(graph=True) captures CUDA graphs and needs a CUDA "
+                f"device, not {device}: the CPU runs the eager loop "
+                f"(graph=False; ROADMAP.md Queue 1, the compiled runners)")
+
+    def new_graph(self):
+        return torch.cuda.CUDAGraph()
+
+    def capture(self, graph, fn, generators=(), writes=()):
+        """Record ``fn()`` into ``graph`` with the runner's pool, the
+        ``generators`` registered; ``writes`` (the tensors the region
+        writes) matter only to a stand-in that runs the region."""
+        del writes
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=self._pool):
+            fn()
+
+    def replay(self, graph):
+        graph.replay()
+
+
+def capture_of(graph):
+    """The capture object a runner's ``graph=`` names: None for False, a
+    new ``Capture`` for True, else the object given (a stand-in)."""
+    if graph is False or graph is None:
+        return None
+    return Capture() if graph is True else graph
+
+
+def refuse(what, **variants):
+    """Raise for a variant that no graph captures yet: each keyword names
+    an argument and the ROADMAP.md item that will capture it; the ones
+    given (not None) raise."""
+    given = [f"{name}= ({item})" for name, (value, item) in variants.items()
+             if value is not None]
+    if given:
+        raise ValueError(f"{what}(graph=True) does not capture "
+                         f"{', '.join(given)} yet: see ROADMAP.md Queue 1")
+
+
+def leaves(tree):
+    """The tensor fields of a state (dataclasses nested, tuples and lists
+    of them), in a fixed order; None and static fields are skipped."""
+    out = []
+
+    def visit(t):
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+        elif dataclasses.is_dataclass(t):
+            for f in dataclasses.fields(t):
+                visit(getattr(t, f.name))
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                visit(v)
+
+    visit(tree)
+    return out
+
+
+def signature(tree):
+    """Shapes, dtypes and devices of a state's tensors: what a graph
+    captured on static buffers of that state needs to hold again."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves(tree))
+
+
+def copy_into(dst, src):
+    """Copy every tensor of ``src`` into the same field of ``dst`` (same
+    structure and signature), in place, with one ``_foreach_copy_`` per
+    dtype; a field that already is its destination is skipped.  A source
+    that shares storage with another destination is cloned first, so no
+    copy reads what another has written."""
+    pairs = [(d, s) for d, s in zip(leaves(dst), leaves(src), strict=True)
+             if not (d is s or (d.data_ptr() == s.data_ptr()
+                                and d.stride() == s.stride()))]
+    if not pairs:
+        return
+    written = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    groups = collections.defaultdict(lambda: ([], []))
+    for d, s in pairs:
+        if s.untyped_storage().data_ptr() in written:
+            s = s.clone()
+        groups[d.dtype][0].append(d)
+        groups[d.dtype][1].append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _map(fn, tree):
+    """``fn`` on every tensor of a state (the structure of ``leaves``);
+    every other field carried over."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return tree
+
+
+def clone(tree):
+    """A copy of a state with new tensors (``copy_into`` fresh ones)."""
+    out = _map(torch.empty_like, tree)
+    copy_into(out, tree)
+    return out
+
+
+def load_generator(static, given):
+    """Put ``given``'s state (seed and offset) into ``static``."""
+    if static is not None and given is not None and given is not static:
+        static.set_state(given.get_state())
+
+
+def _generator(carry):
+    """The generator a carry (a state with a ``generator`` field) draws
+    from, or None."""
+    return getattr(carry, "generator", None)
+
+
+def _with_generator(carry, gen):
+    if not dataclasses.is_dataclass(carry) or not hasattr(carry,
+                                                          "generator"):
+        return carry
+    return dataclasses.replace(carry, generator=gen)
+
+
+class ShapeGraphs(dict):
+    """A runner's ``StepGraphs``, one per shape of its carry."""
+
+    def settled(self):
+        """Every step met so far replays (a warm-up run has captured)."""
+        return all(sg.settled() for sg in self.values())
+
+    def counts(self):
+        """Steps run eagerly, captured and replayed, over every shape."""
+        total = collections.Counter()
+        for sg in self.values():
+            total.update(sg.counts)
+        return dict(total)
+
+
+class StepGraphs:
+    """The graphs of one step function over one set of static buffers.
+
+    ``body(carry, x, key) -> (carry, y)`` is the step's device work for
+    the gate combination ``key`` (hashable, decided on the host; one
+    graph per key and signature of ``x``): it
+    reads the static ``carry`` and inputs ``x`` and returns the new carry
+    (tensors of the same signature; a field it updates in place may be
+    the static tensor itself) and the step's outputs ``y``.  ``carry`` is
+    the static carry, built by the runner (``generator``: the static
+    generator it holds, or None).  ``capture``: a ``Capture`` or a
+    stand-in."""
+
+    def __init__(self, body, carry, capture, generator=None):
+        self.body, self.carry, self.capture = body, carry, capture
+        self.generator = generator
+        self.inputs = {}    # signature of x -> static x
+        self.outputs = {}   # key -> static y
+        self.graphs = {}    # key -> (graph, launches credited a replay)
+        self.met = collections.Counter()
+        self.counts = collections.Counter()
+
+    def settled(self):
+        """Every key met so far replays (none met only once, eagerly)."""
+        return all(k in self.graphs for k in self.met)
+
+    def _static_inputs(self, sig, x):
+        if sig not in self.inputs:
+            self.inputs[sig] = clone(x)
+        static = self.inputs[sig]
+        copy_into(static, x)
+        return static
+
+    def _region(self, gate, key, x):
+        def fn():
+            carry, y = self.body(self.carry, x, gate)
+            copy_into(self.carry, carry)
+            if key not in self.outputs:
+                self.outputs[key] = clone(y)
+            else:
+                copy_into(self.outputs[key], y)
+        return fn
+
+    def _replay(self, key):
+        graph, credit = self.graphs[key]
+        before = ops.launch_counts()
+        self.capture.replay(graph)
+        ops.set_launch_counts({k: v + credit.get(k, 0)
+                               for k, v in before.items()})
+        self.counts["replayed"] += 1
+
+    def step(self, key, x):
+        """One step at ``key`` with inputs ``x``: eager at the first
+        meeting of ``key`` with inputs of ``x``'s signature, captured and
+        replayed at the second, replayed after.  Returns the static
+        outputs (valid until the next step of that key and signature)."""
+        sig = signature(x)
+        x = self._static_inputs(sig, x)
+        gate = key
+        key = (gate, sig)
+        self.met[key] += 1
+        if key in self.graphs:
+            self._replay(key)
+        elif self.met[key] == 1:
+            self._region(gate, key, x)()
+            self.counts["eager"] += 1
+        else:
+            graph = self.capture.new_graph()
+            fn = self._region(gate, key, x)
+            before = ops.launch_counts()
+            self.capture.capture(
+                graph, fn,
+                () if self.generator is None else (self.generator,),
+                leaves(self.carry) + leaves(self.outputs[key]))
+            after = ops.launch_counts()
+            # a capture records the launches and runs none of them
+            ops.set_launch_counts(before)
+            self.graphs[key] = (graph, {k: after[k] - before[k]
+                                        for k in after})
+            self.counts["captured"] += 1
+            self._replay(key)
+        return self.outputs[key]
+
+
+class ScanRunner:
+    """A graphed ``lax.scan``: ``step(carry, x) -> (carry, y)`` rolled over
+    a sequence of per-step inputs, one graph per input signature.
+
+    ``run(carry, xs)`` with ``xs`` a sequence of per-step inputs returns
+    ``(final carry, ys)``: the final carry a copy of the static one and
+    ``ys`` the per-step outputs stacked along a new leading axis, as new
+    tensors.  A carry with a ``generator`` field keeps the caller's
+    generator, advanced as eager steps advance it."""
+
+    def __init__(self, step, capture, what):
+        self.capture, self.what = capture, what
+        self.body = lambda carry, x, key: step(carry, x)
+        self.per_shape = ShapeGraphs()
+        self.settled, self.counts = (self.per_shape.settled,
+                                     self.per_shape.counts)
+
+    def graphs(self, carry):
+        """The ``StepGraphs`` of ``carry``'s shape, its static carry
+        holding ``carry``'s values."""
+        sig = signature(carry)
+        sg = self.per_shape.get(sig)
+        given = _generator(carry)
+        if sg is None:
+            gen = None if given is None else torch.Generator(given.device)
+            sg = StepGraphs(self.body, _with_generator(clone(carry), gen),
+                            self.capture, gen)
+            self.per_shape[sig] = sg
+        else:
+            copy_into(sg.carry, carry)
+        load_generator(sg.generator, given)
+        return sg
+
+    def run(self, carry, xs):
+        """Roll ``carry`` over ``xs``, one graph per input signature."""
+        if not xs:
+            raise ValueError(f"{self.what}: no steps to run")
+        self.capture.check(leaves(carry)[0].device, self.what)
+        sg = self.graphs(carry)
+        ys = None
+        for t, x in enumerate(xs):
+            y = sg.step(None, x)
+            if ys is None:
+                ys = [torch.empty((len(xs),) + tuple(v.shape), dtype=v.dtype,
+                                  device=v.device) for v in leaves(y)]
+            copy_into([row[t] for row in ys], leaves(y))
+        given = _generator(carry)
+        load_generator(given, sg.generator)
+        return _with_generator(clone(sg.carry), given), ys

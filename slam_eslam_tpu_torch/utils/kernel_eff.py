@@ -421,9 +421,11 @@ def merge_floor_fraction(n=4096, p=64, nx=40, ny=32, k=4, iters=20,
     if device.type == "cpu":
         return None
     fields, blk, points = merge_benchmark_operands(n, p, nx, ny, k, device)
+    # the merge's update index on the device, as the SLAM step passes it
+    uidx = torch.full((), 3, dtype=torch.int32, device=device)
 
     def merge(c):
-        block_merge(*c, None, blk, *points, 3, k=k)
+        block_merge(*c, None, blk, *points, uidx, k=k)
         return c
 
     def copy(mode):

@@ -47,7 +47,7 @@ from slam_eslam_tpu_torch.ops import chain_lookup as cl
 from slam_eslam_tpu_torch.ops import contact_fold as cf
 from slam_eslam_tpu_torch.ops import ordered_scan as osc
 from slam_eslam_tpu_torch.ops import select_cells as sc
-from slam_eslam_tpu_torch.utils import tree
+from slam_eslam_tpu_torch.utils import graphs, tree
 
 pytestmark = pytest.mark.cuda
 
@@ -701,6 +701,7 @@ def test_launches_capture_into_a_cuda_graph(dev):
     merged = [f.clone() for f in fields]
     bm.block_merge(*merged, None, blk, lx, ly, w, wz, 5, k=4)
     work = [f.clone() for f in fields]
+    uidx = torch.full((), 5, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     counts = lambda: (cf.contact_fold.launches, sc.select_cells.launches,
@@ -710,7 +711,7 @@ def test_launches_capture_into_a_cuda_graph(dev):
         cf.launch(packed, q, act, mv, seg, out, 0.33)
         sc.launch(packed, flat, outs, 3.0)
         cl.launch(*cargs, chain_outs, k=4, z_window=1.0)
-        bm.launch(*work, None, blk, lx, ly, w, wz, 5, k=4)
+        bm.launch(*work, None, blk, lx, ly, w, wz, uidx, k=4)
     assert counts() == tuple(b + 1 for b in before)
     out.zero_()
     graph.replay()
@@ -1272,3 +1273,152 @@ def test_ordered_scan_resample_repeats(dev):
     assert torch.equal(a.cpu(), pf.resample_from_positions(w, pos))
     with pytest.raises(TypeError, match="float32"):
         osc.ordered_scan(w.to(dev, torch.float64))
+
+
+# ------------------------------------------------ the compiled runners
+
+def test_block_merge_replays_read_update_idx_from_the_device(dev):
+    """K3 captured once stamps the update index the device scalar holds
+    at each replay (it is read, not baked into the capture), and each
+    replay equals an eager merge at that index."""
+    pool, (blk, lx, ly, w, wz) = merge_setup(512, 64, 12, dev, seed=21)
+    fields = [pool.mean, pool.stdev, pool.height, pool.meta]
+    uidx = torch.zeros((), dtype=torch.int32, device=dev)
+    work = [f.clone() for f in fields]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bm.launch(*work, None, blk, lx, ly, w, wz, uidx, k=4)
+    for value in (3, 11):
+        for a, f in zip(work, fields):
+            a.copy_(f)
+        uidx.fill_(value)
+        graph.replay()
+        ref = [f.clone() for f in fields]
+        bm.block_merge(*ref, None, blk, lx, ly, w, wz, value, k=4)
+        torch.cuda.synchronize()
+        for a, b in zip(work, ref):
+            assert bitwise(a, b)
+        written = work[3] != pool.meta
+        assert written.any() and ((work[3][written] >> 2) == value).all()
+
+
+def graph_bench_filter(dev, n, steps):
+    from slam_eslam_tpu_torch import bench
+
+    args = bench.parser().parse_args(["--particles", str(n), "--steps",
+                                      str(steps)])
+    cfg = bench.filter_config(args)
+    grid = tree.to(sim.terrain_grid(bench.filter_terrain,
+                                    **bench.FILTER_GRID), dev)
+    css, qs, _, _ = bench.filter_trajectory(steps, 8)
+    particles = bench.filter_particles(n)
+    fresh = lambda: bench.filter_state(cfg, particles, 8, dev)
+    return cfg, make_lookup(cfg, grid), tree.to(css, dev), qs.to(dev), fresh
+
+
+@pytest.mark.parametrize("with_draws", [False, True],
+                         ids=["generator", "draws"])
+def test_graphed_scan_runner_equals_eager(dev, with_draws):
+    """The localisation runner as CUDA graphs at 4,096 particles over 20
+    steps equals the eager loop bit for bit: centroids, every field of the
+    final state and the generator's state; its replays run under
+    ``set_sync_debug_mode("error")`` and credit K1 and S1 once a step."""
+    from slam_eslam_tpu_torch import ops
+
+    n, steps = 4096, 20
+    cfg, lookup, css, qs, fresh = graph_bench_filter(dev, n, steps)
+    draws = None
+    if with_draws:
+        gen = torch.Generator().manual_seed(2)
+        draws = [tree.to(steplib.StepDraws(
+            pe.ProjectDraws.sample(n, gen, "cpu"),
+            torch.rand(n, generator=gen)), dev) for _ in range(steps)]
+    eager = steplib.make_scan_runner(cfg, lookup)
+    graphed = steplib.make_scan_runner(cfg, lookup, graph=True)
+    graphed(fresh(), css, qs, draws)                 # eager first step, capture
+    s_ref, s_got = fresh(), fresh()
+    ref_state, ref_cents = eager(s_ref, css, qs, draws)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_state, got_cents = graphed(s_got, css, qs, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["contact_fold"] - before["contact_fold"] == steps
+    assert after["ordered_scan"] - before["ordered_scan"] == steps
+    assert graphed.graphs.counts() == dict(eager=1, captured=1,
+                                           replayed=2 * steps - 1)
+    assert bitwise(got_cents, ref_cents)
+    for a, b in zip(graphs.leaves(got_state), graphs.leaves(ref_state)):
+        assert torch.equal(a, b)
+    assert torch.equal(s_got.generator.get_state(),
+                       s_ref.generator.get_state())
+
+
+def graph_slam_setup(dev, n, scans):
+    from slam_eslam_tpu_torch import bench
+
+    args = bench.parser().parse_args(["--mode", "slam", "--particles",
+                                      str(n), "--steps", str(scans)])
+    cfg = bench.slam_config(args)
+    z0, frames, full, qs = bench.slam_trajectory(scans, 8)
+    odos = streaming.precompute_odometry(20, tree.to(full, dev), qs.to(dev),
+                                         cfg=cfg)
+    return bench, cfg, z0, tree.to(frames, dev), odos
+
+
+@pytest.mark.parametrize("with_draws", [False, True],
+                         ids=["generator", "draws"])
+def test_graphed_slam_runner_equals_eager(dev, with_draws):
+    """The SLAM runner as CUDA graphs at 4,096 particles over 40 frames
+    equals the eager loop bit for bit: gates, centroids, best poses, the
+    filter, every pool field (``meta`` with its update indices), the
+    chains and ``alloc_failed``; K2, K3 and S1 launches equal the gates
+    in the replayed run, which runs under ``set_sync_debug_mode
+    ("error")``."""
+    from slam_eslam_tpu_torch import ops
+
+    n = 4096
+    bench, cfg, z0, frames, odos = graph_slam_setup(dev, n, 4)
+    draws = None
+    if with_draws:
+        gen = torch.Generator().manual_seed(3)
+        draws = [tree.to(steplib.StepDraws(
+            pe.ProjectDraws.sample(n, gen, "cpu"),
+            torch.rand(n, generator=gen)), dev) for _ in range(len(frames))]
+    graphed = bench.make_slam_runner(cfg, graph=True)
+    for _ in range(2):       # warm-up: every gate combination captured
+        graphed(bench.slam_carry(cfg, z0, dev), frames, odos, draws)
+    assert graphed.settled()
+    ref = bench.make_slam_runner(cfg)(bench.slam_carry(cfg, z0, dev),
+                                      frames, odos, draws)
+    carry = bench.slam_carry(cfg, z0, dev)
+    torch.cuda.synchronize()
+    before, counts = ops.launch_counts(), graphed.counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = graphed(carry, frames, odos, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert graphed.counts()["eager"] == counts["eager"]
+    assert graphed.counts()["captured"] == counts["captured"]
+    (gc, ga), (rc, ra) = got, ref
+    n_meas, n_map = int(ra["updated"].sum()), int(ra["mapped"].sum())
+    assert n_meas and n_map
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), chain_lookup=n_meas, block_merge=n_map,
+        ordered_scan=n_meas)
+    for name in ("updated", "mapped"):
+        assert (ga[name] == ra[name]).all()
+    assert bitwise(ga["centroid"], ra["centroid"])
+    assert bitwise(ga["best_pose"], ra["best_pose"])
+    for a, b in zip(graphs.leaves((gc.filter, gc.pool, gc.alloc_failed)),
+                    graphs.leaves((rc.filter, rc.pool, rc.alloc_failed))):
+        assert torch.equal(a, b)
+    assert (gc.update_idx, gc.steps) == (rc.update_idx, rc.steps)
+    assert int((gc.pool.meta >> 2).max()) == gc.update_idx - 1

@@ -69,6 +69,7 @@ MODULES = [
     "slam_eslam_tpu_torch.utils.checkpoint",
     "slam_eslam_tpu_torch.utils.device",
     "slam_eslam_tpu_torch.utils.geometry",
+    "slam_eslam_tpu_torch.utils.graphs",
     "slam_eslam_tpu_torch.utils.kernel_eff",
     "slam_eslam_tpu_torch.utils.profiling",
     "slam_eslam_tpu_torch.utils.tree",

@@ -638,3 +638,23 @@ def test_slot_count_and_field_grid_match_jax():
         ref = np.asarray(jpool.field_grid(name))
         assert got.shape == ref.shape
         np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("with_color", [False, True], ids=["plain", "colour"])
+def test_merge_update_idx_as_a_device_scalar(with_color):
+    """``merge_cloud_all`` with ``update_idx`` as a 0-d int32 tensor (what
+    a CUDA graph replays: K3 reads it from the device) gives the pool the
+    same Python int gives, bit for bit, and stamps that index into the
+    written slots' ``meta``."""
+    jpool, parts, cloud = merge_case(17, 40, 0.9, with_color=with_color)
+    by_int = port_merge(jpool, parts, cloud, 9)
+    by_tensor = port_merge(jpool, parts, cloud,
+                           torch.tensor(9, dtype=torch.int32))
+    for name in by_int.data_fields() + ("origin", "chain", "allocated"):
+        a, b = getattr(by_int, name), getattr(by_tensor, name)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b), name
+    written = by_tensor.meta != port_pool(jpool).meta
+    assert written.any()
+    assert ((by_tensor.meta[written] >> 2) == 9).all()

@@ -199,3 +199,27 @@ def test_merge_packed_leaves_other_blocks_and_rejects_bad_images():
     with pytest.raises(TypeError, match="float32"):
         bm.pack_fields(pool.mean.to(torch.bfloat16), pool.stdev, pool.height,
                        pool.meta)
+
+
+def test_merge_packed_update_idx_as_a_device_scalar():
+    """``block_merge_packed`` and ``block_merge`` with ``update_idx`` a 0-d
+    int32 tensor equal the same Python int bit for bit."""
+    _, pool, (blk, lx, ly, w, wz), _ = case(9, 24, 1.0)
+    images = [bm.pack_fields(pool.mean, pool.stdev, pool.height, pool.meta)
+              for _ in range(2)]
+    bm.block_merge_packed(images[0], blk, lx, ly, w, wz, UPDATE_IDX, nx=NX,
+                          k=K)
+    bm.block_merge_packed(images[1], blk, lx, ly, w, wz,
+                          torch.tensor(UPDATE_IDX, dtype=torch.int32),
+                          nx=NX, k=K)
+    assert torch.equal(images[0].view(torch.int32),
+                       images[1].view(torch.int32))
+    fields = [[f.clone() for f in (pool.mean, pool.stdev, pool.height,
+                                   pool.meta)] for _ in range(2)]
+    bm.block_merge(*fields[0], None, blk, lx, ly, w, wz, UPDATE_IDX, k=K)
+    bm.block_merge(*fields[1], None, blk, lx, ly, w, wz,
+                   torch.tensor(UPDATE_IDX, dtype=torch.int32), k=K)
+    for a, b in zip(*fields):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(fields[0][3].view(torch.int32),
+                       bm.packed_fields(images[0], NX)[3])
