@@ -46,7 +46,7 @@ Phases (any failure raises and exits non-zero):
    (50 frames traced), hold the graphed run bit for bit to the eager one
    (centroids, best poses, the filter, every pool field with ``meta``, the
    chains, ``alloc_failed``), check that centroids, weights and the pool
-   are finite, and hold the first 60 frames against the CPU port fed the
+   are finite, and hold the first 40 frames against the CPU port fed the
    same random draws;
 7. check the unfolded lookup's select (K5) against its plain version,
    bit for bit, at 800,000 queries (100k particles x 8 contacts) on the
@@ -57,11 +57,19 @@ Phases (any failure raises and exits non-zero):
    ``EmbodiedSlamFilter.update_contact`` in shared-map mode with
    ``log_debug`` and the surface hash (global init, reinjection), at
    100k particles over the 150 frames of the localisation trajectory
-   with host syncs forbidden in every measurement update and the
-   distribution exported every 50 frames; count K5 launches (one per
-   measurement update, K1 none), run 20 frames with Chitta weighting
-   and 20 with the slip update on terrain labels, and hold the first 20
-   frames against the CPU port fed the same random draws;
+   with host syncs forbidden in every call and the distribution exported
+   every 50 frames, twice from one state and seed: eagerly and as CUDA
+   graphs (``EmbodiedSlamFilter(graph=True)``: one graph per key of the
+   call's host gates, captured at its second meeting); count K5 and S1
+   launches in each (one per measurement update, K1 none; the graphed
+   run's credited by its replays), print each run's ms per update and
+   per other frame (CUDA events and the host clock around every call,
+   the graphed run's replayed calls only) and the host's launch calls
+   per frame (10 more frames traced), and hold the graphed run's gates,
+   state, ``last_eval``, exports and generator bit for bit to the eager
+   run's; run 20 frames with Chitta weighting and 20 with the slip
+   update on terrain labels, and hold the first 20 frames against the
+   CPU port fed the same random draws;
 8. check the block copy (K7) against its plain version, bit for bit, at
    the merge benchmark's shape (N = 4,096 particles, P = 64 points,
    blocks of 40x128 slots, a pool of N + 64 blocks) and at a ragged N,
@@ -80,7 +88,7 @@ Phases (any failure raises and exits non-zero):
    every mode on its graphed runner, each SLAM run's last (replayed) run
    held bit for bit to one timed run of the eager runner on the same
    frames;
-   and hold the first 60 SLAM frames on a bfloat16 pool against the CPU
+   and hold the first 40 SLAM frames on a bfloat16 pool against the CPU
    port and against the float32 pool, fed the same random draws;
 9. check the merge on a packed block image (P4, the second entry point of
    K3's source) at the merge probe's shape (N = 4,096 particles, P = 64
@@ -95,18 +103,26 @@ Phases (any failure raises and exits non-zero):
    application's mapping API, ``EmbodiedSlamFilter`` with per-particle
    maps at 4,096 particles on a colour-carrying float32 pool with the
    scan match, negative information, the slip update on terrain labels
-   and the surface hash, the way ``examples.slam_demo`` drives it (three
-   timed passes): ``update_contact`` on each of 200 frames,
-   ``update_scan`` and ``update_distance_image`` (a
-   textured 12x16 distance image) on every tenth; count K2 and K3 launches
-   against the gates and the host syncs of every mapping update (one, the
-   read of the pool's failure count); hold ``run_stream`` against the same
-   60 frames driven call by call, and the card against the CPU port over
-   60 frames on identical draws; and merge a distance image into a hole
-   of the shared 400x400 map at 100,000 particles
-   (``update_distance_image`` in shared-map mode) and check that the
+   and the surface hash, the way ``examples.slam_demo`` drives it (four
+   timed passes in turns: eager, graphed, graphed, eager):
+   ``update_contact`` on each of 200 frames, ``update_scan`` and
+   ``update_distance_image`` (a textured 12x16 distance image) on every
+   tenth; count K2, K3 and S1 launches against the gates and the host
+   syncs of every mapping update (none: the pool's failure count is read
+   a call later, without waiting), print ms per frame and the host's
+   launch calls per frame, and hold the graphed pass bit for bit to the
+   eager one; hold ``run_stream`` against the same 40 frames driven call
+   by call, and the card against the CPU port over 40 frames on
+   identical draws; merge a distance image into a hole of the shared
+   400x400 map at 100,000 particles (``update_distance_image`` in
+   shared-map mode), eager and graphed, bit for bit, and check that the
    contacts of the next ``update_contact`` find the new patches, against
-   a twin filter that merged the same image 4 m to the side;
+   a twin filter that merged the same image 4 m to the side; and run the
+   SLAM runner with the camera and the surface hash
+   (``make_slam_scan_runner(camera2body=, hash_=)``) over the 200 frames
+   at 4,096 particles, eager and graphed (one graph per combination of
+   the measurement, laser, camera and hash gates), bit for bit, with
+   launches against the gates, ms and launch calls per frame;
 10. the loop-closure backend: the pose-graph solvers (dense, DCS, PCG,
    Schur) at 1,024 nodes and ``scan_align`` against the CPU port, the
    loop-closure demo, ``OnlineSlam`` at 4,096 particles in chunks (K2/K3
@@ -119,12 +135,14 @@ Phases (any failure raises and exits non-zero):
    ``examples.full_demo`` at 4,096 particles on 16,384 blocks with the
    demo's route (record, ``frames_from_log`` onto the card equal bit for
    bit to the CPU read, ``OnlineSlam`` in chunks of 60 with K2/K3 against
-   the gates, the first chunk and its best particle's map layers against
-   the CPU port on the same draws) and on a route of two out-and-back laps
-   that must close a loop; ``tools.closure_lab`` on that run's graph,
-   every policy against the CPU port; ``examples.replay_demo`` at 100,000
-   particles (one K1 launch per measurement update, no K5; 20 frames at
-   4,096 against the CPU port); ``viz.render.chain_layers`` on a
+   the gates, graphed (the demo's default on the card) and eager, bit for
+   bit, with ms per chunk and launch calls per frame; the first chunk and
+   its best particle's map layers against the CPU port on the same
+   draws) and on a route of two out-and-back laps that must close a loop;
+   ``tools.closure_lab`` on that run's graph, every policy against the
+   CPU port; ``examples.replay_demo`` at 100,000 particles, graphed (one
+   K1 launch per measurement update, no K5; 20 frames at 4,096 against
+   the CPU port); ``viz.render.chain_layers`` on a
    400,000-block bfloat16 pool within 64 MB of device memory.  Nothing is
    written under ``slam_eslam_tpu/``;
 12. the measurement tools of ``tools/``, ported
@@ -147,7 +165,7 @@ Phases (any failure raises and exits non-zero):
    repeatable cumulative sum, one launch a call) bit for bit against its
    plain version on the card and the CPU at 100,000, 1, 127, 129, 100,003,
    8,193 and 2,100,000 elements and, with zeros of both signs, at its
-   level and tile boundaries, two calls alike, graph replays and 1,000
+   level and tile boundaries, two calls alike, graph replays and 250
    calls back to back alike, every ancestor bracketing its position;
    timed at 100,000 and 2,100,000 beside its byte bound, ``torch.cumsum``
    (both in CUDA graphs), an empty kernel's launch and, given
@@ -235,7 +253,7 @@ SLAM_POOL = dict(nx=40, ny=40, k=4, resolution=0.25, chain_len=3)
 SLAM_C = 8
 SLAM_RAYS = 64
 SLAM_STEPS = 20            # scans, 10 contact frames each
-SLAM_CHECK_FRAMES = 60
+SLAM_CHECK_FRAMES = 40    # frames held against the CPU port
 SLAM_PROFILE_FRAMES = 50
 SLAM_LAUNCH_FRAMES = 50    # frames traced for the host's launch calls
 # K3 against its plain version: bitwise on cells one point hits; the
@@ -244,7 +262,7 @@ SLAM_LAUNCH_FRAMES = 50    # frames traced for the host's launch calls
 # (height, a difference of two heights)
 MERGE_RTOL = 1e-6
 MERGE_HEIGHT_ATOL = 1e-6
-# GPU vs CPU port: patch counts after 60 frames.  Float32 rounding of
+# GPU vs CPU port: patch counts after 40 frames.  Float32 rounding of
 # transcendental functions differs between the two devices, which can
 # move a point across a cell edge or a resampling ancestor by one; each
 # changes a count by a few patches
@@ -292,9 +310,10 @@ PROBE = dict(n=4096, p=64, nx=40, ny=40, k=4)
 # K3's other point counts (phases 5, 8, 9): one point, the camera image
 # (MAP_IMAGE), a long cloud
 MERGE_POINTS = (1, 192, 2048)
-MAP_CHECK_FRAMES = 60
+MAP_CHECK_FRAMES = 40      # frames of the run_stream and CPU port checks
 MAP_WARM_FRAMES = 30
-MAP_PASSES = 3               # timed passes of the 200 frames, rates as a range
+MAP_PASSES = 2               # timed passes of the 200 frames a mode, in turns
+MAP_LAUNCH_FRAMES = 40       # frames traced for the host's launch calls
 MAP_IMAGE = (12, 16)         # the distance image of examples/full_demo.py
 MAP_HASH_PERIOD = 5
 MAP_LABEL_PERIOD = 4         # terrain labels on every fourth frame
@@ -326,8 +345,9 @@ def runtime_calls(fn, trace=None):
     """The CUDA runtime calls ``fn()`` makes on the host, by name:
     ``torch.profiler``'s host records (the tracer keeps them) of one call
     ending in a device sync.  ``trace`` (a dict) also receives the
-    session's wall seconds and the device time of the kernels it traced
-    (ms; a profiler that lost device records reads low)."""
+    session's wall seconds, the device time of the kernels it traced
+    (ms; a profiler that lost device records reads low) and the host
+    time of its graph launches (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,21 +362,26 @@ def runtime_calls(fn, trace=None):
     if trace is not None:
         trace.update(wall=wall, device_ms=sum(
             e.self_device_time_total for e in events
-            if e.device_type == DeviceType.CUDA) / 1e3)
+            if e.device_type == DeviceType.CUDA) / 1e3, graph_ms=sum(
+            e.self_cpu_time_total for e in events
+            if "GraphLaunch" in e.key) / 1e3)
     return {e.key: e.count for e in events
             if e.device_type != DeviceType.CUDA and e.key.startswith("cu")}
 
 
 def host_launches(fn, steps):
     """Per step of ``fn()`` (a run of ``steps`` steps): the host's
-    kernel-launch calls, graph-launch calls and copies/memsets, and the
-    device's busy share of the traced run (kernel time over wall time)."""
+    kernel-launch calls, graph-launch calls and copies/memsets, the host
+    milliseconds of one graph launch, and the device's busy share of the
+    traced run (kernel time over wall time)."""
     trace = {}
     calls = runtime_calls(fn, trace)
     per = lambda *keys: sum(v for k, v in calls.items()
                             if any(key in k for key in keys)) / steps
-    return dict(kernel=per("LaunchKernel"), graph=per("GraphLaunch"),
+    graph = per("GraphLaunch")
+    return dict(kernel=per("LaunchKernel"), graph=graph,
                 copy=per("Memcpy", "Memset"),
+                graph_ms=trace["graph_ms"] / max(graph * steps, 1),
                 device_ms=trace["device_ms"] / steps,
                 busy=trace["device_ms"] / 1e3 / trace["wall"])
 
@@ -364,7 +389,9 @@ def host_launches(fn, steps):
 def calls_text(calls, unit):
     return (f"per {unit}: host {calls['kernel']:.2f} kernel-launch, "
             f"{calls['graph']:.2f} graph-launch and {calls['copy']:.2f} copy "
-            f"calls, device {calls['device_ms']:.4f} ms of kernels (busy "
+            f"calls" + (f" ({calls['graph_ms']:.4f} ms of host time a graph "
+                        f"launch)" if calls["graph"] else "")
+            + f", device {calls['device_ms']:.4f} ms of kernels (busy "
             f"{calls['busy']:.1%} of the traced run)")
 
 
@@ -1500,11 +1527,12 @@ def app_setup():
     return z0, poses, tree.stack(css), torch.stack(qs)
 
 
-def app_filter(cfg, grid, z0, dev, hash_config=None, particles=None):
+def app_filter(cfg, grid, z0, dev, hash_config=None, particles=None,
+               graph=False):
     from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
     from slam_eslam_tpu_torch.utils import tree
 
-    f = EmbodiedSlamFilter(config=cfg, device=dev).init(
+    f = EmbodiedSlamFilter(config=cfg, device=dev, graph=graph).init(
         pose=(np.array([0.0, 0.0, z0]), 0.0), shared_grid=grid,
         hash_config=hash_config, num_contact_points=CONTACT_CAP)
     if particles is not None:
@@ -1518,14 +1546,15 @@ def app_drive(f, poses, css, qs, frames, labels=None, spans=None,
     """``update_contact`` over the first ``frames`` frames (contact
     states and orientations already on the filter's device), host syncs
     forbidden in each call.  ``spans`` collects, per call, CUDA events
-    around it and its host milliseconds (the time to launch its work),
-    ``exports`` the period-gated distributions.  Returns the gate
-    decisions."""
+    around it, its host milliseconds (the time to launch its work) and
+    whether it replayed a graph, ``exports`` the period-gated
+    distributions.  Returns the gate decisions."""
     gates = []
     for i in range(frames):
         if spans is not None:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
+            replays = f.graphs.counts().get("replayed", 0)
             ev[0].record()
             t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
@@ -1538,7 +1567,8 @@ def app_drive(f, poses, css, qs, frames, labels=None, spans=None,
         if spans is not None:
             host_ms = (time.perf_counter() - t0) * 1e3
             ev[1].record()
-            spans.append((*ev, host_ms))
+            spans.append((*ev, host_ms,
+                          f.graphs.counts().get("replayed", 0) > replays))
         if exports is not None:
             dist = f.maybe_log_distribution()
             if dist is not None:
@@ -1637,7 +1667,79 @@ def app_reinjections(gates, hcfg):
                if g and (i + 1) % max(1, hcfg.period) == 0)
 
 
-def app_path(dev, profile):
+def span_means(spans, gates):
+    """Mean device (CUDA events) and host milliseconds of the calls of
+    ``spans`` whose gate fired and of those whose gate did not; a graphed
+    run's calls that replayed only (its first meetings run eagerly and
+    capture)."""
+    replays = any(s[3] for s in spans)
+
+    def mean(which, gated):
+        ms = [which(s) for s, g in zip(spans, gates)
+              if g == gated and (s[3] or not replays)]
+        return sum(ms) / max(len(ms), 1)
+
+    device = lambda s: s[0].elapsed_time(s[1])
+    host = lambda s: s[2]
+    return dict(ms_meas=mean(device, True), ms_plain=mean(device, False),
+                host_meas=mean(host, True), host_plain=mean(host, False))
+
+
+def app_run(mode, cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev, card):
+    """The application's APP_FRAMES frames from a fresh filter, eager or
+    graphed (``EmbodiedSlamFilter(graph=True)``), host syncs forbidden in
+    every call: launches against the gates, ms per frame, the host's
+    launch calls per frame (LAUNCH_STEPS more frames traced)."""
+    from slam_eslam_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    f = app_filter(cfg, grid_d, z0, dev, hcfg, graph=mode == "graphed")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    spans, exports = [], []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gates = app_drive(f, poses, frames, qs_l, APP_FRAMES, spans=spans,
+                      exports=exports)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_meas = sum(gates)
+    # K5 and S1 once per measurement update, K1 none (log_debug); S1 also
+    # once per distribution export (the GMM's first mean)
+    want = dict(dict.fromkeys(WRAPPERS, 0), select_cells=n_meas,
+                ordered_scan=n_meas + len(exports))
+    if launches != want or not n_meas:
+        raise RuntimeError(f"application path[{mode}]: launches {launches} "
+                           f"for {n_meas} measurement updates")
+    out = dict(f=f, gates=gates, exports=exports, elapsed=elapsed,
+               init_s=init_s, launches=launches, n_meas=n_meas,
+               graphs=f.graphs.counts(), **span_means(spans, gates))
+    # the calls were checked: the state the launch trace leaves is not
+    out["state"] = (graphs_clone(f.state), graphs_clone(f.last_eval))
+    out["gen"] = f.state.generator.get_state()
+    out["calls"] = host_launches(
+        lambda: app_drive(f, poses, frames, qs_l, LAUNCH_STEPS),
+        LAUNCH_STEPS)
+    print(f"application path[{mode}]: {APP_FRAMES} frames x {N_BENCH} "
+          f"particles in {elapsed:.4f} s = {APP_FRAMES / elapsed:.2f} "
+          f"frames/s; {n_meas} measurement updates at {out['ms_meas']:.4f} "
+          f"ms each (CUDA events; {out['host_meas']:.4f} ms on the host), "
+          f"other frames {out['ms_plain']:.4f} ms ({out['host_plain']:.4f} "
+          f"ms)" + (" over the replayed calls" if mode == "graphed" else "")
+          + f"; launches {launches}; {calls_text(out['calls'], 'frame')}"
+          + (f"; calls {out['graphs']}" if mode == "graphed" else "")
+          + f" [{card}]")
+    return out
+
+
+def graphs_clone(tree):
+    from slam_eslam_tpu_torch.utils import graphs
+
+    return graphs.clone(tree)
+
+
+def app_path(dev, profile, card=None):
     from slam_eslam_tpu_torch import SurfaceHashConfig
     from slam_eslam_tpu_torch.models import sim
     from slam_eslam_tpu_torch.ops import contact_fold as cf
@@ -1657,24 +1759,27 @@ def app_path(dev, profile):
 
     app_drive(app_filter(cfg, grid_d, z0, dev, hcfg), poses, frames, qs_l,
               10)                                               # warm-up
-    t0 = time.perf_counter()
-    f = app_filter(cfg, grid_d, z0, dev, hcfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    spans, exports = [], []
-    cf.contact_fold.launches = 0
-    sc.select_cells.launches = 0
-    t0 = time.perf_counter()
-    gates = app_drive(f, poses, frames, qs_l, APP_FRAMES, spans=spans,
-                      exports=exports)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {"select_cells": sc.select_cells.launches,
-                "contact_fold": cf.contact_fold.launches}
-    n_meas = sum(gates)
-    if launches != {"select_cells": n_meas, "contact_fold": 0} or not n_meas:
-        raise RuntimeError(f"application path: launches {launches} for "
-                           f"{n_meas} measurement updates")
+    runs = {mode: app_run(mode, cfg, hcfg, grid_d, z0, poses, frames, qs_l,
+                          dev, card) for mode in ("eager", "graphed")}
+    eager, graphed = runs["eager"], runs["graphed"]
+    f = eager["f"]
+    same, n_fields = equal_bits(
+        (graphed["state"], [d for _, d in graphed["exports"]]),
+        (eager["state"], [d for _, d in eager["exports"]]))
+    same &= graphed["gates"] == eager["gates"] and [
+        i for i, _ in graphed["exports"]] == [i for i, _ in eager["exports"]]
+    same_gen = torch.equal(graphed["gen"], eager["gen"])
+    print(f"application path: graphed vs eager over {APP_FRAMES} frames "
+          f"from one state and seed: gates, the state, last_eval and "
+          f"{len(eager['exports'])} distribution exports ({n_fields} "
+          f"tensors) equal bit for bit: {same}; generator states equal: "
+          f"{same_gen} [{card}]")
+    if not (same and same_gen):
+        raise RuntimeError("application path: the graphed run differs from "
+                           "the eager run")
+    del graphed["f"], graphed["state"], eager["state"]
+    gates, exports = eager["gates"], eager["exports"]
+    n_meas = eager["n_meas"]
     check_app_state(f, "log_debug+hash")
     ev = f.last_eval
     if not bool(ev.cp_ok.any()) or not bool(
@@ -1689,24 +1794,16 @@ def app_path(dev, profile):
                 and bool(torch.isfinite(dist.gmm_covs).all())
                 and dist.cpoints.shape == ev.cp_point.shape):
             raise RuntimeError("application path: bad distribution export")
-    def mean_ms(which, gated):
-        ms = [which(span) for span, g in zip(spans, gates) if g == gated]
-        return sum(ms) / max(len(ms), 1)
-
-    device_ms = lambda span: span[0].elapsed_time(span[1])
-    host_ms = lambda span: span[2]
-    ms_meas, ms_plain = mean_ms(device_ms, True), mean_ms(device_ms, False)
-    host_meas, host_plain = mean_ms(host_ms, True), mean_ms(host_ms, False)
+    launches = {"select_cells": eager["launches"]["select_cells"],
+                "contact_fold": eager["launches"]["contact_fold"]}
     print(f"application path: {APP_FRAMES} frames x {N_BENCH} particles in "
-          f"{elapsed:.4f} s = {APP_FRAMES / elapsed:.2f} frames/s; "
-          f"{n_meas} measurement updates at {ms_meas:.4f} ms each (CUDA "
-          f"events; {host_meas:.4f} ms on the host), other frames "
-          f"{ms_plain:.4f} ms ({host_plain:.4f} ms); launches {launches}; "
+          f"{eager['elapsed']:.4f} s = {APP_FRAMES / eager['elapsed']:.2f} "
+          f"frames/s eager, {APP_FRAMES / graphed['elapsed']:.2f} graphed; "
           f"{len(exports)} distribution exports, "
           f"{app_reinjections(gates, hcfg)} hash reinjections; hash "
           f"{f.hash.cand_xy.shape[0]} candidates, {int(f.hash.n_valid)} "
-          f"valid, init {init_s:.4f} s")
-    del f, spans, exports
+          f"valid, init {eager['init_s']:.4f} s")
+    del f, eager["f"], exports
 
     short = {}
     for name, contact, grid_s, labels in (
@@ -1740,10 +1837,12 @@ def app_path(dev, profile):
     if profile:
         profile_app(cfg, hcfg, grid_d, z0, poses, frames, qs_l, dev,
                     Path(profile))
-    return dict(elapsed=elapsed, launches=launches, n_meas=n_meas,
-                ms_meas=ms_meas, ms_plain=ms_plain, host_meas=host_meas,
-                host_plain=host_plain, dev_err=dev_err,
-                cp_err=cp_err, flips=flips, short=short)
+    return dict(elapsed=eager["elapsed"], launches=launches, n_meas=n_meas,
+                ms_meas=eager["ms_meas"], ms_plain=eager["ms_plain"],
+                host_meas=eager["host_meas"],
+                host_plain=eager["host_plain"], dev_err=dev_err,
+                cp_err=cp_err, flips=flips, short=short, graphed=graphed,
+                calls=eager["calls"])
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2288,7 +2387,7 @@ def bench_slam_run(card, n, steps, extra, label):
 
 
 def bf16_path(dev):
-    """60 frames at 4,096 particles on a bfloat16 pool: the card against
+    """40 frames at 4,096 particles on a bfloat16 pool: the card against
     the CPU port, and against the float32 pool on the card, on identical
     draws."""
     from slam_eslam_tpu_torch import bench
@@ -2537,14 +2636,14 @@ def map_setup():
                 intrinsics=intrinsics, env=env)
 
 
-def map_filter(cfg, setup, dev, start):
+def map_filter(cfg, setup, dev, start, graph=False):
     """A fresh per-particle filter on the start map with the surface hash,
     its particles set to the Gaussian cloud ``start``."""
     from slam_eslam_tpu_torch import SurfaceHashConfig
     from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
     from slam_eslam_tpu_torch.utils import tree
 
-    f = EmbodiedSlamFilter(config=cfg, device=dev).init(
+    f = EmbodiedSlamFilter(config=cfg, device=dev, graph=graph).init(
         pose=(np.array([0.0, 0.0, setup["z0"]]), 0.0),
         shared_grid=setup["env"], use_shared_map=False,
         hash_config=SurfaceHashConfig(use_hash=True, period=MAP_HASH_PERIOD))
@@ -2607,8 +2706,8 @@ def map_drive(f, setup, n_frames, labels=None, draws=None, spans=None):
     on the filter's device): ``update_contact`` on every frame, host syncs
     forbidden; on a scan frame ``update_scan`` and then
     ``update_distance_image`` with the texture, their host syncs counted.
-    ``spans`` collects ``(call, host ms, CUDA events)`` of every mapping
-    call.  Returns the gates, the centroids ``[T, 3]`` and the set of
+    ``spans`` collects ``(call, result, host ms, CUDA events, whether it
+    replayed a graph)`` of every mapping call.  Returns the gates, the centroids ``[T, 3]`` and the set of
     host-sync counts of the mapping calls whose gate fired."""
     from slam_eslam_tpu_torch.filter.eslam_filter import ContactDraws
     from slam_eslam_tpu_torch.mapping import projection
@@ -2625,12 +2724,14 @@ def map_drive(f, setup, n_frames, labels=None, draws=None, spans=None):
             return count_syncs(fn) if cuda else (fn(), 0)
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
+        replays = f.graphs.counts().get("replayed", 0)
         ev[0].record()
         t0 = time.perf_counter()
         out, syncs = count_syncs(fn)
         host_ms = (time.perf_counter() - t0) * 1e3
         ev[1].record()
-        spans.append((name, out, host_ms, *ev))
+        spans.append((name, out, host_ms, *ev,
+                      f.graphs.counts().get("replayed", 0) > replays))
         return out, syncs
 
     for i in range(n_frames):
@@ -2653,13 +2754,15 @@ def map_drive(f, setup, n_frames, labels=None, draws=None, spans=None):
                                         fr.angular_resolution)
             mapped, syncs = timed("update_scan", lambda: f.update_scan(
                 pose, scan, setup["laser"], orientation=fr.q))
-            sync_counts.add(syncs if mapped else 1)
+            if mapped:
+                sync_counts.add(syncs)
             image = projection.DistanceImage(fr.dimg, *consts)
             cam, syncs = timed(
                 "update_distance_image", lambda: f.update_distance_image(
                     pose, image, setup["camera"], texture=fr.timg,
                     orientation=fr.q))
-            sync_counts.add(syncs if cam else 1)
+            if cam:
+                sync_counts.add(syncs)
         gates["mapped"].append(mapped)
         gates["cam_mapped"].append(cam)
         cents.append(f.get_centroid()[0])
@@ -2685,15 +2788,19 @@ def check_map_state(f, cents, label):
     return int(pool.count_valid()), textured
 
 
-def map_pass(cfg, setup, dev, start, card, number):
+def map_pass(cfg, setup, dev, start, card, number, mode="eager",
+             trace=True):
     """One timed pass of the application's loop over all frames from a
-    fresh filter, labels included, as ``examples.slam_demo`` drives it:
-    launch counts against the gates, one host sync per mapping update,
-    the map's state.  Returns the pass's numbers."""
+    fresh filter, eager or graphed, labels included, as
+    ``examples.slam_demo`` drives it: launch counts against the gates, no
+    host sync in a mapping update (the pool's failure count is read one
+    call later at most, without waiting), the map's state, the host's
+    launch calls per frame (``trace``: MAP_LAUNCH_FRAMES more frames under
+    ``torch.profiler``).  Returns the pass's numbers and the filter."""
     from slam_eslam_tpu_torch import ops
 
     n_frames = len(setup["frames"])
-    f = map_filter(cfg, setup, dev, start)
+    f = map_filter(cfg, setup, dev, start, graph=mode == "graphed")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     spans = []
@@ -2713,17 +2820,20 @@ def map_pass(cfg, setup, dev, start, card, number):
     if n_meas < labelled or n_map != SLAM_STEPS or not 1 < n_cam < n_map:
         raise RuntimeError(f"mapping path: {n_meas} measurement updates, "
                            f"{n_map} laser and {n_cam} camera merges")
-    if sync_counts != {1}:
-        raise RuntimeError(f"mapping path: {sorted(sync_counts)} host syncs "
-                           f"in a mapping update (each makes one, the read "
-                           f"of the pool's failure count)")
+    if sync_counts != {0}:
+        raise RuntimeError(f"mapping path[{mode}]: {sorted(sync_counts)} "
+                           f"host syncs in a mapping update (none: the "
+                           f"pool's failure count is read without waiting)")
     if f.update_idx != n_map + n_cam or f.steps != n_frames:
         raise RuntimeError(f"mapping path: update_idx {f.update_idx}, steps "
                            f"{f.steps}")
     patches, textured = check_map_state(f, cents, "mapping path")
 
     def mean_ms(name, which):
-        ms = [which(s) for s in spans if s[0] == name and s[1]]
+        # a graphed pass's calls that replayed (its first meetings run
+        # eagerly and capture)
+        ms = [which(s) for s in spans
+              if s[0] == name and s[1] and (s[5] or mode == "eager")]
         return sum(ms) / max(len(ms), 1)
 
     host = lambda s: s[2]
@@ -2736,19 +2846,30 @@ def map_pass(cfg, setup, dev, start, card, number):
         scan_ms=mean_ms("update_scan", host),
         scan_device_ms=mean_ms("update_scan", device),
         image_ms=mean_ms("update_distance_image", host),
-        image_device_ms=mean_ms("update_distance_image", device))
-    print(f"mapping path[pass {number}]: {n_frames} frames x {SLAM_N} "
-          f"particles in {elapsed:.4f} s = {n_frames / elapsed:.2f} frames/s; "
+        image_device_ms=mean_ms("update_distance_image", device),
+        gates=gates, cents=cents, f=f, graphs=f.graphs.counts(),
+        state=graphs_clone((f.state, f.pool)), update_idx=f.update_idx,
+        gen=f.state.generator.get_state())
+    out["calls"] = None if not trace else host_launches(
+        lambda: map_drive(f, setup, MAP_LAUNCH_FRAMES, labels=map_labels),
+        MAP_LAUNCH_FRAMES)
+    print(f"mapping path[{mode}, pass {number}]: {n_frames} frames x "
+          f"{SLAM_N} particles in {elapsed:.4f} s = {n_frames / elapsed:.2f} "
+          f"frames/s, {elapsed / n_frames * 1e3:.4f} ms/frame; "
           f"{n_meas} measurement updates ({labelled} frames with terrain "
           f"labels, {reinjected} hash reinjections), {n_map} laser and "
           f"{n_cam} camera merges; update_scan {out['scan_ms']:.4f} ms on "
           f"the host "
           f"({out['scan_device_ms']:.4f} ms by CUDA events), "
           f"update_distance_image {out['image_ms']:.4f} ms "
-          f"({out['image_device_ms']:.4f} ms); one host sync per mapping "
-          f"update; launches {launches}; pool "
+          f"({out['image_device_ms']:.4f} ms)"
+          + (" over the replayed calls" if mode == "graphed" else "")
+          + f"; no host sync in a mapping update; launches {launches}; pool "
           f"{f.pool.storage_bytes() / 1e9:.3f} GB, patches {patches}, "
-          f"{textured} with the texture's colour [{card}]")
+          f"{textured} with the texture's colour"
+          + (f"; {calls_text(out['calls'], 'frame')}" if trace else "")
+          + (f"; calls {out['graphs']}" if mode == "graphed" else "")
+          + f" [{card}]")
     return out
 
 
@@ -2765,13 +2886,47 @@ def map_app_path(dev, card, profile=None):
     # ---- the loop as examples.slam_demo drives it, labels included ----
     map_drive(map_filter(cfg, setup, dev, start), setup, MAP_WARM_FRAMES,
               labels=map_labels)                                # warm-up
-    # several passes from the same start: host-bound rates spread, so the
-    # range is what one run can say
-    passes = [map_pass(cfg, setup, dev, start, card, number)
-              for number in range(MAP_PASSES)]
-    out = dict(passes[0], rates=[o["frames"] / o["elapsed"] for o in passes],
-               scan_ms_range=[o["scan_ms"] for o in passes],
-               image_ms_range=[o["image_ms"] for o in passes])
+    # passes from the same start, eager and graphed in turns: host-bound
+    # rates spread, so the range is what one run can say
+    order = ["eager", "graphed", "graphed", "eager"][:2 * MAP_PASSES]
+    passes = {"eager": [], "graphed": []}
+    for number, mode in enumerate(order):
+        # the launch calls traced in each mode's last pass
+        last = mode not in order[number + 1:]
+        passes[mode].append(map_pass(cfg, setup, dev, start, card, number,
+                                     mode, trace=last))
+        for earlier in passes[mode][:-1]:
+            earlier.pop("f", None)
+            earlier.pop("state", None)
+        torch.cuda.empty_cache()
+    e, g = passes["eager"][-1], passes["graphed"][-1]
+    same, n_fields = equal_bits((g["state"], g["cents"]),
+                                (e["state"], e["cents"]))
+    same &= all((g["gates"][k] == e["gates"][k]).all() for k in e["gates"])
+    same &= g["update_idx"] == e["update_idx"] and g["launches"] == e[
+        "launches"]
+    same_gen = torch.equal(g["gen"], e["gen"])
+    print(f"mapping path: graphed vs eager over {e['frames']} frames from "
+          f"one start: gates, centroids and {n_fields - 1} state and pool "
+          f"tensors equal bit for bit: {same}; generator states equal: "
+          f"{same_gen}; launches equal: {g['launches'] == e['launches']}")
+    if not (same and same_gen):
+        raise RuntimeError("mapping path: the graphed run differs from the "
+                           "eager run")
+    for o in (e, g):
+        o.pop("f"), o.pop("state")
+    torch.cuda.empty_cache()
+    eager = passes["eager"]
+    out = dict(eager[-1], rates=[o["frames"] / o["elapsed"] for o in eager],
+               scan_ms_range=[o["scan_ms"] for o in eager],
+               image_ms_range=[o["image_ms"] for o in eager],
+               graphed=dict(
+                   rates=[o["frames"] / o["elapsed"]
+                          for o in passes["graphed"]],
+                   scan_ms_range=[o["scan_ms"] for o in passes["graphed"]],
+                   image_ms_range=[o["image_ms"]
+                                   for o in passes["graphed"]],
+                   launches=g["launches"], calls=g["calls"]))
 
     # ---- run_stream against the same frames call by call: a gate that
     # fires on every frame (the stream carries no terrain labels, and it
@@ -2841,15 +2996,18 @@ def map_app_path(dev, card, profile=None):
     return out
 
 
-def shared_camera_merge(dev, card):
-    """``update_distance_image`` in shared-map mode at 100,000 particles.
+def shared_camera_merge(dev, card, mode="eager"):
+    """``update_distance_image`` in shared-map mode at 100,000 particles,
+    eager or graphed (the graphs of ``update_contact`` captured before the
+    merge read the merged grid, written into its storage).
     The shared 400x400 map starts with a hole (no patches) around the
     robot.  One filter merges a textured image of the ground under the
     robot, under its centroid pose: the camera fills the hole with new
     patches.  Its twin merges the same image through a mount
     ``SHARED_FAR`` m to the side, onto terrain no contact reaches.  At the
     next measurement update only the first filter's contacts find
-    patches, and its weights differ from the twin's."""
+    patches, and its weights differ from the twin's.  Returns both
+    filters' states, grids and generators (copies)."""
     from slam_eslam_tpu_torch import ops
     from slam_eslam_tpu_torch.mapping import projection
     from slam_eslam_tpu_torch.models import sim
@@ -2885,7 +3043,8 @@ def shared_camera_merge(dev, card):
             *intrinsics)
 
     texture = torch.full((h, w, 3), 0.5, device=dev)
-    filters = {name: app_filter(cfg, grid_d, z0, dev) for name in mounts}
+    filters = {name: app_filter(cfg, grid_d, z0, dev,
+                                graph=mode == "graphed") for name in mounts}
     seen, twin = filters["seen"], filters["twin"]
     ops.reset_launch_counts()
     frame, merged_at, contacts = 0, None, {}
@@ -2895,7 +3054,8 @@ def shared_camera_merge(dev, card):
                                     orientation=qs_d[frame])
         frame += 1
         if merged_at is None and gate:
-            before = seen.shared_grid
+            # a graphed filter merges into its grid's storage
+            before = graphs_clone(seen.shared_grid)
             for name, f in filters.items():
                 fired, syncs = count_syncs(lambda: f.update_distance_image(
                     poses[frame - 1], image_at(poses[frame - 1][1]),
@@ -2921,7 +3081,8 @@ def shared_camera_merge(dev, card):
     dw = float((seen.state.particles.weight
                 - twin.state.particles.weight).abs().max()) / mean_w
     launches = ops.launch_counts()
-    print(f"shared camera merge: {N_BENCH} particles, image {h}x{w} merged "
+    print(f"shared camera merge[{mode}]: {N_BENCH} particles, image {h}x{w} "
+          f"merged "
           f"at frame {merged_at} into the {GRID['nx']}x{GRID['ny']} map: "
           f"{new} new patches ({new_in_hole} in the hole, {coloured} with "
           f"the texture's colour; the twin's merge {SHARED_FAR} m aside left "
@@ -2947,7 +3108,143 @@ def shared_camera_merge(dev, card):
     # the next frame whose gate fired
     want = dict.fromkeys(WRAPPERS, 0)
     want.update(contact_fold=4, ordered_scan=4)
-    expect_launches(launches, want, "shared camera merge")
+    expect_launches(launches, want, f"shared camera merge[{mode}]")
+    return {name: (graphs_clone((f.state, f.shared_grid, f.last_eval)),
+                   f.state.generator.get_state())
+            for name, f in filters.items()}
+
+
+def shared_camera_merges(dev, card):
+    """The shared-map camera merge eager and graphed, bit for bit."""
+    runs = {mode: shared_camera_merge(dev, card, mode)
+            for mode in ("eager", "graphed")}
+    same, n = equal_bits([v[0] for v in runs["graphed"].values()],
+                         [v[0] for v in runs["eager"].values()])
+    same_gen = all(torch.equal(runs["graphed"][k][1], runs["eager"][k][1])
+                   for k in runs["eager"])
+    print(f"shared camera merge: graphed vs eager, both filters' states, "
+          f"grids and last_eval ({n} tensors) equal bit for bit: {same}; "
+          f"generator states equal: {same_gen}")
+    if not (same and same_gen):
+        raise RuntimeError("shared camera merge: the graphed run differs "
+                           "from the eager run")
+
+
+def camera_hash_slam(dev, card):
+    """``streaming.make_slam_scan_runner`` with the camera (phase 9's
+    textured 12x16 image beside every scan, the camera gate letting every
+    second one through) and the surface hash (a reinjection every
+    MAP_HASH_PERIOD frames) at 4,096 particles over the 200 frames, on the
+    mapping path's colour-carrying pool with the scan match and negative
+    information: eager and graphed (one graph per combination of the
+    measurement, laser, camera and hash gates, captured in warm-up runs)
+    from one state and seed, host syncs forbidden in the timed runs; K2,
+    K3 and S1 launches against the gates, ms and the host's launch calls
+    per frame, the graphed run bit for bit the eager one."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = map_config()
+    setup = map_setup()
+    frames_d = tree.to(setup["frames"], dev)
+    n_frames = len(frames_d)
+    start, _ = map_draws(cfg, setup, 0)
+
+    def carry():
+        f = map_filter(cfg, setup, dev, start)
+        return streaming.StreamingState.create(f.state, f.pool, steps=0), \
+            f.hash
+
+    _, hash_ = carry()
+    kw = dict(laser2body=setup["laser"], hash_=hash_,
+              camera2body=setup["camera"],
+              camera_intrinsics=setup["intrinsics"], camera_texture=True)
+    window = slice(0, SLAM_LAUNCH_FRAMES)
+    runs = {}
+    for mode in ("eager", "graphed"):
+        run = streaming.make_slam_scan_runner(cfg, graph=mode == "graphed",
+                                              **kw)
+        # warm-up; the graphed runner meets every gate combination twice
+        if mode == "eager":
+            run(carry()[0], frames_d.at(slice(0, 30)))
+        for _ in range(3 if mode == "graphed" else 0):
+            run(carry()[0], frames_d)
+            if run.settled():
+                break
+        c0 = carry()[0]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        before = run.counts() if mode == "graphed" else None
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            out = run(c0, frames_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        del c0
+        aux = out[1]
+        n_cam = int(aux["cam_mapped"].sum())
+        want = slam_gates_want(aux, cfg)
+        want["block_merge"] += n_cam
+        if launches != want or not n_cam:
+            raise RuntimeError(f"SLAM camera+hash[{mode}]: launches "
+                               f"{launches}, gates want {want}")
+        if before is not None and (
+                run.counts()["eager"], run.counts()["captured"]) != (
+                before["eager"], before["captured"]):
+            raise RuntimeError(f"SLAM camera+hash[graphed]: frames "
+                               f"{run.counts()}: the timed run did not only "
+                               f"replay")
+        patches, failed = check_slam_state(out[0], aux, n_frames,
+                                           f"SLAM camera+hash[{mode}]")
+        runs[mode] = dict(run=run, out=out, elapsed=elapsed,
+                          launches=launches, patches=patches, failed=failed)
+    (gc_, ga), (ec, ea) = runs["graphed"]["out"], runs["eager"]["out"]
+    same, n_tensors = slam_equal((gc_, ga), (ec, ea))
+    same &= bool((ga["cam_mapped"] == ea["cam_mapped"]).all())
+    same &= all(np.array_equal(getattr(gc_, k), getattr(ec, k))
+                for k in ("cam_pos", "cam_q", "map_pos", "ud_pos"))
+    combos = sorted({(bool(u), bool(m), bool(c), (i + 1) % MAP_HASH_PERIOD
+                      == 0) for i, (u, m, c) in enumerate(zip(
+                          ea["updated"], ea["mapped"], ea["cam_mapped"]))})
+    print(f"SLAM camera+hash: graphed vs eager over {n_frames} frames from "
+          f"one state and seed: gates, centroids, best poses, anchors and "
+          f"{n_tensors - 2} filter, pool and alloc_failed tensors equal bit "
+          f"for bit: {same}; {len(combos)} gate combinations (measurement, "
+          f"laser, camera, hash) met: {combos}")
+    if not same:
+        raise RuntimeError("SLAM camera+hash: the graphed run differs from "
+                           "the eager run")
+    n_hash = int(((np.arange(n_frames) + 1) % MAP_HASH_PERIOD == 0).sum())
+    for mode, r in runs.items():
+        del r["out"]
+        # the graphed runner's pool is its own: traced after the comparison
+        c1 = carry()[0]
+        r["calls"] = host_launches(lambda: r["run"](c1, frames_d.at(window)),
+                                   SLAM_LAUNCH_FRAMES)
+        del c1
+        print(f"SLAM camera+hash[{mode}]: {n_frames} frames x {SLAM_N} "
+              f"particles in {r['elapsed']:.4f} s = "
+              f"{n_frames / r['elapsed']:.2f} frames/s, "
+              f"{r['elapsed'] / n_frames * 1e3:.4f} ms/frame; "
+              f"{int(ea['updated'].sum())} measurement, "
+              f"{int(ea['mapped'].sum())} laser and "
+              f"{int(ea['cam_mapped'].sum())} camera frames, {n_hash} "
+              f"reinjections; launches {r['launches']}; patches "
+              f"{r['patches']}, alloc_failed {r['failed']}; "
+              f"{calls_text(r['calls'], 'frame')}"
+              + (f"; frames {r['run'].counts()}" if mode == "graphed"
+                 else "") + f" [{card}]")
+    return dict(elapsed=runs["eager"]["elapsed"],
+                elapsed_graph=runs["graphed"]["elapsed"], frames=n_frames,
+                launches=runs["eager"]["launches"],
+                launches_graphed=runs["graphed"]["launches"],
+                calls=runs["eager"]["calls"],
+                calls_graph=runs["graphed"]["calls"])
 
 
 def phase9(dev, card, profile=None):
@@ -2959,7 +3256,8 @@ def phase9(dev, card, profile=None):
           f"{probe['copy_packed']['bound_ms']:.4f} ms); launches "
           f"{probe_launches} [{card}]")
     mapping = map_app_path(dev, card, profile)
-    shared_camera_merge(dev, card)
+    shared_camera_merges(dev, card)
+    mapping["camera_hash"] = camera_hash_slam(dev, card)
     row = ("block_merge_packed", "tools/probe_merge_overhead.py:212",
            probe_launches["block_merge_packed"], p4_err, p4, None,
            {"probe_ms": probe["merge_packed"]["ms"],
@@ -3384,6 +3682,7 @@ def phase10(dev, card):
 # per particle (a 2.94 GB float32 pool with colour); the rest at the demo's
 # defaults: 48 scans, 481 frames, camera and texture, chunks of 60
 FULL_DEMO_ARGS = ("--particles", "4096", "--pool-blocks", "16384")
+DEMO_LAUNCH_FRAMES = 20              # run_stream frames traced for launches
 REPLAY_N = 100_000                   # the application's size (phase 7)
 REPLAY_CHECK_N, REPLAY_CHECK_FRAMES = 4096, 20
 # the demo's default route closes no loop: one keyframe a chunk gives at
@@ -3601,13 +3900,12 @@ def demo_launches(slam, run):
 
 def full_demo_run(dev, card, tmp):
     """(c) ``examples.full_demo``: record, ``frames_from_log`` on the card,
-    ``OnlineSlam`` in chunks, the report; K2/K3 launches against the gates,
-    the first chunk and its best particle's map layers against the CPU
-    port on the same draws.  Returns what (d) and the kernels line need."""
+    ``OnlineSlam`` in chunks, eager and graphed (bit for bit), the report;
+    K2/K3 launches against the gates, the first chunk and its best
+    particle's map layers against the CPU port on the same draws.  Returns
+    what (d) and the kernels line need."""
     from slam_eslam_tpu_torch.examples import full_demo as fd
     from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.ops import block_merge as bm
-    from slam_eslam_tpu_torch.ops import chain_lookup as cl
     from slam_eslam_tpu_torch.viz import render
 
     args = fd.parser().parse_args([*FULL_DEMO_ARGS, "--out",
@@ -3638,52 +3936,39 @@ def full_demo_run(dev, card, tmp):
 
     n, chunk = args.particles, args.chunk
     normals, draws = demo_draws(n, len(frames))
-    slam = fd.make_slam(args, truth[0], dev, normals)
-    stream_s, run_stream = [], slam.filter.run_stream
-
-    def timed_stream(*a, **kw):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        aux = run_stream(*a, **kw)
-        torch.cuda.synchronize()
-        stream_s.append(time.perf_counter() - t1)
-        return aux
-
-    slam.filter.run_stream = timed_stream
-    cl.chain_lookup.launches = 0
-    bm.block_merge.launches = 0
-    first = fd.replay(slam, frames.at(slice(0, chunk)), chunk, draws[:chunk])
-    best = slam.filter.get_best_particle_index()
-    layers = render.chain_layers(slam.filter.pool, best)
-    patches = int(slam.filter.pool.count_valid())
-    rest = fd.replay(slam, frames.at(slice(chunk, None)), chunk,
-                     draws[chunk:])
-    run = merged_runs(first, rest)
-    launches, gates, want = demo_launches(slam, run)
-    result, extra = fd.report(slam, truth, run, args)
-    n_chunks = len(run["chunk_s"])
-    ms = lambda xs: f"{min(xs) * 1e3:.1f}-{max(xs) * 1e3:.1f}"
-    keyframe_s = [c - s for c, s in zip(run["chunk_s"], stream_s)]
-    print(f"full_demo: {result['frames']} frames x {n} particles in "
-          f"{n_chunks} chunks of {chunk}: {gates['updated']} measurement, "
-          f"{gates['mapped']} laser and {gates['cam_mapped']} camera mapping "
-          f"frames, launches {launches} (gates want {want}); per chunk "
-          f"run_stream {ms(stream_s)} ms (first {stream_s[0] * 1e3:.1f}), "
-          f"keyframes {ms(keyframe_s)} ms; optimize (40 iterations) "
-          f"{extra['optimize_s'] * 1e3:.1f} ms; {result['keyframes']} "
-          f"keyframes, {result['closures']} closures; "
-          f"{result['fps_incl_host']} frames/s; pool "
-          f"{slam.filter.pool.storage_bytes() / 1e9:.2f} GB [{card}]")
-    if launches != want:
-        raise RuntimeError(f"full_demo: launches {launches}, gates want "
-                           f"{want}")
+    runs = {}
+    for mode in ("eager", "graphed"):
+        runs[mode] = demo_chunks(fd, args, truth, frames, normals, draws,
+                                 dev, card, mode)
+    e, g = runs["eager"], runs["graphed"]
+    same, n_fields = equal_bits(
+        (g["state"], [a["centroid"] for a in g["run"]["auxes"]],
+         [a["best_pose"] for a in g["run"]["auxes"]]),
+        (e["state"], [a["centroid"] for a in e["run"]["auxes"]],
+         [a["best_pose"] for a in e["run"]["auxes"]]))
+    same &= all(np.array_equal(ga[k], ea[k]) for ga, ea in zip(
+        g["run"]["auxes"], e["run"]["auxes"])
+        for k in ("updated", "mapped", "cam_mapped"))
+    same &= g["keyframes"] == e["keyframes"] and g["launches"] == e[
+        "launches"]
+    print(f"full_demo: graphed vs eager OnlineSlam over "
+          f"{len(e['run']['auxes'])} chunks: gates, centroids, best poses, "
+          f"the filter and pool ({n_fields} tensors), keyframes "
+          f"{e['keyframes']} and launches equal bit for bit: {same}; "
+          f"run_stream per chunk eager {e['ms']} ms, graphed {g['ms']} ms")
+    if not same:
+        raise RuntimeError("full_demo: the graphed chunks differ from the "
+                           "eager chunks")
+    slam, first, best, layers, patches = (e["slam"], e["first"], e["best"],
+                                          e["layers"], e["patches"])
+    launches = e["launches"]
 
     # ---- the first chunk against the CPU port on the same draws ----
     ref = fd.make_slam(args, truth[0], "cpu", normals)
     rrun = fd.replay(ref, frames_h.at(slice(0, chunk)), chunk, draws[:chunk],
                      log=lambda *a: None)
     gates_equal = all(np.array_equal(rrun["auxes"][0][name],
-                                     run["auxes"][0][name])
+                                     e["run"]["auxes"][0][name])
                       for name in ("updated", "mapped", "cam_mapped"))
     err = float(np.abs(rrun["centroids"] - first["centroids"]).max())
     p_cpu = int(ref.filter.pool.count_valid())
@@ -3697,8 +3982,78 @@ def full_demo_run(dev, card, tmp):
     if (not gates_equal or err > CENTROID_ATOL or not ok_layers
             or abs(patches - p_cpu) > PATCH_COUNT_RTOL * p_cpu):
         raise RuntimeError("full_demo: the card and the CPU port differ")
-    return dict(launches=launches, result=result, stream_s=stream_s,
-                keyframe_s=keyframe_s, optimize_s=extra["optimize_s"])
+    return dict(launches=launches, result=e["result"], chunk=chunk,
+                stream_s=e["stream_s"], keyframe_s=e["keyframe_s"],
+                optimize_s=e["optimize_s"], graphed=dict(
+                    launches=g["launches"], stream_s=g["stream_s"],
+                    calls=g["calls"], result=g["result"]),
+                calls=e["calls"])
+
+
+def demo_chunks(fd, args, truth, frames, normals, draws, dev, card, mode):
+    """``examples.full_demo``'s ``OnlineSlam`` over the recorded frames in
+    chunks, eager or graphed (``OnlineSlam(graph=True)``, the demo's
+    default on the card), on the given draws: K2/K3 launches against the
+    gates, the report, run_stream's milliseconds per chunk, the host's
+    launch calls per frame of one more chunk."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.viz import render
+
+    chunk = args.chunk
+    slam = fd.make_slam(args, truth[0], dev, normals,
+                        graph=mode == "graphed")
+    stream_s, run_stream = [], slam.filter.run_stream
+
+    def timed_stream(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        aux = run_stream(*a, **kw)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t1)
+        return aux
+
+    slam.filter.run_stream = timed_stream
+    ops.reset_launch_counts()
+    first = fd.replay(slam, frames.at(slice(0, chunk)), chunk, draws[:chunk])
+    best = slam.filter.get_best_particle_index()
+    layers = render.chain_layers(slam.filter.pool, best)
+    patches = int(slam.filter.pool.count_valid())
+    rest = fd.replay(slam, frames.at(slice(chunk, None)), chunk,
+                     draws[chunk:])
+    run = merged_runs(first, rest)
+    launches, gates, want = demo_launches(slam, run)
+    result, extra = fd.report(slam, truth, run, args)
+    n_chunks = len(run["chunk_s"])
+    ms = lambda xs: f"{min(xs) * 1e3:.1f}-{max(xs) * 1e3:.1f}"
+    keyframe_s = [c - s for c, s in zip(run["chunk_s"], stream_s)]
+    out = dict(slam=slam, first=first, best=best, layers=layers,
+               patches=patches, run=run, launches=launches, result=result,
+               stream_s=stream_s, keyframe_s=keyframe_s,
+               optimize_s=extra["optimize_s"], ms=ms(stream_s),
+               keyframes=[tuple(np.round(np.asarray(k), 9).tolist())
+                          for k in slam.trajectory()],
+               state=graphs_clone((slam.filter.state, slam.filter.pool)))
+    slam.filter.run_stream = run_stream
+    sub = frames.at(slice(0, DEMO_LAUNCH_FRAMES))
+    out["calls"] = host_launches(lambda: run_stream(sub),
+                                 DEMO_LAUNCH_FRAMES)
+    print(f"full_demo[{mode}]: {result['frames']} frames x "
+          f"{args.particles} particles in "
+          f"{n_chunks} chunks of {chunk}: {gates['updated']} measurement, "
+          f"{gates['mapped']} laser and {gates['cam_mapped']} camera mapping "
+          f"frames, launches {launches} (gates want {want}); per chunk "
+          f"run_stream {ms(stream_s)} ms (first {stream_s[0] * 1e3:.1f}), "
+          f"{sum(stream_s[1:]) / max(len(stream_s) - 1, 1) / chunk * 1e3:.4f}"
+          f" ms/frame after the first, keyframes {ms(keyframe_s)} ms; "
+          f"optimize (40 iterations) {extra['optimize_s'] * 1e3:.1f} ms; "
+          f"{result['keyframes']} keyframes, {result['closures']} closures; "
+          f"{result['fps_incl_host']} frames/s; pool "
+          f"{slam.filter.pool.storage_bytes() / 1e9:.2f} GB; "
+          f"{calls_text(out['calls'], 'frame')} [{card}]")
+    if launches != want:
+        raise RuntimeError(f"full_demo[{mode}]: launches {launches}, gates "
+                           f"want {want}")
+    return out
 
 
 def closure_route_run(dev, card, tmp):
@@ -3904,14 +4259,15 @@ def phase11(dev, card):
 # each tool runs in process at full width; depth is cut where a tool's
 # defaults would take most of the phase (PERF.md, PR 10, has the default
 # runs): profile_slam at 100,000 particles 4 of 10 steps (40 frames; at
-# 4,096 it runs at its defaults), probe_spread 50 of 150 steps,
-# bench_surface_hash 10 of 20 steps and 2 of 3 repeats, ab_pool_dtype 2 of
-# 10 runs and 40 of 120 steps, profile_step 3 of 5 repeats
+# 4,096 5 of 10 steps), probe_spread 50 of 150 steps,
+# bench_surface_hash 10 of 20 steps and 1 of 3 repeats, ab_pool_dtype 2 of
+# 10 runs and 20 of 120 steps, profile_step 3 of 5 repeats
 BIG_PROFILE_CUT = ("--steps", "4")
+SMALL_PROFILE_CUT = ("--steps", "5")
 TOOL_CUTS = {
     "probe_spread": ("--steps", "50"),
-    "bench_surface_hash": ("--steps", "10", "--repeats", "2"),
-    "ab_pool_dtype": ("--runs", "2", "--steps", "40"),
+    "bench_surface_hash": ("--steps", "10", "--repeats", "1"),
+    "ab_pool_dtype": ("--runs", "2", "--steps", "20"),
     "profile_step": ("--repeats", "3"),
 }
 # a float32 pool of 4 blocks per particle at 100,000 particles: 400,000
@@ -3957,7 +4313,8 @@ def slam_profile_run(card, n, tmp):
     kernel names, as often as the measurement and mapping gates fired."""
     res, launches, _ = run_tool("profile_slam", (
         "--particles", str(n), "--trace-dir", str(tmp / f"slam_{n}"),
-        "--top", "12") + (BIG_PROFILE_CUT if n == TOOLS_BIG_N else ()))
+        "--top", "12") + (BIG_PROFILE_CUT if n == TOOLS_BIG_N
+                          else SMALL_PROFILE_CUT))
     label = f"profile_slam[{n}]"
     check(res["kind"] == "device", label, "the trace holds no device event")
     rows = dict(res["rows_all"])
@@ -4087,13 +4444,13 @@ SCAN_REPLAY_SIZES = (1, 4097, N_BENCH, 2_100_000)
 SCAN_REPLAYS = 3
 SCAN_REPEAT_SIZES = (N_BENCH, 4097)
 SCAN_TURN_SIZES = (2_100_000, N_BENCH, 8193, 4096, 5000)
-SCAN_REPEATS = 1000
+SCAN_REPEATS = 250
 # an earlier source of the scan, outside the tree (``--prior-scan PATH``):
 # timed in turns with S1 when given
 PRIOR_SCAN = None
 PRIOR_SMALL = 8192     # the three-launch scan's one-CTA size
 DRYRUN_RANKS = 4
-SCALING_ARGS = ("--devices", "1", "2", "4", "--repeats", "3")
+SCALING_ARGS = ("--devices", "1", "2", "4", "--repeats", "1")
 
 
 def scan_weights(n, signed=False):
@@ -4645,7 +5002,15 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    marks = [time.perf_counter()]
+
+    def phase_done(number):
+        """Print the seconds phase ``number`` took."""
+        marks.append(time.perf_counter())
+        print(f"phase {number}: {marks[-1] - marks[-2]:.1f} s [{card}]")
+
     max_err, k1 = check_contact_fold(dev, Config())
+    phase_done(3)
     res = main_path(dev, args.profile)
     ms_step = res["elapsed"] / STEPS * 1e3
     print(f"main path: eager {ms_step:.4f} ms/step "
@@ -4660,7 +5025,9 @@ def main():
           f"{k1['plain_ms'] * 1e3:.2f} us), final-10 xy error "
           f"{res['final10']:.4f} m [{card}]")
 
+    phase_done(4)
     (k2_err, k2), (k3_err, k3) = check_slam_kernels(dev, slam_config())
+    phase_done(5)
     slam = slam_path(dev, args.profile)
     print(f"SLAM path: eager {slam['frames'] / slam['elapsed']:.2f} "
           f"frames/s at {SLAM_N} particles, "
@@ -4675,14 +5042,24 @@ def main():
           f"{k3['device_ms'] * 1e3:.2f} us (plain "
           f"{k3['plain_ms'] * 1e3:.2f} us) [{card}]")
 
+    phase_done(6)
     k5_err, k5 = check_select_cells(dev, Config())
-    app = app_path(dev, args.profile)
+    app = app_path(dev, args.profile, card)
+    ga = app["graphed"]
     print(f"application path: {APP_FRAMES / app['elapsed']:.2f} frames/s at "
-          f"{N_BENCH} particles, {app['ms_meas']:.4f} ms per measurement "
-          f"update ({app['n_meas']} updates); select_cells "
+          f"{N_BENCH} particles eager, {app['ms_meas']:.4f} ms per "
+          f"measurement update ({app['n_meas']} updates), "
+          f"{app['ms_plain']:.4f} ms per other frame, "
+          f"{app['calls']['kernel']:.2f} kernel-launch calls a frame; "
+          f"graphed {APP_FRAMES / ga['elapsed']:.2f} frames/s, "
+          f"{ga['ms_meas']:.4f} / {ga['ms_plain']:.4f} ms per replayed "
+          f"update / other frame, {ga['calls']['kernel']:.2f} kernel-launch "
+          f"and {ga['calls']['graph']:.2f} graph-launch calls a frame; "
+          f"select_cells "
           f"{k5['device_ms'] * 1e3:.2f} us (plain "
           f"{k5['plain_ms'] * 1e3:.2f} us) [{card}]")
 
+    phase_done(7)
     # phase 8
     import gc
 
@@ -4721,17 +5098,31 @@ def main():
 
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done(8)
     p4_row, mapping = phase9(dev, card, args.profile)
     span = lambda xs, digits: f"{min(xs):.{digits}f}-{max(xs):.{digits}f}"
-    print(f"mapping path: {span(mapping['rates'], 2)} frames/s over "
+    gm, ch = mapping["graphed"], mapping["camera_hash"]
+    print(f"mapping path: {span(mapping['rates'], 2)} frames/s eager over "
           f"{MAP_PASSES} passes at {SLAM_N} particles through "
           f"update_contact, update_scan "
           f"({span(mapping['scan_ms_range'], 4)} ms) and "
-          f"update_distance_image ({span(mapping['image_ms_range'], 4)} ms); "
+          f"update_distance_image ({span(mapping['image_ms_range'], 4)} ms), "
+          f"{mapping['calls']['kernel']:.2f} kernel-launch calls a frame; "
+          f"graphed {span(gm['rates'], 2)} frames/s "
+          f"({span(gm['scan_ms_range'], 4)} / "
+          f"{span(gm['image_ms_range'], 4)} ms), "
+          f"{gm['calls']['kernel']:.2f} kernel-launch and "
+          f"{gm['calls']['graph']:.2f} graph-launch calls a frame; "
           f"run_stream "
           f"vs calls {mapping['stream_diff']:.3e} m, GPU vs CPU "
-          f"{mapping['dev_err']:.3e} m [{card}]")
+          f"{mapping['dev_err']:.3e} m; SLAM camera+hash "
+          f"{ch['elapsed'] / ch['frames'] * 1e3:.4f} ms/frame eager "
+          f"({ch['calls']['kernel']:.2f} kernel-launch calls), "
+          f"{ch['elapsed_graph'] / ch['frames'] * 1e3:.4f} graphed "
+          f"({ch['calls_graph']['kernel']:.2f} and "
+          f"{ch['calls_graph']['graph']:.2f}) [{card}]")
 
+    phase_done(9)
     gc.collect()
     torch.cuda.empty_cache()
     p10 = phase10(dev, card)
@@ -4745,15 +5136,24 @@ def main():
           f"{p10['solvers']['pcg 3']['ms']:.3f} ms, Schur "
           f"{p10['solvers']['schur 3']['ms']:.3f} ms at {PG_NODES} nodes; "
           f"closure sweep {p10['align']['fine 9x9x7']['ms']:.3f} ms [{card}]")
+    phase_done(10)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     p11 = phase11(dev, card)
     p11_s = time.perf_counter() - t0
     demo = p11["demo"]
+    per_frame = lambda xs: sum(xs[1:]) / max(len(xs) - 1, 1) / demo[
+        "chunk"] * 1e3
     print(f"log replay: full_demo {demo['result']['frames']} frames at "
           f"4096 particles, {demo['result']['fps_incl_host']} frames/s incl. "
-          f"host; on two laps {p11['laps']['result']['closures']} closures, "
+          f"host eager, {demo['graphed']['result']['fps_incl_host']} graphed; "
+          f"run_stream {per_frame(demo['stream_s']):.4f} ms/frame eager "
+          f"({demo['calls']['kernel']:.2f} kernel-launch calls a frame), "
+          f"{per_frame(demo['graphed']['stream_s']):.4f} graphed "
+          f"({demo['graphed']['calls']['kernel']:.2f} kernel-launch and "
+          f"{demo['graphed']['calls']['graph']:.2f} graph-launch calls); "
+          f"on two laps {p11['laps']['result']['closures']} closures, "
           f"kf ATE {p11['laps']['result']['kf_xy_before_m']} -> "
           f"{p11['laps']['result']['kf_xy_after_m']} m; replay_demo "
           f"{p11['replay']['fps']:.1f} frames/s at {REPLAY_N} particles, "
@@ -4790,6 +5190,10 @@ def main():
     online_launches = lambda name: {
         "launches_online": online["launches"][name],
         "launches_full_demo": demo["launches"][name],
+        # the application's paths as CUDA graphs, credited by the replays
+        "launches_graphed_full_demo": demo["graphed"]["launches"][name],
+        "launches_graphed_mapping": gm["launches"][name],
+        "launches_graphed_camera_hash": ch["launches_graphed"][name],
         "launches_full_demo_laps": p11["laps"]["launches"][name],
         **tool_launches(name, (f"profile_slam_{SLAM_N}",
                                f"profile_slam_{TOOLS_BIG_N}",
@@ -4837,7 +5241,8 @@ def main():
           **online_launches("block_merge"), **graphed("block_merge")}),
         ("select_cells", "slam_eslam_tpu/ops/pallas_gather.py:277",
          app["launches"]["select_cells"], k5_err, k5, None,
-         demo_launches("select_cells")),
+         {**demo_launches("select_cells"),
+          "launches_graphed_app": ga["launches"]["select_cells"]}),
         # whole-block mode (what the TPU kernel computes); the cells mode
         # (the merge's twin on this card) and the same rows unsorted
         # (points) beside it
@@ -4890,6 +5295,10 @@ def main():
          res["scan_launches"], p13["err"], p13["s1"], p13["s1_library"],
          {**graphed("ordered_scan"),
           "launches_graphed_slam_path": slam["launches_graphed"][
+              "ordered_scan"],
+          "launches_graphed_app": ga["launches"]["ordered_scan"],
+          "launches_graphed_mapping": gm["launches"]["ordered_scan"],
+          "launches_graphed_camera_hash": ch["launches_graphed"][
               "ordered_scan"],
           "launches_slam_path": slam["launches"]["ordered_scan"],
           "launches_one_rank_localisation":

@@ -273,12 +273,17 @@ def keyframe_kw(args):
         align_search_z=args.align_z, align_steps_z=7)
 
 
-def make_slam(args, start, device=None, normals=None):
+def make_slam(args, start, device=None, normals=None, graph=None):
     """``OnlineSlam`` with the demo's configuration on ``device`` (the CUDA
     device unless given), started at ``start = (x, y, z, yaw)``;
     ``normals = (xy [N, 2], yaw [N])`` are the start cloud's draws (else
     the filter's generator).  With ``--hash`` the surface hash of a prior
-    survey of the whole rock field reinjects candidates."""
+    survey of the whole rock field reinjects candidates.  ``graph``: the
+    chunks as CUDA graphs (``OnlineSlam(graph=...)``); None: on the card,
+    as the JAX demo runs its chunks jitted, and eager on the CPU."""
+    device = entry_device(device)
+    if graph is None:
+        graph = device.type == "cuda"
     rig = rigs()
     cam_kw = {} if args.no_camera else dict(
         camera2body=rig["camera"], camera_intrinsics=rig["intrinsics"],
@@ -290,7 +295,7 @@ def make_slam(args, start, device=None, normals=None):
         odometry_config=OdometryConfig(dist_error_xy=0.35,
                                        const_error_xy=0.004),
         laser2body=rig["laser"], keyframe_kw=keyframe_kw(args),
-        device=device, **cam_kw)
+        device=device, graph=graph, **cam_kw)
     init_kw = {} if normals is None else dict(
         normal_xy=normals[0].to(slam.device),
         normal_yaw=normals[1].to(slam.device))

@@ -7,7 +7,10 @@ replays it with the asynchronous prefetching feeder into
 ``EmbodiedSlamFilter.update_contact`` on a shared map: disk -> native
 prefetch thread -> host decode -> filter on the device.  Every
 measurement update runs the contact fold K1 (``ops.contact_fold``) on the
-card: the filter's shared-map lookup folds (``Config.fold_lookup``).  The
+card: the filter's shared-map lookup folds (``Config.fold_lookup``).  On
+the card the filter replays its calls as CUDA graphs
+(``EmbodiedSlamFilter(graph=True)``), as the JAX demo runs them jitted;
+with ``--cpu`` it runs them eagerly.  The
 timestamps come from the wall clock, so two recordings differ in them and
 nowhere else.
 
@@ -32,6 +35,7 @@ from slam_eslam_tpu_torch.io import logio
 from slam_eslam_tpu_torch.models import sim as simlib
 from slam_eslam_tpu_torch.models.asguard import AsguardSim
 from slam_eslam_tpu_torch.utils import tree
+from slam_eslam_tpu_torch.utils.device import entry_device
 
 
 def terrain(x, y):
@@ -68,7 +72,7 @@ def record(path, steps):
 
 
 def replay(path, particles, device=None, draws=None, frames=None,
-           log=print):
+           log=print, graph=None):
     """Replay the log at ``path`` through the feeder into a shared-map
     filter on ``device`` (the CUDA device unless given).  The first pose
     initialises the filter; every later frame is one ``update_contact``.
@@ -77,11 +81,15 @@ def replay(path, particles, device=None, draws=None, frames=None,
     update; ``frames``: stop after that many updates.  Returns a dict:
     ``errors`` (xy error of the centroid per update), ``centroids``,
     ``updates`` (how many ran the measurement update), the seconds of
-    the replay and those spent waiting for the feeder."""
+    the replay and those spent waiting for the feeder.  ``graph``: the
+    filter's CUDA graphs; None: on the card, and eager on the CPU."""
     cfg = demo_config(particles)
     grid = simlib.terrain_grid(terrain, nx=64, ny=64, resolution=0.25,
                                origin=(-8.0, -8.0))
-    f = EmbodiedSlamFilter(config=cfg, device=device)
+    device = entry_device(device)
+    f = EmbodiedSlamFilter(config=cfg, device=device,
+                           graph=(device.type == "cuda" if graph is None
+                                  else graph))
     normals, per_frame = ((None, None), None) if draws is None else (
         [n.to(f.device) for n in draws[0]], draws[1])
     errs, cents, updates, wait = [], [], 0, 0.0

@@ -246,10 +246,20 @@ def run_sums_rows(lin, w, wz, color=None):
     first = torch.ones_like(lin_s, dtype=torch.bool)
     first[:, 1:] = lin_s[:, 1:] != lin_s[:, :-1]
     seg = torch.cumsum(first.to(torch.int64), dim=1) - 1          # [N, P]
+    # each run's element of the flat [N * P] sums; index_put_ with
+    # accumulate adds a run's entries in turn, in point order, the same
+    # on every call (scatter_add_ adds with atomics in no fixed order on
+    # a GPU, so two equal merges could differ in the last bit)
+    run = (torch.arange(n, device=lin.device)[:, None] * p + seg).reshape(-1)
 
-    def run_sum(v):
-        out = torch.zeros_like(v).scatter_add_(1, seg, v)
-        return torch.gather(out, 1, seg)
+    def run_sum(v, trail=()):
+        flat = run if not trail else (
+            run[:, None] * trail[0] + torch.arange(
+                trail[0], device=run.device)).reshape(-1)
+        out = torch.zeros_like(v).reshape(-1).index_put_(
+            (flat,), v.reshape(-1), accumulate=True).view(v.shape)
+        return torch.gather(out, 1, seg.view(n, p, *(1,) * len(trail))
+                            .expand(v.shape))
 
     w_s = torch.gather(w, 1, order)
     wsum = run_sum(w_s)
@@ -258,9 +268,7 @@ def run_sums_rows(lin, w, wz, color=None):
     if color is not None:
         idx3 = order[..., None].expand(n, p, 3)
         wc = w_s[..., None] * torch.gather(color, 1, idx3)
-        seg3 = seg[..., None].expand(n, p, 3)
-        csum = torch.gather(torch.zeros_like(wc).scatter_add_(1, seg3, wc),
-                            1, seg3)
+        csum = run_sum(wc, (3,))
     return lin_s, order, first, wsum, wzsum, csum
 
 

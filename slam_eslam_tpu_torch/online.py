@@ -39,23 +39,32 @@ from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
 from slam_eslam_tpu_torch.mapping.map_pool import fetch_rows
 from slam_eslam_tpu_torch.mapping.mls_grid import PatchCloud
-from slam_eslam_tpu_torch.utils import geometry, tree
+from slam_eslam_tpu_torch.utils import geometry, graphs, tree
 
 class OnlineSlam:
     """``donate``: the JAX package donates the scan carry per chunk to
     halve peak pool memory; the port's ``run_stream`` always updates the
     pool in place, so the flag is accepted and changes nothing.
     ``submap_scans`` belongs to the raw-scan branch (module docstring); it
-    is accepted for the same call shape and read nowhere."""
+    is accepted for the same call shape and read nowhere.  ``graph=True``
+    runs every chunk through the filter's CUDA graphs (``run_stream(graph=
+    True)``: one graph per gate combination, captured once and replayed
+    in every later chunk, bit for bit the eager chunk); CUDA only, and not
+    with ``mesh`` yet (ROADMAP.md Queue 1, item 4)."""
 
     def __init__(self, config: Config = None, laser2body=None,
                  keyframe_kw=None, mesh=None, camera2body=None,
                  camera_intrinsics=None, camera_texture=False,
                  odometry_config=None, submap_scans=1, donate=False,
-                 probe_recent=60, device=None):
+                 probe_recent=60, device=None, graph=False):
         self.mesh = mesh
+        if graph is not False:
+            graphs.refuse("OnlineSlam",
+                          mesh=(mesh, "item 4, mesh= under NCCL capture"))
+        self.graph = graph
         self.filter = EmbodiedSlamFilter(odometry_config=odometry_config,
-                                         config=config, device=device)
+                                         config=config, device=device,
+                                         graph=graph)
         self.device = self.filter.device
         self.keyframes = KeyframeManager(**(keyframe_kw or {}),
                                          device=self.device)
@@ -89,7 +98,8 @@ class OnlineSlam:
             frames, laser2body=self.laser2body,
             camera2body=self.camera2body,
             camera_intrinsics=self.camera_intrinsics,
-            camera_texture=self.camera_texture, draws=draws, mesh=self.mesh)
+            camera_texture=self.camera_texture, draws=draws, mesh=self.mesh,
+            graph=self.graph)
         mapped = aux["mapped"]
         frame_base = self._frame_base
         n_chunk = mapped.shape[0]

@@ -29,7 +29,9 @@ The discipline (``StepGraphs``):
   (``torch.cuda.graph_pool_handle``): a graph keeps the temporaries of
   its capture for as long as it lives (at 100,000 particles the block
   copies' ``index_select`` of every head block is gigabytes), and graphs
-  that never run at once can share them.
+  that never run at once can share them.  One ``Capture`` serves every
+  graph of one ``EmbodiedSlamFilter``, its ``run_stream`` runners
+  included.
 * The state's own ``torch.Generator`` draws inside the graph: the runner
   keeps a static generator, registered with every graph
   (``CUDAGraph.register_generator_state``), loads the caller's
@@ -40,6 +42,12 @@ The discipline (``StepGraphs``):
 * The kernel wrappers count launches on the host (``ops.launch_counts``),
   which a replay never reaches: the launches a capture records are
   credited on every replay, and the capture itself counts none.
+* A graph also bakes in the address of every tensor **outside** the carry
+  and the inputs that its capture read (a map, a lookup's tables, a
+  hash's candidates).  ``StepGraphs(reads=...)`` names them per key; their
+  addresses are recorded at the capture and compared at every replay,
+  which raises (``StaleRead``) when one moved: what replaces such a
+  tensor must write into its storage instead.
 
 ``Capture`` is what captures and replays, on the card.  A runner takes
 another object with its methods (``graph=`` of the runners), so the CPU
@@ -59,7 +67,8 @@ from slam_eslam_tpu_torch import ops
 
 class Capture:
     """CUDA graphs on the card: ``torch.cuda.CUDAGraph``, one memory pool
-    for every graph of the runner that owns this object."""
+    for every graph of the runners (or the filter) that share this
+    object; their graphs never run at once."""
 
     def __init__(self):
         self._pool = None
@@ -89,6 +98,11 @@ class Capture:
 
     def replay(self, graph):
         graph.replay()
+
+
+class StaleRead(RuntimeError):
+    """A tensor that a captured graph reads was replaced after the
+    capture: a replay would read the old storage."""
 
 
 def capture_of(graph):
@@ -129,10 +143,30 @@ def leaves(tree):
     return out
 
 
+def structure(tree):
+    """Where a state holds None, a tensor or another field (dataclasses
+    nested, tuples and lists of them): inputs of one signature but of
+    another structure (a draw given in place of another) need static
+    buffers of their own."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree is not None
+    if dataclasses.is_dataclass(tree):
+        return (type(tree),) + tuple(structure(getattr(tree, f.name))
+                                     for f in dataclasses.fields(tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(structure(v) for v in tree)
+    return type(tree)
+
+
 def signature(tree):
     """Shapes, dtypes and devices of a state's tensors: what a graph
     captured on static buffers of that state needs to hold again."""
     return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves(tree))
+
+
+def addresses(tree):
+    """The storage addresses of a state's tensors."""
+    return tuple(t.data_ptr() for t in leaves(tree))
 
 
 def copy_into(dst, src):
@@ -223,14 +257,21 @@ class StepGraphs:
     the static tensor itself) and the step's outputs ``y``.  ``carry`` is
     the static carry, built by the runner (``generator``: the static
     generator it holds, or None).  ``capture``: a ``Capture`` or a
-    stand-in."""
+    stand-in.  ``reads(key)``: the tensors outside the carry and the
+    inputs that the body of ``key`` reads (a state of them); a replay
+    raises ``StaleRead`` where one of them moved since the capture.
+    ``writes(key)``: those of them it writes in place, which a capture
+    (a stand-in that runs the region) must leave as they were."""
 
-    def __init__(self, body, carry, capture, generator=None):
+    def __init__(self, body, carry, capture, generator=None, reads=None,
+                 writes=None, what="graph"):
         self.body, self.carry, self.capture = body, carry, capture
         self.generator = generator
-        self.inputs = {}    # signature of x -> static x
+        self.reads, self.writes, self.what = reads, writes, what
+        self.inputs = {}    # signature and structure of x -> static x
         self.outputs = {}   # key -> static y
-        self.graphs = {}    # key -> (graph, launches credited a replay)
+        self.graphs = {}    # key -> (graph, launches credited a replay,
+        #                           addresses of the reads)
         self.met = collections.Counter()
         self.counts = collections.Counter()
 
@@ -255,8 +296,20 @@ class StepGraphs:
                 copy_into(self.outputs[key], y)
         return fn
 
+    def _addresses(self, gate):
+        return () if self.reads is None else addresses(self.reads(gate))
+
     def _replay(self, key):
-        graph, credit = self.graphs[key]
+        graph, credit, read = self.graphs[key]
+        now = self._addresses(key[0])
+        if now != read:
+            moved = sum(a != b for a, b in zip(now, read)) + abs(
+                len(now) - len(read))
+            raise StaleRead(
+                f"{self.what}: {moved} of the {len(read)} tensors that the "
+                f"graph of {key[0]} reads outside its carry and inputs were "
+                f"replaced since its capture (write into their storage "
+                f"instead)")
         before = ops.launch_counts()
         self.capture.replay(graph)
         ops.set_launch_counts({k: v + credit.get(k, 0)
@@ -268,7 +321,7 @@ class StepGraphs:
         meeting of ``key`` with inputs of ``x``'s signature, captured and
         replayed at the second, replayed after.  Returns the static
         outputs (valid until the next step of that key and signature)."""
-        sig = signature(x)
+        sig = (signature(x), structure(x))
         x = self._static_inputs(sig, x)
         gate = key
         key = (gate, sig)
@@ -285,12 +338,14 @@ class StepGraphs:
             self.capture.capture(
                 graph, fn,
                 () if self.generator is None else (self.generator,),
-                leaves(self.carry) + leaves(self.outputs[key]))
+                leaves(self.carry) + leaves(self.outputs[key])
+                + ([] if self.writes is None else leaves(self.writes(gate))))
             after = ops.launch_counts()
             # a capture records the launches and runs none of them
             ops.set_launch_counts(before)
             self.graphs[key] = (graph, {k: after[k] - before[k]
-                                        for k in after})
+                                        for k in after},
+                                self._addresses(gate))
             self.counts["captured"] += 1
             self._replay(key)
         return self.outputs[key]

@@ -9,6 +9,8 @@ under a global TF32 flag, no host sync in the dense and PCG solves, and
 a checkpoint resumed on the card.  The log runtime: a log read onto the
 card by ``frames_from_log`` equals the CPU read bit for bit, and
 ``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  The
+application as CUDA graphs (``EmbodiedSlamFilter(graph=True)``) equals
+the eager filter bit for bit in both map modes.  The
 ordered scan S1 (``csrc/ordered_scan.cu``, one launch) equals its plain
 version bit for bit on the card and on the CPU, signed zeros included,
 call after call, 1,000 calls in a row and replay after replay of a CUDA
@@ -1422,3 +1424,87 @@ def test_graphed_slam_runner_equals_eager(dev, with_draws):
         assert torch.equal(a, b)
     assert (gc.update_idx, gc.steps) == (rc.update_idx, rc.steps)
     assert int((gc.pool.meta >> 2).max()) == gc.update_idx - 1
+
+
+def classes(x, y):
+    """Terrain-class colours: class 0 west of x = 0, class 1 east."""
+    east = np.asarray(x) > 0.0
+    return np.stack([~east, east, np.zeros_like(east)], -1)
+
+
+@pytest.mark.parametrize("shared", [False, True],
+                         ids=["per_particle", "shared"])
+def test_graphed_application_equals_eager(dev, shared):
+    """``EmbodiedSlamFilter(graph=True)`` on the card against the eager
+    filter over 40 frames at 1,024 particles, bit for bit after every
+    call: ``update_contact`` with terrain labels (the slip update on a
+    colour-carrying pool per particle) and the hash reinjecting,
+    ``update_scan`` with the match and negative information and the
+    textured ``update_distance_image`` on every fourth frame (in
+    shared-map mode a camera merge into the grid, which the next
+    contacts read); launch counts equal, the pool's failure count read
+    without a host sync."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.mapping import projection
+
+    n, frames = 1024, 40
+    slip = ContactModelConfig(contact_point_radius=0.0, min_contacts=2,
+                              use_slip_update=not shared)
+    cfg = dataclasses.replace(
+        Config(), particle_count=n, min_effective=n // 2, grid_size=8.0,
+        grid_resolution=0.25, map_pool_blocks=4 * n, map_chain_length=3,
+        map_pool_color=True, use_visual_update=True,
+        grid_use_negative_information=True, contact_model=slip)
+    grid = sim.terrain_grid(terrain, nx=64, ny=64, resolution=0.25,
+                            origin=(-8.0, -8.0), color=classes)
+    traj = sim.TrajectorySim(terrain, speed=0.06, yaw_rate=0.02)
+    z0 = float(traj.position[2])
+    filters = [EmbodiedSlamFilter(config=cfg, device=dev, graph=g).init(
+        (np.array([0.0, 0.0, z0]), 0.0), shared_grid=grid,
+        use_shared_map=shared, hash_config=SurfaceHashConfig(
+            use_hash=True, slope_bins=10, angular_steps=4, period=3))
+        for g in (False, True)]
+    laser = (np.eye(3), np.array([0.1, 0.0, 0.3]))
+    camera = (np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0],
+                        [0.0, -1.0, 0.0]]), np.array([0.1, 0.0, 0.35]))
+    rng = np.random.default_rng(2)
+    image = projection.DistanceImage(
+        torch.tensor(rng.uniform(0.6, 2.4, (6, 8)), dtype=torch.float32,
+                     device=dev),
+        *(torch.tensor(v, device=dev) for v in (0.1, 0.1, -0.35, -0.25)))
+    texture = torch.tensor(rng.uniform(0, 1, (6, 8, 3)),
+                           dtype=torch.float32, device=dev)
+    counts = []
+    for i in range(frames):
+        (pos, yaw), _ = traj.step()
+        q = np.array([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)], np.float32)
+        cs = tree.to(traj.contact_state(noise=0.005), dev)
+        ltc = [(0, [0.8, 0.1, 0.1])] if i % 5 == 4 else None
+        scan = projection.LaserScan(
+            torch.tensor(rng.uniform(1.0, 2.5, 24), dtype=torch.float32,
+                         device=dev), torch.tensor(-1.2, device=dev),
+            torch.tensor(0.1, device=dev))
+        for f in filters:
+            before = ops.launch_counts()
+            out = [f.update_contact((q, pos), cs, ltc)]
+            if i % 4 == 1:
+                out.append(f.update_scan((q, pos), scan, laser))
+                out.append(f.update_distance_image((q, pos), image, camera,
+                                                   texture=texture))
+            after = ops.launch_counts()
+            counts.append((out, {k: after[k] - before[k] for k in after}))
+        assert counts[-1] == counts[-2], i
+        a, b = filters
+        bits = lambda t: t if t.dtype == torch.bool else (
+            t.contiguous().view(-1).view(torch.uint8))
+        for x, y in zip(graphs.leaves((a.state, a.pool, a.shared_grid,
+                                       a.last_eval)),
+                        graphs.leaves((b.state, b.pool, b.shared_grid,
+                                       b.last_eval))):
+            assert torch.equal(bits(x), bits(y)), i
+        assert (a.update_idx, a.steps) == (b.update_idx, b.steps)
+        assert torch.equal(a.state.generator.get_state(),
+                           b.state.generator.get_state())
+    graphed = filters[1].graphs.counts()
+    assert graphed["replayed"] > frames and graphed["captured"] >= 4
+    assert sum(c["ordered_scan"] for _, c in counts) > 0

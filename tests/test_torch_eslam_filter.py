@@ -340,6 +340,13 @@ MAPPING_MODES = {
 
 @pytest.mark.parametrize("mode", MAPPING_MODES)
 def test_mapping_api_matches_jax(mode):
+    mapping_api_against_jax(mode)
+
+
+def mapping_api_against_jax(mode, graph=False):
+    """The mapping API's drive of ``MAPPING_MODES[mode]`` on the port
+    (``graph``: its ``EmbodiedSlamFilter(graph=...)``) and the JAX
+    package, held together at every step and at the end."""
     opt = MAPPING_MODES[mode]
     shared = opt["shared"]
     cfg = config(particle_count=N_MAP, map_pool_blocks=4 * N_MAP,
@@ -351,7 +358,7 @@ def test_mapping_api_matches_jax(mode):
         pose, shared_grid=jgrid if shared else None, use_shared_map=shared)
     _, k_init = jax.random.split(jax.random.PRNGKey(cfg.seed))
     normal_xy, normal_yaw = gaussian_normals(k_init, N_MAP)
-    tf = tef.EmbodiedSlamFilter(config=cfg, device="cpu").init(
+    tf = tef.EmbodiedSlamFilter(config=cfg, device="cpu", graph=graph).init(
         pose, shared_grid=(convert.mls_grid_from(as_dict(jgrid)) if shared
                            else None),
         use_shared_map=shared, normal_xy=normal_xy, normal_yaw=normal_yaw)
@@ -412,6 +419,7 @@ def test_mapping_api_matches_jax(mode):
         assert (ref["meta"] & 1).sum() > 5 * N_MAP
         # texture colours ride on camera patches; the slip update read them
         assert (ref["color"] == 1.0).sum() > N_MAP
+    return tf
 
 
 def stream_frames(n_frames):

@@ -2,15 +2,8 @@
 graphs.py``, on the CPU.
 
 A CUDA graph needs the card, so these tests drive the helper's buffer
-discipline through a stand-in for ``torch.cuda.CUDAGraph`` (``StandIn``,
-injected as the runners' ``graph=``): at "capture" it runs the step on
-the static buffers and then puts back everything the step wrote (the
-static carry and outputs, the registered generator), as a real capture
-records the work and runs none of it; at each "replay" it runs the step
-again on those same buffers.  A step that read its inputs from anywhere
-but the static buffers, a carry not written back, an output handed out as
-a view of a static buffer or a generator not carried across would show as
-a difference from the eager loop.
+discipline through a stand-in for ``torch.cuda.CUDAGraph``
+(``tests/torch_stand_in.py``, injected as the runners' ``graph=``).
 
 * The graphed localisation runner (``make_scan_runner(graph=...)``, N =
   256, T = 12) and the per-step ``make_filter_step(graph=...)`` equal the
@@ -26,8 +19,7 @@ a difference from the eager loop.
   fields and origins rtol 1e-5 / atol 1e-6).
 * Outputs of an earlier run survive a later one; a replay credits the
   launches its capture recorded, and the capture counts none; a failed
-  capture raises; ``graph=True`` on the CPU, or with ``mesh=``,
-  ``camera2body=`` or ``hash_=``, raises.
+  capture raises; ``graph=True`` on the CPU, or with ``mesh=``, raises.
 """
 
 import dataclasses
@@ -48,11 +40,14 @@ from slam_eslam_tpu.models import sim as jsim
 from slam_eslam_tpu.models.asguard import AsguardSim
 from slam_eslam_tpu_torch import convert, ops
 from slam_eslam_tpu_torch.filter import step as tstep
+from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
 from slam_eslam_tpu_torch.filter import streaming as tst
 from slam_eslam_tpu_torch.mapping.lookup import make_lookup as tmake_lookup
+from slam_eslam_tpu_torch.online import OnlineSlam
 from slam_eslam_tpu_torch.parallel.sharding import Mesh
 from slam_eslam_tpu_torch.utils import graphs, tree
 from torch_jax_draws import as_dict, project_draws, resample_draws, t
+from torch_stand_in import StandIn, assert_bitwise
 
 torch.set_num_threads(2)
 
@@ -65,37 +60,6 @@ LASER = (np.array([[0.995, 0.0, 0.0998], [0.0, 1.0, 0.0],
          np.array([0.05, 0.2, 0.3], np.float32))
 
 
-class StandIn:
-    """``utils.graphs.Capture``'s methods on the CPU: a capture runs the
-    region and restores what it wrote, a replay runs it again."""
-
-    def __init__(self, fail=False):
-        self.fail, self.captures, self.replays = fail, 0, 0
-
-    def check(self, device, what):
-        assert torch.device(device).type == "cpu"
-
-    def new_graph(self):
-        return {}
-
-    def capture(self, graph, fn, generators=(), writes=()):
-        saved = [w.clone() for w in writes]
-        states = [g.get_state() for g in generators]
-        fn()
-        if self.fail:
-            raise RuntimeError("capture failed")
-        for w, s in zip(writes, saved):
-            w.copy_(s)
-        for g, s in zip(generators, states):
-            g.set_state(s)
-        graph["fn"] = fn
-        self.captures += 1
-
-    def replay(self, graph):
-        graph["fn"]()
-        self.replays += 1
-
-
 def terrain(x, y):
     return 0.25 * np.sin(1.3 * np.asarray(x)) + 0.2 * np.cos(
         0.9 * np.asarray(y))
@@ -104,13 +68,6 @@ def terrain(x, y):
 def slam_terrain(x, y):
     return 0.15 * np.sin(0.7 * np.asarray(x)) + 0.12 * np.cos(
         0.5 * np.asarray(y))
-
-
-def assert_bitwise(got, ref):
-    a, b = graphs.leaves(got), graphs.leaves(ref)
-    assert len(a) == len(b) and a
-    for i, (x, y) in enumerate(zip(a, b)):
-        assert x.dtype == y.dtype and torch.equal(x, y), i
 
 
 def step_draws(key, n, steps):
@@ -307,16 +264,20 @@ def test_graph_refuses_the_cpu_and_unported_variants(loc, slam):
         with pytest.raises(ValueError, match="mesh=.*ROADMAP.md"):
             make(cfg, lookup, mesh=mesh, graph=True)
     scfg = slam_config()
-    for kw in (dict(mesh=mesh), dict(hash_=object()),
-               dict(camera2body=LASER, camera_intrinsics=(1, 1, 0, 0))):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            tst.make_slam_step(scfg, graph=True, **kw)
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            tst.make_slam_scan_runner(scfg, graph=True, **kw)
+    # the mesh is the one variant left (the camera and hash gates capture)
+    for make in (tst.make_slam_step, tst.make_slam_scan_runner):
+        with pytest.raises(ValueError, match="mesh=.*item 4.*ROADMAP.md"):
+            make(scfg, graph=True, mesh=mesh)
+        make(scfg, graph=True, hash_=None, camera2body=LASER,
+             camera_intrinsics=(1, 1, 0, 0))
+    with pytest.raises(ValueError, match="mesh=.*item 4.*ROADMAP.md"):
+        OnlineSlam(config=scfg, mesh=mesh, graph=True, device="cpu")
     run = tst.make_slam_scan_runner(scfg, laser2body=LASER,
                                     external_odometry=True, graph=True)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         run(slam["carry"](), slam["frames"], slam["odos"])
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        EmbodiedSlamFilter(config=scfg, device="cpu", graph=True)
 
 
 # --------------------------------------------------------------- SLAM

@@ -1,0 +1,62 @@
+"""A stand-in for ``utils.graphs.Capture`` on the CPU, shared by the tests
+of the port's CUDA graphs: a CUDA graph needs the card, so the tests
+drive the runners' buffer discipline through it (injected as their
+``graph=``).  At "capture" it runs the region on the static buffers and
+then puts back everything the region wrote (the static carry and
+outputs, the registered generators), as a real capture records the work
+and runs none of it; at each "replay" it runs the region again on those
+same buffers.  A region that read its inputs from anywhere but the static
+buffers, a carry not written back, an output handed out as a view of a
+static buffer or a generator not carried across shows as a difference
+from the eager run.  It re-runs the region's Python, so a region that
+reads a replaced tensor through an attribute passes here and reads stale
+memory on the card: ``StepGraphs(reads=...)`` guards that."""
+
+import torch
+
+from slam_eslam_tpu_torch.utils import graphs
+
+
+class StandIn:
+    """``utils.graphs.Capture``'s methods on the CPU: a capture runs the
+    region and restores what it wrote, a replay runs it again."""
+
+    def __init__(self, fail=False):
+        self.fail, self.captures, self.replays = fail, 0, 0
+
+    def check(self, device, what):
+        assert torch.device(device).type == "cpu"
+
+    def new_graph(self):
+        return {}
+
+    def capture(self, graph, fn, generators=(), writes=()):
+        saved = [w.clone() for w in writes]
+        states = [g.get_state() for g in generators]
+        fn()
+        if self.fail:
+            raise RuntimeError("capture failed")
+        for w, s in zip(writes, saved):
+            w.copy_(s)
+        for g, s in zip(generators, states):
+            g.set_state(s)
+        graph["fn"] = fn
+        self.captures += 1
+
+    def replay(self, graph):
+        graph["fn"]()
+        self.replays += 1
+
+
+def assert_bitwise(got, ref):
+    """Every tensor of ``got`` equal to ``ref``'s bit for bit (NaNs by
+    their bits), with the same dtype and shape."""
+    a, b = graphs.leaves(got), graphs.leaves(ref)
+    assert len(a) == len(b) and a
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.dtype == y.dtype and x.shape == y.shape, i
+        if x.dtype == torch.bool:
+            assert torch.equal(x, y), i
+        else:
+            assert torch.equal(x.contiguous().view(-1).view(torch.uint8),
+                               y.contiguous().view(-1).view(torch.uint8)), i
