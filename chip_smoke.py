@@ -124,10 +124,16 @@ Phases (any failure raises and exits non-zero):
    the measurement, laser, camera and hash gates), bit for bit, with
    launches against the gates, ms and launch calls per frame;
 10. the loop-closure backend: the pose-graph solvers (dense, DCS, PCG,
-   Schur) at 1,024 nodes and ``scan_align`` against the CPU port, the
-   loop-closure demo, ``OnlineSlam`` at 4,096 particles in chunks (K2/K3
-   against the gates, a checkpoint resumed bit for bit, the CPU port on
-   the same draws) and the localisation demo (K5);
+   Schur) at 1,024 nodes and ``scan_align`` against the CPU port, each
+   solve (at ``dim`` 3), sweep and keyframe-grid merge also as CUDA graphs
+   (``utils.graphs.CallGraphs``), bit for bit the eager one, with ms per
+   solve by CUDA events and the host's launch calls both ways (no host
+   sync in any); the loop-closure demo;
+   ``OnlineSlam`` at 4,096 particles in chunks, eager (K2/K3 against the
+   gates, a checkpoint resumed bit for bit, the CPU port on the same
+   draws) and graphed (the default: ``run_stream``, the keyframe grids
+   and sweeps and the solve as CUDA graphs), each chunk's parts timed and
+   bit for bit the eager chunk's; and the localisation demo (K5);
 11. the log runtime and the record -> replay -> report path: build the
    native log library from ``native/eslam_log.cpp`` into
    ``build/torch_kernels/``; write and read back every record type,
@@ -172,16 +178,20 @@ Phases (any failure raises and exits non-zero):
    ``--prior-scan``, an earlier source of the scan in turns; and
    ``profile_resample`` with no index moving between two calls; then the
    multi-rank path (``slam_eslam_tpu_torch.parallel``): a world of one
-   NCCL rank runs the localisation runner (100k particles, 150 steps) and
-   the SLAM runner (4,096 particles, 200 frames) with ``mesh=`` bit for bit
-   equal to the unmeshed runners (K1, K2, K3 and S1 launches against the
-   gates) and the meshed PCG and Schur solves at 1,024 nodes against the
-   CPU port; ``dryrun_multichip(4)`` (NCCL with a card per rank, else four
+   NCCL rank runs every meshed runner eagerly and as CUDA graphs from the
+   same generator state, each bit for bit the unmeshed eager runner, with
+   launches counted (a replay credits its graph's) and no host read in a
+   graphed run: the localisation runner (100k particles, 150 steps), the
+   filter step with the ring-hop resampler (10 forced resamples), the
+   SLAM runner (4,096 particles, 200 frames; K2, K3 and S1 launches
+   against the gates) with the pool whole (``map_pool_shards`` 1 and 2)
+   and split, ``OnlineSlam(mesh=)`` over two chunks, and the meshed PCG
+   and Schur solves at 1,024 nodes (against the CPU port too); ``dryrun_multichip(4)`` (NCCL with a card per rank, else four
    gloo ranks sharing this card, ``transport host``, tensors and kernels
    on the card; the split SLAM pool equal to one process with
    ``map_pool_shards = 4``), printing its backend and transport; what
    NCCL does with two ranks on one card (a probe, reported either way);
-   and ``tools.bench_scaling --devices 1 2 4`` with its notes.
+   and ``tools.bench_scaling --devices 1`` (graphed over NCCL).
 
 Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
 launches (a kernel module's ``launch``: no check, no allocation) captured
@@ -3317,17 +3327,26 @@ def timed_call(fn):
 def pose_graph_solvers(dev, card):
     """Dense (plain and DCS), PCG and Schur ``optimize`` on a 1,024-node
     circle graph with loop closures and one outlier closure, ``dim`` 3 and
-    4, against the CPU port on the same graph."""
+    4, against the CPU port on the same graph; at dim 3 each also as one
+    CUDA graph (``utils.graphs.CallGraphs``, the JAX package's jitted
+    solve), bit for bit the eager solve, with ms by CUDA events and the
+    host's launch calls both ways."""
+    import gc
+
     from slam_eslam_tpu_torch.backend import pose_graph as pg
     from slam_eslam_tpu_torch.models import sim
     from slam_eslam_tpu_torch.utils import tree
 
     solvers = {
-        "dense": lambda g: pg.optimize(g, PG_ITERS),
-        "dense dcs": lambda g: pg.optimize(g, PG_ITERS, robust="dcs"),
-        "pcg": lambda g: pg.optimize_cg(g, PG_ITERS, cg_iters=PG_CG_ITERS),
-        "schur": lambda g: pg.optimize_schur(
-            g, PG_ITERS, segments=PG_SEGMENTS, boundary_cap=PG_CAP),
+        "dense": lambda g, cg=None, it=PG_ITERS: pg.optimize(
+            g, it, cuda_graphs=cg),
+        "dense dcs": lambda g, cg=None, it=PG_ITERS: pg.optimize(
+            g, it, robust="dcs", cuda_graphs=cg),
+        "pcg": lambda g, cg=None, it=PG_ITERS: pg.optimize_cg(
+            g, it, cg_iters=PG_CG_ITERS, cuda_graphs=cg),
+        "schur": lambda g, cg=None, it=PG_ITERS: pg.optimize_schur(
+            g, it, segments=PG_SEGMENTS, boundary_cap=PG_CAP,
+            cuda_graphs=cg),
     }
     out, faults = {}, []
     for dim in (3, 4):
@@ -3338,7 +3357,9 @@ def pose_graph_solvers(dev, card):
             solve(g_dev)                                 # warm-up
             (res, hist), ms, host_ms, syncs = timed_call(
                 lambda: solve(g_dev))
+            t_cpu = time.perf_counter()
             ref, ref_hist = solve(g_cpu)
+            t_cpu = time.perf_counter() - t_cpu
             err = pose_err(res.nodes.cpu(), ref.nodes)
             hist, ref_hist = hist.cpu().numpy(), ref_hist.numpy()
             rel = np.abs(hist - ref_hist) / np.maximum(np.abs(ref_hist),
@@ -3349,7 +3370,8 @@ def pose_graph_solvers(dev, card):
                   f"{host_ms:.4f} ms host clock, {syncs} host syncs; vs CPU "
                   f"port: nodes {err:.3e}, chi2 rel {chi2_rel:.3e} at "
                   f"iteration {int(rel.argmax())} (chi2 {ref_hist[0]:.6g} -> "
-                  f"{ref_hist[-1]:.6g}) [{card}]")
+                  f"{ref_hist[-1]:.6g}); the CPU port's solve took "
+                  f"{t_cpu:.1f} s [{card}]")
             tag = f"pose graph {name} dim {dim}"
             if not (np.isfinite(hist).all()
                     and bool(torch.isfinite(res.nodes).all())):
@@ -3359,13 +3381,51 @@ def pose_graph_solvers(dev, card):
                     atol=PG_CHI2_ATOL * abs(ref_hist[0])):
                 faults.append(f"{tag}: card and CPU differ (nodes {err}, "
                               f"chi2 {chi2_rel})")
-            if name != "schur" and syncs:
+            if syncs:
                 faults.append(f"{tag}: {syncs} host syncs")
+            gms = calls = None
+            if dim == 3:
+                # graphed at dim 3 (dim 4: tests/test_torch_cuda.py)
+                gms, calls = graphed_solve(solve, g_dev, res, hist, name,
+                                           faults, card)
             out[f"{name} {dim}"] = dict(ms=ms, host_ms=host_ms, syncs=syncs,
-                                        err=err, chi2_rel=chi2_rel)
+                                        err=err, chi2_rel=chi2_rel,
+                                        graphed_ms=gms, calls=calls)
+            gc.collect()
+            torch.cuda.empty_cache()
     if faults:
         raise RuntimeError("; ".join(faults))
     return out
+
+
+def graphed_solve(solve, g_dev, res, hist, name, faults, card):
+    """``solve`` as one CUDA graph (eager at its first call, captured at
+    its second): the timed replay bit for bit the eager ``(res, hist)``,
+    no host sync; ms by CUDA events and the host's launch calls of one
+    graphed solve and of one eager Gauss-Newton iteration (the profiler's
+    pass over a whole eager PCG solve, ~27,000 launches, takes seconds;
+    the iterations of a solve are alike).  Returns ``(ms, calls)``."""
+    from slam_eslam_tpu_torch.utils import graphs
+
+    cg = graphs.CallGraphs(graphs.Capture(), f"pose graph {name}")
+    solve(g_dev, cg)                                     # eager meeting
+    solve(g_dev, cg)                                     # captured
+    (gres, ghist), ms, host_ms, syncs = timed_call(lambda: solve(g_dev, cg))
+    equal, _ = equal_bits((gres, ghist), (res, torch.from_numpy(hist).to(
+        ghist.device)))
+    calls = {"eager": host_launches(lambda: solve(g_dev, None, 1), 1),
+             "graphed": host_launches(lambda: solve(g_dev, cg), 1)}
+    print(f"pose graph[dim 3, {PG_NODES} nodes] {name} graphed: {ms:.4f} ms "
+          f"per optimize (events), {host_ms:.4f} ms host clock, {syncs} host "
+          f"syncs, graphs {cg.counts()}; equal bit for bit to the eager "
+          f"solve: {equal}; eager "
+          f"{calls_text(calls['eager'], 'Gauss-Newton iteration')} "
+          f"({PG_ITERS} an optimize); graphed "
+          f"{calls_text(calls['graphed'], 'optimize')} [{card}]")
+    if syncs or not equal:
+        faults.append(f"pose graph {name} graphed: {syncs} host syncs, "
+                      f"equal to eager {equal}")
+    return ms, calls
 
 
 def terrain_cloud(terrain, pose, n_valid, seed, dev):
@@ -3389,7 +3449,9 @@ def terrain_cloud(terrain, pose, n_valid, seed, dev):
 def scan_align_sweeps(dev, card):
     """``KeyframeManager``'s closure sweep (9x9x7 around a 48x48 keyframe
     grid at 0.2 m, k = 2) and a 31x31x7 coarse stage, 1,024-point clouds,
-    card against the CPU port."""
+    card against the CPU port; on the card each sweep and the keyframe
+    grid's merge also as CUDA graphs (``KeyframeManager(graph=)``, the
+    JAX package's jitted seams), bit for bit the eager ones."""
     from slam_eslam_tpu_torch.backend import pose_graph as pg
     from slam_eslam_tpu_torch.backend.keyframes import (Keyframe,
                                                         KeyframeManager)
@@ -3401,34 +3463,56 @@ def scan_align_sweeps(dev, card):
                                      return_ratio=True)}
     out, res = {}, {}
     for d in ("cpu", dev):
-        km = KeyframeManager(device=d)
+        km = KeyframeManager(device=d, graph=False)
         kf_pose = np.array([0.3, -0.2, 0.1])
-        grid = km._kf_grid(Keyframe(0, 0, kf_pose, terrain_cloud(
-            terrain, (*kf_pose, 0.2), 900, 11, d), 0.2))
+        kf = Keyframe(0, 0, kf_pose, terrain_cloud(
+            terrain, (*kf_pose, 0.2), 900, 11, d), 0.2)
+        grid = km._kf_grid(kf)
         probe = terrain_cloud(terrain, (0.5, -0.3, 0.15, 0.2), 800, 12, d)
+        if d == dev:
+            gkm = KeyframeManager(device=d)      # graphs, the default
+            grids = [gkm._kf_grid(kf) for _ in range(3)]
+            grid_equal = all(equal_bits(g, grid)[0] for g in grids)
         for name, kw in sweeps.items():
-            call = lambda: pg.scan_align(
+            call = lambda cg=None: pg.scan_align(
                 grid, probe, km._f32([0.3, -0.2]), km._f32(0.1),
-                km._f32(0.2), search_yaw=0.3, steps_yaw=7, **kw)
+                km._f32(0.2), search_yaw=0.3, steps_yaw=7, cuda_graphs=cg,
+                **kw)
+            eager = call()
             res[(str(d), name)] = [float(v) for v in torch.cat(
-                [t.reshape(-1) for t in call()]).tolist()]
+                [t.reshape(-1) for t in eager]).tolist()]
             if d == dev:
                 call()
                 ms = cuda_ms(call, ALIGN_REPS)
+                cg = gkm.cuda_graphs
+                graphed = [call(cg) for _ in range(3)]
+                equal = all(equal_bits(g, eager)[0] for g in graphed)
+                gms = cuda_ms(lambda: call(cg), ALIGN_REPS)
                 lookups = 7 * kw["steps_xy"] ** 2 * ALIGN_CLOUD
-                out[name] = dict(ms=ms, lookups_per_s=lookups / ms * 1e3)
+                out[name] = dict(ms=ms, lookups_per_s=lookups / ms * 1e3,
+                                 graphed_ms=gms, graphed_equal=equal)
     for name in sweeps:
         a, b = res[(str(dev), name)], res[("cpu", name)]
         same = max(abs(x - y) for x, y in zip(a[:3], b[:3])) <= 1e-6
         diffs = [abs(x - y) for x, y in zip(a[3:], b[3:])]
+        o = out[name]
         print(f"scan_align[{name}, {ALIGN_CLOUD} points]: best (x, y, yaw) "
               f"= ({a[0]:.4f}, {a[1]:.4f}, {a[2]:.4f}) "
               f"{'equal to' if same else 'DIFFERS from'} the CPU port's, "
               f"score {a[3]:.6f} ratio {a[4]:.4f} (vs CPU {diffs[0]:.2e}, "
-              f"{diffs[1]:.2e}); {out[name]['ms']:.4f} ms per sweep, "
-              f"{out[name]['lookups_per_s']:.4g} lookups/s [{card}]")
-        if not same or max(diffs) > SCORE_ATOL:
-            raise RuntimeError(f"scan_align {name}: card and CPU differ")
+              f"{diffs[1]:.2e}); {o['ms']:.4f} ms per sweep, "
+              f"{o['lookups_per_s']:.4g} lookups/s; graphed "
+              f"{o['graphed_ms']:.4f} ms per sweep, equal bit for bit to "
+              f"the eager sweep: {o['graphed_equal']} [{card}]")
+        if not same or max(diffs) > SCORE_ATOL or not o["graphed_equal"]:
+            raise RuntimeError(f"scan_align {name}: card and CPU differ, or "
+                               f"graphed and eager")
+    counts = gkm.cuda_graphs.counts()
+    print(f"keyframe grid merge graphed: equal bit for bit to the eager "
+          f"merge over 3 calls: {grid_equal}; the keyframe graphs {counts} "
+          f"[{card}]")
+    if not grid_equal or not counts.get("replayed"):
+        raise RuntimeError("keyframe grid: graphed and eager differ")
     return out
 
 
@@ -3452,11 +3536,11 @@ def closure_demo(dev, card):
         raise RuntimeError("loop_closure_demo: closures or drift differ")
 
 
-def online_slam(cfg, z0, normals, device):
+def online_slam(cfg, z0, normals, device, graph=False):
     from slam_eslam_tpu_torch.online import OnlineSlam
 
     s = OnlineSlam(config=cfg, laser2body=(np.eye(3), np.zeros(3)),
-                   keyframe_kw=ONLINE_KEYFRAMES, device=device)
+                   keyframe_kw=ONLINE_KEYFRAMES, device=device, graph=graph)
     return s.init(pose=(np.array([0.0, 0.0, z0]), 0.0),
                   num_contact_points=20, normal_xy=normals[0].to(device),
                   normal_yaw=normals[1].to(device))
@@ -3464,9 +3548,11 @@ def online_slam(cfg, z0, normals, device):
 
 def online_path(dev, card):
     """``OnlineSlam`` at phase 6's geometry over the bench stream (full
-    contacts: ``run_stream`` runs the odometry itself), in chunks; a
-    checkpoint after the first chunk, restored into a fresh filter that
-    runs the second chunk again."""
+    contacts: ``run_stream`` runs the odometry itself), in chunks, eager;
+    a checkpoint after the first chunk, restored into a fresh filter that
+    runs the second chunk again; then the same chunks graphed (the
+    default: ``run_stream``, the keyframe grids and sweeps and the solve
+    as CUDA graphs), each chunk and solve bit for bit the eager one."""
     import tempfile
 
     from slam_eslam_tpu_torch import bench
@@ -3499,6 +3585,7 @@ def online_path(dev, card):
     tmp = tempfile.TemporaryDirectory()
     path = Path(tmp.name) / "filter.pt"
     rows, launches, auxes = [], {"chain_lookup": 0, "block_merge": 0}, []
+    solved = []
     for c, (fr, dr) in enumerate(chunks):
         cl.chain_lookup.launches = 0
         bm.block_merge.launches = 0
@@ -3527,6 +3614,7 @@ def online_path(dev, card):
             raise RuntimeError(f"OnlineSlam chunk {c}: non-finite optimize")
         rows.append(dict(stream=stream_s[-1], keyframe=chunk_s - stream_s[-1],
                          optimize=opt_s, keyframes=n_kf, iters=hist.shape[0]))
+        solved.append((traj, hist.clone()))
         print(f"OnlineSlam chunk {c}: {ONLINE_CHUNK} frames x {SLAM_N} "
               f"particles, {n_meas} measurement and {n_map} mapping frames, "
               f"launches {got}; run_stream {stream_s[-1] * 1e3:.2f} ms, "
@@ -3564,7 +3652,7 @@ def online_path(dev, card):
 
     # ---- the checkpoint, restored into a fresh filter on the card ----
     size = path.stat().st_size
-    g = EmbodiedSlamFilter(config=cfg, device=dev).init(
+    g = EmbodiedSlamFilter(config=cfg, device=dev, graph=False).init(
         pose=(np.array([0.5, 0.5, z0]), 0.3), use_shared_map=False,
         num_contact_points=20)
     t1 = time.perf_counter()
@@ -3617,9 +3705,70 @@ def online_path(dev, card):
     if (ref.keyframe_frames != kf_frames[:n] or pose_diff > CENTROID_ATOL
             or n < 1):
         raise RuntimeError("OnlineSlam: keyframes differ from the CPU port")
+    del ref
+    graphed = online_graphed(cfg, z0, normals, chunks, auxes, solved, dev,
+                             card)
+    if graphed["keyframe_frames"] != kf_frames:
+        raise RuntimeError("OnlineSlam graphed: keyframes differ")
     return dict(rows=rows, launches=launches, keyframes=len(kf_frames),
                 ckpt_mb=size / 1e6, save_s=save_s, restore_s=restore_s,
-                differ=differ)
+                differ=differ, graphed=graphed)
+
+
+def online_graphed(cfg, z0, normals, chunks, auxes, solved, dev, card):
+    """The chunks of ``online_path`` through ``OnlineSlam``'s default on
+    the card (CUDA graphs for ``run_stream``, the keyframe grids and
+    sweeps and the solve): each chunk's parts timed, its outputs and its
+    solve bit for bit the eager chunk's (``auxes``, ``solved``)."""
+    from slam_eslam_tpu_torch.utils import tree
+
+    s = online_slam(cfg, z0, normals, dev, graph=None)
+    stream_s, rows, same = [], [], True
+    run_stream = s.filter.run_stream
+
+    def timed_stream(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = run_stream(*a, **kw)
+        torch.cuda.synchronize()
+        stream_s.append(time.perf_counter() - t0)
+        return aux
+
+    s.filter.run_stream = timed_stream
+    for c, (fr, dr) in enumerate(chunks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = s.process_chunk(fr, draws=[tree.to(x, dev) for x in dr])
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        traj, hist = s.optimize()
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t1
+        equal = (equal_bits((aux["centroid"], aux["best_pose"]),
+                            (auxes[c]["centroid"], auxes[c]["best_pose"]))[0]
+                 and np.array_equal(traj, solved[c][0])
+                 and equal_bits(hist, solved[c][1])[0])
+        same = same and equal
+        rows.append(dict(stream=stream_s[-1], keyframe=chunk_s - stream_s[-1],
+                         optimize=opt_s))
+        print(f"OnlineSlam[graphed] chunk {c}: run_stream "
+              f"{stream_s[-1] * 1e3:.2f} ms, keyframe extraction + "
+              f"alignment {(chunk_s - stream_s[-1]) * 1e3:.2f} ms, optimize "
+              f"{opt_s * 1e3:.2f} ms ({hist.shape[0]} iterations); equal bit "
+              f"for bit to the eager chunk and solve: {equal} [{card}]")
+    runner, = s.filter._runners.values()
+    counts = dict(stream=runner.counts(),
+                  keyframes=s.keyframes.cuda_graphs.counts(),
+                  solve={str(k): v.counts() for k, v in
+                         s.keyframes.builder.cuda_graphs.items()})
+    print(f"OnlineSlam[graphed]: graphed {s.graphed}, {len(chunks)} chunks "
+          f"equal bit for bit to the eager chunks: {same}; graphs {counts} "
+          f"[{card}]")
+    if not (same and s.graphed):
+        raise RuntimeError("OnlineSlam: graphed and eager chunks differ")
+    return dict(rows=rows, counts=counts,
+                keyframe_frames=list(s.keyframe_frames))
 
 
 def localize_draws(n, steps, seed=3):
@@ -3666,11 +3815,21 @@ def phase10(dev, card):
 
     gc.collect()
     torch.cuda.empty_cache()
-    out = dict(solvers=pose_graph_solvers(dev, card),
-               align=scan_align_sweeps(dev, card))
-    closure_demo(dev, card)
-    out["online"] = online_path(dev, card)
-    out["localize"] = localize_run(dev, card)
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name, fn):
+        nonlocal t0
+        res = fn()
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        return res
+
+    out = dict(solvers=part("solvers", lambda: pose_graph_solvers(dev, card)),
+               align=part("sweeps", lambda: scan_align_sweeps(dev, card)))
+    part("closure demo", lambda: closure_demo(dev, card))
+    out["online"] = part("OnlineSlam", lambda: online_path(dev, card))
+    out["localize"] = part("localize demo", lambda: localize_run(dev, card))
+    print(f"phase 10 seconds by part: {parts} [{card}]")
     return out
 
 
@@ -4450,6 +4609,8 @@ SCAN_REPEATS = 250
 PRIOR_SCAN = None
 PRIOR_SMALL = 8192     # the three-launch scan's one-CTA size
 DRYRUN_RANKS = 4
+PPERMUTE_STEPS = 10     # forced-resample steps of the one-rank ring hop
+# one NCCL rank, then two and four ranks sharing the card (host transport)
 SCALING_ARGS = ("--devices", "1", "2", "4", "--repeats", "1")
 
 
@@ -4697,20 +4858,24 @@ def check_ordered_scan(dev, card):
 
 
 def one_rank_world(dev, card):
-    """(b) A world of one NCCL rank on the card: the localisation runner
-    at the benchmark shape and the SLAM runner at 4,096 particles over
-    200 frames, each on the mesh and off it from the same generator
-    state, bit for bit, with the kernels' launches counted on the meshed
-    run; the meshed PCG and Schur solves at 1,024 nodes against the CPU
-    port.  Returns the launches and the runs' seconds."""
+    """(b) A world of one NCCL rank on the card: every meshed runner run
+    eagerly (``graph=False``) and as CUDA graphs (``graph=True``: an NCCL
+    mesh captures) from the same generator state, each bit for bit the
+    unmeshed eager runner, with the kernels' launches counted (a replay
+    credits its graph's; a capture that met a host read would have
+    raised): the localisation runner at the benchmark shape, the
+    filter step with the ring-hop resampler, the SLAM runner at 4,096
+    particles over 200 frames with the pool whole (``map_pool_shards`` 1
+    and 2) and split (``shard_pool``), ``OnlineSlam(mesh=)`` over two
+    chunks, and the meshed PCG and Schur solves at 1,024 nodes (against
+    the CPU port too).  Returns the launches and the runs' seconds."""
     import torch.distributed as dist
 
     from slam_eslam_tpu_torch import bench, ops
-    from slam_eslam_tpu_torch.backend import pose_graph as pg
+    from slam_eslam_tpu_torch.dryrun import GATE
     from slam_eslam_tpu_torch.filter import step as steplib
-    from slam_eslam_tpu_torch.filter import streaming
     from slam_eslam_tpu_torch.mapping.lookup import make_lookup
-    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.parallel import resample as dres
     from slam_eslam_tpu_torch.parallel import sharding as shd
     from slam_eslam_tpu_torch.utils import tree
 
@@ -4721,95 +4886,273 @@ def one_rank_world(dev, card):
           f"{t.tolist()}")
     check(mesh.backend == "nccl" and mesh.transport == "nccl"
           and bool((t == 1).all()), "one-rank world", mesh.describe())
-    out = {"mesh": mesh.describe()}
+    out = {"mesh": mesh.describe(), "nccl_capture": nccl_capture(dev, card)}
+
+    def counted(fn):
+        """``fn()`` with the launches it made, and its seconds (host
+        clock ending in a sync)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        return res, launched, secs
+
     try:
         cfg, grid, css, qs, _, particles = bench_setup(N_BENCH, STEPS)
         grid_d, css_d, qs_d = tree.to(grid, dev), tree.to(css, dev), qs.to(dev)
-        plain = steplib.make_scan_runner(cfg, make_lookup(cfg, grid_d))
-        meshed = steplib.make_scan_runner(cfg, make_lookup(cfg, grid_d, mesh),
-                                          mesh=mesh)
-        ref, ref_c = plain(fresh_state(cfg, particles, dev), css_d, qs_d)
-        state0 = shd.shard_state(fresh_state(cfg, particles, dev), mesh)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        got, got_c = meshed(state0, css_d, qs_d)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = ops.launch_counts()
-        equal = (torch.equal(got_c, ref_c) and torch.equal(
-            got.particles.weight, ref.particles.weight)
-            and torch.equal(got.particles.x, ref.particles.x))
-        print(f"one-rank world: make_scan_runner(mesh=) {STEPS} steps x "
-              f"{N_BENCH} particles in {secs:.4f} s, equal bit for bit to "
-              f"the unmeshed runner: {equal}; launches "
-              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
-        check(equal and launches["contact_fold"] == STEPS
-              and launches["ordered_scan"] == STEPS, "one-rank localisation",
-              f"equal {equal}, launches {launches}")
-        out.update(localize_launches=launches, localize_s=secs)
-        del ref, got, state0
+        lookup_m = make_lookup(cfg, grid_d, mesh)
+        plain = steplib.make_scan_runner(cfg, make_lookup(cfg, grid_d),
+                                         graph=False)
+        ref = plain(fresh_state(cfg, particles, dev), css_d, qs_d)
+        for mode in ("eager", "graphed"):
+            meshed = steplib.make_scan_runner(cfg, lookup_m, mesh=mesh,
+                                              graph=mode == "graphed")
+            state0 = shd.shard_state(fresh_state(cfg, particles, dev), mesh)
+            got, launches, secs = counted(
+                lambda: meshed(state0, css_d, qs_d))
+            equal, _ = equal_bits((got[1], got[0].particles),
+                                  (ref[1], ref[0].particles))
+            print(f"one-rank world: make_scan_runner(mesh=)[{mode}] {STEPS} "
+                  f"steps x {N_BENCH} particles in {secs:.4f} s, equal bit "
+                  f"for bit to the unmeshed eager runner: {equal}; launches "
+                  f"{launches}"
+                  + (f", graphs {meshed.graphs.counts()}"
+                     if meshed.graphs else "") + f" [{card}]")
+            check(equal and launches.get("contact_fold") == STEPS
+                  and launches.get("ordered_scan") == STEPS,
+                  f"one-rank localisation {mode}",
+                  f"equal {equal}, launches {launches}")
+            out[f"localize_{mode}"] = dict(launches=launches, s=secs)
+            del got, state0
+        del ref
 
-        cfg = slam_config()
-        z0, frames, full, qs = slam_setup()
-        frames_d = tree.to(frames, dev)
-        odos = streaming.precompute_odometry(20, tree.to(full, dev),
-                                             qs.to(dev), cfg=cfg)
-        ref, ref_aux = bench.make_slam_runner(cfg)(
-            slam_carry(cfg, z0, dev), frames_d, odos)
-        carry = slam_carry(cfg, z0, dev)
-        carry = dataclasses.replace(
-            carry, filter=shd.shard_state(carry.filter, mesh))
-        run = streaming.make_slam_scan_runner(
-            cfg, laser2body=(np.eye(3), np.zeros(3)), external_odometry=True,
-            mesh=mesh)
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        got, aux = run(carry, frames_d, odos)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = ops.launch_counts()
-        n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
-        want = dict.fromkeys(WRAPPERS, 0)
-        want.update(chain_lookup=n_meas + (n_map if cfg.use_visual_update
-                                           else 0),
-                    block_merge=n_map, ordered_scan=n_meas)
-        equal = all(torch.equal(getattr(got.pool, f), getattr(ref.pool, f))
-                    for f in ("chain", "meta", "mean", "stdev", "height"))
-        equal = equal and torch.equal(aux["centroid"], ref_aux["centroid"])
-        print(f"one-rank world: make_slam_scan_runner(mesh=) "
-              f"{len(frames)} frames x {SLAM_N} particles in {secs:.4f} s, "
-              f"pool and centroids equal bit for bit to the unmeshed "
-              f"runner: {equal}; launches "
-              f"{ {k: v for k, v in launches.items() if v} } (gates "
-              f"{n_meas} measurement, {n_map} mapping) [{card}]")
-        check(equal and launches == want and n_meas and n_map,
-              "one-rank SLAM", f"equal {equal}, launches {launches}, want "
-              f"{want}")
-        out.update(slam_launches=launches, slam_s=secs, n_meas=n_meas,
-                   n_map=n_map)
-        del ref, got, carry
+        # the ring-hop resampler in a forced-resample step
+        forced = dataclasses.replace(cfg, min_effective=float(N_BENCH))
+        runs = {}
+        for mode in ("eager", "graphed"):
+            step = steplib.make_filter_step(
+                forced, lookup_m, mesh=mesh,
+                resampler=dres.make_ppermute_resampler(mesh),
+                graph=mode == "graphed")
 
-        g_dev, _ = sim.circle_pose_graph(3, PG_NODES, seed=2, outlier=True,
-                                         device=dev)
-        g_cpu = tree.to(g_dev, "cpu")
-        for name, solve in (
-                ("pcg", lambda g, m: pg.optimize_cg(
-                    g, PG_ITERS, cg_iters=PG_CG_ITERS, mesh=m)),
-                ("schur", lambda g, m: pg.optimize_schur(
-                    g, PG_ITERS, segments=PG_SEGMENTS, boundary_cap=PG_CAP,
-                    mesh=m))):
-            solve(g_dev, mesh)                               # warm-up
-            (res, _), ms, _, _ = timed_call(lambda: solve(g_dev, mesh))
-            err = pose_err(res.nodes.cpu(), solve(g_cpu, None)[0].nodes)
-            print(f"one-rank world: {name}(mesh=) at {PG_NODES} nodes, "
-                  f"{ms:.4f} ms per optimize (events), vs the CPU port "
-                  f"{err:.3e} [{card}]")
-            check(err <= PG_NODE_ATOL, f"one-rank {name}", f"nodes {err}")
-            out[f"{name}_err"] = err
+            def steps():
+                st = shd.shard_state(fresh_state(forced, particles, dev),
+                                     mesh)
+                for k in range(PPERMUTE_STEPS):
+                    st, _ = step(st, tree.index(css_d, k), qs_d[k], GATE)
+                return st.particles
+
+            runs[mode] = counted(steps)
+        equal, _ = equal_bits(runs["graphed"][0], runs["eager"][0])
+        print(f"one-rank world: make_filter_step(mesh=, ppermute resampler) "
+              f"{PPERMUTE_STEPS} forced-resample steps x {N_BENCH}: graphed "
+              f"equal bit for bit to eager: {equal}; launches eager "
+              f"{runs['eager'][1]}, graphed {runs['graphed'][1]}; "
+              f"{runs['eager'][2]:.4f} s eager, {runs['graphed'][2]:.4f} s "
+              f"graphed [{card}]")
+        check(equal and runs["eager"][1] == runs["graphed"][1]
+              and runs["eager"][1].get("contact_fold") == PPERMUTE_STEPS,
+              "one-rank ppermute step",
+              f"equal {equal}, launches "
+              f"{ {m: r[1] for m, r in runs.items()} }")
+        out["ppermute"] = {m: r[1:] for m, r in runs.items()}
+        del runs
+
+        t0 = time.perf_counter()
+        out["slam"] = one_rank_slam(mesh, counted, dev, card)
+        t1 = time.perf_counter()
+        out["online"] = one_rank_online(mesh, dev, card)
+        t2 = time.perf_counter()
+        out["solves"] = one_rank_solves(mesh, dev, card)
+        print(f"one-rank world seconds: SLAM {t1 - t0:.1f}, OnlineSlam "
+              f"{t2 - t1:.1f}, solves {time.perf_counter() - t2:.1f} "
+              f"[{card}]")
     finally:
         dist.destroy_process_group()
+    return out
+
+
+def nccl_capture(dev, card):
+    """An NCCL collective inside a CUDA graph on the one-rank world: the
+    communicator made by an eager call first, then an ``all_reduce`` and an
+    ``all_gather_into_tensor`` captured (``async_op=False``) and replayed
+    ten times, the watchdog left a second to look at them.  (The mesh's
+    own collectives skip NCCL on one rank, so this is the one place the
+    card captures one.)"""
+    import torch.distributed as dist
+
+    x = torch.arange(4.0, device=dev)
+    out = torch.empty(4, device=dev)
+    dist.all_reduce(x)
+    dist.all_gather_into_tensor(out, x)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            dist.all_reduce(x)
+            dist.all_gather_into_tensor(out, x)
+            out.add_(1.0)
+        for _ in range(10):
+            graph.replay()
+        torch.cuda.synchronize()
+        time.sleep(1.0)
+        dist.barrier()
+        msg = (f"works: {out.tolist()}, as eager: "
+               f"{out.tolist() == [1.0, 2.0, 3.0, 4.0]}")
+    except RuntimeError as e:
+        msg = "fails: " + " | ".join(str(e).splitlines()[:3])[:600]
+    print(f"one-rank world: NCCL all_reduce and all_gather captured in a "
+          f"CUDA graph and replayed 10 times: {msg} [{card}]")
+    return msg
+
+
+def one_rank_slam(mesh, counted, dev, card):
+    """The SLAM runner on the one-rank mesh, eager and graphed, the pool
+    whole (``map_pool_shards`` 1 and 2: range-local allocation on one
+    rank) and split (``shard_pool``: the meshed pool's exchanges), each
+    against the unmeshed eager runner with the same ``map_pool_shards``:
+    pool, chains and centroids bit for bit, K2/K3/S1 launches as the gates
+    want."""
+    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.parallel import sharding as shd
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = slam_config()
+    z0, frames, full, qs = slam_setup()
+    frames_d = tree.to(frames, dev)
+    odos = streaming.precompute_odometry(20, tree.to(full, dev), qs.to(dev),
+                                         cfg=cfg)
+    layouts = {"pool whole": (cfg, False), "pool split": (cfg, True),
+               "pool whole, map_pool_shards 2": (dataclasses.replace(
+                   cfg, map_pool_shards=2), False)}
+    fields = ("chain", "meta", "mean", "stdev", "height", "origin")
+    out, refs = {}, {}
+    for name, (c, split) in layouts.items():
+        if c.map_pool_shards not in refs:
+            refs.clear()
+            gc_cuda()
+            refs[c.map_pool_shards] = bench.make_slam_runner(c)(
+                slam_carry(c, z0, dev), frames_d, odos)
+        ref, ref_aux = refs[c.map_pool_shards]
+        for mode in ("eager", "graphed"):
+            carry = slam_carry(c, z0, dev)
+            carry = dataclasses.replace(
+                carry, filter=shd.shard_state(carry.filter, mesh),
+                pool=shd.shard_pool(carry.pool, mesh) if split
+                else carry.pool)
+            run = streaming.make_slam_scan_runner(
+                c, laser2body=(np.eye(3), np.zeros(3)),
+                external_odometry=True, mesh=mesh, graph=mode == "graphed")
+            (got, aux), launches, secs = counted(
+                lambda: run(carry, frames_d, odos))
+            n_meas = int(aux["updated"].sum())
+            n_map = int(aux["mapped"].sum())
+            want = {"chain_lookup": n_meas + (n_map if c.use_visual_update
+                                              else 0),
+                    "block_merge": n_map, "ordered_scan": n_meas}
+            pool = shd.gather_pool(got.pool, mesh)
+            equal, _ = equal_bits(
+                ([getattr(pool, f) for f in fields], aux["centroid"],
+                 aux["best_pose"], got.filter.particles),
+                ([getattr(ref.pool, f) for f in fields], ref_aux["centroid"],
+                 ref_aux["best_pose"], ref.filter.particles))
+            print(f"one-rank world: make_slam_scan_runner(mesh=)[{name}, "
+                  f"{mode}] {len(frames)} frames x {SLAM_N} particles in "
+                  f"{secs:.4f} s, pool, chains, state and centroids equal "
+                  f"bit for bit to the unmeshed eager runner: {equal}; "
+                  f"launches {launches} (gates {n_meas} measurement, "
+                  f"{n_map} mapping)"
+                  + (f", graphs {run.counts()}" if mode == "graphed" else "")
+                  + f" [{card}]")
+            check(equal and launches == want and n_meas and n_map,
+                  f"one-rank SLAM {name} {mode}",
+                  f"equal {equal}, launches {launches}, want {want}")
+            out[f"{name} {mode}"] = dict(launches=launches, s=secs)
+            del got, carry, pool, run
+    refs.clear()
+    gc_cuda()
+    return out
+
+
+def one_rank_online(mesh, dev, card):
+    """``OnlineSlam(mesh=)`` on the one-rank mesh over two chunks of the
+    online path's stream, eager and graphed (``run_stream``, keyframe
+    grids and sweeps, solve): the same centroids, best poses, state,
+    keyframes and solved trajectory bit for bit."""
+    from slam_eslam_tpu_torch import bench
+    from slam_eslam_tpu_torch.online import OnlineSlam
+    from slam_eslam_tpu_torch.parallel import sharding as shd
+    from slam_eslam_tpu_torch.utils import tree
+
+    cfg = slam_config()
+    z0, frames, _, _ = bench.slam_trajectory(2 * ONLINE_CHUNK // 10, 0)
+    normals, draws = slam_draws(2 * ONLINE_CHUNK)
+    res = {}
+    for mode in ("eager", "graphed"):
+        s = OnlineSlam(config=cfg, laser2body=(np.eye(3), np.zeros(3)),
+                       keyframe_kw=ONLINE_KEYFRAMES, mesh=mesh, device=dev,
+                       graph=mode == "graphed")
+        s.init(pose=(np.array([0.0, 0.0, z0]), 0.0), num_contact_points=20,
+               normal_xy=normals[0].to(dev), normal_yaw=normals[1].to(dev))
+        s.filter.state = shd.shard_state(s.filter.state, mesh)
+        seq = []
+        for c in range(2):
+            sl = slice(c * ONLINE_CHUNK, (c + 1) * ONLINE_CHUNK)
+            aux = s.process_chunk(frames.at(sl), draws=[
+                tree.to(x, dev) for x in draws[sl]])
+            traj, hist = s.optimize()
+            seq.append((aux["centroid"], aux["best_pose"],
+                        torch.from_numpy(traj), hist))
+        res[mode] = (seq, s.filter.state.particles, list(s.keyframe_frames))
+        del s
+    equal, _ = equal_bits(res["graphed"][:2], res["eager"][:2])
+    equal = equal and res["graphed"][2] == res["eager"][2]
+    print(f"one-rank world: OnlineSlam(mesh=) 2 chunks of {ONLINE_CHUNK} "
+          f"frames x {SLAM_N} particles: graphed equal bit for bit to eager "
+          f"(chunks, state, keyframes {res['eager'][2]}, solves): {equal} "
+          f"[{card}]")
+    check(equal, "one-rank OnlineSlam", f"equal {equal}")
+    return dict(keyframes=res["eager"][2])
+
+
+def one_rank_solves(mesh, dev, card):
+    """The meshed PCG and Schur solves at 1,024 nodes on the one-rank
+    mesh: eager against the CPU port, graphed bit for bit the eager
+    solve, ms per optimize both ways (CUDA events)."""
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.utils import graphs, tree
+
+    g_dev, _ = sim.circle_pose_graph(3, PG_NODES, seed=2, outlier=True,
+                                     device=dev)
+    g_cpu = tree.to(g_dev, "cpu")
+    out = {}
+    for name, solve in (
+            ("pcg", lambda g, m, cg=None: pg.optimize_cg(
+                g, PG_ITERS, cg_iters=PG_CG_ITERS, mesh=m, cuda_graphs=cg)),
+            ("schur", lambda g, m, cg=None: pg.optimize_schur(
+                g, PG_ITERS, segments=PG_SEGMENTS, boundary_cap=PG_CAP,
+                mesh=m, cuda_graphs=cg))):
+        solve(g_dev, mesh)                               # warm-up
+        (res, hist), ms, _, _ = timed_call(lambda: solve(g_dev, mesh))
+        err = pose_err(res.nodes.cpu(), solve(g_cpu, None)[0].nodes)
+        cg = graphs.CallGraphs(graphs.Capture(), f"meshed {name}")
+        solve(g_dev, mesh, cg)
+        solve(g_dev, mesh, cg)
+        got, gms, _, _ = timed_call(lambda: solve(g_dev, mesh, cg))
+        equal, _ = equal_bits(got, (res, hist))
+        print(f"one-rank world: {name}(mesh=) at {PG_NODES} nodes, "
+              f"{ms:.4f} ms per optimize eager, {gms:.4f} ms graphed "
+              f"(events), graphed equal bit for bit to eager: {equal}, "
+              f"graphs {cg.counts()}; vs the CPU port {err:.3e} [{card}]")
+        check(err <= PG_NODE_ATOL and equal,
+              f"one-rank {name}", f"nodes {err}, equal {equal}")
+        out[name] = dict(err=err, ms=ms, graphed_ms=gms)
+        del cg
     return out
 
 
@@ -4850,18 +5193,22 @@ def phase13(dev, card):
 
     t0 = time.perf_counter()
     err, s1, s1_library, resample = check_ordered_scan(dev, card)
+    t1 = time.perf_counter()
     world = one_rank_world(dev, card)
     gc_cuda()
+    t2 = time.perf_counter()
     ranks = dryrun_multichip(DRYRUN_RANKS, device=dev.type, timeout=300)
+    t3 = time.perf_counter()
+    print(f"phase 13 seconds: S1 {t1 - t0:.1f}, one-rank world "
+          f"{t2 - t1:.1f}, dryrun_multichip {t3 - t2:.1f} [{card}]")
     r0 = ranks[0]
     moved = remote_rows(ranks, "migrate")
     print(f"dryrun_multichip({DRYRUN_RANKS}): backend {r0['backend']}, "
           f"transport {r0['transport']}, ranks on "
           f"{[r['device'] for r in ranks]}"
           f"; rank 0's launches "
-          f"{ {k: v for k, v in r0['launches'].items() if v} }; host reads "
-          f"{r0['slam']['reads']}; on the migrating drive, rows from other "
-          f"ranks {moved} [{card}]")
+          f"{ {k: v for k, v in r0['launches'].items() if v} }; on the "
+          f"migrating drive, rows from other ranks {moved} [{card}]")
     check(all(r["launches"]["contact_fold"] > 0
               and r["launches"]["chain_lookup"] > 0
               and r["launches"]["block_merge"] > 0
@@ -4876,7 +5223,8 @@ def phase13(dev, card):
     scaling, _, _ = run_tool("bench_scaling", SCALING_ARGS)
     rows = scaling["weak_scaling"]
     print(f"bench_scaling: " + "; ".join(
-        f"{k} ranks {v['sec'] * 1e3:.3f} ms ({v['transport']}"
+        f"{k} ranks {v['sec'] * 1e3:.3f} ms ({v['transport']}, "
+        f"{'graphed' if v['graphed'] else 'eager'}"
         + (f", note {v['note']}" if "note" in v else "") + ")"
         for k, v in rows.items()) + f" [{card}]")
     check(all(np.isfinite(v["sec"]) for v in rows.values()), "bench_scaling",
@@ -5132,10 +5480,17 @@ def main():
           f"{sum(r['stream'] for r in online['rows']):.3f} s, keyframes "
           f"{sum(r['keyframe'] for r in online['rows']):.3f} s, optimize "
           f"{sum(r['optimize'] for r in online['rows']):.3f} s; dense "
-          f"optimize {p10['solvers']['dense 3']['ms']:.3f} ms, PCG "
-          f"{p10['solvers']['pcg 3']['ms']:.3f} ms, Schur "
-          f"{p10['solvers']['schur 3']['ms']:.3f} ms at {PG_NODES} nodes; "
-          f"closure sweep {p10['align']['fine 9x9x7']['ms']:.3f} ms [{card}]")
+          f"optimize {p10['solvers']['dense 3']['ms']:.3f} ms (graphed "
+          f"{p10['solvers']['dense 3']['graphed_ms']:.3f}), PCG "
+          f"{p10['solvers']['pcg 3']['ms']:.3f} ms (graphed "
+          f"{p10['solvers']['pcg 3']['graphed_ms']:.3f}), Schur "
+          f"{p10['solvers']['schur 3']['ms']:.3f} ms (graphed "
+          f"{p10['solvers']['schur 3']['graphed_ms']:.3f}) at {PG_NODES} "
+          f"nodes; closure sweep {p10['align']['fine 9x9x7']['ms']:.3f} ms "
+          f"(graphed {p10['align']['fine 9x9x7']['graphed_ms']:.3f}); "
+          f"graphed OnlineSlam optimize "
+          f"{sum(r['optimize'] for r in online['graphed']['rows']):.3f} s "
+          f"[{card}]")
     phase_done(10)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5179,8 +5534,10 @@ def main():
     print(f"multi-rank: S1 {p13['s1']['ms']:.5f} ms at {N_BENCH} (one "
           f"launch, bound {p13['s1']['bound_ms']:.5f} ms, torch.cumsum "
           f"{p13['s1_library']:.5f} ms, both graphs); one NCCL rank: "
-          f"localisation "
-          f"{w13['localize_s']:.3f} s and SLAM {w13['slam_s']:.3f} s bit for "
+          f"localisation {w13['localize_eager']['s']:.3f} s eager, "
+          f"{w13['localize_graphed']['s']:.3f} s graphed, and SLAM "
+          f"{w13['slam']['pool whole eager']['s']:.3f} s eager, "
+          f"{w13['slam']['pool whole graphed']['s']:.3f} s graphed, bit for "
           f"bit unmeshed; dryrun_multichip({DRYRUN_RANKS}) over "
           f"{p13['dryrun'][0]['backend']} ({p13['dryrun'][0]['transport']}); "
           f"phase 13 {p13['seconds']:.1f} s [{card}]")
@@ -5302,8 +5659,13 @@ def main():
               "ordered_scan"],
           "launches_slam_path": slam["launches"]["ordered_scan"],
           "launches_one_rank_localisation":
-              w13["localize_launches"]["ordered_scan"],
-          "launches_one_rank_slam": w13["slam_launches"]["ordered_scan"]}),
+              w13["localize_eager"]["launches"]["ordered_scan"],
+          "launches_one_rank_slam":
+              w13["slam"]["pool whole eager"]["launches"]["ordered_scan"],
+          "launches_graphed_one_rank_localisation":
+              w13["localize_graphed"]["launches"]["ordered_scan"],
+          "launches_graphed_one_rank_slam":
+              w13["slam"]["pool whole graphed"]["launches"]["ordered_scan"]}),
     )
     # block_merge_packed is the second entry point of block_merge's source
     source = lambda name: name.removesuffix("_packed")

@@ -15,9 +15,16 @@ Port of ``slam_eslam_tpu.backend.keyframes``.  During a traverse, call
 
 Host-side orchestration; the grids, sweeps and solves run on the
 manager's device (the CUDA device unless ``device`` is given).  The JAX
-package's ``jax.jit`` seams around the alignment and the merge are plain
-calls here.  ``SLAM_DEBUG_CLOSURES`` and ``SLAM_DEBUG_EDGES`` print
-closure and edge diagnostics, as in the JAX package.
+package's ``jax.jit`` seams around the alignment and the merge
+(``static_argnames`` the sweep's steps and ``return_ratio``) are CUDA
+graphs here (``graph=``, ``utils.graphs.CallGraphs``): one per key of the
+static arguments and the cloud's shape, its inputs (the cloud, the pose
+guesses, the grid's origin) copied into static buffers at every call; the
+host reads of the score and the ratio follow the sweep outside the graph,
+as they follow the jitted sweep.  ``graph=None`` (the default) is graphs
+on a CUDA device and eager launches on the CPU.  ``SLAM_DEBUG_CLOSURES``
+and ``SLAM_DEBUG_EDGES`` print closure and edge diagnostics, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from slam_eslam_tpu_torch.backend import pose_graph as pgr
 from slam_eslam_tpu_torch.mapping import mls_grid
-from slam_eslam_tpu_torch.utils import tree
+from slam_eslam_tpu_torch.utils import graphs, tree
 
 
 def wrap32(a):
@@ -59,7 +66,7 @@ class KeyframeManager:
                  align_search_xy=0.5, align_search_yaw=0.3,
                  align_steps_xy=9, align_steps_yaw=7,
                  align_sigma=0.2, align_search_z=0.0, align_steps_z=1,
-                 align_coarse=None, device=None):
+                 align_coarse=None, device=None, graph=None):
         # the alignment score averages over ALL sampled cloud points
         # (misses count 0), so keyframe grids must be coarse enough that
         # the stored cloud covers most cells: the 0.2 m default
@@ -99,6 +106,13 @@ class KeyframeManager:
         self.builder = pgr.PoseGraphBuilder(max_nodes, max_edges,
                                             device=device)
         self.device = self.builder.device
+        # the jitted seams: the sweeps and grid merges as CUDA graphs (the
+        # solve's graphs are the builder's, ``optimize(graph=)``)
+        self.graph = graph
+        capture = graphs.resolve(graph, self.device, what="KeyframeManager")
+        self.graphed = capture is not None
+        self.cuda_graphs = (None if capture is None else graphs.CallGraphs(
+            capture, "KeyframeManager"))
         self.keyframes: list[Keyframe] = []
         self.closures: list[tuple] = []
         # per-closure diagnostics (aligned pose, score, ratio), parallel
@@ -120,13 +134,22 @@ class KeyframeManager:
     def _kf_grid(self, kf: Keyframe):
         """Local MLS grid of a keyframe's cloud, in the world frame."""
         half = self.grid_cells * self.grid_resolution / 2.0
-        g = mls_grid.MLSGrid.create(
-            self.grid_cells, self.grid_cells, self.grid_resolution,
-            (kf.pose[0] - half, kf.pose[1] - half), k=2, device=self.device)
         th = kf.pose[2]
-        r = self._f32([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
-        return mls_grid.merge_cloud(g, kf.cloud, r, self._f32(kf.pose[:2]),
-                                    self._f32(kf.z), 0.0, 0)
+        x = (kf.cloud,
+             self._f32([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]),
+             self._f32(kf.pose[:2]), self._f32(kf.z),
+             self._f32([kf.pose[0] - half, kf.pose[1] - half]))
+        cells, res = self.grid_cells, self.grid_resolution
+
+        def merge(x):
+            cloud, r, t, z, origin = x
+            g = mls_grid.MLSGrid.create(cells, cells, res, origin, k=2,
+                                        device=origin.device)
+            return mls_grid.merge_cloud(g, cloud, r, t, z, 0.0, 0)
+
+        if self.cuda_graphs is None:
+            return merge(x)
+        return self.cuda_graphs(("merge_cloud", cells, res), merge, x)
 
     def maybe_add_keyframe(self, pose_xyyaw, cloud, z=0.0,
                            probe_cloud=None, abs_yaw=None):
@@ -170,7 +193,7 @@ class KeyframeManager:
         return pgr.scan_align(
             grid, cloud, xy0, yaw0, z, search_yaw=self.align_search_yaw,
             steps_yaw=self.align_steps_yaw, search_z=self.align_search_z,
-            steps_z=self.align_steps_z, **kw)
+            steps_z=self.align_steps_z, cuda_graphs=self.cuda_graphs, **kw)
 
     def _try_closure(self, kf: Keyframe, top_k=3, probe_cloud=None):
         if probe_cloud is None:
@@ -262,7 +285,7 @@ class KeyframeManager:
         through the solver's ``fix_mask``, and is a no-op (the cached
         trajectory and an empty history) when nothing new arrived.
         ``solver``: ``'dense'`` or ``'cg'`` (``PoseGraphBuilder.
-        optimize``)."""
+        optimize``, with this manager's ``graph``)."""
         if os.environ.get("SLAM_DEBUG_EDGES"):
             g = self.builder.graph
             n_e = self.builder.n_edges
@@ -289,7 +312,8 @@ class KeyframeManager:
                                     device=self.device) < cut
         hist = self.builder.optimize(
             iters, fix_mask=fix_mask, solver=solver, mesh=mesh,
-            cg_iters=cg_iters, robust=robust, robust_delta=robust_delta)
+            cg_iters=cg_iters, robust=robust, robust_delta=robust_delta,
+            graph=self.graph)
         self._optimized_edges = self.builder.n_edges
         return self.trajectory(), hist
 

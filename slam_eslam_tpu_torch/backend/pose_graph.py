@@ -17,20 +17,32 @@ yaw_i - z_yaw))``, weighted by a ``D x D`` information matrix; ``dim=4``
 adds z as a frame-independent offset.
 
 The JAX package keeps all of this in XLA (no Pallas kernel), and so does
-the port: einsums, ``index_add_`` scatters and ``torch.linalg``.  For
+the port: einsums, scatter-adds and ``torch.linalg``.  For
 the card:
 
 * Every solver runs in float32 with TF32 off (the JAX package pins
-  ``Precision.HIGHEST``); the caller's ``allow_tf32`` is restored after.
+  ``Precision.HIGHEST``) and, on the card, with cuSOLVER as the linear
+  algebra library (MAGMA, which batched factorisations may otherwise
+  take, reads the device back and cannot be captured); the caller's
+  ``allow_tf32`` and library are restored after.
 * The Cholesky is ``cholesky_ex`` + ``cholesky_solve``, which neither
   raise nor read the device back; a factorisation that fails (a matrix
   that is not positive definite) gives NaN, as ``jax.scipy.linalg.solve
   (assume_a="pos")`` does.
 * Gauss-Newton iterations and the PCG inner loop are fixed-length Python
-  loops with no host read: ``optimize`` and ``optimize_cg`` put no host
-  sync on the card.  ``optimize_schur`` has none either.
-* ``index_add_`` accumulates in a nondeterministic order on the card, so
-  the card matches the CPU within tolerance, not bit for bit.
+  loops with no host read: ``optimize``, ``optimize_cg`` and
+  ``optimize_schur`` put no host sync on the card, so a whole solve is
+  captured as one CUDA graph: ``cuda_graphs=`` (a ``utils.graphs.
+  CallGraphs``) runs it eagerly at the first meeting of its key (the
+  solver and its static arguments), captures it at the second and
+  replays it after, the graph's fields and ``fix_mask`` copied into
+  static inputs at every call; ``PoseGraphBuilder.optimize(graph=)`` and
+  the keyframe alignment (``scan_align(cuda_graphs=)``) use it.  The
+  JAX package jits these seams.
+* The scatter-adds add in index order, the same on every call (on the
+  card ``index_put_(accumulate=True)``: ``index_add_`` adds with atomics
+  in no fixed order there): a solve repeats bit for bit, graphed or not.
+  The card matches the CPU within tolerance, not bit for bit.
 * ``mesh=`` (``parallel.sharding.make_mesh``; the JAX package's
   ``shard_map``): the graph is held whole on every rank.  The PCG splits
   the edges over the ranks (the edge capacity must divide by the mesh
@@ -49,21 +61,30 @@ import dataclasses
 import numpy as np
 import torch
 
+from slam_eslam_tpu_torch.utils import graphs
 from slam_eslam_tpu_torch.utils.device import entry_device
 
 PIN = 1e9   # diagonal weight that freezes a node
 
 
 @contextlib.contextmanager
-def exact_float32():
+def exact_float32(device=None):
     """Float32 matrix products without TF32 for the duration (solver-grade
-    contractions, as the JAX package's ``Precision.HIGHEST``)."""
+    contractions, as the JAX package's ``Precision.HIGHEST``) and, on a
+    CUDA ``device``, cuSOLVER for the factorisations and solves (the
+    library a CUDA graph captures)."""
     old = torch.backends.cuda.matmul.allow_tf32
+    cuda = device is not None and torch.device(device).type == "cuda"
+    lib = torch.backends.cuda.preferred_linalg_library() if cuda else None
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
+        if cuda:
+            torch.backends.cuda.preferred_linalg_library("cusolver")
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+        if cuda:
+            torch.backends.cuda.preferred_linalg_library(lib)
 
 
 def wrap_angle(a):
@@ -145,6 +166,17 @@ def edge_residuals(graph: PoseGraph, edge_sl=slice(None)):
     ji = torch.stack([torch.stack(row, -1) for row in ji_rows], dim=-2)
     jj = torch.stack([torch.stack(row, -1) for row in jj_rows], dim=-2)
     return r, ji, jj
+
+
+def _add_at(target, idx, values):
+    """``target[idx] += values`` along dim 0, in place, adding in index
+    order, the same on every call: ``index_add_`` on the CPU (serial),
+    ``index_put_(accumulate=True)`` on the card (a stable sort, where
+    ``index_add_`` adds with atomics; on the CPU ``index_put_`` splits a
+    large scatter over threads that race)."""
+    if target.device.type == "cpu":
+        return target.index_add_(0, idx, values)
+    return target.index_put_((idx,), values, accumulate=True)
 
 
 def _chi2_edges(r, info):
@@ -239,7 +271,7 @@ def gauss_newton_step(graph: PoseGraph, damping=1e-6, fix_first=True,
     from the edge blocks and solved by Cholesky.  ``fix_mask [M]`` freezes
     nodes; ``robust`` ('huber' / 'dcs') reweights the edge information.
     Returns ``(graph', chi2_before)``."""
-    with exact_float32():
+    with exact_float32(graph.nodes.device):
         out_graph = graph
         graph = _robustified(graph, robust, robust_delta)
         m, d = graph.nodes.shape
@@ -248,14 +280,11 @@ def gauss_newton_step(graph: PoseGraph, damping=1e-6, fix_first=True,
         hii, hij, hjj, bi, bj = _blocks(ji, jj, info, r)
 
         ei, ej = graph.edge_i.long(), graph.edge_j.long()
-        h = r.new_zeros((m * m, d, d))
-        h.index_add_(0, ei * m + ei, hii)
-        h.index_add_(0, ei * m + ej, hij)
-        h.index_add_(0, ej * m + ei, hij.transpose(-1, -2))
-        h.index_add_(0, ej * m + ej, hjj)
-        b = r.new_zeros((m, d))
-        b.index_add_(0, ei, bi)
-        b.index_add_(0, ej, bj)
+        # one scatter each, the blocks in the order of four scatters
+        h = _add_at(r.new_zeros((m * m, d, d)), torch.cat(
+            [ei * m + ei, ei * m + ej, ej * m + ei, ej * m + ej]),
+            torch.cat([hii, hij, hij.transpose(-1, -2), hjj]))
+        b = _scatter_nodes(m, d, torch.cat([ei, ej]), bi, bj)
 
         hd = _dense(h.reshape(m, m, d, d), m, m, d)
         pin = _pin_diag(graph, fix_first, fix_mask)[:, None].expand(m, d)
@@ -264,32 +293,47 @@ def gauss_newton_step(graph: PoseGraph, damping=1e-6, fix_first=True,
         return _apply_delta(out_graph, delta.reshape(m, d), fix_mask), chi2
 
 
-def _loop(step, graph, iters):
-    hist = []
-    for _ in range(iters):
-        graph, chi2 = step(graph)
-        hist.append(chi2)
-    return graph, torch.stack(hist)
+def _solve(step, graph, fix_mask, iters, cuda_graphs, key):
+    """``iters`` steps ``step(graph, fix_mask) -> (graph, chi2)`` from
+    ``graph``: eager launches, or with ``cuda_graphs`` (a
+    ``utils.graphs.CallGraphs``) one CUDA graph per ``key`` (the solver
+    and its static arguments) whose static inputs are the graph's fields
+    and ``fix_mask``.  Returns ``(graph with the solved nodes,
+    chi2_history [iters])``."""
+
+    def run(x):
+        g, fm = x
+        hist = []
+        for _ in range(iters):
+            g, chi2 = step(g, fm)
+            hist.append(chi2)
+        return g.nodes, torch.stack(hist)
+
+    x = (graph, fix_mask)
+    nodes, hist = run(x) if cuda_graphs is None else cuda_graphs(
+        key + (iters,), run, x)
+    return dataclasses.replace(graph, nodes=nodes), hist
 
 
 def optimize(graph: PoseGraph, iters=10, damping=1e-6, fix_mask=None,
-             robust=None, robust_delta=1.0):
+             robust=None, robust_delta=1.0, cuda_graphs=None):
     """``iters`` dense GN steps; returns ``(graph, chi2_history
-    [iters])``."""
-    return _loop(lambda g: gauss_newton_step(
-        g, damping, fix_mask=fix_mask, robust=robust,
-        robust_delta=robust_delta), graph, iters)
+    [iters])``.  ``cuda_graphs``: a ``utils.graphs.CallGraphs`` that runs
+    the solve as one CUDA graph (module docstring)."""
+    return _solve(lambda g, fm: gauss_newton_step(
+        g, damping, fix_mask=fm, robust=robust,
+        robust_delta=robust_delta), graph, fix_mask, iters, cuda_graphs,
+        ("dense", damping, robust, robust_delta))
 
 
 # --------------------------------------------------------------------------
 # Matrix-free solver (edge-parallel block-Jacobi PCG)
 # --------------------------------------------------------------------------
 
-def _scatter_nodes(m, d, ei, ej, vi, vj):
-    out = vi.new_zeros((m, d))
-    out.index_add_(0, ei, vi)
-    out.index_add_(0, ej, vj)
-    return out
+def _scatter_nodes(m, d, eij, vi, vj):
+    """Per node, the sum of ``vi`` over the edges it starts and then of
+    ``vj`` over those it ends (``eij = cat([ei, ej])``), in one scatter."""
+    return _add_at(vi.new_zeros((m, d)), eij, torch.cat([vi, vj]))
 
 
 def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
@@ -307,7 +351,7 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
     if mesh is not None:
         edge_sl = slice(*mesh.bounds(graph.edge_i.shape[0]))
         psum = mesh.all_reduce
-    with exact_float32():
+    with exact_float32(graph.nodes.device):
         out_graph = graph
         graph = _robustified(graph, robust, robust_delta)
         m, d = graph.nodes.shape
@@ -318,11 +362,10 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
         chi2 = psum(_chi2_edges(r, info).sum())
 
         hii, _, hjj, bi, bj = _blocks(ji, jj, info, r)
-        b = psum(_scatter_nodes(m, d, ei, ej, bi, bj))  # J^T W r
+        eij = torch.cat([ei, ej])
+        b = psum(_scatter_nodes(m, d, eij, bi, bj))  # J^T W r
         # the block diagonal of H for the preconditioner
-        diag = r.new_zeros((m, d, d))
-        diag.index_add_(0, ei, hii)
-        diag.index_add_(0, ej, hjj)
+        diag = _add_at(r.new_zeros((m, d, d)), eij, torch.cat([hii, hjj]))
         diag = psum(diag) + pin[:, None, None] * torch.eye(d, dtype=r.dtype,
                                                      device=r.device)
         pre = torch.linalg.inv_ex(diag).inverse          # [M, D, D]
@@ -335,7 +378,7 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
                 + torch.einsum("ekj,ej->ek", jj, x[ej]))
             vi = torch.einsum("eki,ek->ei", ji, ye)
             vj = torch.einsum("eki,ek->ei", jj, ye)
-            return psum(_scatter_nodes(m, d, ei, ej, vi, vj)) \
+            return psum(_scatter_nodes(m, d, eij, vi, vj)) \
                 + pin[:, None] * x
 
         apply_pre = lambda v: torch.einsum("mij,mj->mi", pre, v)
@@ -358,12 +401,15 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
 
 
 def optimize_cg(graph: PoseGraph, iters=10, damping=1e-6, fix_mask=None,
-                cg_iters=32, mesh=None, robust=None, robust_delta=1.0):
+                cg_iters=32, mesh=None, robust=None, robust_delta=1.0,
+                cuda_graphs=None):
     """``optimize`` with the matrix-free PCG inner solver (edges split
-    over ``mesh``)."""
-    return _loop(lambda g: gauss_newton_step_cg(
-        g, damping, fix_mask=fix_mask, cg_iters=cg_iters, mesh=mesh,
-        robust=robust, robust_delta=robust_delta), graph, iters)
+    over ``mesh``); ``cuda_graphs`` as ``optimize``'s (the ``cg_iters``
+    inner loop in the graph too)."""
+    return _solve(lambda g, fm: gauss_newton_step_cg(
+        g, damping, fix_mask=fm, cg_iters=cg_iters, mesh=mesh,
+        robust=robust, robust_delta=robust_delta), graph, fix_mask, iters,
+        cuda_graphs, ("cg", damping, cg_iters, mesh, robust, robust_delta))
 
 
 # --------------------------------------------------------------------------
@@ -394,21 +440,25 @@ def _schur_structure(graph: PoseGraph, segments, boundary_cap):
     return seg, boundary, gb, boundary.sum()
 
 
-def _add_dropped(target, idx, values):
-    """``target.at[idx].add(values, mode="drop")``: ``idx`` is a tuple of
-    index tensors over the leading dims of ``target``; an entry with any
-    index out of bounds adds nothing."""
-    lead = target.shape[:len(idx)]
+def _add_dropped(target, *parts):
+    """``target.at[idx].add(values, mode="drop")`` for each ``(idx,
+    values)`` of ``parts`` in turn, in one scatter (the entries of one
+    index add in the order given, as one call each would add them):
+    ``idx`` is a tuple of index tensors over the leading dims of
+    ``target``; an entry with any index out of bounds adds nothing."""
+    k = len(parts[0][0])
+    lead = target.shape[:k]
+    idx = [torch.cat([p[0][i] for p in parts]) for i in range(k)]
     ok = torch.ones_like(idx[0], dtype=torch.bool)
     lin = torch.zeros_like(idx[0])
     for i, size in zip(idx, lead):
         ok &= (i >= 0) & (i < size)
         lin = lin * size + i
     n = int(np.prod(lead))
-    flat = target.reshape((n,) + target.shape[len(idx):])
+    flat = target.reshape((n,) + target.shape[k:])
     spare = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
-    spare.index_add_(0, torch.where(ok, lin, torch.full_like(lin, n)),
-                     values)
+    _add_at(spare, torch.where(ok, lin, torch.full_like(lin, n)),
+            torch.cat([p[1] for p in parts]))
     return spare[:n].reshape(target.shape)
 
 
@@ -425,7 +475,7 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
     chi2_before)``.  ``mesh``: each rank factors its slice of the
     segments; their Schur contributions are ``all_reduce``d and their
     interior deltas all-gathered (JAX ``pose_graph.py:432-444``)."""
-    with exact_float32():
+    with exact_float32(graph.nodes.device):
         out_graph = graph
         graph = _robustified(graph, robust, robust_delta)
         m, d = graph.nodes.shape
@@ -457,40 +507,36 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
 
         # ---- the partitioned blocks (every scatter drops out of bounds)
         same = (si_seg == sj_seg)[:, None, None]
-        a_ii = r.new_zeros((s_n, nl, nl, d, d))
-        a_ii = _add_dropped(a_ii, (si_seg, si_li, si_li), hii)
-        a_ii = _add_dropped(a_ii, (sj_seg, sj_li, sj_li), hjj)
-        # intra-segment interior-interior coupling
-        a_ii = _add_dropped(a_ii, (si_seg, si_li, sj_li),
-                            torch.where(same, hij, torch.zeros_like(hij)))
-        a_ii = _add_dropped(a_ii, (sj_seg, sj_li, si_li),
-                            torch.where(same, hji, torch.zeros_like(hji)))
+        a_ii = _add_dropped(
+            r.new_zeros((s_n, nl, nl, d, d)),
+            ((si_seg, si_li, si_li), hii), ((sj_seg, sj_li, sj_li), hjj),
+            # intra-segment interior-interior coupling
+            ((si_seg, si_li, sj_li),
+             torch.where(same, hij, torch.zeros_like(hij))),
+            ((sj_seg, sj_li, si_li),
+             torch.where(same, hji, torch.zeros_like(hji))))
 
-        a_bb = r.new_zeros((nb, nb, d, d))
-        a_bb = _add_dropped(a_bb, (si_gb, si_gb), hii)
-        a_bb = _add_dropped(a_bb, (sj_gb, sj_gb), hjj)
-        a_bb = _add_dropped(a_bb, (si_gb, sj_gb), hij)
-        a_bb = _add_dropped(a_bb, (sj_gb, si_gb), hji)
+        a_bb = _add_dropped(
+            r.new_zeros((nb, nb, d, d)), ((si_gb, si_gb), hii),
+            ((sj_gb, sj_gb), hjj), ((si_gb, sj_gb), hij),
+            ((sj_gb, si_gb), hji))
 
         # interior x boundary coupling [S, NL, NB, D, D]
-        a_ib = r.new_zeros((s_n, nl, nb, d, d))
-        a_ib = _add_dropped(a_ib, (si_seg, si_li, sj_gb), hij)
-        a_ib = _add_dropped(a_ib, (sj_seg, sj_li, si_gb), hji)
+        a_ib = _add_dropped(r.new_zeros((s_n, nl, nb, d, d)),
+                            ((si_seg, si_li, sj_gb), hij),
+                            ((sj_seg, sj_li, si_gb), hji))
 
-        b_int = r.new_zeros((s_n, nl, d))
-        b_int = _add_dropped(b_int, (si_seg, si_li), bi)
-        b_int = _add_dropped(b_int, (sj_seg, sj_li), bj)
-        b_bnd = r.new_zeros((nb, d))
-        b_bnd = _add_dropped(b_bnd, (si_gb,), bi)
-        b_bnd = _add_dropped(b_bnd, (sj_gb,), bj)
+        b_int = _add_dropped(r.new_zeros((s_n, nl, d)),
+                             ((si_seg, si_li), bi), ((sj_seg, sj_li), bj))
+        b_bnd = _add_dropped(r.new_zeros((nb, d)), ((si_gb,), bi),
+                             ((sj_gb,), bj))
 
         # pinning: interior slots get their node pin; slots of a boundary
         # node (whose mass lives in A_BB) and padding get a unit diagonal,
         # so the segment factor stays SPD and their delta solves to zero
         pin_ii = torch.where(boundary, torch.ones_like(pin), pin)
-        pin_b = r.new_zeros((nb + 1,))
-        pin_b.index_add_(0, gb, torch.where(boundary, pin,
-                                            torch.zeros_like(pin)))
+        pin_b = _add_at(r.new_zeros((nb + 1,)), gb,
+                        torch.where(boundary, pin, torch.zeros_like(pin)))
         occupied = torch.zeros((nb + 1,), dtype=torch.bool, device=r.device)
         occupied.index_fill_(0, gb, True)
         pin_b = pin_b[:nb] + torch.where(occupied[:nb], 0.0, 1.0)
@@ -530,13 +576,15 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
 
 def optimize_schur(graph: PoseGraph, iters=10, segments=4, boundary_cap=64,
                    damping=1e-6, fix_mask=None, mesh=None, robust=None,
-                   robust_delta=1.0):
+                   robust_delta=1.0, cuda_graphs=None):
     """``optimize`` with the Schur-partitioned solver (segments split over
-    ``mesh``)."""
-    return _loop(lambda g: gauss_newton_step_schur(
+    ``mesh``); ``cuda_graphs`` as ``optimize``'s."""
+    return _solve(lambda g, fm: gauss_newton_step_schur(
         g, segments=segments, boundary_cap=boundary_cap, damping=damping,
-        fix_mask=fix_mask, mesh=mesh, robust=robust,
-        robust_delta=robust_delta), graph, iters)
+        fix_mask=fm, mesh=mesh, robust=robust,
+        robust_delta=robust_delta), graph, fix_mask, iters, cuda_graphs,
+        ("schur", segments, boundary_cap, damping, mesh, robust,
+         robust_delta))
 
 
 # --------------------------------------------------------------------------
@@ -549,7 +597,7 @@ ALIGN_LOOKUPS = 1 << 22   # cloud-point lookups per batch of sweep poses
 def scan_align(grid, cloud, xy0, yaw0, z0, search_xy=0.5, search_yaw=0.3,
                steps_xy=9, steps_yaw=7, z_window=3.0, sigma=0.2,
                search_z=0.0, steps_z=1, return_ratio=False,
-               ratio_exclusion=0.75):
+               ratio_exclusion=0.75, cuda_graphs=None):
     """Grid-search alignment of a scan cloud against an MLS grid around
     an initial pose guess, the loop-closure front end: the
     ``mls_grid.match_cloud`` score (every point sampled) over a (dx, dy,
@@ -564,14 +612,37 @@ def scan_align(grid, cloud, xy0, yaw0, z0, search_xy=0.5, search_yaw=0.3,
     point lookups (the JAX package streams one (dz, dyaw) sheet at a time
     for memory; the values are the same).  The best is the first maximum
     of the flattened ``[z, yaw, x, y]`` sweep, as in the JAX package.
-    Everything stays on the grid's device: no host read."""
+    Everything stays on the grid's device: no host read.
+
+    ``cuda_graphs`` (a ``utils.graphs.CallGraphs``): the sweep as one CUDA
+    graph per key of its static arguments (the steps, the search extents,
+    ``sigma``, ``return_ratio``, the grid's resolution) and of the
+    shapes of the grid and the cloud, the JAX package's jitted
+    ``scan_align`` (``static_argnames``); the grid, the cloud and the
+    pose guess are its static inputs."""
+    dev = cloud.z.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = (grid, cloud, torch.as_tensor(xy0, **f32),
+         torch.as_tensor(yaw0, **f32), torch.as_tensor(z0, **f32))
+    sweep = lambda x: _sweep(*x, search_xy, search_yaw, steps_xy, steps_yaw,
+                             z_window, sigma, search_z, steps_z,
+                             return_ratio, ratio_exclusion)
+    if cuda_graphs is None:
+        return sweep(x)
+    return cuda_graphs(
+        ("scan_align", search_xy, search_yaw, steps_xy, steps_yaw, z_window,
+         sigma, search_z, steps_z, return_ratio, ratio_exclusion,
+         grid.resolution), sweep, x)
+
+
+def _sweep(grid, cloud, xy0, yaw0, z0, search_xy, search_yaw, steps_xy,
+           steps_yaw, z_window, sigma, search_z, steps_z, return_ratio,
+           ratio_exclusion):
+    """``scan_align``'s device work, on device tensors."""
     from slam_eslam_tpu_torch.mapping import mls_grid
 
     dev = cloud.z.device
     f32 = dict(dtype=torch.float32, device=dev)
-    xy0 = torch.as_tensor(xy0, **f32)
-    yaw0 = torch.as_tensor(yaw0, **f32)
-    z0 = torch.as_tensor(z0, **f32)
     dxs = torch.linspace(-search_xy, search_xy, steps_xy, **f32)
     dyaws = torch.linspace(-search_yaw, search_yaw, steps_yaw, **f32)
     dzs = (torch.linspace(-search_z, search_z, steps_z, **f32)
@@ -591,12 +662,16 @@ def scan_align(grid, cloud, xy0, yaw0, z0, search_xy=0.5, search_yaw=0.3,
                              sampling=1, sigma=sigma, z_window=z_window)
         for k in range(0, th.shape[0], chunk)])
     assert flat.shape[0] == nz * steps_yaw * steps_xy * steps_xy
-    best = torch.argmax(flat)
+    # indices as one-element tensors: indexing by a 0-d device tensor
+    # reads it back to the host, which a CUDA graph cannot capture
+    best = torch.argmax(flat).reshape(1)
     iy = best % steps_xy
     ixx = (best // steps_xy) % steps_xy
     iyaw = (best // (steps_xy * steps_xy)) % steps_yaw
-    out = (xy0 + torch.stack([dxs[ixx], dxs[iy]]), yaw0 + dyaws[iyaw],
-           flat[best])
+    dx, dy = dxs.index_select(0, ixx), dxs.index_select(0, iy)
+    peak = flat.index_select(0, best)[0]
+    out = (xy0 + torch.cat([dx, dy]), yaw0 + dyaws.index_select(0, iyaw)[0],
+           peak)
     if not return_ratio:
         return out
     # on self-similar terrain partial-overlap false peaks score close to
@@ -604,16 +679,17 @@ def scan_align(grid, cloud, xy0, yaw0, z0, search_xy=0.5, search_yaw=0.3,
     k = torch.arange(flat.shape[0], device=dev)
     ox = dxs[(k // steps_xy) % steps_xy]
     oy = dxs[k % steps_xy]
-    far = ((ox - dxs[ixx]) ** 2 + (oy - dxs[iy]) ** 2
-           > ratio_exclusion ** 2)
+    far = (ox - dx) ** 2 + (oy - dy) ** 2 > ratio_exclusion ** 2
     second = torch.where(far, flat, torch.full_like(flat, -float("inf")))
-    ratio = flat[best] / second.max().clamp(min=1e-6)
+    ratio = peak / second.max().clamp(min=1e-6)
     return out + (ratio,)
 
 
 class PoseGraphBuilder:
     """Host-side helper accumulating keyframes and constraints; the graph
-    lives on ``device`` (the CUDA device unless given)."""
+    lives on ``device`` (the CUDA device unless given).  ``add_node`` and
+    ``add_edge`` replace the graph's tensors; a graphed ``optimize``
+    copies them into its static inputs at every call."""
 
     def __init__(self, max_nodes=256, max_edges=1024, dim=3, device=None):
         self.graph = PoseGraph.empty(max_nodes, max_edges, dim=dim,
@@ -622,6 +698,7 @@ class PoseGraphBuilder:
         self.dim = dim
         self.n_nodes = 0
         self.n_edges = 0
+        self.cuda_graphs = {}   # capture (None: the builder's own) -> graphs
 
     def _f32(self, a):
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -652,22 +729,43 @@ class PoseGraphBuilder:
         self.n_edges += 1
         return e
 
+    def graphs_of(self, graph, mesh=None):
+        """The ``utils.graphs.CallGraphs`` of ``optimize(graph=...)`` over
+        ``mesh``, None for eager launches: the builder's own for None
+        (where ``utils.graphs.supported``) and True, kept across calls so
+        that a solve of one key replays; one per stand-in."""
+        capture = graphs.resolve(graph, self.device, mesh,
+                                 "PoseGraphBuilder.optimize")
+        if capture is None:
+            return None
+        own = None if isinstance(capture, graphs.Capture) else capture
+        if own not in self.cuda_graphs:
+            self.cuda_graphs[own] = graphs.CallGraphs(
+                capture, "PoseGraphBuilder.optimize")
+        return self.cuda_graphs[own]
+
     def optimize(self, iters=10, fix_mask=None, solver="dense",
-                 cg_iters=32, mesh=None, robust=None, robust_delta=1.0):
+                 cg_iters=32, mesh=None, robust=None, robust_delta=1.0,
+                 graph=None):
         """``solver='dense'``: Cholesky of the normal matrix; ``'cg'``:
         matrix-free block-Jacobi PCG.  ``robust``: 'huber'/'dcs' edge
         reweighting.  ``mesh`` splits the PCG's edges over the ranks (the
-        dense solve ignores it, as the JAX package's does).  Returns the
-        chi2 history."""
+        dense solve ignores it, as the JAX package's does).  ``graph``:
+        the solve as one CUDA graph per key (``graphs_of``; the JAX
+        package jits it): None (the default) on a CUDA device with no
+        mesh or an NCCL mesh, else eager; True (raises where it cannot
+        run); False eager.  Returns the chi2 history."""
         if fix_mask is None:
             fix_mask = torch.zeros((self.graph.nodes.shape[0],),
                                    dtype=torch.bool, device=self.device)
+        cuda_graphs = self.graphs_of(graph, mesh if solver == "cg" else None)
         if solver == "cg":
             self.graph, hist = optimize_cg(
                 self.graph, iters, fix_mask=fix_mask, cg_iters=cg_iters,
-                mesh=mesh, robust=robust, robust_delta=robust_delta)
+                mesh=mesh, robust=robust, robust_delta=robust_delta,
+                cuda_graphs=cuda_graphs)
         else:
             self.graph, hist = optimize(
                 self.graph, iters, fix_mask=fix_mask, robust=robust,
-                robust_delta=robust_delta)
+                robust_delta=robust_delta, cuda_graphs=cuda_graphs)
         return hist

@@ -24,7 +24,8 @@ On the card both modes run their runners as CUDA graphs (``graph=True``,
 the warm-up run meets each gate combination eagerly once and captures it
 at its second meeting, and a second warm-up run follows only when the
 first left a combination met once (a SLAM gate that fires once a run);
-the timed runs replay.  On the CPU they run the eager loop.
+the timed runs replay.  On the CPU they run the eager loop.  The line's
+``graphed`` says which.
 
 The run is on the CUDA device unless ``--device cpu`` is given (the
 plain versions of the kernels, for tests; the roofline keys are then
@@ -407,6 +408,7 @@ def bench_filter(args, detail=None):
             merge, "unsorted_us_per_block", 4),
         "merge_whole_us_per_block": rounded(merge, "whole_us_per_block", 4),
         "copy_gbps": rounded(merge, "copy_gbps", 1),
+        "graphed": run.graphs is not None,
         "card": card_line(device),
     }
     print(json.dumps(result))
@@ -569,6 +571,7 @@ def bench_slam(args, detail=None):
         "chain_kernel": args.chain_kernel,
         "merge_kernel": args.merge_kernel,
         "pool_dtype": args.pool_dtype,
+        "graphed": graph,
         "card": card_line(device),
     }
     print(json.dumps(result))

@@ -21,6 +21,11 @@ on its slice:
 4. a Schur pose-graph solve with its segments over the ranks, pose
    error < 5e-2.
 
+The runners take their default ``graph=None``: CUDA graphs over NCCL,
+eager launches over gloo and the host transport; each line says which
+(``graphed``).  The rows a rank asks of other ranks are counted on the
+device (``parallel.sharding.Mesh.remote``), graphed or not.
+
 Usage:  python -m slam_eslam_tpu_torch.dryrun [N] [--cpu]
 (no N: the one-device ``entry()`` step).
 """
@@ -215,19 +220,18 @@ def slam_run(cfg, frames, z0, device, mesh=None, draw_seed=21):
 def _slam_check(mesh, n, drive="slam"):
     """Check 2: the co-located pool on the mesh against the single-process
     run with the same ``map_pool_shards``, on one of ``SLAM_DRIVES``.
-    ``reads`` and ``remote`` count the meshed run's host reads and the
-    rows this rank asked of other ranks, by name."""
+    ``remote`` counts the rows this rank asked of other ranks, by name."""
     from slam_eslam_tpu_torch.parallel import sharding as shd
 
     fields, frame_args = SLAM_DRIVES[drive]
     cfg = slam_config(n, mesh.size, **fields)
     frames, z0 = slam_frames(mesh.device, **frame_args)
-    reads, remote = dict(mesh.reads), dict(mesh.remote)
+    remote = dict(mesh.remote)
     carry, aux = slam_run(cfg, frames, z0, mesh.device, mesh)
     rows = carry.pool.mean.shape[0]
     got = shd.gather_pool(carry.pool, mesh)
     since = lambda now, then: {k: v - then.get(k, 0) for k, v in now.items()}
-    reads, remote = since(mesh.reads, reads), since(mesh.remote, remote)
+    remote = since(mesh.remote, remote)
     ref, ref_aux = slam_run(cfg, frames, z0, mesh.device)
     names = ("chain", "meta", "mean", "stdev", "height", "origin")
     return {"frames": len(frames), "blocks": got.b, "rows": rows,
@@ -238,7 +242,7 @@ def _slam_check(mesh, n, drive="slam"):
             "centroid_err": float((aux["centroid"]
                                    - ref_aux["centroid"]).abs().max()),
             "mapped": int(aux["mapped"].sum()),
-            "reads": reads, "remote": remote}
+            "remote": remote}
 
 
 def _ppermute_check(mesh, n):
@@ -259,8 +263,7 @@ def _ppermute_check(mesh, n):
     got = mesh.all_gather(idxg)
     moved = mesh.all_gather(out["map_id"])
     return {"ess": float(ess), "equal": bool(torch.equal(got, ref)),
-            "payload_moved": bool(torch.equal(moved.long(), got)),
-            "hops": mesh.reads["ppermute h_max"]}
+            "payload_moved": bool(torch.equal(moved.long(), got))}
 
 
 def ring_graph(m, dim=3, seed=3, device=None):
@@ -322,10 +325,12 @@ def _dryrun_rank(mesh):
     """Every check on one rank; returns its results and its kernels'
     launch counts."""
     from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.utils import graphs
 
     ops.reset_launch_counts()
     n = max(8 * mesh.size, 64)
     out = {"backend": mesh.backend, "transport": mesh.transport,
+           "graphed": graphs.resolve(None, mesh.device, mesh) is not None,
            "device": str(mesh.device), "particles": n,
            "filter": _filter_check(mesh, n),
            "slam": _slam_check(mesh, n),
@@ -358,7 +363,7 @@ def dryrun_multichip(n_devices, device=None, timeout=600):
                       timeout=timeout)
     r0 = ranks[0]
     where = (f"{n_devices} ranks, backend {r0['backend']}, transport "
-             f"{r0['transport']}, {r0['device']}")
+             f"{r0['transport']}, graphed {r0['graphed']}, {r0['device']}")
     f = r0["filter"]
     if not (f["weight_err"] <= 1e-6 and f["xy_err"] <= 1e-6):
         raise AssertionError(f"meshed filter step differs from the "
@@ -378,9 +383,8 @@ def dryrun_multichip(n_devices, device=None, timeout=600):
         print(f"dryrun_multichip slam ok: {drive} drive, {s['frames']} "
               f"frames, {s['patches']} patches, pool split {s['rows']} of "
               f"{s['blocks']} blocks a rank, equal bit for bit to one "
-              f"process with map_pool_shards={n_devices}; rank 0's host "
-              f"reads {s['reads']}; rows from other ranks "
-              f"{remote_rows(ranks, drive)}")
+              f"process with map_pool_shards={n_devices}; rows from other "
+              f"ranks {remote_rows(ranks, drive)}")
     moved = remote_rows(ranks, "migrate")
     if not (moved.get("block copy", 0) > 0
             and moved.get("chain lookup", 0) > 0):

@@ -42,6 +42,9 @@ device mirror, the chains follow the particles in place, and the shared
 map's camera merge writes the grid and the lookup's tables into their
 storage, which every graph reads.  One ``utils.graphs.Capture`` (one
 memory pool) serves every graph of the filter and of its ``run_stream``.
+``graph=None``, the default (the JAX package's filter is jitted), is
+graphs on a CUDA device and the eager calls on the CPU; ``graphed`` says
+which.  A ``run_stream`` over a gloo or host mesh runs eagerly.
 """
 
 from __future__ import annotations
@@ -177,12 +180,13 @@ class EmbodiedSlamFilter:
     (``device="cpu"`` for the CPU; no CUDA device and no ``device``
     raises).  Construction mirrors the reference constructor
     (``EmbodiedSlamFilter.cpp:13-23``).  ``graph=True`` captures every
-    call into CUDA graphs (module docstring; CUDA only, the CPU runs the
-    eager calls); ``graph`` may also be a stand-in for
-    ``utils.graphs.Capture``."""
+    call into CUDA graphs (module docstring; CUDA only); ``graph=None``
+    (the default) does so on a CUDA device and runs the eager calls on
+    the CPU; ``graph=False`` runs them eagerly; ``graph`` may also be a
+    stand-in for ``utils.graphs.Capture``."""
 
     def __init__(self, odometry_config: OdometryConfig = None,
-                 config: Config = None, device=None, graph=False):
+                 config: Config = None, device=None, graph=None):
         self.config = config or Config()
         self.odometry_config = odometry_config or OdometryConfig()
         self.device = entry_device(device)
@@ -195,9 +199,9 @@ class EmbodiedSlamFilter:
         self.last_eval = None   # ContactEvalResult of the last measurement
         self._lookup = None
         self._runners = {}
-        self._capture = graphs.capture_of(graph)
-        if self._capture is not None:
-            self._capture.check(self.device, "EmbodiedSlamFilter")
+        self._capture = graphs.resolve(graph, self.device,
+                                       what="EmbodiedSlamFilter")
+        self.graphed = self._capture is not None
         self._stream_capture = None
         self._reports = _FailureReports()
         self._reset_graphs()
@@ -680,7 +684,8 @@ class EmbodiedSlamFilter:
         flag is accepted and changes nothing.  ``graph``: the runner's
         CUDA graphs (``streaming.make_slam_scan_runner(graph=...)``, one
         per gate combination; the filter's own ``Capture`` where it has
-        one); None: as the filter was built."""
+        one); None: as the filter was built, and eagerly over a gloo or
+        host mesh (``utils.graphs.supported``)."""
         del donate
         self._reports.report(wait=True)
         if self.use_shared_map:
@@ -688,7 +693,7 @@ class EmbodiedSlamFilter:
                 "run_stream requires per-particle-map mode "
                 "(use_shared_map=False); shared-map tracking streams via "
                 "filter.step.make_scan_runner")
-        capture = self._stream_graphs(graph)
+        capture = self._stream_graphs(graph, mesh)
         extr = lambda e: (None if e is None else
                           np.asarray(e[0], np.float32).tobytes()
                           + np.asarray(e[1], np.float32).tobytes())
@@ -726,21 +731,22 @@ class EmbodiedSlamFilter:
                   "map_pool_blocks)", file=sys.stderr)
         return aux
 
-    def _stream_graphs(self, graph):
-        """The capture of ``run_stream(graph=...)``: None for eager; the
-        filter's own ``Capture`` for None or True where it has one (one
-        memory pool for every graph), else one kept for the streams."""
-        if graph is None:
-            return self._capture
-        if graph is False:
+    def _stream_graphs(self, graph, mesh):
+        """The capture of ``run_stream(graph=..., mesh=...)``
+        (``utils.graphs.resolve``; None: eager), ``graph=None`` as the
+        filter was built; a ``Capture`` is the filter's own where it has
+        one (one memory pool for every graph), else one kept for the
+        streams."""
+        if graph is None and self._capture is None:
             return None
-        if graph is True:
-            if self._capture is not None:
-                return self._capture
-            if self._stream_capture is None:
-                self._stream_capture = graphs.Capture()
-            return self._stream_capture
-        return graph
+        capture = graphs.resolve(graph, self.device, mesh, "run_stream")
+        if not isinstance(capture, graphs.Capture):
+            return capture
+        if self._capture is not None:
+            return self._capture
+        if self._stream_capture is None:
+            self._stream_capture = graphs.Capture()
+        return self._stream_capture
 
     def update_featurecloud(self, *_args, **_kw):
         """Stereo feature clouds are unsupported, as in the reference

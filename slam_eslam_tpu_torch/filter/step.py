@@ -9,14 +9,19 @@ step is captured in a CUDA graph: with ``graph=True`` (the counterpart
 of the JAX package's ``jax.jit`` and jitted ``lax.scan``) the step is
 captured once per input shape and replayed (``utils.graphs``); with
 ``graph=False`` it runs as a Python loop of eager launches, the
-counterpart of ``make_filter_step(jit=False)`` and what the CPU runs.
+counterpart of ``make_filter_step(jit=False)``.  ``graph=None``, the
+default as ``jit=True`` is the JAX package's, resolves at each call:
+graphs on a CUDA device with no mesh or an NCCL mesh, the eager loop on
+the CPU and on a gloo or host mesh (``utils.graphs.resolve``).
 
 ``mesh=`` (``parallel.sharding.make_mesh``) runs a step on this rank's
 slice of the particles (``parallel.sharding.shard_state``) with the
 global draws; the lookup's kernels (K1, or K5 under ``--fold off``) run
 on the rank's own particles against the replicated grid, and the
 reductions over particles cross the mesh (``filter.pose_estimator``).
-The ring-hop ``resampler`` hook takes ``(u, weights, particles)``.
+The ring-hop ``resampler`` hook takes ``(u, weights, particles)``.  A
+meshed step reads nothing back to the host, so it captures as an
+unmeshed one does.
 """
 
 from __future__ import annotations
@@ -54,18 +59,8 @@ def _propagate(state, contact_state, orientation, cfg, draws, mesh=None):
                       None if draws is None else draws.project, mesh=mesh)
 
 
-def _graph_capture(graph, what, mesh, resampler=None):
-    """The capture object of ``graph=`` (None for the eager loop); a mesh
-    or a resampler hook is not captured yet."""
-    capture = graphs.capture_of(graph)
-    if capture is not None:
-        graphs.refuse(what, mesh=(mesh, "item 4, mesh= under NCCL capture"),
-                      resampler=(resampler, "item 4, with the mesh"))
-    return capture
-
-
 def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None,
-                     graph=False):
+                     graph=None):
     """Build ``step(state, contact_state, orientation, gate_ref,
     draws=None) -> (state, aux)``.
 
@@ -78,13 +73,16 @@ def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None,
     ones.  ``resampler``: forwarded to ``pose_estimator.update`` (e.g.
     ``parallel.resample.make_ppermute_resampler(mesh)``).
 
-    ``graph=True`` (CUDA only; neither ``mesh`` nor ``resampler``):
-    every call copies its inputs into static buffers and replays the step
-    captured at the second call with draws given or not (the first runs
-    eagerly); ``gate_ref`` is written into a device buffer (two fill
-    kernels from host numbers, or a copy of a device tensor).  The state
-    and ``aux`` returned are new tensors, and the state's generator
-    advances as the eager step advances it.
+    ``graph=True`` (CUDA only; a mesh only over NCCL): every call copies
+    its inputs into static buffers and replays the step captured at the
+    second call with draws given or not (the first runs eagerly);
+    ``gate_ref`` is written into a device buffer (two fill kernels from
+    host numbers, or a copy of a device tensor).  The state and ``aux``
+    returned are new tensors, and the state's generator advances as the
+    eager step advances it.  ``graph=None`` (the default): graphed where
+    the state's device and the mesh allow it, else eager (module
+    docstring).  The step's ``graphs`` is its ``utils.graphs.ScanRunner``,
+    None for the eager loop.
     """
 
     def gated(state, contact_state, orientation, dist, angle, draws):
@@ -101,14 +99,22 @@ def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None,
                           torch.full_like(aux["ess"], float("inf")))
         return state, {"ess": ess, "updated": do_update}
 
-    capture = _graph_capture(graph, "make_filter_step", mesh, resampler)
-    if capture is None:
+    return graphs.runner_for(
+        graph, mesh, "make_filter_step",
+        lambda capture: _filter_step(gated, capture),
+        lambda state, *_: state.step.device)
+
+
+def _filter_step(gated, capture):
+    """``make_filter_step``'s step for a resolved ``graph=``."""
+    if capture is False:
         def step(state, contact_state, orientation, gate_ref, draws=None):
             dist, angle = (torch.as_tensor(v, device=state.step.device)
                            for v in gate_ref)
             return gated(state, contact_state, orientation, dist, angle,
                          draws)
 
+        step.graphs = None
         return step
 
     def body(state, x):
@@ -134,10 +140,11 @@ def make_filter_step(cfg: Config, map_lookup, mesh=None, resampler=None,
             state, [(contact_state, orientation, gate, draws)])
         return state, {"ess": ess[0], "updated": updated[0]}
 
+    graphed.graphs = runner
     return graphed
 
 
-def make_scan_runner(cfg: Config, map_lookup, mesh=None, graph=False):
+def make_scan_runner(cfg: Config, map_lookup, mesh=None, graph=None):
     """Roll a trajectory with a measurement update on every step (the
     benchmark regime).
 
@@ -148,13 +155,14 @@ def make_scan_runner(cfg: Config, map_lookup, mesh=None, graph=False):
     [T, 3])``.  ``mesh``: as for ``make_filter_step``; the centroids are
     global, the same on every rank.
 
-    ``graph=True`` (CUDA only, no ``mesh``): the step is captured once
-    per input shape (draws given or not) and replayed T times, the
-    JAX package's jitted ``lax.scan``; each replay's inputs are copied
-    from ``contact_states[t]``, ``orientations[t]`` and ``draws[t]``.
-    The result equals the eager loop's bit for bit (the state's
-    generator advanced alike); the state returned and the centroids are
-    new tensors.
+    ``graph=True`` (CUDA only; a mesh only over NCCL): the step is
+    captured once per input shape (draws given or not) and replayed T
+    times, the JAX package's jitted ``lax.scan``; each replay's inputs
+    are copied from ``contact_states[t]``, ``orientations[t]`` and
+    ``draws[t]``.  The result equals the eager loop's bit for bit (the
+    state's generator advanced alike); the state returned and the
+    centroids are new tensors.  ``graph=None`` (the default): as
+    ``make_filter_step``'s.
     """
 
     def step(state, cs, q, d):
@@ -165,8 +173,15 @@ def make_scan_runner(cfg: Config, map_lookup, mesh=None, graph=False):
                                wrap_safe=cfg.wrap_safe_centroid, mesh=mesh)
         return state, c_pos
 
-    capture = _graph_capture(graph, "make_scan_runner", mesh)
-    if capture is not None:
+    return graphs.runner_for(
+        graph, mesh, "make_scan_runner",
+        lambda capture: _scan_runner(step, capture),
+        lambda state, *_: state.step.device)
+
+
+def _scan_runner(step, capture):
+    """``make_scan_runner``'s runner for a resolved ``graph=``."""
+    if capture is not False:
         runner = graphs.ScanRunner(lambda s, x: step(s, *x), capture,
                                    "make_scan_runner")
 

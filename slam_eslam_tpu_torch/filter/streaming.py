@@ -36,8 +36,14 @@ every particle's copy-on-write and merge from gathered poses and chain
 rows) or split by block range (``parallel.sharding.shard_pool`` with
 ``map_pool_shards`` equal to the mesh size: ``mapping.map_pool``'s
 meshed operations, K3 on the rank's own blocks).  Either way a meshed
-run equals the single-process run with the same ``map_pool_shards``; the
-meshed pool reads the sizes of its exchanges to the host.
+run equals the single-process run with the same ``map_pool_shards``, and
+the meshed pool's exchanges have fixed shapes and read nothing back, so a
+meshed step captures as an unmeshed one does (NCCL meshes only).
+
+The runners' ``graph=None`` (the default, as the JAX package's runners
+are jitted) runs CUDA graphs on a CUDA device with no mesh or an NCCL
+mesh, and the eager loop on the CPU and on a gloo or host mesh
+(``utils.graphs.resolve``).
 """
 
 from __future__ import annotations
@@ -260,9 +266,12 @@ def own_heads(cfg: Config, pool, p, failed=None):
 def follow_chains(st, pool, idx, in_place, mesh=None):
     """The map chains follow the resampled particles along ``idx``
     (``PoseEstimator.cpp:249-253``'s cloneMaps as an O(N) index gather;
-    ``in_place``: into ``pool.chain``, whose storage a graph keeps), and
+    ``in_place``: into ``pool.chain``, whose storage a graph keeps; on a
+    mesh the gathered rows make a new chain, which a graphed step writes
+    back into the carry's), and
     every particle's ``map_id`` is its row again."""
-    pool = pool.resample_(idx) if in_place else pool.resample(idx, mesh)
+    pool = (pool.resample_(idx) if in_place and mesh is None
+            else pool.resample(idx, mesh))
     p = st.particles
     lo = 0 if mesh is None else mesh.rank * p.n
     return dataclasses.replace(st, particles=dataclasses.replace(
@@ -396,8 +405,8 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
     ``mesh``: see the module docstring; ``centroid`` and ``best_pose`` are
     global, the same on every rank.
 
-    ``graph=True`` (CUDA only; no ``mesh`` yet): the host gates pick one
-    CUDA graph per combination of (measurement update, laser mapping,
+    ``graph=True`` (CUDA only; a mesh only over NCCL): the host gates
+    pick one CUDA graph per combination of (measurement update, laser mapping,
     camera mapping, hash reinjection), at most sixteen, each run eagerly
     at its first meeting, captured at its second and replayed after
     (``utils.graphs``).  The frame's inputs (the distance image and its
@@ -407,14 +416,13 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
     resampled chains are written back into ``pool.chain`` in place.  A
     step equals the eager step bit for bit; the pool is the caller's,
     updated in place, the filter state, the outputs and ``alloc_failed``
-    are new tensors."""
+    are new tensors.  ``graph=None`` (the default): graphs where the
+    carry's device and the mesh allow them, else eager (module
+    docstring).  The step's ``graphs`` is its ``utils.graphs.ShapeGraphs``,
+    None for the eager step."""
     if camera2body is not None and camera_intrinsics is None:
         raise ValueError("camera2body needs camera_intrinsics=(scale_x, "
                          "scale_y, center_x, center_y)")
-    capture = graphs.capture_of(graph)
-    if capture is not None:
-        graphs.refuse("make_slam_step",
-                      mesh=(mesh, "item 4, mesh= under NCCL capture"))
     if match is None:
         match = cfg.use_visual_update
     odo_cfg = odometry_config if odometry_config is not None else cfg_odo(cfg)
@@ -463,7 +471,9 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
         if mesh is None:
             return row[1:]
         rows = mesh.all_gather(row[None])
-        return rows[torch.argmax(rows[:, 0])][1:]
+        # a one-element index: a 0-d device index is read back to the host
+        top = torch.argmax(rows[:, 0]).reshape(1)
+        return rows.index_select(0, top)[0, 1:]
 
     def gates(carry, q_h, pos_h, has_scan, has_dimg):
         """The host gates of a frame (``EmbodiedSlamFilter.cpp:
@@ -590,89 +600,101 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
                           laser_pos, cam_pos))
         return out, frame_aux(key, c_pos, best_pose)
 
-    if capture is None:
-        return step
+    def build(capture):
+        """The step of a resolved ``graph=``."""
+        if capture is False:
+            step.graphs = None
+            return step
 
-    def body(dc: _DeviceCarry, x, key):
-        """One frame's device work for the gates ``key``, on the static
-        buffers."""
-        st, pool, failed, update_idx, y = device_step(
-            dc.filter, dc.pool, dc.alloc_failed, dc.update_idx, x, key, True)
-        return _DeviceCarry(st, pool, failed, update_idx), y
+        def body(dc: _DeviceCarry, x, key):
+            """One frame's device work for the gates ``key``, on the
+            static buffers."""
+            st, pool, failed, update_idx, y = device_step(
+                dc.filter, dc.pool, dc.alloc_failed, dc.update_idx, x, key,
+                True)
+            return _DeviceCarry(st, pool, failed, update_idx), y
 
-    per_shape = graphs.ShapeGraphs()   # by the device carry's shape
+        per_shape = graphs.ShapeGraphs()   # by the device carry's shape
 
-    def bind(carry: StreamingState):
-        """The ``StepGraphs`` of the carry's shape, its static carry
-        holding ``carry``'s values (the pool adopted at the first call and
-        copied in place after, unless it is the same pool)."""
-        gen = carry.filter.generator
-        dev = carry.alloc_failed.device
-        capture.check(dev, "make_slam_step")
-        key = graphs.signature((carry.filter, carry.pool))
-        sg = per_shape.get(key)
-        if sg is None:
-            static_gen = None if gen is None else torch.Generator(gen.device)
-            dc = _DeviceCarry(
-                dataclasses.replace(graphs.clone(carry.filter),
-                                    generator=static_gen),
-                carry.pool, graphs.clone(carry.alloc_failed),
-                torch.full((), carry.update_idx, dtype=torch.int32,
-                           device=dev))
-            # a graph reads the hash's tables and the mounts outside the
-            # carry and the inputs (the mounts copied to the card first)
-            constants(dev)
-            sg = per_shape[key] = graphs.StepGraphs(
-                body, dc, capture, static_gen,
-                reads=lambda gate: (hash_, tuple(on_device[dev].values())),
-                what="make_slam_step")
-        else:
-            graphs.copy_into(sg.carry, _DeviceCarry(
-                carry.filter, carry.pool, carry.alloc_failed,
-                sg.carry.update_idx))
-            sg.carry.update_idx.fill_(carry.update_idx)
-        graphs.load_generator(sg.generator, gen)
-        return sg
+        def bind(carry: StreamingState):
+            """The ``StepGraphs`` of the carry's shape, its static carry
+            holding ``carry``'s values (the pool adopted at the first call
+            and copied in place after, unless it is the same pool)."""
+            gen = carry.filter.generator
+            dev = carry.alloc_failed.device
+            capture.check(dev, "make_slam_step")
+            key = graphs.signature((carry.filter, carry.pool))
+            sg = per_shape.get(key)
+            if sg is None:
+                static_gen = (None if gen is None
+                              else torch.Generator(gen.device))
+                dc = _DeviceCarry(
+                    dataclasses.replace(graphs.clone(carry.filter),
+                                        generator=static_gen),
+                    carry.pool, graphs.clone(carry.alloc_failed),
+                    torch.full((), carry.update_idx, dtype=torch.int32,
+                               device=dev))
+                # a graph reads the hash's tables and the mounts outside
+                # the carry and the inputs (the mounts copied to the card
+                # first)
+                constants(dev)
+                sg = per_shape[key] = graphs.StepGraphs(
+                    body, dc, capture, static_gen,
+                    reads=lambda gate: (hash_,
+                                        tuple(on_device[dev].values())),
+                    what="make_slam_step")
+            else:
+                graphs.copy_into(sg.carry, _DeviceCarry(
+                    carry.filter, carry.pool, carry.alloc_failed,
+                    sg.carry.update_idx))
+                sg.carry.update_idx.fill_(carry.update_idx)
+            graphs.load_generator(sg.generator, gen)
+            return sg
 
-    def frame_step(sg, carry, x, q_h, pos_h, has_scan, has_dimg):
-        """One graphed frame: the host gates, then the graph of their
-        combination.  Returns the carry's new host fields, the static
-        ``(centroid, best_pose)`` and the gates."""
-        key, laser_pos, cam_pos = gates(carry, q_h, pos_h, has_scan,
-                                        has_dimg)
-        y = sg.step(key, x)
-        host = host_fields(carry, key, q_h, pos_h, laser_pos, cam_pos)
-        host["update_idx"] = (carry.update_idx + int(key[1] and update)
-                              + int(key[2]))
-        return host, y, key
+        def frame_step(sg, carry, x, q_h, pos_h, has_scan, has_dimg):
+            """One graphed frame: the host gates, then the graph of their
+            combination.  Returns the carry's new host fields, the static
+            ``(centroid, best_pose)`` and the gates."""
+            key, laser_pos, cam_pos = gates(carry, q_h, pos_h, has_scan,
+                                            has_dimg)
+            y = sg.step(key, x)
+            host = host_fields(carry, key, q_h, pos_h, laser_pos, cam_pos)
+            host["update_idx"] = (carry.update_idx + int(key[1] and update)
+                                  + int(key[2]))
+            return host, y, key
 
-    def result(sg, carry):
-        """The carry after a graphed run (``carry``: the caller's, its host
-        fields updated): the static filter state and ``alloc_failed``
-        copied out, the caller's generator advanced, the pool the static
-        (the caller's) pool."""
-        gen = carry.filter.generator
-        graphs.load_generator(gen, sg.generator)
-        return dataclasses.replace(
-            carry, filter=dataclasses.replace(graphs.clone(sg.carry.filter),
-                                              generator=gen),
-            pool=sg.carry.pool,
-            alloc_failed=graphs.clone(sg.carry.alloc_failed))
+        def result(sg, carry):
+            """The carry after a graphed run (``carry``: the caller's, its
+            host fields updated): the static filter state and
+            ``alloc_failed`` copied out, the caller's generator advanced,
+            the pool the static (the caller's) pool."""
+            gen = carry.filter.generator
+            graphs.load_generator(gen, sg.generator)
+            return dataclasses.replace(
+                carry, filter=dataclasses.replace(
+                    graphs.clone(sg.carry.filter), generator=gen),
+                pool=sg.carry.pool,
+                alloc_failed=graphs.clone(sg.carry.alloc_failed))
 
-    def graphed(carry: StreamingState, frame: SlamFrames, odo_state=None,
-                draws: StepDraws | None = None):
-        sg = bind(carry)
-        host, (c_pos, best_pose), key = frame_step(
-            sg, carry, frame_inputs(frame, odo_state, draws), frame.host_q,
-            frame.host_body_pos, frame.host_has_scan, frame.host_has_dimg)
-        return result(sg, dataclasses.replace(carry, **host)), frame_aux(
-            key, c_pos.clone(), best_pose.clone())
+        def graphed(carry: StreamingState, frame: SlamFrames,
+                    odo_state=None, draws: StepDraws | None = None):
+            sg = bind(carry)
+            host, (c_pos, best_pose), key = frame_step(
+                sg, carry, frame_inputs(frame, odo_state, draws),
+                frame.host_q, frame.host_body_pos, frame.host_has_scan,
+                frame.host_has_dimg)
+            return result(sg, dataclasses.replace(carry, **host)), \
+                frame_aux(key, c_pos.clone(), best_pose.clone())
 
-    graphed.bind, graphed.frame_step, graphed.result = bind, frame_step, \
-        result
-    graphed.per_shape = per_shape
-    graphed.camera, graphed.texture = camera2body is not None, camera_texture
-    return graphed
+        graphed.bind, graphed.frame_step = bind, frame_step
+        graphed.result = result
+        graphed.per_shape = graphed.graphs = per_shape
+        graphed.camera = camera2body is not None
+        graphed.texture = camera_texture
+        return graphed
+
+    return graphs.runner_for(graph, mesh, "make_slam_step", build,
+                             lambda carry, *_: carry.alloc_failed.device)
 
 
 def make_slam_scan_runner(cfg: Config, laser2body=None, hash_=None,
@@ -680,7 +702,7 @@ def make_slam_scan_runner(cfg: Config, laser2body=None, hash_=None,
                           camera2body=None, camera_intrinsics=None,
                           camera_texture=False, donate=False,
                           odometry_config=None, external_odometry=False,
-                          graph=False):
+                          graph=None):
     """Roll a ``SlamFrames`` stream through ``make_slam_step`` (same
     arguments): ``run(carry, frames, odos=None, draws=None) -> (carry,
     aux)``, with ``odos`` the stacked per-frame odometry states of
@@ -700,15 +722,10 @@ def make_slam_scan_runner(cfg: Config, laser2body=None, hash_=None,
     loop's bit for bit.  ``run.settled()`` says whether every gate
     combination met so far replays (a warm-up run has captured it), and
     ``run.counts()`` how many frames ran eagerly, were captured and were
-    replayed."""
+    replayed; ``run.graphs`` is the ``utils.graphs.ShapeGraphs``, None for
+    the eager loop.  ``graph=None`` (the default): as ``make_slam_step``'s.
+    """
     del donate
-    step = make_slam_step(cfg, laser2body=laser2body, hash_=hash_,
-                          match=match, update=update, mesh=mesh,
-                          camera2body=camera2body,
-                          camera_intrinsics=camera_intrinsics,
-                          camera_texture=camera_texture,
-                          odometry_config=odometry_config,
-                          external_odometry=external_odometry, graph=graph)
     flags = ("updated", "mapped") + (
         ("cam_mapped",) if camera2body is not None else ())
 
@@ -716,6 +733,21 @@ def make_slam_scan_runner(cfg: Config, laser2body=None, hash_=None,
         if external_odometry and odos is None:
             raise ValueError("external_odometry=True needs the stacked "
                              "odometry states (precompute_odometry)")
+
+    return graphs.runner_for(
+        graph, mesh, "make_slam_scan_runner",
+        lambda capture: _slam_scan_runner(make_slam_step(
+            cfg, laser2body=laser2body, hash_=hash_, match=match,
+            update=update, mesh=mesh, camera2body=camera2body,
+            camera_intrinsics=camera_intrinsics,
+            camera_texture=camera_texture, odometry_config=odometry_config,
+            external_odometry=external_odometry, graph=capture), capture,
+            flags, check, external_odometry),
+        lambda carry, *_: carry.alloc_failed.device)
+
+
+def _slam_scan_runner(step, capture, flags, check, external_odometry):
+    """``make_slam_scan_runner``'s runner for a resolved ``graph=``."""
 
     def run(carry: StreamingState, frames: SlamFrames, odos=None,
             draws=None):
@@ -736,7 +768,8 @@ def make_slam_scan_runner(cfg: Config, laser2body=None, hash_=None,
                        **{name: np.array(v, bool)
                           for name, v in gates.items()}}
 
-    if not graph:
+    if capture is False:
+        run.graphs = None
         return run
 
     def graphed(carry: StreamingState, frames: SlamFrames, odos=None,
@@ -771,6 +804,7 @@ def make_slam_scan_runner(cfg: Config, laser2body=None, hash_=None,
 
     graphed.settled = step.per_shape.settled
     graphed.counts = step.per_shape.counts
+    graphed.graphs = step.per_shape
     return graphed
 
 

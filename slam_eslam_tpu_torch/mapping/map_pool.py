@@ -43,12 +43,15 @@ another rank moves by ``all_to_all`` of block rows; a chain lookup runs K2
 on the levels the rank holds and sends the others to their owners, whose
 K2 answers on a one-level view, and the answers combine head first; the
 merge runs K3 on the rank's own blocks (heads are co-located by
-``ensure_unique_active``).  A meshed pool operation reads the sizes of
-its exchanges to the host (``Mesh.reads``); it equals the single-device
-run with the same ``shards`` bit for bit.  A pool held whole on every
-rank with particles split (``shards == 1`` on a mesh, the replicated
-mode) is driven by ``filter.streaming`` with gathered chain rows and
-poses.
+``ensure_unique_active``).  A meshed pool operation reads nothing back
+to the host, so it can be captured into a CUDA graph: every exchange
+sends each rank the whole request list with the ids it does not own set
+to -1 (``Mesh.requests``), and masked writes replace the writes to a
+data-dependent set of rows (``_write_rows``).  It equals the
+single-device run with the same ``shards`` bit for bit.  A pool held
+whole on every rank with particles split (``shards == 1`` on a mesh, the
+replicated mode) is driven by ``filter.streaming`` with gathered chain
+rows and poses.
 """
 
 from __future__ import annotations
@@ -240,12 +243,10 @@ def _copy_blocks(pool: MapPool, dst, src, mask):
     their source onto itself.  On a mesh ``dst`` lies in this rank's range
     and ``src`` anywhere (``fetch_rows``)."""
     if pool.mesh is not None:
-        sel = mask.nonzero().squeeze(1)
-        rows = fetch_rows(pool, src.index_select(0, sel),
-                           pool.data_fields() + ("origin",), "block copy")
-        d = (dst.index_select(0, sel) - pool.block_offset).long()
+        rows = fetch_rows(pool, torch.where(mask, src, -1),
+                          pool.data_fields() + ("origin",), "block copy")
         for f, r in rows.items():
-            getattr(pool, f).index_copy_(0, d, r)
+            _write_rows(getattr(pool, f), dst - pool.block_offset, r, mask)
         return
     d = torch.where(mask, dst, src).long()
     s = src.long()
@@ -258,21 +259,32 @@ def _copy_blocks(pool: MapPool, dst, src, mask):
 def fetch_rows(pool: MapPool, ids, names, what):
     """Rows of global blocks ``ids [M]`` of the fields ``names`` of a
     meshed pool, wherever they live: each rank sends the ids it needs to
-    their owners, which send the rows back (``all_to_all``; the sizes are
-    one host read, counted as ``what``).  Returns ``{name: [M, ...]}``."""
+    their owners, which send the rows back (``Mesh.requests``, at a fixed
+    shape: each owner answers every rank's ``M`` requests, -1 padded; the
+    rows asked of other ranks are counted as ``what``).  An id of -1 asks
+    nothing and gets an arbitrary row.  Returns ``{name: [M, ...]}``."""
     mesh, bl = pool.mesh, pool.bl
-    owner = (ids.long() // bl)
-    order = torch.argsort(owner, stable=True)
-    send, recv = mesh.exchange_counts(
-        torch.bincount(owner, minlength=mesh.size), what)
-    req = mesh.all_to_all((ids.long() - owner * bl).index_select(0, order),
-                          send, recv)
-    out = {}
-    for name in names:
-        back = mesh.all_to_all(getattr(pool, name).index_select(0, req),
-                               recv, send)
-        out[name] = torch.empty_like(back).index_copy_(0, order, back)
-    return out
+    ids = ids.long()
+    owner = torch.where(ids >= 0, ids // bl, 0)
+    req = mesh.requests(ids - owner * bl, owner, what).clamp(min=0)
+    return {name: mesh.answers(getattr(pool, name).index_select(0, req),
+                               owner)
+            for name in names}
+
+
+def _write_rows(field, rows, values, mask):
+    """``field[rows[i]] = values[i]`` where ``mask[i]`` (the masked
+    ``rows`` unique), in place, at a fixed shape: an entry with ``mask``
+    off writes what the first masked entry writes, or, when none is
+    masked, row 0 its own content, so no row takes two different
+    values."""
+    any_ = mask.any()
+    first = torch.argmax(mask.to(torch.int8)).reshape(1)
+    rows = torch.where(mask, rows, torch.where(
+        any_, rows.index_select(0, first)[0], 0)).long()
+    fill = torch.where(any_, values.index_select(0, first)[0], field[0])
+    field.index_copy_(0, rows, torch.where(
+        mask.reshape((-1,) + (1,) * (values.dim() - 1)), values, fill))
 
 
 def _refcounts(chain, b):
@@ -357,8 +369,8 @@ def ensure_unique_active(pool: MapPool, shards=1):
     if pool.mesh is None:
         pool.allocated.index_fill_(0, head.long(), True)
     else:
-        pool.allocated.index_fill_(
-            0, (new_block[do] - pool.block_offset).long(), True)
+        _write_rows(pool.allocated, new_block - pool.block_offset,
+                    torch.ones_like(do), do)
     pool.chain[:, 0] = head
     return pool, n_failed
 
@@ -398,10 +410,12 @@ def rollover(pool: MapPool, xy, threshold, shards=1):
                                    do | pool.allocated.index_select(0, d))
     else:
         # every new block lies in this rank's range
-        d = (new_block[do] - pool.block_offset).long()
-        pool.meta.index_fill_(0, d, 0)
-        pool.origin.index_copy_(0, d, new_origin[do])
-        pool.allocated.index_fill_(0, d, True)
+        d = new_block - pool.block_offset
+        _write_rows(pool.meta, d, pool.meta.new_zeros(
+            (1,) + pool.meta.shape[1:]).expand((d.shape[0],)
+                                               + pool.meta.shape[1:]), do)
+        _write_rows(pool.origin, d, new_origin, do)
+        _write_rows(pool.allocated, d, torch.ones_like(do), do)
     shifted = torch.cat([new_block[:, None], pool.chain[:, :-1]], dim=1)
     pool.chain.copy_(torch.where(do[:, None], shifted, pool.chain))
     return pool, n_failed
@@ -432,57 +446,62 @@ def _chain_lookup_meshed(pool: MapPool, chain, queries, z_window):
         (chain_here[:, :, None] == blk[:, None, :]).to(torch.int8), dim=1)
     level = torch.where(found, level, levels)
 
-    # the other levels, on the ranks that hold them
+    # the other levels, on the ranks that hold them: every (particle,
+    # level) item goes to every rank with its block id where that rank
+    # owns a far level and -1 elsewhere, with its particle's queries; each
+    # rank's K2 answers all of them on a one-level view (-1: no hit), and
+    # each far item takes its owner's answer.  One rank holds every level,
+    # so it sends nothing.
     far = (chain >= 0) & ~here
-    item = far.nonzero()                                       # [M, 2]
-    p, lv = item[:, 0], item[:, 1]
-    ids = chain[p, lv].long()
-    owner = ids // bl
-    order = torch.argsort(owner, stable=True)
-    p, lv, ids, owner = p[order], lv[order], ids[order], owner[order]
-    send, recv = mesh.exchange_counts(
-        torch.bincount(owner, minlength=mesh.size), "chain lookup")
-    go = lambda t: mesh.all_to_all(t, send, recv)
-    r_blk = go((ids - owner * bl).to(torch.int32))
-    r_q = tuple(go(q.index_select(0, p).contiguous()) for q in queries)
-    if r_blk.shape[0]:
-        a = cl.chain_lookup(*fields, r_blk[:, None].contiguous(), r_q,
-                            k=pool.k, z_window=z_window,
-                            with_slot=with_color)
-    else:
-        e = r_q[0]
-        a = (torch.zeros_like(e, dtype=torch.bool), e, e,
-             torch.zeros_like(e, dtype=torch.int64))
-    back = lambda t: mesh.all_to_all(t.contiguous(), recv, send)
-    parts = [back(a[0]), back(a[1]), back(a[2])]
-    if with_color:
-        parts.append(back(cl.chain_color(pool.color, a[3])))
-
-    # every level's answer [N, L + 1, C] (level L: no local hit), then the
-    # first level that hits
     rows = torch.arange(n, device=chain.device)[:, None] * (levels + 1)
     cols = torch.arange(c, device=chain.device)
     at_local = ((rows + level) * c + cols).reshape(-1)    # element (p, c)
-    at_far = p * (levels + 1) + lv                        # row (p, level)
+    parts = None
+    if mesh.size > 1:
+        ids = chain.reshape(-1).long()                    # item (p, level)
+        farf = far.reshape(-1)
+        owner = torch.where(farf, ids // bl, 0)
+        req = mesh.requests(torch.where(farf, ids - owner * bl, -1), owner,
+                            "chain lookup")
+        sent = lambda q: mesh.all_to_all(
+            q.repeat_interleave(levels, 0)[None].expand(
+                (mesh.size,) + (n * levels, c)).reshape(-1, c).contiguous())
+        a = cl.chain_lookup(*fields, req.to(torch.int32)[:, None]
+                            .contiguous(), tuple(sent(q) for q in queries),
+                            k=pool.k, z_window=z_window,
+                            with_slot=with_color)
+        back = lambda t: mesh.answers(t, owner)
+        parts = [back(a[0]), back(a[1]), back(a[2])]
+        if with_color:
+            parts.append(back(cl.chain_color(pool.color, a[3])))
+        farc = farf[:, None]
 
-    def spread(local, far_part, trail=()):
+    # every level's answer [N, L + 1, C] (level L: no local hit), then the
+    # first level that hits
+    def spread(local, part, trail=()):
         out = local.new_zeros((n * (levels + 1), c) + trail)
+        if part is not None:
+            mask = farc.reshape(farc.shape + (1,) * len(trail))
+            out.view(n, levels + 1, c, *trail)[:, :levels] = torch.where(
+                mask, part, torch.zeros((), dtype=part.dtype,
+                                        device=part.device)).view(
+                n, levels, c, *trail)
         out.view(-1, *trail)[at_local] = local.reshape(-1, *trail)
-        out[at_far] = far_part
         return out.view(n, levels + 1, c, *trail)[:, :levels]
 
-    hit = spread(found, parts[0])
+    part = lambda i: None if parts is None else parts[i]
+    hit = spread(found, part(0))
     first = torch.argmax(hit.to(torch.int8), dim=1, keepdim=True)  # [N,1,C]
     out_found = hit.any(1)
     pick = lambda t: torch.where(out_found, t.gather(1, first)[:, 0],
                                  torch.zeros((), dtype=t.dtype,
                                              device=t.device))
-    out = (out_found, pick(spread(mean, parts[1])),
-           pick(spread(stdev, parts[2])))
+    out = (out_found, pick(spread(mean, part(1))),
+           pick(spread(stdev, part(2))))
     if not with_color:
         return out + (None,)
     col = spread(cl.chain_color(pool.color, torch.where(found, slot, -1)),
-                 parts[3], (3,))
+                 part(3), (3,))
     col = torch.where(out_found[..., None],
                       col.gather(1, first[..., None].expand(-1, -1, -1, 3))
                       [:, 0], 0.0)

@@ -467,6 +467,15 @@ def apply_negative_points(grid: MLSGrid, points, mask, z_margin=0.15):
         grid, valid=grid.valid & (hits[:-1] == 0).reshape(grid.valid.shape))
 
 
+def _on_device(v, like):
+    """``v`` as a tensor of ``like``'s dtype and device; a host number by
+    a fill kernel, not a copy from the host (which a CUDA graph cannot
+    capture)."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+
+
 def _place_cloud(cloud: PatchCloud, rot2d, trans, z_offset):
     """The cloud under a planar pose: ``rot2d [..., 2, 2]``, ``trans
     [..., 2]``, ``z_offset [...]`` -> world ``[..., P, 3]``."""
@@ -489,10 +498,8 @@ def match_cloud(grid: MLSGrid, cloud: PatchCloud, rot2d, trans, z_offset,
     normalised by the number of valid sampled patches.  The pose may carry
     leading batch dimensions (``rot2d [N, 2, 2]``, ``trans [N, 2]``,
     ``z_offset, offset_stdev [N]``): one score per pose."""
-    z_offset = torch.as_tensor(z_offset, dtype=cloud.z.dtype,
-                               device=cloud.z.device)
-    offset_stdev = torch.as_tensor(offset_stdev, dtype=cloud.z.dtype,
-                                   device=cloud.z.device)
+    z_offset = _on_device(z_offset, cloud.z)
+    offset_stdev = _on_device(offset_stdev, cloud.z)
     m = cloud.valid & (torch.arange(cloud.p, device=cloud.z.device)
                        % sampling == 0)
     pts = _place_cloud(cloud, rot2d, trans, z_offset)
@@ -512,8 +519,7 @@ def merge_cloud(grid: MLSGrid, cloud: PatchCloud, rot2d, trans, z_offset,
     222-227``): patches are shifted by ``z_offset`` and their uncertainty
     widened by ``offset_stdev`` before fusion.  Returns the updated
     grid."""
-    z_offset = torch.as_tensor(z_offset, dtype=cloud.z.dtype,
-                               device=cloud.z.device)
+    z_offset = _on_device(z_offset, cloud.z)
     pts = _place_cloud(cloud, rot2d, trans, z_offset)
     stdev = torch.sqrt(cloud.stdev ** 2 + offset_stdev ** 2)
     return merge_points(grid, pts[:, :2], pts[:, 2], stdev, cloud.valid,

@@ -22,7 +22,11 @@ device ``mesh`` the filter holds this rank's particles and pool (pass
 them through ``parallel.sharding.shard_state`` / ``shard_pool`` after
 ``init``); every rank runs the same chunks, finds the same best particle
 over the mesh, reads its map blocks from the ranks that hold them and
-keeps the same keyframes and pose graph.  The JAX
+keeps the same keyframes and pose graph.  ``graph=None`` (the default,
+as the JAX package jits every seam) runs the chunk as CUDA graphs on a
+CUDA device with no mesh or an NCCL mesh (``run_stream``, the keyframe
+grids and sweeps, the pose-graph solve) and eagerly on the CPU and over a
+gloo or host mesh.  The JAX
 package's raw-scan keyframes (its shared-map branch of
 ``process_chunk``) are not ported: ``run_stream`` raises in shared-map
 mode in both packages, so that branch never runs.
@@ -40,6 +44,7 @@ from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
 from slam_eslam_tpu_torch.mapping.map_pool import fetch_rows
 from slam_eslam_tpu_torch.mapping.mls_grid import PatchCloud
 from slam_eslam_tpu_torch.utils import geometry, graphs, tree
+from slam_eslam_tpu_torch.utils.device import entry_device
 
 class OnlineSlam:
     """``donate``: the JAX package donates the scan carry per chunk to
@@ -47,27 +52,29 @@ class OnlineSlam:
     pool in place, so the flag is accepted and changes nothing.
     ``submap_scans`` belongs to the raw-scan branch (module docstring); it
     is accepted for the same call shape and read nowhere.  ``graph=True``
-    runs every chunk through the filter's CUDA graphs (``run_stream(graph=
-    True)``: one graph per gate combination, captured once and replayed
-    in every later chunk, bit for bit the eager chunk); CUDA only, and not
-    with ``mesh`` yet (ROADMAP.md Queue 1, item 4)."""
+    runs every chunk as CUDA graphs: ``run_stream(graph=True)`` (one graph
+    per gate combination, captured once and replayed in every later
+    chunk), the keyframe grids and sweeps and the solve
+    (``KeyframeManager(graph=True)``), each bit for bit its eager run;
+    CUDA only, and a mesh only over NCCL.  ``graph=None`` (the default):
+    the same where the device and the mesh allow it, else eager;
+    ``graphed`` says which."""
 
     def __init__(self, config: Config = None, laser2body=None,
                  keyframe_kw=None, mesh=None, camera2body=None,
                  camera_intrinsics=None, camera_texture=False,
                  odometry_config=None, submap_scans=1, donate=False,
-                 probe_recent=60, device=None, graph=False):
+                 probe_recent=60, device=None, graph=None):
         self.mesh = mesh
-        if graph is not False:
-            graphs.refuse("OnlineSlam",
-                          mesh=(mesh, "item 4, mesh= under NCCL capture"))
         self.graph = graph
+        self.graphed = graphs.resolve(graph, entry_device(device), mesh,
+                                      "OnlineSlam") is not None
         self.filter = EmbodiedSlamFilter(odometry_config=odometry_config,
                                          config=config, device=device,
                                          graph=graph)
         self.device = self.filter.device
         self.keyframes = KeyframeManager(**(keyframe_kw or {}),
-                                         device=self.device)
+                                         device=self.device, graph=graph)
         self.laser2body = laser2body
         self.camera2body = camera2body
         self.camera_intrinsics = camera_intrinsics

@@ -96,25 +96,28 @@ def resample_ppermute(u, weights, payload, mesh, scheme="systematic"):
     of gathering it (JAX ``resample_ppermute``).
 
     Systematic and stratified positions are sorted, so each rank's output
-    slots draw from a contiguous run of source ranks, at most ``h_max``
-    hops away: 0 or 1 while tracking, ``P - 1`` only when the weight
-    collapses onto one rank.  So:
+    slots draw from a contiguous run of source ranks: 0 or 1 hops away
+    while tracking, ``P - 1`` only when the weight collapses onto one
+    rank.  So:
 
     1. normaliser and ESS by ``all_reduce``; the ``P`` rank sums
        all-gathered give every rank the global rank boundaries;
     2. each slot's source rank (a search of the ``P`` boundaries) and
        position;
-    3. ``h_max``, the largest distance over every rank, read to the host
-       once (``Mesh.reads["ppermute h_max"]``; JAX's ``pmax`` inside a
-       ``while_loop``); then ``h_max`` rounds in which every rank passes
-       its carried (payload, local cumsum) one rank on in both directions
-       (``Mesh.ring``) and resolves the slots whose source it now holds.
+    3. ``ceil((P - 1) / 2)`` rounds in which every rank passes its
+       carried (payload, local cumsum) one rank on in both directions
+       (``Mesh.ring``) and resolves the slots whose source it now holds:
+       the rounds reach every rank in one direction or the other, and a
+       round that finds no slot of its source changes nothing
+       (``resolve`` is masked by the source).  The JAX package runs a
+       ``while_loop`` to the largest distance (a ``pmax``); a fixed count
+       reads nothing back, so the step can be captured into a CUDA graph.
 
-    Traffic per rank: ``2 h_max`` payload slices, against ``P - 1`` for
-    the gather.  ``u``: a scalar (``"systematic"``) or the global ``[N]``
-    uniforms (``"stratified"``).  ``payload``: a dict or dataclass of
-    this rank's ``[N/P, ...]`` tensors.  Returns ``(payload_out,
-    idx_global, ess)``; the move equals an index gather by
+    Traffic per rank: ``2 ceil((P - 1) / 2)`` payload slices, against
+    ``P - 1`` for the gather.  ``u``: a scalar (``"systematic"``) or the
+    global ``[N]`` uniforms (``"stratified"``).  ``payload``: a dict or
+    dataclass of this rank's ``[N/P, ...]`` tensors.  Returns
+    ``(payload_out, idx_global, ess)``; the move equals an index gather by
     ``idx_global``."""
     if scheme not in ("systematic", "stratified"):
         raise ValueError(f"unknown scheme {scheme!r}")
@@ -136,10 +139,6 @@ def resample_ppermute(u, weights, payload, mesh, scheme="systematic"):
     uk = u if u.dim() == 0 else u[lo:hi]
     pos = (kk + uk) / n
     src = torch.searchsorted(bounds, pos, right=True).clamp(0, p - 1)
-    delta = src - d
-    hops = mesh.all_reduce(torch.stack([delta.max().clamp(min=0),
-                                        (-delta).max().clamp(min=0)]), "max")
-    h_max = int(mesh.read(hops.max(), "ppermute h_max"))
 
     cum = ordered_scan(w_n)
     leaves, rebuild = _flatten(payload)
@@ -158,7 +157,9 @@ def resample_ppermute(u, weights, payload, mesh, scheme="systematic"):
     idxg = torch.full((nl,), -1, dtype=torch.int64, device=w_n.device)
     out, idxg = resolve(d, cum, leaves, list(leaves), idxg)
     fwd = bwd = [cum] + leaves
-    for h in range(1, h_max + 1):
+    # p // 2 == ceil((p - 1) / 2); at an even p the last round meets the
+    # opposite rank both ways and writes the same rows twice
+    for h in range(1, p // 2 + 1):
         fwd = mesh.ring(fwd, 1)     # now holds rank d + h's
         bwd = mesh.ring(bwd, -1)    # now holds rank d - h's
         out, idxg = resolve((d + h) % p, fwd[0], fwd[1:], out, idxg)

@@ -17,8 +17,12 @@ XLA insert the collectives.  The port runs SPMD over a
 * collectives are explicit and live on ``Mesh``: ``all_gather`` of
   weights and payloads, ``all_reduce`` of maxima and the centroid's
   sums, ``ring`` hops (``batch_isend_irecv``) and ``all_to_all`` of
-  remote block rows.  A value read back to the host to size a
-  collective is named and counted in ``Mesh.reads``.
+  remote block rows.  No exchange is sized by a value read back to the
+  host, so every meshed step can be captured into a CUDA graph (the JAX
+  package's exchanges are static-shaped under ``jax.jit`` too): the
+  ring-hop resample runs a fixed number of rounds and the pool's
+  exchanges send fixed, equal splits padded with -1
+  (``Mesh.requests``, ``Mesh.answers``).
 
 ``particle_sharding``, ``replicated`` (thin ``Placement`` descriptors),
 ``constrain_particles`` and ``constrain_pool`` (identities) exist for
@@ -52,9 +56,8 @@ class Mesh:
     """A 1-D ``('dp',)`` mesh: this rank's view of the process group.
     ``transport`` is ``"nccl"`` (a card per rank), ``"gloo"`` (CPU
     tensors) or ``"host"`` (CUDA tensors on gloo, staged through host
-    memory: ranks that share a card).  ``reads`` counts host reads by
-    name, ``remote`` the rows a rank asked of other ranks, by name (the
-    dry run reports both)."""
+    memory: ranks that share a card).  ``remote`` counts the rows a rank
+    asked of other ranks, by name (the dry run reports it)."""
 
     group: object
     size: int
@@ -63,10 +66,14 @@ class Mesh:
     backend: str
     transport: str
     axis: str = "dp"
-    reads: collections.Counter = dataclasses.field(
-        default_factory=collections.Counter)
-    remote: collections.Counter = dataclasses.field(
-        default_factory=collections.Counter)
+    # the device counters behind ``remote``, by name
+    asked: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def remote(self):
+        """Rows this rank asked of other ranks so far, by name (host ints:
+        a read of the device counters)."""
+        return collections.Counter({k: int(v) for k, v in self.asked.items()})
 
     def describe(self):
         return (f"{self.size} rank(s), backend {self.backend}, transport "
@@ -133,34 +140,41 @@ class Mesh:
         src = src.to(t.device)
         return src != 0 if t.dtype == torch.bool else src
 
-    def all_to_all(self, t, send_counts, recv_counts):
-        """Rows ``t[sum(send_counts[:j]) : ... + send_counts[j]]`` go to
-        rank ``j``; returns the rows received, rank by rank.  Counts are
-        host ints."""
+    def all_to_all(self, t):
+        """``t`` holds ``P`` equal parts along dim 0; part ``j`` goes to
+        rank ``j``; returns the parts received, in rank order."""
         if self.size == 1:
             return t.clone()
         src = self._out(t)
-        out = src.new_empty((sum(recv_counts),) + src.shape[1:])
-        dist.all_to_all_single(out, src, list(recv_counts),
-                               list(send_counts), group=self.group)
-        return self._in(out, t)
-
-    def exchange_counts(self, counts, name):
-        """``counts [P]`` (a device tensor: rows this rank sends to each
-        rank) -> ``(send, recv)`` host lists, ``recv`` the rows it receives
-        from each rank.  Reading ``counts`` is one host read, counted as
-        ``name``."""
-        send = counts.to(torch.int64)
-        self.reads[name] += 1
-        if self.size == 1:
-            out = send.tolist()
-            return out, out
-        src = send.to(self.device) if self.transport == "nccl" else send.cpu()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.group)
-        src = src.tolist()
-        self.remote[name] += sum(src) - src[self.rank]
-        return src, out.tolist()
+        return self._in(out, t)
+
+    def requests(self, ids, owner, name):
+        """Send ``ids [M]`` to their owners (``owner [M]``, the rank that
+        holds each; -1 ids ask nothing) at a fixed shape: every rank
+        receives ``M`` ids from each rank, its own in place and -1
+        elsewhere (``all_to_all`` in equal splits), ``[P * M]`` in rank
+        order.  The ids asked of other ranks are counted as ``name`` on
+        the device (``remote``)."""
+        ranks = torch.arange(self.size, device=ids.device)[:, None]
+        ask = torch.where(owner[None, :] == ranks, ids[None, :],
+                          torch.full_like(ids, -1)[None, :])
+        asked = ((ids >= 0) & (owner != self.rank)).sum()
+        if name not in self.asked:
+            self.asked[name] = torch.zeros_like(asked)
+        self.asked[name].add_(asked)
+        return self.all_to_all(ask.reshape(-1))
+
+    def answers(self, rows, owner):
+        """Undo ``requests``: ``rows [P * M, ...]`` answered to the
+        ``P * M`` requests received go back in equal splits, and each of
+        this rank's ``M`` ids takes the row of its owner (a gather: no
+        sum, so every bit, a signed zero too, arrives as sent)."""
+        back = self.all_to_all(rows.contiguous())
+        m = owner.shape[0]
+        return back.index_select(
+            0, owner.long() * m + torch.arange(m, device=owner.device))
 
     def ring(self, tensors, step):
         """Each tensor of rank ``(rank + step) % P`` (sending this rank's
@@ -178,11 +192,6 @@ class Mesh:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return [self._in(b, t) for b, t in zip(bufs, tensors)]
-
-    def read(self, t, name):
-        """A device scalar read back to the host, counted as ``name``."""
-        self.reads[name] += 1
-        return t.item()
 
 
 def free_port():

@@ -152,9 +152,12 @@ def run_dtype(dtype, args, device, draws=None, detail=None):
     n = args.particles
     cfg = pool_config(dtype, n)
     terrain = make_terrain()
+    # eager launches: each run's fresh pool would otherwise be copied
+    # into the graphs' static one
     run = streaming.make_slam_scan_runner(cfg, laser2body=(np.eye(3),
                                                            np.zeros(3)),
-                                          external_odometry=True)
+                                          external_odometry=True,
+                                          graph=False)
     env = None
     if args.seed_env:
         env = simlib.terrain_grid(terrain, nx=96, ny=96, resolution=0.25,

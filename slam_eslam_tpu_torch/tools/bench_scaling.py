@@ -18,6 +18,9 @@ Where the ranks cannot show scaling the line says so in ``note``:
 JAX tool's ``virtual-cpu-mesh`` shares them), ``"shared-card"`` where
 ranks outnumber the cards and share one over gloo (``transport
 host``): those lines check the sharded path and claim no scaling.
+``graphed`` says how each world ran its step: CUDA graphs over NCCL (a
+card per rank), eager launches over gloo and the host transport (the
+default ``graph=None`` of ``filter.step.make_filter_step``).
 
 Usage: python -m slam_eslam_tpu_torch.tools.bench_scaling
            [--per-device 8192] [--devices 1 2 4 8] [--repeats 5]
@@ -47,8 +50,11 @@ def parser():
 
 
 def _rank(mesh, n, repeats):
-    """One rank: build the step at ``n`` particles, run it once, then time
-    ``repeats`` steps between barriers; returns the best seconds."""
+    """One rank: build the step at ``n`` particles (``graph=None``: CUDA
+    graphs over NCCL, eager over gloo and the host transport), run it
+    twice (a graphed step captures at its second call), then time
+    ``repeats`` steps between barriers; returns ``(the best seconds,
+    graphed)``."""
     from slam_eslam_tpu_torch.dryrun import GATE, _build
     from slam_eslam_tpu_torch.filter import step as steplib
     from slam_eslam_tpu_torch.parallel import sharding as shd
@@ -63,7 +69,8 @@ def _rank(mesh, n, repeats):
             torch.cuda.synchronize(mesh.device)
         mesh.all_reduce(torch.zeros((), device=mesh.device))
 
-    out, _ = fn(state, cs, q, GATE)
+    for _ in range(2):
+        out, _ = fn(state, cs, q, GATE)
     float(out.particles.weight.sum())
     best = float("inf")
     for _ in range(repeats):
@@ -73,8 +80,9 @@ def _rank(mesh, n, repeats):
         sync()
         best = min(best, time.perf_counter() - t0)
     # every rank waits for the slowest: the step's time is the largest
-    return float(mesh.all_reduce(torch.tensor(best, device=mesh.device),
-                                 "max"))
+    return (float(mesh.all_reduce(torch.tensor(best, device=mesh.device),
+                                  "max")),
+            fn.graphs is not None)
 
 
 def main(argv=None):
@@ -87,10 +95,10 @@ def main(argv=None):
     results, t1 = {}, None
     for k in args.devices:
         n = args.fixed_total or args.per_device * k
-        sec = pdist.run_world(_rank, k, args=(n, args.repeats),
-                              device=device.type)[0]
+        sec, graphed = pdist.run_world(_rank, k, args=(n, args.repeats),
+                                       device=device.type)[0]
         t1 = sec if t1 is None else t1
-        row = {"n": n, "sec": sec}
+        row = {"n": n, "sec": sec, "graphed": graphed}
         if args.fixed_total:
             row["partitioning_overhead"] = sec / t1
             label = f"overhead={sec / t1:.2f}x"
@@ -105,7 +113,8 @@ def main(argv=None):
                             else "host" if k > cards else "nccl")
         results[k] = row
         print(f"devices={k:2d}  particles={n:8d}  {sec * 1e3:8.2f} ms "
-              f"{label}  [{row['transport']}"
+              f"{label}  [{row['transport']}, "
+              f"{'graphed' if graphed else 'eager'}"
               + (f", {row['note']}" if "note" in row else "") + "]",
               flush=True)
     key = "fixed_total_scaling" if args.fixed_total else "weak_scaling"

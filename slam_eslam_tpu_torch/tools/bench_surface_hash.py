@@ -162,7 +162,7 @@ def main(argv=None):
         return time.perf_counter() - t0
 
     runs = {tag: streaming.make_slam_scan_runner(
-        cfg, laser2body=lb, hash_=hh, external_odometry=True)
+        cfg, laser2body=lb, hash_=hh, external_odometry=True, graph=False)
         for tag, hh in (("hash_off", None), ("hash_on", hash_))}
     before = ops.launch_counts()
     for tag, run in runs.items():

@@ -91,7 +91,8 @@ def main(argv=None):
     particles = tree.to(bench.filter_particles(n), device)
     css, qs, _, _ = bench.filter_trajectory(args.steps, args.contact_cap)
     css, qs = tree.to(css, device), qs.to(device)
-    run = steplib.make_scan_runner(cfg, lookup)
+    # eager launches: the profile reads them op by op
+    run = steplib.make_scan_runner(cfg, lookup, graph=False)
 
     def timed():
         state = bench.filter_state(cfg, particles, args.contact_cap, device)

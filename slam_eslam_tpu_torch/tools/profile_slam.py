@@ -230,8 +230,11 @@ def main(argv=None):
     z0, frames = slam_frames(args.steps, args.wheel_delta)
     frames = tree.to(frames, device)
     n_frames = len(frames)
+    # eager launches: each run's fresh pool (41 GB at 100,000 particles)
+    # would otherwise be copied into the graphs' static one
     run = streaming.make_slam_scan_runner(cfg, laser2body=(np.eye(3),
-                                                           np.zeros(3)))
+                                                           np.zeros(3)),
+                                          graph=False)
 
     def fresh():
         f = EmbodiedSlamFilter(config=cfg, device=device).init(

@@ -53,6 +53,20 @@ The discipline (``StepGraphs``):
 another object with its methods (``graph=`` of the runners), so the CPU
 tests can drive the discipline with a stand-in that runs the step at each
 replay.
+
+**The default** (``graph=None`` of every runner, ``resolve``): graphs
+where they can run, as the JAX package's runners default to
+``jit=True``: on a CUDA device with no mesh or an NCCL mesh.  The CPU and
+a gloo or ``"host"`` mesh (collectives staged through the host, which no
+capture records) run the eager loop; there ``graph=True`` raises.  No
+host read sizes a meshed exchange (``parallel.sharding``), so a meshed
+step captures as an unmeshed one does.  Every runner, filter and builder
+takes its mode from ``resolve``.
+
+``CallGraphs`` is the counterpart of a ``jax.jit`` with static
+arguments for a function that is not a step of a runner: the pose-graph
+solves and the keyframe alignment, one graph per key of its static
+arguments.
 """
 
 from __future__ import annotations
@@ -79,7 +93,7 @@ class Capture:
             raise ValueError(
                 f"{what}(graph=True) captures CUDA graphs and needs a CUDA "
                 f"device, not {device}: the CPU runs the eager loop "
-                f"(graph=False; ROADMAP.md Queue 1, the compiled runners)")
+                f"(graph=False, or the default graph=None)")
 
     def new_graph(self):
         return torch.cuda.CUDAGraph()
@@ -113,15 +127,84 @@ def capture_of(graph):
     return Capture() if graph is True else graph
 
 
-def refuse(what, **variants):
-    """Raise for a variant that no graph captures yet: each keyword names
-    an argument and the ROADMAP.md item that will capture it; the ones
-    given (not None) raise."""
-    given = [f"{name}= ({item})" for name, (value, item) in variants.items()
-             if value is not None]
-    if given:
-        raise ValueError(f"{what}(graph=True) does not capture "
-                         f"{', '.join(given)} yet: see ROADMAP.md Queue 1")
+def supported(device, mesh=None):
+    """Whether CUDA graphs run a runner on ``device`` over ``mesh``: a
+    CUDA device, and no mesh or one whose collectives are NCCL's."""
+    return torch.device(device).type == "cuda" and (
+        mesh is None or mesh.transport == "nccl")
+
+
+def check_mesh(capture, mesh, what):
+    """Raise where ``Capture`` would record a collective that is not
+    NCCL's (gloo, or the host transport of ranks that share a card); a
+    stand-in runs its regions and takes any mesh."""
+    if (isinstance(capture, Capture) and mesh is not None
+            and mesh.transport != "nccl"):
+        raise ValueError(
+            f"{what}(graph=True) captures CUDA graphs, which record NCCL "
+            f"collectives only, and the mesh's transport is "
+            f"{mesh.transport!r}: a gloo or host mesh runs eagerly "
+            f"(graph=False, its default)")
+
+
+def resolve(graph, device, mesh=None, what="graph"):
+    """The capture of a runner's ``graph=`` on ``device`` over ``mesh``:
+    None (the default) a new ``Capture`` where ``supported``, else None
+    (eager); False None; True a new ``Capture``, raising where it cannot
+    run; another object (a stand-in) as given."""
+    if graph is None:
+        return Capture() if supported(device, mesh) else None
+    capture = capture_of(graph)
+    if capture is not None:
+        check_mesh(capture, mesh, what)
+        capture.check(device, what)
+    return capture
+
+
+class Deferred:
+    """A runner built without a device (``make_filter_step`` and its
+    kin) and ``graph=None``: ``build(capture or False)`` makes the runner
+    at the first call, of the mode that its inputs' device
+    (``device_of(*args)``) resolves to; a later call on another device
+    raises.  Attributes are the runner's (``graphs``: None when eager)."""
+
+    def __init__(self, build, mesh, device_of, what):
+        self.build, self.mesh, self.device_of = build, mesh, device_of
+        self.what = what
+        self.runner = self.device = None
+
+    def __call__(self, *args, **kw):
+        device = torch.device(self.device_of(*args))
+        if self.runner is None:
+            capture = resolve(None, device, self.mesh, self.what)
+            self.runner = self.build(False if capture is None else capture)
+            self.device = device
+        elif device != self.device:
+            raise ValueError(f"{self.what}: resolved its mode on "
+                             f"{self.device} at its first call and is "
+                             f"called on {device}: make a runner for each "
+                             f"device")
+        return self.runner(*args, **kw)
+
+    def __getattr__(self, name):
+        runner = self.__dict__.get("runner")
+        if runner is None:
+            raise AttributeError(f"{name}: the runner's mode resolves at its "
+                                 f"first call (graph=None)")
+        return getattr(runner, name)
+
+
+def runner_for(graph, mesh, what, build, device_of):
+    """The runner a ``graph=`` names: ``build(capture or False)`` for an
+    explicit ``graph`` (True and a stand-in checked against ``mesh``
+    here, against the device at the first call), a ``Deferred`` for
+    None."""
+    if graph is None:
+        return Deferred(build, mesh, device_of, what)
+    capture = capture_of(graph)
+    if capture is not None:
+        check_mesh(capture, mesh, what)
+    return build(False if capture is None else capture)
 
 
 def leaves(tree):
@@ -400,3 +483,32 @@ class ScanRunner:
         given = _generator(carry)
         load_generator(given, sg.generator)
         return _with_generator(clone(sg.carry), given), ys
+
+
+class CallGraphs:
+    """Functions of static inputs as CUDA graphs, one per key: the
+    counterpart of ``jax.jit`` with static arguments.
+
+    ``cg(key, fn, x)`` runs ``fn(x)``, device work with no host read, on
+    static copies of the tensors of ``x`` (filled with ``copy_`` at every
+    call): eagerly at the first meeting of ``key`` and ``x``'s signature,
+    captured at the second and replayed after (``StepGraphs``).  ``key``
+    is hashable and holds every static argument ``fn`` bakes in (the
+    non-tensor fields of ``x`` too: ``x``'s signature holds only its
+    tensors' shapes); ``fn`` is kept at the key's first meeting and reads
+    no tensor outside ``x``.  Returns ``fn``'s outputs as new tensors."""
+
+    def __init__(self, capture, what):
+        self.fns = {}
+        self.steps = StepGraphs(self._body, (), capture, what=what)
+
+    def _body(self, carry, x, key):
+        return carry, self.fns[key](x)
+
+    def counts(self):
+        """Calls run eagerly, captured and replayed."""
+        return dict(self.steps.counts)
+
+    def __call__(self, key, fn, x):
+        self.fns.setdefault(key, fn)
+        return clone(self.steps.step(key, x))

@@ -27,14 +27,14 @@ FILTER_KEYS = {
     "fold_tier", "fold_mfu", "fold_kernel_us", "fold_roofline_fraction",
     "merge_dma_floor_fraction", "merge_us_per_block",
     "merge_unsorted_twin_us_per_block", "merge_whole_us_per_block",
-    "copy_gbps", "card"}
+    "copy_gbps", "graphed", "card"}
 ROOFLINE_KEYS = {
     "fold_mfu", "fold_kernel_us", "fold_roofline_fraction",
     "merge_dma_floor_fraction", "merge_us_per_block",
     "merge_unsorted_twin_us_per_block", "merge_whole_us_per_block",
     "copy_gbps", "card"}
 SLAM_KEYS = {"metric", "value", "unit", "vs_baseline", "chain_kernel",
-             "merge_kernel", "pool_dtype", "card"}
+             "merge_kernel", "pool_dtype", "graphed", "card"}
 
 
 def run_bench(capsys, *argv, detail=None):
@@ -55,7 +55,7 @@ def test_filter_mode(capsys, extra):
     detail = {}
     result, err = run_bench(capsys, "--particles", "256", "--steps", "5",
                             "--repeats", "2", *extra, detail=detail)
-    assert set(result) == FILTER_KEYS
+    assert set(result) == FILTER_KEYS and result["graphed"] is False
     assert result["metric"] == "particle_updates_per_sec_per_chip"
     assert result["unit"] == "particle-updates/s"
     for key in ROOFLINE_KEYS:
@@ -83,7 +83,7 @@ def test_slam_mode(capsys, dtype, extra):
         capsys, "--mode", "slam", "--particles", "32", "--steps", "2",
         "--repeats", "1", "--pool-dtype", dtype, "--chain-kernel", "pallas",
         *extra, detail=detail)
-    assert set(result) == SLAM_KEYS
+    assert set(result) == SLAM_KEYS and result["graphed"] is False
     assert result["metric"] == "slam_frames_per_sec"
     assert result["unit"] == "frames/s @ 32 particles, per-particle maps"
     assert math.isfinite(result["value"]) and result["value"] > 0

@@ -6,7 +6,10 @@ card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
 of the application API's contact update.  The backend: every pose-graph
 solver and ``scan_align`` on the card against the CPU port, the solvers
 under a global TF32 flag, no host sync in the dense and PCG solves, and
-a checkpoint resumed on the card.  The log runtime: a log read onto the
+a checkpoint resumed on the card; every solver, ``scan_align`` and the
+keyframe manager as CUDA graphs bit for bit their eager runs, two
+graphs of one solve alike, and the caller's linear algebra library
+restored after a solve.  The log runtime: a log read onto the
 card by ``frames_from_log`` equals the CPU read bit for bit, and
 ``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  The
 application as CUDA graphs (``EmbodiedSlamFilter(graph=True)``) equals
@@ -1052,6 +1055,124 @@ def test_scan_align_matches_cpu(dev, steps_xy):
         assert abs(float(a) - float(b)) <= 1e-5
 
 
+def same_bits(a, b):
+    """Every tensor of ``a`` equal to ``b``'s bit for bit."""
+    la, lb = graphs.leaves(a), graphs.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.contiguous().view(-1).view(torch.uint8),
+            y.contiguous().view(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+POSE_SOLVES = {
+    "dense": lambda g, cg: _pg().optimize(g, 10, cuda_graphs=cg),
+    "dense dcs": lambda g, cg: _pg().optimize(g, 10, robust="dcs",
+                                              cuda_graphs=cg),
+    "pcg": lambda g, cg: _pg().optimize_cg(g, 10, cg_iters=64,
+                                           cuda_graphs=cg),
+    "schur": lambda g, cg: _pg().optimize_schur(g, 10, segments=8,
+                                                boundary_cap=32,
+                                                cuda_graphs=cg)}
+
+
+def _pg():
+    from slam_eslam_tpu_torch.backend import pose_graph as pg
+
+    return pg
+
+
+@pytest.mark.parametrize("dim", [3, 4])
+@pytest.mark.parametrize("solver", sorted(POSE_SOLVES))
+def test_graphed_pose_graph_solve_equals_eager(dev, dim, solver):
+    """Each solver at 256 nodes as one CUDA graph (eager, captured,
+    replayed, then on another graph): bit for bit the eager solve; two
+    eager solves and two graphs of the same solve alike bit for bit (the
+    scatter-adds add in index order)."""
+    solve = POSE_SOLVES[solver]
+    cgs = [graphs.CallGraphs(graphs.Capture(), "test") for _ in range(2)]
+    for seed in (3, 3, 3, 4):
+        g, _ = sim.circle_pose_graph(dim, 256, seed=seed, outlier=True,
+                                     device=dev)
+        ref = solve(g, None)
+        assert same_bits(solve(g, None), ref)
+        for cg in cgs:
+            assert same_bits(solve(g, cg), ref)
+    assert cgs[0].counts() == dict(eager=1, captured=1, replayed=3)
+
+
+def test_graphed_scan_align_equals_eager(dev):
+    pg = _pg()
+    grid = tree.to(sim.terrain_grid(terrain, nx=48, ny=48, resolution=0.2,
+                                    origin=(-4.8, -4.8), k=2), dev)
+    rng = np.random.default_rng(4)
+    n = 1024
+    xy = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    z = terrain(xy[:, 0] + 0.2, xy[:, 1] - 0.1).astype(np.float32)
+    cloud = tree.to(PatchCloud.create(
+        xy=torch.from_numpy(xy), z=torch.from_numpy(z),
+        stdev=torch.full((n,), 0.05),
+        valid=torch.from_numpy(np.arange(n) < 900)), dev)
+    cg = graphs.CallGraphs(graphs.Capture(), "test")
+    for ratio in (False, True):
+        for guess in ((0.0, 0.0), (0.0, 0.0), (0.1, -0.05), (0.0, 0.02)):
+            xy0 = torch.tensor([guess[0], 0.0], device=dev)
+            kw = dict(steps_xy=9, steps_yaw=7, return_ratio=ratio)
+            got = pg.scan_align(grid, cloud, xy0, guess[1], 0.0,
+                                cuda_graphs=cg, **kw)
+            assert same_bits(got, pg.scan_align(grid, cloud, xy0, guess[1],
+                                              0.0, **kw))
+    assert cg.counts() == dict(eager=2, captured=2, replayed=6)
+
+
+def test_graphed_keyframes_equal_eager(dev):
+    """A keyframe manager on the card graphed (the default) and eager over
+    an out-and-back route that closes loops: the same closures, graph and
+    solved trajectory, bit for bit."""
+    from slam_eslam_tpu_torch.backend.keyframes import KeyframeManager
+
+    kw = dict(keyframe_distance=0.45, closure_radius=1.0, min_separation=4,
+              min_score=0.3, closure_info=2000.0, device=dev)
+    kms = [KeyframeManager(**kw, graph=False), KeyframeManager(**kw)]
+    assert kms[1].graphed and not kms[0].graphed
+    rng = np.random.default_rng(9)
+    xs = list(np.arange(0, 3.1, 0.5)) + list(np.arange(2.5, -0.1, -0.5))
+    for i, x in enumerate(xs):
+        local = rng.uniform(-1.5, 1.5, (400, 2)).astype(np.float32)
+        z = terrain(local[:, 0] + x, local[:, 1]).astype(np.float32) - 0.2
+        cloud = tree.to(PatchCloud.create(
+            xy=torch.from_numpy(local), z=torch.from_numpy(z),
+            stdev=torch.full((400,), 0.05),
+            valid=torch.ones((400,), dtype=torch.bool)), dev)
+        pose = np.array([x, 0.06 * i, 0.0])
+        out = [km.maybe_add_keyframe(pose, cloud, z=0.2) for km in kms]
+        assert out[0] == out[1]
+    assert kms[1].closures == kms[0].closures and kms[1].closures
+    assert same_bits(kms[1].builder.graph, kms[0].builder.graph)
+    for _ in range(3):
+        (t0, h0), (t1, h1) = (km.optimize(iters=15) for km in kms)
+        np.testing.assert_array_equal(t0, t1)
+        assert same_bits(h0, h1)
+    assert kms[1].cuda_graphs.counts()["replayed"] > 0
+
+
+def test_solves_restore_the_linalg_library(dev):
+    """A solve runs with cuSOLVER and gives the caller's preferred linear
+    algebra library back."""
+    pg = _pg()
+    g, _ = sim.circle_pose_graph(3, 64, seed=3, device=dev)
+    old = torch.backends.cuda.preferred_linalg_library()
+    try:
+        for lib in ("default", "cusolver"):
+            torch.backends.cuda.preferred_linalg_library(lib)
+            want = torch.backends.cuda.preferred_linalg_library()
+            pg.optimize(g, 2)
+            pg.optimize_schur(g, 2, segments=4, boundary_cap=16)
+            assert torch.backends.cuda.preferred_linalg_library() == want
+    finally:
+        torch.backends.cuda.preferred_linalg_library(old)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_checkpoint_resume_on_the_card(dev, tmp_path, dtype):
     """Save mid-stream, run 20 frames, restore into a fresh filter on the
@@ -1335,7 +1456,7 @@ def test_graphed_scan_runner_equals_eager(dev, with_draws):
         draws = [tree.to(steplib.StepDraws(
             pe.ProjectDraws.sample(n, gen, "cpu"),
             torch.rand(n, generator=gen)), dev) for _ in range(steps)]
-    eager = steplib.make_scan_runner(cfg, lookup)
+    eager = steplib.make_scan_runner(cfg, lookup, graph=False)
     graphed = steplib.make_scan_runner(cfg, lookup, graph=True)
     graphed(fresh(), css, qs, draws)                 # eager first step, capture
     s_ref, s_got = fresh(), fresh()

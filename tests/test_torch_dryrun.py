@@ -81,6 +81,7 @@ def test_bench_scaling_devices_1_2(capsys):
     assert rows[1]["weak_scaling_eff"] == 1.0
     assert rows[2]["n"] == 512 and np.isfinite(rows[2]["sec"])
     assert {r["note"] for r in rows.values()} == {"cpu-gloo-ranks"}
+    assert {r["graphed"] for r in rows.values()} == {False}
     assert capsys.readouterr().out.strip().splitlines()[-1].startswith(
         '{"weak_scaling"')
     fixed = bench_scaling.main(["--cpu", "--devices", "1", "2",

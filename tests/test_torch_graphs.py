@@ -258,20 +258,24 @@ def test_graph_refuses_the_cpu_and_unported_variants(loc, slam):
         tstep.make_filter_step(cfg, lookup, graph=True)(
             port_state(loc), tree.index(loc["css"], 0), loc["qs"][0],
             (1.0, 0.0))
+    # every variant captures now; a mesh only where its collectives are
+    # NCCL's: gloo and the host transport raise by name
     mesh = Mesh(group=None, size=1, rank=0, device=torch.device("cpu"),
                 backend="gloo", transport="gloo")
     for make in (tstep.make_scan_runner, tstep.make_filter_step):
-        with pytest.raises(ValueError, match="mesh=.*ROADMAP.md"):
+        with pytest.raises(ValueError, match="transport is 'gloo'"):
             make(cfg, lookup, mesh=mesh, graph=True)
     scfg = slam_config()
-    # the mesh is the one variant left (the camera and hash gates capture)
     for make in (tst.make_slam_step, tst.make_slam_scan_runner):
-        with pytest.raises(ValueError, match="mesh=.*item 4.*ROADMAP.md"):
+        with pytest.raises(ValueError, match="transport is 'gloo'"):
             make(scfg, graph=True, mesh=mesh)
         make(scfg, graph=True, hash_=None, camera2body=LASER,
              camera_intrinsics=(1, 1, 0, 0))
-    with pytest.raises(ValueError, match="mesh=.*item 4.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="transport is 'gloo'"):
         OnlineSlam(config=scfg, mesh=mesh, graph=True, device="cpu")
+    host = dataclasses.replace(mesh, transport="host")
+    with pytest.raises(ValueError, match="transport is 'host'"):
+        tstep.make_filter_step(cfg, lookup, mesh=host, graph=True)
     run = tst.make_slam_scan_runner(scfg, laser2body=LASER,
                                     external_odometry=True, graph=True)
     with pytest.raises(ValueError, match="needs a CUDA device"):

@@ -19,10 +19,13 @@ from slam_eslam_tpu_torch.utils import graphs
 
 class StandIn:
     """``utils.graphs.Capture``'s methods on the CPU: a capture runs the
-    region and restores what it wrote, a replay runs it again."""
+    region and restores what it wrote, a replay runs it again.  ``mesh``:
+    its counters of rows asked of other ranks (``Mesh.asked``) are
+    restored too."""
 
-    def __init__(self, fail=False):
+    def __init__(self, fail=False, mesh=None):
         self.fail, self.captures, self.replays = fail, 0, 0
+        self.mesh = mesh
 
     def check(self, device, what):
         assert torch.device(device).type == "cpu"
@@ -31,6 +34,8 @@ class StandIn:
         return {}
 
     def capture(self, graph, fn, generators=(), writes=()):
+        if self.mesh is not None:
+            writes = list(writes) + list(self.mesh.asked.values())
         saved = [w.clone() for w in writes]
         states = [g.get_state() for g in generators]
         fn()
