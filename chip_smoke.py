@@ -87,7 +87,9 @@ Phases (any failure raises and exits non-zero):
    100,000 particles on a bfloat16 pool of 400,000 blocks (50 frames),
    every mode on its graphed runner, each SLAM run's last (replayed) run
    held bit for bit to one timed run of the eager runner on the same
-   frames;
+   frames, and each SLAM run's peak device memory printed (at 100,000
+   particles held below two pools: every repeat refills the runner's one
+   pool in place);
    and hold the first 40 SLAM frames on a bfloat16 pool against the CPU
    port and against the float32 pool, fed the same random draws;
 9. check the merge on a packed block image (P4, the second entry point of
@@ -157,10 +159,14 @@ Phases (any failure raises and exits non-zero):
    (``TOOL_CUTS``): ``bench_kernels`` (K5 at Q = 2,000,000 bit for bit
    against its plain version, beside its bound), ``probe_chain_parity``
    (K2 at 4,096 x 8 equal to the plain chain walk), ``profile_slam`` at
-   4,096 and at 100,000 particles (K2 and K3 in the trace's table under
-   their kernel names as often as the gates fired; the block copies' share
-   of device time on a 41 GB float32 pool), ``profile_filter`` and
-   ``probe_spread`` (one K1 launch per measurement update, no K5),
+   4,096 and at 100,000 particles on the compiled runner, every traced
+   frame a CUDA graph replay (K2 and K3 in the replayed trace's table
+   under their kernel names as often as the gates fired; the device
+   records the tracer kept against the launches; the block copies' share
+   of the replayed device time on a 41 GB float32 pool, the one pool every
+   run refills), ``profile_filter`` (graphed: K1 in the replayed trace once
+   a step, the records kept) and ``probe_spread`` (one K1 launch per
+   measurement update, no K5),
    ``profile_step`` (every stage finite), ``profile_resample`` (every
    ancestor index brackets its position in the cumsum searched),
    ``bench_pool_ops`` (every row), ``bench_surface_hash`` (the hash's
@@ -2383,6 +2389,14 @@ def bench_slam_run(card, n, steps, extra, label):
     expect(failed == 0 and patches == detail["patches"], label,
            f"alloc_failed {failed}, patches {patches}")
     gb = pool.storage_bytes() / 1e9
+    if n == BIG_N:
+        # a fresh start is written into the runner's pool; at 100,000
+        # particles the pool outweighs every other buffer, so a second
+        # pool would double the peak (at 4,096 particles the other
+        # buffers outweigh the 1.05 GB pool)
+        expect(peak < 2 * pool.storage_bytes(), label,
+               f"peak allocated {peak / 1e9:.2f} GB holds a second "
+               f"{gb:.2f} GB pool")
     print(f"bench[{label}]: {result['value']} frames/s at {n} particles "
           f"over {detail['frames']} frames ({n_meas} measurement, {n_map} "
           f"mapping); pool {pool.b} blocks of {pool.nx}x{pool.ny}x{pool.k} "
@@ -4467,35 +4481,56 @@ def gc_cuda():
     torch.cuda.empty_cache()
 
 
+def trace_rows(res, label, want):
+    """Each kernel of ``want`` (name part -> count) once in the tool's
+    aggregated table, as often as its gate fired."""
+    rows = dict(res["rows_all"])
+    for kernel, count in want.items():
+        hits = [(name, cnt) for name, (_, cnt) in rows.items()
+                if kernel in name]
+        check(len(hits) == 1 and hits[0][1] == count > 0, label,
+              f"{kernel} rows {hits}, gates {count}")
+
+
+def records_text(res):
+    kept, launched = res["records"]
+    return (f"device records {kept:,} of {launched:,} launches "
+            f"({launched - kept:,} lost)")
+
+
 def slam_profile_run(card, n, tmp):
-    """``profile_slam``: K2 and K3 in the aggregated table under their
-    kernel names, as often as the measurement and mapping gates fired."""
+    """``profile_slam`` on the compiled runner: every traced frame a
+    replay; K2 and K3 in the replayed trace's table under their kernel
+    names, as often as the measurement and mapping gates fired; the
+    records the tracer kept against the launches; the block copies'
+    share of the replayed device time."""
     res, launches, _ = run_tool("profile_slam", (
         "--particles", str(n), "--trace-dir", str(tmp / f"slam_{n}"),
         "--top", "12") + (BIG_PROFILE_CUT if n == TOOLS_BIG_N
                           else SMALL_PROFILE_CUT))
     label = f"profile_slam[{n}]"
     check(res["kind"] == "device", label, "the trace holds no device event")
-    rows = dict(res["rows_all"])
-    for kernel, want in (("chain_lookup_kernel", res["fired"]),
-                         ("block_merge_kernel", res["mapped"])):
-        hits = [(name, cnt) for name, (_, cnt) in rows.items()
-                if kernel in name]
-        check(len(hits) == 1 and hits[0][1] == want > 0, label,
-              f"{kernel} rows {hits}, gates {want}")
-    check(launches["chain_lookup"] == 3 * res["fired"]
-          and launches["block_merge"] == 3 * res["mapped"], label,
-          f"launches {launches} over three runs for {res['fired']} "
+    check(res["graphed"] and res["traced"] == {
+        "eager": 0, "captured": 0, "replayed": res["frames"]}, label,
+        f"the traced run was not all replays: {res['traced']}")
+    trace_rows(res, label, {"chain_lookup_kernel": res["fired"],
+                            "block_merge_kernel": res["mapped"]})
+    runs = res["runs"]
+    check(launches["chain_lookup"] == runs * res["fired"]
+          and launches["block_merge"] == runs * res["mapped"], label,
+          f"launches {launches} over {runs} runs for {res['fired']} "
           f"measurement and {res['mapped']} mapping frames a run")
     check(0.0 < res["copy_share"] < 1.0, label,
           f"block copies' share {res['copy_share']}")
     top = "; ".join(f"{name.split('(')[0][:60]} {ms:.3f} ms x{cnt}"
                     for name, (ms, cnt) in res["rows_all"][:5])
     rate = res["frames"] / res["steady_s"]
-    print(f"{label}: {res['frames']} frames, {res['fired']} measurement and "
-          f"{res['mapped']} mapping frames, {rate:.1f} frames/s; device "
-          f"{res['total_ms']:.3f} ms, block copies "
-          f"{res['copy_ms']:.3f} ms = {res['copy_share']:.2%}; top: {top} "
+    print(f"{label}: graphed, {res['frames']} frames replayed in the trace, "
+          f"{res['fired']} measurement and {res['mapped']} mapping frames, "
+          f"{rate:.1f} frames/s; device {res['total_ms']:.3f} ms, "
+          f"{records_text(res)} [{card}]")
+    print(f"{label}: block copies {res['copy_ms']:.3f} ms = "
+          f"{res['copy_share']:.2%} of the replayed device time; top: {top} "
           f"[{card}]")
     return res, launches
 
@@ -4514,6 +4549,14 @@ def lookup_run(name, card, argv=()):
     print(f"{name}: {res['lookup']}, {res['launches']['contact_fold']} "
           f"contact_fold launches for {res['updates']} measurement updates "
           f"[{card}]")
+    if "rows_all" in res:
+        # profile_filter's trace: a run of replays, K1 once an update
+        check(res["kind"] == "device" and res["graphed"], name,
+              f"trace {res['kind']}, graphed {res['graphed']}")
+        trace_rows(res, name, {"contact_fold_kernel": res["updates"]})
+        print(f"{name}: graphed, {res['updates']} steps replayed in the "
+              f"trace, contact_fold_kernel x{res['updates']}; device "
+              f"{res['total_ms']:.3f} ms, {records_text(res)} [{card}]")
     return res, launches
 
 
@@ -5523,8 +5566,9 @@ def main():
     print(f"tools: K5 at Q = 2,000,000 {p12['k5']['ms']:.5f} ms (bound "
           f"{p12['k5']['bound_ms']:.5f} ms); K2 parity 0 at 4096 x 8, "
           f"{k2_frame:.4f} ms/frame; block copies "
-          f"{slam_big['copy_share']:.2%} of device time at {TOOLS_BIG_N} "
-          f"particles; reinjection "
+          f"{slam_big['copy_share']:.2%} of the replayed device time at "
+          f"{TOOLS_BIG_N} particles (float32 pool, graphed; "
+          f"{records_text(slam_big)}); reinjection "
           f"{p12['hash']['reinjection_cost_ms_per_frame']} ms a frame; "
           f"bfloat16 - float32 ATE {p12['ab']['delta']['ate_mean']:.3e} m "
           f"over {p12['ab']['config']['runs']} runs; phase 12 {p12_s:.1f} s "

@@ -39,9 +39,9 @@ the card:
   static inputs at every call; ``PoseGraphBuilder.optimize(graph=)`` and
   the keyframe alignment (``scan_align(cuda_graphs=)``) use it.  The
   JAX package jits these seams.
-* The scatter-adds add in index order, the same on every call (on the
-  card ``index_put_(accumulate=True)``: ``index_add_`` adds with atomics
-  in no fixed order there): a solve repeats bit for bit, graphed or not.
+* The scatter-adds add in index order, the same on every call
+  (``utils.scatter.add_at``): a solve repeats bit for bit, graphed or
+  not.
   The card matches the CPU within tolerance, not bit for bit.
 * ``mesh=`` (``parallel.sharding.make_mesh``; the JAX package's
   ``shard_map``): the graph is held whole on every rank.  The PCG splits
@@ -63,6 +63,7 @@ import torch
 
 from slam_eslam_tpu_torch.utils import graphs
 from slam_eslam_tpu_torch.utils.device import entry_device
+from slam_eslam_tpu_torch.utils.scatter import add_at
 
 PIN = 1e9   # diagonal weight that freezes a node
 
@@ -168,17 +169,6 @@ def edge_residuals(graph: PoseGraph, edge_sl=slice(None)):
     return r, ji, jj
 
 
-def _add_at(target, idx, values):
-    """``target[idx] += values`` along dim 0, in place, adding in index
-    order, the same on every call: ``index_add_`` on the CPU (serial),
-    ``index_put_(accumulate=True)`` on the card (a stable sort, where
-    ``index_add_`` adds with atomics; on the CPU ``index_put_`` splits a
-    large scatter over threads that race)."""
-    if target.device.type == "cpu":
-        return target.index_add_(0, idx, values)
-    return target.index_put_((idx,), values, accumulate=True)
-
-
 def _chi2_edges(r, info):
     return torch.einsum("ei,eij,ej->e", r, info, r)
 
@@ -281,7 +271,7 @@ def gauss_newton_step(graph: PoseGraph, damping=1e-6, fix_first=True,
 
         ei, ej = graph.edge_i.long(), graph.edge_j.long()
         # one scatter each, the blocks in the order of four scatters
-        h = _add_at(r.new_zeros((m * m, d, d)), torch.cat(
+        h = add_at(r.new_zeros((m * m, d, d)), torch.cat(
             [ei * m + ei, ei * m + ej, ej * m + ei, ej * m + ej]),
             torch.cat([hii, hij, hij.transpose(-1, -2), hjj]))
         b = _scatter_nodes(m, d, torch.cat([ei, ej]), bi, bj)
@@ -333,7 +323,7 @@ def optimize(graph: PoseGraph, iters=10, damping=1e-6, fix_mask=None,
 def _scatter_nodes(m, d, eij, vi, vj):
     """Per node, the sum of ``vi`` over the edges it starts and then of
     ``vj`` over those it ends (``eij = cat([ei, ej])``), in one scatter."""
-    return _add_at(vi.new_zeros((m, d)), eij, torch.cat([vi, vj]))
+    return add_at(vi.new_zeros((m, d)), eij, torch.cat([vi, vj]))
 
 
 def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
@@ -365,7 +355,7 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
         eij = torch.cat([ei, ej])
         b = psum(_scatter_nodes(m, d, eij, bi, bj))  # J^T W r
         # the block diagonal of H for the preconditioner
-        diag = _add_at(r.new_zeros((m, d, d)), eij, torch.cat([hii, hjj]))
+        diag = add_at(r.new_zeros((m, d, d)), eij, torch.cat([hii, hjj]))
         diag = psum(diag) + pin[:, None, None] * torch.eye(d, dtype=r.dtype,
                                                      device=r.device)
         pre = torch.linalg.inv_ex(diag).inverse          # [M, D, D]
@@ -457,7 +447,7 @@ def _add_dropped(target, *parts):
     n = int(np.prod(lead))
     flat = target.reshape((n,) + target.shape[k:])
     spare = torch.cat([flat, flat.new_zeros((1,) + flat.shape[1:])])
-    _add_at(spare, torch.where(ok, lin, torch.full_like(lin, n)),
+    add_at(spare, torch.where(ok, lin, torch.full_like(lin, n)),
             torch.cat([p[1] for p in parts]))
     return spare[:n].reshape(target.shape)
 
@@ -535,7 +525,7 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4, boundary_cap=64,
         # node (whose mass lives in A_BB) and padding get a unit diagonal,
         # so the segment factor stays SPD and their delta solves to zero
         pin_ii = torch.where(boundary, torch.ones_like(pin), pin)
-        pin_b = _add_at(r.new_zeros((nb + 1,)), gb,
+        pin_b = add_at(r.new_zeros((nb + 1,)), gb,
                         torch.where(boundary, pin, torch.zeros_like(pin)))
         occupied = torch.zeros((nb + 1,), dtype=torch.bool, device=r.device)
         occupied.index_fill_(0, gb, True)

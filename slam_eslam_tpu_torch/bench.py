@@ -484,9 +484,10 @@ def slam_trajectory(steps, contact_cap):
     return z0, streaming.stack_frames(frames), tree.stack(full), qs
 
 
-def slam_carry(cfg, z0, device, normals=None):
+def slam_carry(cfg, z0, device, normals=None, pool=None):
     """A fresh filter with per-particle maps, as the SLAM loop's carry;
-    ``normals = (xy [N, 2], yaw [N])`` fixes the start cloud."""
+    ``normals = (xy [N, 2], yaw [N])`` fixes the start cloud; ``pool``: a
+    pool of ``cfg``'s shape to refill in place instead of a new one."""
     from slam_eslam_tpu_torch.filter import streaming
     from slam_eslam_tpu_torch.filter.eslam_filter import EmbodiedSlamFilter
 
@@ -494,7 +495,8 @@ def slam_carry(cfg, z0, device, normals=None):
         pose=(np.array([0.0, 0.0, z0]), 0.0), use_shared_map=False,
         num_contact_points=FULL_CONTACTS,
         normal_xy=None if normals is None else normals[0].to(device),
-        normal_yaw=None if normals is None else normals[1].to(device))
+        normal_yaw=None if normals is None else normals[1].to(device),
+        pool=pool)
     return streaming.StreamingState.create(f.state, f.pool)
 
 
@@ -514,11 +516,11 @@ def bench_slam(args, detail=None):
     dict) also receives the last run's carry and aux, the frame count,
     the seconds of every repeat, the warm-up runs, the graphs' counts and
     the patch and failure counts.  A repeat without ``--donate`` starts
-    from a fresh filter; on the card its pool is written into the pool
-    the graphs were captured on (the runner's, in place), the same bits
-    as a new pool."""
+    from a fresh filter whose pool is the runner's (the pool the graphs
+    were captured on), refilled in place (``MapPool.refill_``): the same
+    bits as a new pool, and never a second pool on the card."""
     from slam_eslam_tpu_torch.filter import streaming
-    from slam_eslam_tpu_torch.utils import graphs, tree
+    from slam_eslam_tpu_torch.utils import tree
 
     device = entry_device(args.device)
     n = args.particles
@@ -543,14 +545,9 @@ def bench_slam(args, detail=None):
         return out[1]
 
     def fresh():
-        carry = slam_carry(cfg, z0, device)
-        if graph:
-            # the pool the graphs write, refilled in place
-            pool = box.pop().pool
-            graphs.copy_into(pool, carry.pool)
-            carry = dataclasses.replace(carry, pool=pool)
-        box.clear()
-        box.append(carry)
+        # the pool the graphs write, refilled in place
+        pool = box.pop().pool
+        box.append(slam_carry(cfg, z0, device, pool=pool))
 
     warm, aux = warm_up(once, run.settled if graph else None, device)
     warm_s = sum(warm)

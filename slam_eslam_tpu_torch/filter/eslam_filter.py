@@ -111,6 +111,23 @@ def _motion(delta):
     return dist, angle
 
 
+def _check_refill(cfg: Config, pool, device):
+    """Raise unless ``pool`` has the shape, storage dtype and device of
+    the pool ``cfg`` makes (what ``init(pool=)`` may refill)."""
+    dtype = cfg.map_pool_dtype or torch.float32
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    want = (cfg.particle_count, cfg.map_pool_blocks, cfg.map_chain_length,
+            cfg.map_pool_color, dtype, torch.device(device))
+    have = (pool.n, pool.bl, pool.chain_len, pool.color is not None,
+            pool.mean.dtype, pool.mean.device)
+    if pool.mesh is not None or have != want:
+        raise ValueError(
+            f"init(pool=) refills a pool of (particles, blocks, chain "
+            f"length, colour, dtype, device) {want}, not {have}"
+            + (" on a mesh" if pool.mesh is not None else ""))
+
+
 def _far_pose():
     """The motion gates' "far away" initial anchor (``:128``)."""
     far = np.eye(4)
@@ -236,7 +253,7 @@ class EmbodiedSlamFilter:
     def init(self, pose, shared_grid: mls_grid.MLSGrid = None,
              use_shared_map=True, hash_config: SurfaceHashConfig = None,
              num_contact_points=20, normal_xy=None, normal_yaw=None,
-             hash_u=None):
+             hash_u=None, pool=None):
         """``pose = (position [3], yaw)`` (``EmbodiedSlamFilter.cpp:
         70-177``).  Shared-map mode needs ``shared_grid``.  Per-particle
         mode seeds every particle's map with a copy of ``shared_grid``
@@ -250,7 +267,12 @@ class EmbodiedSlamFilter:
         are drawn from its candidates over the whole map instead;
         ``hash_u [N]`` are those integer draws (``SurfaceHash.
         sample_particles``).  Draws not given come from the state's
-        generator (seeded with ``config.seed``)."""
+        generator (seeded with ``config.seed``).
+
+        ``pool``: in per-particle mode, a ``MapPool`` of this
+        configuration's shape to refill in place (``MapPool.refill_``)
+        instead of allocating a new one: the pool a graphed runner's
+        graphs were captured on, which a fresh start is written into."""
         cfg = self.config
         position, yaw = np.asarray(pose[0], np.float64), float(pose[1])
         if shared_grid is not None:
@@ -258,6 +280,9 @@ class EmbodiedSlamFilter:
         self.use_shared_map = use_shared_map
         self._reset_graphs()
         if use_shared_map:
+            if pool is not None:
+                raise ValueError("init(pool=) refills a per-particle pool: "
+                                 "shared-map mode has none")
             if shared_grid is None:
                 raise ValueError("shared-map mode requires an MLS grid "
                                  "(EmbodiedSlamFilter.cpp:104)")
@@ -270,11 +295,15 @@ class EmbodiedSlamFilter:
         else:
             template = (shared_grid if shared_grid is not None
                         else self.make_grid_template(center=position[:2]))
-            self.pool = mp.MapPool.from_template(
-                template, cfg.particle_count, cfg.map_pool_blocks,
-                cfg.map_chain_length, with_color=cfg.map_pool_color,
-                shards=cfg.map_pool_shards, dtype=cfg.map_pool_dtype,
-                device=self.device)
+            if pool is None:
+                self.pool = mp.MapPool.from_template(
+                    template, cfg.particle_count, cfg.map_pool_blocks,
+                    cfg.map_chain_length, with_color=cfg.map_pool_color,
+                    shards=cfg.map_pool_shards, dtype=cfg.map_pool_dtype,
+                    device=self.device)
+            else:
+                _check_refill(cfg, pool, self.device)
+                self.pool = pool.refill_(template, cfg.map_pool_shards)
             self.shared_grid, self._lookup = None, None
 
         state = pe.PoseEstimatorState.create(

@@ -165,46 +165,71 @@ class MapPool:
         ``shards`` ranges starts co-located (``Config.map_pool_shards``).
         ``dtype``: storage dtype of the float fields, float32 or bfloat16
         (a ``torch.dtype`` or its name; default the template's)."""
-        if num_blocks < n_particles:
-            raise ValueError("the pool must hold one block per particle")
-        if shards > 1 and (n_particles % shards or num_blocks % shards):
-            raise ValueError(f"shards={shards} must divide particles "
-                             f"({n_particles}) and blocks ({num_blocks})")
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         dtype = dtype or template.mean.dtype
         device = torch.device(device or template.mean.device)
         nx, ny, k = template.nx, template.ny, template.k
         b, n = num_blocks, n_particles
+        new = lambda dt, *shape: torch.empty(shape, dtype=dt, device=device)
+        pool = MapPool(
+            mean=new(dtype, b, nx, ny * k), stdev=new(dtype, b, nx, ny * k),
+            height=new(dtype, b, nx, ny * k),
+            meta=new(torch.int32, b, nx, ny * k),
+            color=new(dtype, b, nx, ny * k * 3) if with_color else None,
+            origin=new(torch.float32, b, 2),
+            allocated=new(torch.bool, b),
+            chain=new(torch.int32, n, chain_len),
+            resolution=template.resolution, nx=nx, ny=ny, k=k,
+        )
+        return pool.refill_(template, shards)
 
+    def refill_(self, template: MLSGrid, shards=1):
+        """Write ``from_template(template, ...)`` of this pool's own shape
+        (particles, blocks, chain length, colour, storage dtype) into this
+        pool's tensors, in place: every particle's own copy of
+        ``template`` again, with no second pool.  The JAX runner takes its
+        carry donated and XLA reuses the buffers; here a graphed runner
+        keeps the pool its graphs were captured on, and a fresh start is
+        written into it.  Returns ``self``."""
+        if self.mesh is not None:
+            raise ValueError("refill_ takes a pool without a mesh")
+        if ((template.nx, template.ny, template.k, template.resolution)
+                != (self.nx, self.ny, self.k, self.resolution)):
+            raise ValueError(
+                f"a template of {template.nx}x{template.ny}x{template.k} "
+                f"cells at {template.resolution} m cannot refill a pool of "
+                f"{self.nx}x{self.ny}x{self.k} at {self.resolution} m")
+        b, n = self.bl, self.n
+        if b < n:
+            raise ValueError("the pool must hold one block per particle")
+        if shards > 1 and (n % shards or b % shards):
+            raise ValueError(f"shards={shards} must divide particles "
+                             f"({n}) and blocks ({b})")
+        device = self.mean.device
         i = torch.arange(n, dtype=torch.int32, device=device)
         nl, bl = n // max(shards, 1), b // max(shards, 1)
         assign = i if shards <= 1 else (i // nl) * bl + i % nl
-
-        def tile(x, dt):
-            x = x.reshape(nx, -1).to(device=device, dtype=dt)
-            out = torch.zeros((b,) + x.shape, dtype=dt, device=device)
-            out[assign.long()] = x
-            return out
-
+        rows = assign.long()
         meta = pack_meta(template.valid, template.horizontal,
                          template.update_idx)
-        chain = torch.full((n, chain_len), -1, dtype=torch.int32,
-                           device=device)
-        chain[:, 0] = assign
-        allocated = torch.zeros(b, dtype=torch.bool, device=device)
-        allocated[assign.long()] = True
-        return MapPool(
-            mean=tile(template.mean, dtype),
-            stdev=tile(template.stdev, dtype),
-            height=tile(template.height, dtype),
-            meta=tile(meta, torch.int32),
-            color=tile(template.color, dtype) if with_color else None,
-            origin=template.origin.to(device=device, dtype=torch.float32)
-            .expand(b, 2).contiguous(),
-            allocated=allocated, chain=chain,
-            resolution=template.resolution, nx=nx, ny=ny, k=k,
-        )
+        for name, x in (("mean", template.mean), ("stdev", template.stdev),
+                        ("height", template.height), ("meta", meta),
+                        ("color", template.color)):
+            field = getattr(self, name)
+            if field is None:
+                continue
+            field.zero_()
+            field[rows] = x.reshape(self.nx, -1).to(device=device,
+                                                    dtype=field.dtype)
+        self.origin.copy_(template.origin.to(device=device,
+                                             dtype=torch.float32)
+                          .expand(b, 2))
+        self.allocated.zero_()
+        self.allocated.index_fill_(0, rows, True)
+        self.chain.fill_(-1)
+        self.chain[:, 0] = assign
+        return self
 
     def global_chain(self):
         """Every particle's chain row ``[N, L]``: the rows of every rank

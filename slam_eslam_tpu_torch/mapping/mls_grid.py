@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from slam_eslam_tpu_torch.utils.scatter import add_at
+
 
 @dataclasses.dataclass
 class MLSGrid:
@@ -246,18 +248,16 @@ def run_sums_rows(lin, w, wz, color=None):
     first = torch.ones_like(lin_s, dtype=torch.bool)
     first[:, 1:] = lin_s[:, 1:] != lin_s[:, :-1]
     seg = torch.cumsum(first.to(torch.int64), dim=1) - 1          # [N, P]
-    # each run's element of the flat [N * P] sums; index_put_ with
-    # accumulate adds a run's entries in turn, in point order, the same
-    # on every call (scatter_add_ adds with atomics in no fixed order on
-    # a GPU, so two equal merges could differ in the last bit)
+    # each run's element of the flat [N * P] sums; add_at adds a run's
+    # entries in turn, in point order, the same on every call and device
     run = (torch.arange(n, device=lin.device)[:, None] * p + seg).reshape(-1)
 
     def run_sum(v, trail=()):
         flat = run if not trail else (
             run[:, None] * trail[0] + torch.arange(
                 trail[0], device=run.device)).reshape(-1)
-        out = torch.zeros_like(v).reshape(-1).index_put_(
-            (flat,), v.reshape(-1), accumulate=True).view(v.shape)
+        out = add_at(torch.zeros_like(v).reshape(-1), flat,
+                     v.reshape(-1)).view(v.shape)
         return torch.gather(out, 1, seg.view(n, p, *(1,) * len(trail))
                             .expand(v.shape))
 

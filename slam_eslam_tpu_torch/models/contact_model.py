@@ -28,6 +28,7 @@ import torch
 from slam_eslam_tpu_torch.config import ContactModelConfig
 from slam_eslam_tpu_torch.core.state import BodyContactState
 from slam_eslam_tpu_torch.utils import geometry
+from slam_eslam_tpu_torch.utils.scatter import add_at
 
 # contact probability below which a candidate is skipped
 # (fixed in the reference, ContactModel.cpp:136)
@@ -54,7 +55,7 @@ def _segment_reduce(values, seg, num_seg, reduce, init):
 
 def _segment_sum(values, seg, num_seg):
     out = torch.zeros((num_seg,), dtype=values.dtype, device=values.device)
-    return out.index_add(0, seg.long(), values)
+    return add_at(out, seg.long(), values)
 
 
 def lowest_point_per_group(state: BodyContactState):

@@ -26,9 +26,15 @@ place), so its ATE measures the distance to the end of the drive.  The
 JAX script runs on the CPU unless given ``--tpu``; this one runs on the
 card unless given ``--cpu``.
 
+The runner is the compiled one, as the JAX script's is jitted: CUDA graphs
+on the card (a gate combination eager at its first meeting, captured at
+its second), the eager loop on the CPU; each drive refills the runner's
+one pool in place (``MapPool.refill_``).
+
 Usage: python -m slam_eslam_tpu_torch.tools.ab_pool_dtype [--runs 10
            --steps 120 --particles 256] [--cpu]
-Prints one JSON line with both pool types' stats and the deltas.
+Prints one JSON line with both pool types' stats, the deltas and
+``graphed`` (whether the runners replayed CUDA graphs).
 """
 
 from __future__ import annotations
@@ -152,12 +158,13 @@ def run_dtype(dtype, args, device, draws=None, detail=None):
     n = args.particles
     cfg = pool_config(dtype, n)
     terrain = make_terrain()
-    # eager launches: each run's fresh pool would otherwise be copied
-    # into the graphs' static one
+    # the compiled runner: CUDA graphs on the card, the eager loop on the
+    # CPU (utils.graphs.resolve); it updates its carry's pool in place,
+    # and every drive refills that one pool
     run = streaming.make_slam_scan_runner(cfg, laser2body=(np.eye(3),
                                                            np.zeros(3)),
-                                          external_odometry=True,
-                                          graph=False)
+                                          external_odometry=True)
+    pool = None
     env = None
     if args.seed_env:
         env = simlib.terrain_grid(terrain, nx=96, ny=96, resolution=0.25,
@@ -185,10 +192,13 @@ def run_dtype(dtype, args, device, draws=None, detail=None):
         f = EmbodiedSlamFilter(config=cfg, device=device).init(
             pose=(np.array([0.0, 0.0, d["z0"]]), 0.0), use_shared_map=False,
             shared_grid=env, num_contact_points=20, normal_xy=normals[0],
-            normal_yaw=normals[1])
+            normal_yaw=normals[1], pool=pool)
         state = dataclasses.replace(f.state, generator=gen)
         carry0 = streaming.StreamingState.create(state, f.pool)
-        _, aux = run(carry0, frames, odos, frame_draws)
+        del f
+        done, aux = run(carry0, frames, odos, frame_draws)
+        pool = done.pool
+        del carry0, done
         cents = aux["centroid"].cpu().numpy().astype(np.float64)
         gt = d["truth"]
         tail = slice(len(gt) * 2 // 3, None)
@@ -211,6 +221,7 @@ def main(argv=None):
     """Run the A/B; prints and returns the result dict (each pool type's
     stats and kernel launches also on stderr)."""
     from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.utils import graphs
     from slam_eslam_tpu_torch.utils.device import card_line, entry_device
 
     args = parser().parse_args(argv)
@@ -236,6 +247,8 @@ def main(argv=None):
         "runs": args.runs, "steps": args.steps,
         "particles": args.particles,
     }
+    # the runners replayed CUDA graphs (on the card) or ran eagerly
+    out["graphed"] = graphs.supported(device)
     print(json.dumps(out))
     return out
 

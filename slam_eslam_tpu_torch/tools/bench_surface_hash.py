@@ -11,9 +11,13 @@ Counterpart of ``tools/bench_surface_hash.py`` of the JAX package:
    ``filter.streaming.make_slam_scan_runner(..., external_odometry=True)``
    with the hash (``period=10``) and without it.
 
-The runner updates the carry's pool in place, so every run starts from a
-new filter (outside the timed region).  Prints one JSON line with the JAX
-script's keys; ``backend`` is ``"cuda"`` or ``"cpu"``, and the
+The runners are the compiled ones, as the JAX script's are jitted: CUDA
+graphs on the card (warmed up until every gate combination replays), the
+eager loop on the CPU.  They update the carry's pool in place, so every
+run starts from a fresh filter (outside the timed region) whose pool, one
+for both runners, is refilled in place (``MapPool.refill_``).  Prints one
+JSON line with the JAX script's keys; ``backend`` is ``"cuda"`` or
+``"cpu"``, ``graphed`` whether the runners replayed CUDA graphs, and the
 ``*_compile_first_s`` keys time the first call (the kernels' build at
 first use and the run).
 
@@ -145,10 +149,13 @@ def main(argv=None):
     n_frames = len(frames)
     lb = (np.eye(3), np.zeros(3))
 
+    # both runners update one pool in place: every run refills it
+    pool = []
+
     def fresh():
         f = EmbodiedSlamFilter(config=cfg, device=device).init(
             pose=(np.array([0.0, 0.0, z0]), 0.0), use_shared_map=False,
-            num_contact_points=20)
+            num_contact_points=20, pool=pool.pop() if pool else None)
         return streaming.StreamingState.create(f.state, f.pool)
 
     def once(run):
@@ -156,17 +163,24 @@ def main(argv=None):
         carry = fresh()
         profiling.sync()
         t0 = time.perf_counter()
-        run(carry, frames, odos)
-        del carry
+        done, _ = run(carry, frames, odos)
+        pool.append(done.pool)
+        del carry, done
         profiling.sync()
         return time.perf_counter() - t0
 
+    # the compiled runners: CUDA graphs on the card, the eager loop on the
+    # CPU (utils.graphs.resolve); the warm-up runs until every gate
+    # combination replays
     runs = {tag: streaming.make_slam_scan_runner(
-        cfg, laser2body=lb, hash_=hh, external_odometry=True, graph=False)
+        cfg, laser2body=lb, hash_=hh, external_odometry=True)
         for tag, hh in (("hash_off", None), ("hash_on", hash_))}
     before = ops.launch_counts()
     for tag, run in runs.items():
         out[f"{tag}_compile_first_s"] = round(once(run), 1)
+        while run.graphs is not None and not run.graphs.settled():
+            once(run)
+    out["graphed"] = all(run.graphs is not None for run in runs.values())
     # the repeats in turns (off, on, on, off, ...): host-bound rates drift
     # within a call
     best = {tag: float("inf") for tag in runs}

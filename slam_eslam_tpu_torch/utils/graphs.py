@@ -67,12 +67,21 @@ takes its mode from ``resolve``.
 arguments for a function that is not a step of a runner: the pose-graph
 solves and the keyframe alignment, one graph per key of its static
 arguments.
+
+**Under a profiler** every capture and every replay of a ``StepGraphs``
+is a span named ``CAPTURE_SPAN`` / ``REPLAY_SPAN`` and the graph's number
+(one number per graph of the process): ``tools.profile_slam`` reads from
+a capture's span the launches its graph holds, each with the operator
+that made it, and from a replay's span which graph a ``cudaGraphLaunch``
+ran.  Without a profiler no span is made.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import itertools
 
 import torch
 
@@ -112,6 +121,19 @@ class Capture:
 
     def replay(self, graph):
         graph.replay()
+
+
+CAPTURE_SPAN = "graph capture "
+REPLAY_SPAN = "graph replay "
+_GRAPH_NUMBERS = itertools.count()
+
+
+def span(name):
+    """A ``torch.profiler`` span named ``name`` while a profiler runs,
+    else nothing (a replay's host time stays as it was)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 class StaleRead(RuntimeError):
@@ -354,7 +376,7 @@ class StepGraphs:
         self.inputs = {}    # signature and structure of x -> static x
         self.outputs = {}   # key -> static y
         self.graphs = {}    # key -> (graph, launches credited a replay,
-        #                           addresses of the reads)
+        #                           addresses of the reads, its number)
         self.met = collections.Counter()
         self.counts = collections.Counter()
 
@@ -383,7 +405,7 @@ class StepGraphs:
         return () if self.reads is None else addresses(self.reads(gate))
 
     def _replay(self, key):
-        graph, credit, read = self.graphs[key]
+        graph, credit, read, number = self.graphs[key]
         now = self._addresses(key[0])
         if now != read:
             moved = sum(a != b for a, b in zip(now, read)) + abs(
@@ -394,7 +416,8 @@ class StepGraphs:
                 f"replaced since its capture (write into their storage "
                 f"instead)")
         before = ops.launch_counts()
-        self.capture.replay(graph)
+        with span(f"{REPLAY_SPAN}{number}"):
+            self.capture.replay(graph)
         ops.set_launch_counts({k: v + credit.get(k, 0)
                                for k, v in before.items()})
         self.counts["replayed"] += 1
@@ -417,18 +440,21 @@ class StepGraphs:
         else:
             graph = self.capture.new_graph()
             fn = self._region(gate, key, x)
+            number = next(_GRAPH_NUMBERS)
             before = ops.launch_counts()
-            self.capture.capture(
-                graph, fn,
-                () if self.generator is None else (self.generator,),
-                leaves(self.carry) + leaves(self.outputs[key])
-                + ([] if self.writes is None else leaves(self.writes(gate))))
+            with span(f"{CAPTURE_SPAN}{number}"):
+                self.capture.capture(
+                    graph, fn,
+                    () if self.generator is None else (self.generator,),
+                    leaves(self.carry) + leaves(self.outputs[key])
+                    + ([] if self.writes is None
+                       else leaves(self.writes(gate))))
             after = ops.launch_counts()
             # a capture records the launches and runs none of them
             ops.set_launch_counts(before)
             self.graphs[key] = (graph, {k: after[k] - before[k]
                                         for k in after},
-                                self._addresses(gate))
+                                self._addresses(gate), number)
             self.counts["captured"] += 1
             self._replay(key)
         return self.outputs[key]

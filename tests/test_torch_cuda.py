@@ -1629,3 +1629,42 @@ def test_graphed_application_equals_eager(dev, shared):
     graphed = filters[1].graphs.counts()
     assert graphed["replayed"] > frames and graphed["captured"] >= 4
     assert sum(c["ordered_scan"] for _, c in counts) > 0
+
+
+def test_segment_sums_repeat_on_the_card(dev):
+    """``contact_model._segment_sum`` and the per-pose ``evaluate_pose``
+    that sums through it (``utils.scatter.add_at``) give the same bits on
+    every call on the card, where ``index_add`` adds with atomics in no
+    fixed order: 200,000 values into 300 segments, and a pose of 100,000
+    contact candidates in groups of 400."""
+    from slam_eslam_tpu_torch.models import contact_model as cm
+
+    rng = np.random.default_rng(5)
+    values = torch.tensor(rng.standard_normal(200_000) * 1e3,
+                          dtype=torch.float32, device=dev)
+    seg = torch.tensor(rng.integers(0, 300, 200_000), dtype=torch.int32,
+                       device=dev)
+    first = cm._segment_sum(values, seg, 300)
+    for _ in range(4):
+        assert torch.equal(cm._segment_sum(values, seg, 300), first)
+
+    c = 100_000
+    state = BodyContactState.create(
+        rng.uniform(-2.0, 2.0, (c, 3)).astype(np.float32),
+        contact=np.ones(c, np.float32),
+        group_id=(np.arange(c) // 400).astype(np.int32), device=dev)
+
+    def lookup(world):
+        mean = 0.3 * torch.sin(world[:, 0]) + 0.2 * torch.cos(world[:, 1])
+        found = world[:, 0] > -1.9
+        return (found, mean, torch.full_like(mean, 0.05),
+                torch.zeros(world.shape[0], 3, device=world.device))
+
+    rot = torch.eye(3, device=dev)
+    trans = torch.tensor([0.1, -0.2, 0.05], device=dev)
+    cfg = ContactModelConfig(contact_point_radius=0.0, min_contacts=2)
+    ref = cm.evaluate_pose(state, rot, trans, 0.01, lookup, cfg)
+    for _ in range(2):
+        got = cm.evaluate_pose(state, rot, trans, 0.01, lookup, cfg)
+        for a, b in zip(graphs.leaves(got), graphs.leaves(ref), strict=True):
+            assert torch.equal(a, b)

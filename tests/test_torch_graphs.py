@@ -445,6 +445,43 @@ def test_slam_runner_equals_jax(slam):
     assert (ref["pool"]["meta"] & 1).sum() > 5 * SLAM_N
 
 
+def test_refilled_pool_reruns_as_a_fresh_carry(slam):
+    """A fresh start written into the pool the runner's graphs were
+    captured on (``EmbodiedSlamFilter.init(pool=)``, ``MapPool.refill_``)
+    keeps that pool's tensors at their addresses, holds the bits of a
+    newly built pool, and replays the run a freshly built carry gives."""
+    w = slam
+    cfg = w["cfg"]
+
+    def carry(pool=None):
+        f = EmbodiedSlamFilter(config=cfg, device="cpu").init(
+            pose=(np.array([0.0, 0.0, 0.3]), 0.0), use_shared_map=False,
+            num_contact_points=20, pool=pool)
+        return tst.StreamingState.create(f.state, f.pool)
+
+    ref = slam_runner(cfg)(carry(), w["frames"], w["odos"])
+    run = slam_runner(cfg, StandIn())
+    first = run(carry(), w["frames"], w["odos"])
+    assert_slam_bitwise(first, ref)
+    pool = first[0].pool                  # the runner's static pool
+    where = graphs.addresses(pool)
+    counts = run.counts()
+    fresh = carry(pool)
+    assert fresh.pool is pool and graphs.addresses(fresh.pool) == where
+    assert_bitwise(fresh.pool, carry().pool)
+    again = run(fresh, w["frames"], w["odos"])
+    assert graphs.addresses(again[0].pool) == where
+    assert_slam_bitwise(again, ref)
+    # the rerun replayed every frame: no second eager meeting or capture
+    assert run.counts()["eager"] == counts["eager"]
+    assert run.counts()["captured"] == counts["captured"]
+    with pytest.raises(ValueError, match="refills a pool of"):
+        EmbodiedSlamFilter(
+            config=dataclasses.replace(cfg, map_pool_blocks=65),
+            device="cpu").init(pose=(np.zeros(3), 0.0),
+                               use_shared_map=False, pool=pool)
+
+
 def test_slam_step_call_by_call(slam):
     """``make_slam_step(graph=...)`` frame by frame equals the eager step,
     the caller's generator advanced alike."""

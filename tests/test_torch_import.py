@@ -72,6 +72,7 @@ MODULES = [
     "slam_eslam_tpu_torch.utils.graphs",
     "slam_eslam_tpu_torch.utils.kernel_eff",
     "slam_eslam_tpu_torch.utils.profiling",
+    "slam_eslam_tpu_torch.utils.scatter",
     "slam_eslam_tpu_torch.utils.tree",
     "slam_eslam_tpu_torch.viz.render",
     "slam_eslam_tpu_torch.viz.snapshots",

@@ -34,6 +34,7 @@ from slam_eslam_tpu.ops import pallas_chain, pallas_merge
 from slam_eslam_tpu_torch import convert
 from slam_eslam_tpu_torch.mapping import map_pool as tmp
 from slam_eslam_tpu_torch.mapping import mls_grid as tmls
+from slam_eslam_tpu_torch.utils import graphs
 
 torch.set_num_threads(2)
 
@@ -136,6 +137,35 @@ class TestBookkeeping:
                                         N, 3 * N, L, with_color=with_color)
         assert_pool_equal(got, ref)
         assert (got.nx, got.ny, got.k, got.resolution) == (NX, NY, K, RES)
+
+    @pytest.mark.parametrize("with_color,shards,dtype", [
+        (False, 1, "float32"), (True, 1, "float32"), (False, 2, "bfloat16")])
+    def test_refill_writes_the_template_pool_in_place(self, with_color,
+                                                      shards, dtype):
+        """``refill_`` of a pool that ran (every field overwritten) gives
+        the JAX ``from_template``'s pool again, in the same tensors."""
+        rng = np.random.default_rng(1)
+        grid = jmls.MLSGrid.create(NX, NY, RES, (0.5, -1.0), k=K)
+        grid = dataclasses.replace(
+            grid, mean=jnp.asarray(rng.normal(0, 1, (NX, NY, K)), jnp.float32),
+            valid=jnp.asarray(rng.random((NX, NY, K)) < 0.4))
+        ref = jmp.MapPool.from_template(grid, N, 4 * N, L,
+                                        with_color=with_color,
+                                        shards=shards, dtype=dtype)
+        tgrid = convert.mls_grid_from(as_dict(grid))
+        pool = tmp.MapPool.from_template(tgrid, N, 4 * N, L,
+                                         with_color=with_color,
+                                         shards=shards, dtype=dtype)
+        for f in graphs.leaves(pool):
+            f.copy_(torch.ones_like(f) if f.dtype == torch.bool
+                    else torch.full_like(f, 3))
+        where = graphs.addresses(pool)
+        assert pool.refill_(tgrid, shards) is pool
+        assert graphs.addresses(pool) == where
+        assert_pool_equal(pool, ref)
+        with pytest.raises(ValueError, match="cannot refill"):
+            pool.refill_(tmls.MLSGrid.create(NX + 1, NY, RES, (0.0, 0.0),
+                                             K), shards)
 
     def test_refcounts_and_resample(self):
         jpool = random_pool(1, unique_heads=False)

@@ -130,7 +130,9 @@ def test_ab_pool_dtype_json_has_the_jax_scripts_keys(capsys):
                               "--particles", "8", "--no-seed-env"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line == res
-    assert set(res) == {"float32", "bfloat16", "delta", "config"}
+    assert set(res) == {"float32", "bfloat16", "delta", "config",
+                        "graphed"}
+    assert res["graphed"] is False       # the CPU runs the eager loop
     stats = {"ate_mean", "ate_std", "z_err_mean", "z_err_std"}
     assert set(res["float32"]) == set(res["bfloat16"]) == stats | {"wall_s"}
     assert set(res["delta"]) == {"ate_mean", "z_err_mean", "z_err_std"}

@@ -311,7 +311,9 @@ def test_bench_surface_hash_json_has_the_jax_scripts_keys(monkeypatch,
     with contextlib.redirect_stdout(buf):
         jtool.main()
     ref = json.loads(buf.getvalue().strip().splitlines()[-1])
-    assert set(res) == set(ref)
+    # and one key more: whether the runners replayed CUDA graphs
+    assert set(res) == set(ref) | {"graphed"}
+    assert res["graphed"] is False       # the CPU runs the eager loop
     assert res["n_valid_candidates"] == ref["n_valid_candidates"]
 
 

@@ -19,6 +19,7 @@ equal, step by step.  Each tool also runs from its command line and prints
 the JAX script's lines.
 """
 
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -115,6 +116,214 @@ def test_op_share_counts_kernels_inside_the_copy_operators(tmp_path):
     (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": ev}))
     ms, share = profile_slam.op_share(tmp_path)
     assert ms == pytest.approx(0.04) and share == pytest.approx(0.4)
+
+
+# a body of three launches, as the card traces it: a gather inside an
+# ``index_select``, an ``index_copy_`` and an ``add``; (operator,
+# enclosing operator or None, kernel, device us)
+BODY = [("aten::gather", "aten::index_select", "gather_kernel", 30.0),
+        ("aten::index_copy_", None, "index_copy_kernel", 10.0),
+        ("aten::add", None, "add_kernel", 20.0)]
+
+
+def cpu_op(name, ts, dur, eid):
+    return {"ph": "X", "cat": "cpu_op", "name": name, "ts": ts, "dur": dur,
+            "tid": 1, "pid": 0, "args": {"External id": eid}}
+
+
+def runtime(name, ts, eid=None, corr=None):
+    args = {} if eid is None else {"External id": eid}
+    if corr is not None:
+        args["correlation"] = corr
+    return {"ph": "X", "cat": "cuda_runtime", "name": name, "ts": ts,
+            "dur": 1, "tid": 1, "pid": 0, "args": args}
+
+
+def record(name, ts, dur, eid=None, corr=None, cat="kernel"):
+    args = {} if eid is None else {"External id": eid}
+    if corr is not None:
+        args["correlation"] = corr
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+            "tid": 7, "pid": 1, "args": args}
+
+
+def span(name, ts, dur):
+    return {"ph": "X", "cat": "user_annotation", "name": name, "ts": ts,
+            "dur": dur, "tid": 1, "pid": 0, "args": {}}
+
+
+def body_ops(t0, eid0, launch=True):
+    """BODY's operators from ``t0`` (100 us apart), their External ids
+    from ``eid0``, and with ``launch`` each kernel's launch call; returns
+    the events and the ids of the launching operators."""
+    ev, ids = [], []
+    for i, (op, outer, _, _) in enumerate(BODY):
+        ts, eid = t0 + 100 * i, eid0 + 2 * i
+        if outer is not None:
+            ev.append(cpu_op(outer, ts, 50, eid + 1))
+        ev.append(cpu_op(op, ts + 5, 20, eid))
+        if launch:
+            ev.append(runtime("cudaLaunchKernel", ts + 10, eid, 700 + eid))
+        ids.append(eid)
+    return ev, ids
+
+
+def write_trace(path, events):
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "trace.json").write_text(json.dumps({"traceEvents": events}))
+    return path
+
+
+def eager_twin(path):
+    ev, ids = body_ops(0, 10)
+    ev += [record(k, 400 + 50 * i, us, eid=eid, corr=700 + eid)
+           for i, ((_, _, k, us), eid) in enumerate(zip(BODY, ids))]
+    return write_trace(path, ev)
+
+
+def captured(path, number=5):
+    """A warm-up trace: a launch before the stream capture starts (eager),
+    then BODY captured as graph ``number``."""
+    ev = [span(f"graph capture {number}", 1000, 500),
+          cpu_op("aten::fill_", 1001, 2, 90),
+          runtime("cudaLaunchKernel", 1002, 90, 990),
+          record("fill_kernel", 1003, 1.0, eid=90, corr=990),
+          runtime("cudaStreamBeginCapture", 1004)]
+    ops, _ = body_ops(1010, 20)
+    ev += ops + [runtime("cudaStreamEndCapture", 1400)]
+    return write_trace(path, ev)
+
+
+def replays(path, kept, number=5, extra=()):
+    """One graph launch of graph ``number`` per entry of ``kept`` (the
+    indices of BODY's records the tracer kept), each in a replay span."""
+    ev = []
+    for j, keep in enumerate(kept):
+        t0, corr = 5000 * j, 3000 + j
+        ev += [span(f"graph replay {number}", t0, 20),
+               runtime("cudaGraphLaunch", t0 + 5, corr=corr)]
+        ev += [record(BODY[i][2], t0 + 100 + 40 * i, BODY[i][3], corr=corr)
+               for i in keep]
+    return write_trace(path, ev + list(extra))
+
+
+def test_replayed_kernels_are_attributed_as_their_eager_twins(tmp_path):
+    """A replayed record carries no operator, only its graph launch: it
+    takes the operator of the launch its capture recorded in its place,
+    so the block copies' share reads as the eager twin's."""
+    twin = profile_slam.op_share(eager_twin(tmp_path / "eager"))
+    assert twin == (pytest.approx(0.04), pytest.approx(40 / 60))
+    cap = captured(tmp_path / "warm-up")
+    got = profile_slam.op_share(replays(tmp_path / "replay", [[0, 1, 2]]),
+                                captures=(cap,))
+    assert got == twin
+    # ten replays: ten times the time, the same share
+    ms, share = profile_slam.op_share(
+        replays(tmp_path / "ten", [[0, 1, 2]] * 10), captures=(cap,))
+    assert ms == pytest.approx(0.4) and share == pytest.approx(twin[1])
+    # the graph launch's own record count: three launches a replay
+    assert profile_slam.device_records(tmp_path / "ten", (cap,)) == (30, 30)
+
+
+def test_device_records_shortfall_is_printed_and_returned(tmp_path, capsys):
+    """Eager launches count one record each, a graph launch the launches
+    its capture recorded; the records the tracer lost show as the
+    difference, printed beside the device total."""
+    cap = captured(tmp_path / "warm-up")
+    eager, ids = body_ops(100_000, 40)
+    # the tracer kept two of the three eager records
+    eager += [record(BODY[i][2], 100_500 + 50 * i, BODY[i][3],
+                     eid=ids[i], corr=700 + ids[i]) for i in (0, 2)]
+    path = replays(tmp_path / "trace", [[0, 1, 2], [0, 2], [1]],
+                   extra=eager)
+    kept, launched = profile_slam.device_records(path, (cap,))
+    assert (kept, launched) == (2 + 3 + 2 + 1, 3 + 3 * 3)
+    rows, total, _, kind = profile_slam.aggregate_trace(path, top=None,
+                                                        on_card=True)
+    profile_slam.print_table(rows, total, path, kind, (kept, launched))
+    assert "(device records 8 of 12 launches)" in capsys.readouterr().out
+    # a replay that lost records is attributed by kernel name
+    ms, _ = profile_slam.op_share(path, captures=(cap,))
+    assert ms == pytest.approx((30 + 10 + 30 + 10 + 30) / 1e3)
+
+
+def test_a_trace_on_the_card_without_device_records_raises(tmp_path):
+    from slam_eslam_tpu_torch.utils.profiling import ProfilerLostRecords
+
+    ev, _ = body_ops(0, 10)
+    path = write_trace(tmp_path, ev)
+    with pytest.raises(ProfilerLostRecords, match="no device record of 3 "):
+        profile_slam.aggregate_trace(path, on_card=True)
+    # off the card the host operators are summed, as before
+    assert profile_slam.aggregate_trace(path)[3] == "host"
+
+
+@pytest.mark.parametrize("case", [
+    "no capture", "more records", "other kinds", "other kernels",
+    "name of two answers"])
+def test_an_unattributable_replayed_kernel_raises(tmp_path, case):
+    """A replayed record that the traces cannot tie to the launch its
+    capture recorded raises: it is never counted as another kernel."""
+    cap = captured(tmp_path / "warm-up")
+    kept = [[0, 1, 2]]
+    extra = []
+    if case == "no capture":
+        path = replays(tmp_path / "trace", kept, number=6)
+    elif case == "more records":
+        path = replays(tmp_path / "trace", kept, extra=[
+            record("stray_kernel", 180, 1.0, corr=3000)])
+    elif case == "other kinds":
+        path = replays(tmp_path / "trace", [[0, 1]], extra=[
+            record("Memset", 180, 1.0, corr=3000, cat="gpu_memset")])
+    elif case == "other kernels":
+        path = replays(tmp_path / "trace", [[0, 1, 2], [0, 1]], extra=[
+            record("other_kernel", 5180, 1.0, corr=3001)])
+    else:
+        # a graph whose one kernel name serves a copy and an add, and a
+        # replay that lost one of the two
+        ev = [span("graph capture 5", 1000, 500),
+              runtime("cudaStreamBeginCapture", 1004),
+              cpu_op("aten::index_copy_", 1010, 20, 20),
+              runtime("cudaLaunchKernel", 1015, 20, 720),
+              cpu_op("aten::add", 1110, 20, 22),
+              runtime("cudaLaunchKernel", 1115, 22, 722),
+              runtime("cudaStreamEndCapture", 1400)]
+        cap = write_trace(tmp_path / "warm-up", ev)
+        extra = [span("graph replay 5", 0, 20),
+                 runtime("cudaGraphLaunch", 5, corr=1),
+                 record("elementwise", 100, 5.0, corr=1),
+                 record("elementwise", 110, 5.0, corr=1),
+                 span("graph replay 5", 9000, 20),
+                 runtime("cudaGraphLaunch", 9005, corr=2),
+                 record("elementwise", 9100, 5.0, corr=2)]
+        path = write_trace(tmp_path / "trace", extra)
+    with pytest.raises(profile_slam.UnattributedKernel):
+        profile_slam.op_share(path, captures=(cap,))
+
+
+def test_graph_spans_name_captures_and_replays(tmp_path):
+    """Under a profiler every capture and replay of ``utils.graphs`` is a
+    span naming its graph (what ties a replayed kernel to its capture);
+    without one no span is made."""
+    from slam_eslam_tpu_torch.utils import graphs, profiling
+    from torch_stand_in import StandIn
+
+    runner = graphs.ScanRunner(lambda c, x: (c * 2 + x, c), StandIn(),
+                               "spans")
+    xs = [torch.ones(3) * i for i in range(4)]
+    assert isinstance(graphs.span("x"), type(contextlib.nullcontext()))
+    with profiling.trace(tmp_path):
+        runner.run(torch.zeros(3), xs)
+        runner.run(torch.zeros(3), xs)
+    names = [ev["name"] for ev in profile_slam.complete_events(
+        profile_slam.trace_file(tmp_path))
+        if ev.get("cat") == "user_annotation"]
+    number = int(next(n for n in names if n.startswith(
+        graphs.CAPTURE_SPAN))[len(graphs.CAPTURE_SPAN):])
+    assert names.count(f"{graphs.CAPTURE_SPAN}{number}") == 1
+    # the first step eager, the second captured and replayed, then 6 more
+    assert names.count(f"{graphs.REPLAY_SPAN}{number}") == 7
+    assert runner.counts() == dict(eager=1, captured=1, replayed=7)
 
 
 @pytest.fixture(scope="module")
