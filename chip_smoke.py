@@ -135,7 +135,8 @@ Phases (any failure raises and exits non-zero):
    gates, a checkpoint resumed bit for bit, the CPU port on the same
    draws) and graphed (the default: ``run_stream``, the keyframe grids
    and sweeps and the solve as CUDA graphs), each chunk's parts timed and
-   bit for bit the eager chunk's; and the localisation demo (K5);
+   bit for bit the eager chunk's; and the localisation demo (K5 once a
+   step; its step a CUDA graph, bit for bit its eager run);
 11. the log runtime and the record -> replay -> report path: build the
    native log library from ``native/eslam_log.cpp`` into
    ``build/torch_kernels/``; write and read back every record type,
@@ -165,9 +166,16 @@ Phases (any failure raises and exits non-zero):
    records the tracer kept against the launches; the block copies' share
    of the replayed device time on a 41 GB float32 pool, the one pool every
    run refills), ``profile_filter`` (graphed: K1 in the replayed trace once
-   a step, the records kept) and ``probe_spread`` (one K1 launch per
-   measurement update, no K5),
-   ``profile_step`` (every stage finite), ``profile_resample`` (every
+   a step, the records kept) and ``probe_spread`` (graphed, one K1
+   launch per measurement update, no K5, bit for bit its eager run),
+   ``profile_step`` at its default shape (K5) and at the bench's step
+   (K1, 8 contacts), each stage a CUDA graph (finite, bit for bit an
+   eager call; device ms of a graph of 20 copies, the profiler's sum of
+   its kernels, host ms, launch calls; at the bench's shape the kernels of
+   ``project + update_full + centroid`` and ``odometry.update`` against
+   the graphed step's from ``profile_filter``), ``stat_map_test batch`` with
+   its evaluation graphed and eagerly (raw arrays bit for bit, result
+   files identical), ``profile_resample`` (every
    ancestor index brackets its position in the cumsum searched),
    ``bench_pool_ops`` (every row), ``bench_surface_hash`` (the hash's
    valid candidates equal to the CPU port's) and ``ab_pool_dtype`` (both
@@ -412,16 +420,12 @@ def calls_text(calls, unit):
 
 
 def equal_bits(got, ref):
-    """Every tensor of ``got`` equal to ``ref``'s bit for bit (NaNs by
-    their bits); returns ``(all equal, tensors compared)``."""
+    """Every tensor of ``got`` equal to ``ref``'s bit for bit
+    (``utils.graphs.equal_bits``); returns ``(all equal, tensors
+    compared)``."""
     from slam_eslam_tpu_torch.utils import graphs
 
-    a, b = graphs.leaves(got), graphs.leaves(ref)
-    same = len(a) == len(b) and all(
-        x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(
-            x.view(torch.uint8) if x.dim() else x, y.view(torch.uint8)
-            if y.dim() else y)) for x, y in zip(a, b))
-    return same, len(a)
+    return graphs.equal_bits(got, ref)
 
 
 def device_index(value, dev):
@@ -3796,8 +3800,11 @@ def localize_draws(n, steps, seed=3):
 
 
 def localize_run(dev, card):
-    """``examples.localize_demo`` in process: K5 launches (one per step)
-    and the centroids against the CPU port on the same draws."""
+    """``examples.localize_demo`` in process on one set of draws: its step
+    as a CUDA graph (the default on the card) and eagerly, the graphed run
+    equal to the eager one bit for bit, K5 once a step in each (credited
+    by the replays when graphed), and the centroids against the CPU
+    port."""
     from slam_eslam_tpu_torch.examples.localize_demo import localize
     from slam_eslam_tpu_torch.ops import contact_fold as cf
     from slam_eslam_tpu_torch.ops import select_cells as sc
@@ -3805,22 +3812,45 @@ def localize_run(dev, card):
     quiet = lambda *a, **k: None
     draws = localize_draws(LOCALIZE_N, LOCALIZE_STEPS)
     ref = localize(LOCALIZE_STEPS, LOCALIZE_N, "cpu", draws, log=quiet)
-    sc.select_cells.launches = 0
-    cf.contact_fold.launches = 0
-    got = localize(LOCALIZE_STEPS, LOCALIZE_N, dev, draws, log=quiet)
-    launches = {"select_cells": sc.select_cells.launches,
-                "contact_fold": cf.contact_fold.launches}
-    err = float(np.abs(got["centroids"] - ref["centroids"]).max())
-    print(f"localize_demo: {LOCALIZE_STEPS} steps x {LOCALIZE_N} particles "
-          f"in {got['seconds']:.3f} s, launches {launches}, final-10 mean "
-          f"xy ATE {got['errors'][-10:, 0].mean():.4f} m, z "
-          f"{got['errors'][-10:, 1].mean():.4f} m; GPU vs CPU port "
-          f"{err:.3e} m [{card}]")
-    if launches != {"select_cells": LOCALIZE_STEPS, "contact_fold": 0}:
-        raise RuntimeError(f"localize_demo: launches {launches}")
-    if not err <= CENTROID_ATOL:
-        raise RuntimeError(f"localize_demo: GPU and CPU differ by {err} m")
-    return dict(launches=launches, err=err, seconds=got["seconds"])
+    want = {"select_cells": LOCALIZE_STEPS, "contact_fold": 0}
+    runs = {}
+    for mode, graph in (("eager", False), ("graphed", None)):
+        sc.select_cells.launches = 0
+        cf.contact_fold.launches = 0
+        got = localize(LOCALIZE_STEPS, LOCALIZE_N, dev, draws, log=quiet,
+                       graph=graph)
+        launches = {"select_cells": sc.select_cells.launches,
+                    "contact_fold": cf.contact_fold.launches}
+        err = float(np.abs(got["centroids"] - ref["centroids"]).max())
+        print(f"localize_demo[{mode}]: {LOCALIZE_STEPS} steps x "
+              f"{LOCALIZE_N} particles in {got['seconds']:.3f} s, launches "
+              f"{launches}, final-10 mean xy ATE "
+              f"{got['errors'][-10:, 0].mean():.4f} m, z "
+              f"{got['errors'][-10:, 1].mean():.4f} m; GPU vs CPU port "
+              f"{err:.3e} m [{card}]")
+        if got["graphed"] != (graph is None):
+            raise RuntimeError(f"localize_demo[{mode}]: graphed "
+                               f"{got['graphed']}")
+        if launches != want:
+            raise RuntimeError(f"localize_demo[{mode}]: launches {launches}")
+        if not err <= CENTROID_ATOL:
+            raise RuntimeError(f"localize_demo[{mode}]: GPU and CPU differ "
+                               f"by {err} m")
+        runs[mode] = got
+    got, eager = runs["graphed"], runs["eager"]
+    same = (equal_bits(got["state"], eager["state"])[0]
+            and np.array_equal(got["centroids"], eager["centroids"])
+            and got["ess"] == eager["ess"]
+            and got["resampled"] == eager["resampled"]
+            and torch.equal(got["state"].generator.get_state(),
+                            eager["state"].generator.get_state()))
+    print(f"localize_demo: graphed vs eager over {LOCALIZE_STEPS} steps "
+          f"(centroids, ESS, resampling, final state, generator) equal bit "
+          f"for bit: {same} [{card}]")
+    if not same:
+        raise RuntimeError("localize_demo: graphed and eager differ")
+    return dict(launches=want, err=err, seconds=got["seconds"],
+                eager_seconds=eager["seconds"])
 
 
 def phase10(dev, card):
@@ -4434,7 +4464,9 @@ def phase11(dev, card):
 # runs): profile_slam at 100,000 particles 4 of 10 steps (40 frames; at
 # 4,096 5 of 10 steps), probe_spread 50 of 150 steps,
 # bench_surface_hash 10 of 20 steps and 1 of 3 repeats, ab_pool_dtype 2 of
-# 10 runs and 20 of 120 steps, profile_step 3 of 5 repeats
+# 10 runs and 20 of 120 steps, profile_step 3 of 5 repeats (of its host
+# clock; its device time is a graph of 20 copies), stat_map_test 2 of 20 runs and
+# 80 of 100 steps (the robot reaches the mapped rows at step 66)
 BIG_PROFILE_CUT = ("--steps", "4")
 SMALL_PROFILE_CUT = ("--steps", "5")
 TOOL_CUTS = {
@@ -4442,7 +4474,13 @@ TOOL_CUTS = {
     "bench_surface_hash": ("--steps", "10", "--repeats", "1"),
     "ab_pool_dtype": ("--runs", "2", "--steps", "20"),
     "profile_step": ("--repeats", "3"),
+    "stat_map_test": ("--runs", "2", "--steps", "80"),
 }
+# profile_step's two shapes: its default (the unfolded lookup, K5, 20
+# contacts) and the bench's step (the fold, K1, contacts compacted to 8)
+STEP_SHAPES = {"gather": (),
+               "window": ("--lookup", "window", "--contact-cap", "8")}
+STEP_GAP_MAX = 0.20     # the stages' sum against the step, said beyond it
 # a float32 pool of 4 blocks per particle at 100,000 particles: 400,000
 # blocks of 40x40x4 slots x 4 fields = 40.96 GB of the card's 80 GB
 TOOLS_BIG_N = 100_000
@@ -4453,19 +4491,19 @@ def check(cond, label, message):
         raise RuntimeError(f"{label}: {message}")
 
 
-def run_tool(name, argv):
-    """``slam_eslam_tpu_torch.tools.<name>.main(argv)`` on the card; returns
-    its result, the kernel launches it made and its seconds."""
+def run_tool(name, argv, **kw):
+    """``slam_eslam_tpu_torch.tools.<name>.main(argv, **kw)`` on the card;
+    returns its result, the kernel launches it made and its seconds."""
     import importlib
 
     from slam_eslam_tpu_torch import ops
 
     tool = importlib.import_module(f"slam_eslam_tpu_torch.tools.{name}")
     argv = list(argv) + list(TOOL_CUTS.get(name, ()))
-    print(f"--- tools.{name} {' '.join(argv)}", flush=True)
+    print(f"--- tools.{name} {' '.join(argv)} {kw or ''}", flush=True)
     before = ops.launch_counts()
     t0 = time.perf_counter()
-    res = tool.main(argv)
+    res = tool.main(argv, **kw)
     seconds = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
     print(f"tools.{name}: {seconds:.1f} s, launches "
@@ -4560,6 +4598,114 @@ def lookup_run(name, card, argv=()):
     return res, launches
 
 
+def odometry_kernels(dev):
+    """``odometry.update`` at ``profile_step``'s bench shape (the step's
+    one part that no stage runs): the profiler's sum of its kernels in
+    ms, and its kernel-launch calls."""
+    from slam_eslam_tpu_torch.filter.step import cfg_odo
+    from slam_eslam_tpu_torch.models import odometry as odom
+    from slam_eslam_tpu_torch.tools import profile_step
+
+    cfg, _, state, cs, q = profile_step.setup(TOOLS_BIG_N, 8, "window", dev)
+    fn = lambda: odom.update(state.odometry, cs, q, cfg_odo(cfg))
+    fn()
+    return profile_step.kernels_and_launches(fn)
+
+
+def step_stages(card, dev, step_ms):
+    """``profile_step`` at both shapes, each stage a CUDA graph: every
+    stage graphed, finite and bit for bit an eager call; its device ms
+    (a graph of 20 copies), the profiler's sum of its kernels, host ms
+    and launch calls printed.  At the bench's shape the kernels of
+    ``project``, ``update_full``, ``centroid`` and ``odometry.update``
+    against the graphed step's (``step_ms``: ``profile_filter``'s
+    profiler sum a step), the same reading on both sides."""
+    from slam_eslam_tpu_torch.tools import profile_step
+
+    out = {}
+    for shape, argv in STEP_SHAPES.items():
+        label = f"profile_step[{shape}]"
+        res, launches, _ = run_tool("profile_step", argv)
+        for name, r in res.items():
+            check(r["graphed"] and r["finite"] and r["equal"] is True
+                  and r["ms"] > 0 and r["kernel_ms"] > 0, label,
+                  f"{name}: graphed {r['graphed']}, finite {r['finite']}, "
+                  f"equal {r['equal']}, ms {r['ms']}, kernels "
+                  f"{r['kernel_ms']}")
+            print(f"{label} {name}: device {r['ms']:.5f} ms "
+                  f"({profile_step.STAGE_REPS} copies in a graph), kernels "
+                  f"{r['kernel_ms']:.5f} ms, host {r['host_ms']:.4f} ms, "
+                  f"{r['launches']} launch calls, bound "
+                  f"{r['bound_ms']:.5f} ms; graphed vs eager bit for bit "
+                  f"[{card}]")
+        total = {k: sum(res[st][k] for st in profile_step.STEP_STAGES)
+                 for k in ("ms", "kernel_ms", "launches")}
+        print(f"{label}: {' + '.join(profile_step.STEP_STAGES)} = "
+              f"{total['ms']:.5f} ms device, kernels "
+              f"{total['kernel_ms']:.5f} ms, {total['launches']} launch "
+              f"calls [{card}]")
+        out[shape] = dict(
+            stages={k: {f: r[f] for f in ("ms", "kernel_ms", "host_ms",
+                                          "launches", "bound_ms")}
+                    for k, r in res.items()},
+            sum=total, launches=launches)
+    # the step is the bench's, so the sum stands against it at the
+    # bench's shape alone
+    odo_ms, odo_launches = odometry_kernels(dev)
+    kernels = out["window"]["sum"]["kernel_ms"] + odo_ms
+    gap = kernels / step_ms - 1.0
+    print(f"profile_step[window]: odometry.update kernels {odo_ms:.5f} ms, "
+          f"{odo_launches} launch calls; stages + odometry.update kernels "
+          f"{kernels:.5f} ms against the graphed step's kernels "
+          f"{step_ms:.5f} ms (profile_filter): {gap:+.1%}"
+          + (f", beyond {STEP_GAP_MAX:.0%}" if abs(gap) > STEP_GAP_MAX
+             else "") + f" [{card}]")
+    out["window"].update(step_ms=step_ms, odometry_ms=odo_ms,
+                         odometry_launches=odo_launches)
+    return out
+
+
+def spread_equal(card):
+    """``probe_spread`` graphed (its default on the card, one K1 launch
+    an update under replay) against its eager run on the same state and
+    generator: every per-step row bit for bit."""
+    res, launches = lookup_run("probe_spread", card)
+    check(res["graphed"], "probe_spread", "did not run graphed")
+    ref, _, _ = run_tool("probe_spread", (), graph=False)
+    keys = ("sx", "sy", "ess", "resampled")
+    same = all(np.array_equal(res[k], ref[k]) for k in keys)
+    print(f"probe_spread: graphed vs eager over {res['updates']} steps "
+          f"(extents, ESS, resampling) equal bit for bit: {same} [{card}]")
+    check(same, "probe_spread", "graphed and eager runs differ")
+    return launches
+
+
+def stat_map_equal(card, tmp):
+    """``stat_map_test batch`` with its evaluation graphed (the default on
+    the card) and eagerly: the raw arrays bit for bit, the result files
+    byte for byte, and the robot on the mapped rows."""
+    runs = {}
+    for mode, kw in (("graphed", {}), ("eager", {"graph": False})):
+        path = tmp / f"stat_map_{mode}.dat"
+        raw, _, seconds = run_tool("stat_map_test", (
+            "batch", "--result-file", str(path)), **kw)
+        runs[mode] = (raw, path.read_bytes(), seconds)
+    (got, got_file, got_s), (ref, ref_file, ref_s) = (runs["graphed"],
+                                                      runs["eager"])
+    counts = got.pop("graphs")
+    check(ref.pop("graphs") is None and counts and counts.get("replayed"),
+          "stat_map_test", f"graph counts {counts}")
+    same = all(np.array_equal(got[k], ref[k], equal_nan=True) for k in ref)
+    mapped = int(np.isfinite(got["map_z"]).sum())
+    print(f"stat_map_test: graphed ({got_s:.1f} s, evaluation graphs "
+          f"{counts}) vs eager ({ref_s:.1f} s): raw arrays equal bit for "
+          f"bit: {same}, result files identical: {got_file == ref_file}; "
+          f"{mapped} steps on mapped rows [{card}]")
+    check(same and got_file == ref_file and mapped > 0, "stat_map_test",
+          "graphed and eager runs differ, or no step reached the map")
+    return dict(counts=counts, graphed_s=got_s, eager_s=ref_s)
+
+
 def phase12(dev, card):
     """The measurement tools of ``tools/``, ported, on the card."""
     import tempfile
@@ -4595,13 +4741,15 @@ def phase12(dev, card):
         for n in (SLAM_N, TOOLS_BIG_N):
             out[f"slam_{n}"], launches[f"profile_slam_{n}"] = (
                 slam_profile_run(card, n, tmp))
-        _, launches["profile_filter"] = lookup_run(
+        res, launches["profile_filter"] = lookup_run(
             "profile_filter", card, ("--trace-dir", str(tmp / "filter")))
-        _, launches["probe_spread"] = lookup_run("probe_spread", card)
+        launches["probe_spread"] = spread_equal(card)
 
-        res, launches["profile_step"], _ = run_tool("profile_step", ())
-        bad = [name for name, r in res.items() if not r["finite"]]
-        check(not bad, "profile_step", f"stages {bad} not finite")
+        out["stages"] = step_stages(card, dev,
+                                    res["total_ms"] / res["updates"])
+        launches["profile_step"] = out["stages"]["gather"]["launches"]
+        launches["profile_step_window"] = out["stages"]["window"]["launches"]
+        out["stat_map"] = stat_map_equal(card, tmp)
 
         # the tool raises where an index does not bracket its position
         run_tool("profile_resample", ())
@@ -5563,6 +5711,7 @@ def main():
     p12_s = time.perf_counter() - t0
     slam_big = p12[f"slam_{TOOLS_BIG_N}"]
     k2_frame = p12["chain"]["kernel (K2)"]["ms_per_frame"]
+    step = p12["stages"]["window"]
     print(f"tools: K5 at Q = 2,000,000 {p12['k5']['ms']:.5f} ms (bound "
           f"{p12['k5']['bound_ms']:.5f} ms); K2 parity 0 at 4096 x 8, "
           f"{k2_frame:.4f} ms/frame; block copies "
@@ -5571,8 +5720,12 @@ def main():
           f"{records_text(slam_big)}); reinjection "
           f"{p12['hash']['reinjection_cost_ms_per_frame']} ms a frame; "
           f"bfloat16 - float32 ATE {p12['ab']['delta']['ate_mean']:.3e} m "
-          f"over {p12['ab']['config']['runs']} runs; phase 12 {p12_s:.1f} s "
-          f"[{card}]")
+          f"over {p12['ab']['config']['runs']} runs; the bench step's "
+          f"stages and odometry.update "
+          f"{step['sum']['kernel_ms'] + step['odometry_ms']:.4f} ms of "
+          f"kernels against the graphed step's {step['step_ms']:.4f} ms; "
+          f"phase 12 "
+          f"{p12_s:.1f} s [{card}]")
     p13 = phase13(dev, card)
     w13 = p13["world"]
     print(f"multi-rank: S1 {p13['s1']['ms']:.5f} ms at {N_BENCH} (one "
@@ -5605,7 +5758,8 @@ def main():
         **({"launches_replay_demo": p11["replay"]["launches"][name]}
            if name in p11["replay"]["launches"] else {}),
         **tool_launches(name, ("profile_filter", "probe_spread",
-                               "profile_step", "bench_kernels"))}
+                               "profile_step", "profile_step_window",
+                               "bench_kernels"))}
 
     f32c, bf16c = k7[""], k7["_bf16"]
 

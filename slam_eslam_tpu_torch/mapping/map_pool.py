@@ -60,8 +60,10 @@ import dataclasses
 
 import torch
 
-from slam_eslam_tpu_torch.mapping.mls_grid import (
-    META_UIDX_SHIFT, MLSGrid, PatchCloud, inverse_resolution, pack_meta)
+# the meta layout's names, where the JAX package's map_pool defines them
+from slam_eslam_tpu_torch.mapping.mls_grid import (  # noqa: F401
+    META_HORIZONTAL, META_UIDX_SHIFT, META_VALID, MLSGrid, PatchCloud,
+    inverse_resolution, pack_meta)
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
 

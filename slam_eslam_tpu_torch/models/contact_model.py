@@ -201,7 +201,11 @@ def evaluate_pose(state: BodyContactState, rot, trans, meas_var, map_lookup,
     ``:189-190``), then the weighting.  The group's debug point is its
     max-ratio member, as in the JAX package.  ``terrain_prob``: ``[C]``
     probabilities or a callable of ``(group_id, patch color)``."""
-    if float(meas_var) == 0.0:
+    # the reference's guard (ContactModel.cpp:122-123) reads the variance
+    # back: a CUDA graph's capture skips it, as the JAX package's trace does
+    captured = (torch.is_tensor(meas_var) and meas_var.is_cuda
+                and torch.cuda.is_current_stream_capturing())
+    if not captured and float(meas_var) == 0.0:
         raise ValueError("using a zero measurement variance leads to "
                          "singularities")
     c = state.c
@@ -210,9 +214,11 @@ def evaluate_pose(state: BodyContactState, rot, trans, meas_var, map_lookup,
     dtype = state.position.dtype
     active = state.valid & ~(state.contact < CONTACT_THRESHOLD)
 
-    offset = torch.tensor([0.0, 0.0, cfg.contact_point_radius], dtype=dtype,
-                          device=state.position.device)
-    world = state.position @ rot.T + trans - offset
+    # the radius off z alone, with no tensor built from host values (a
+    # copy a CUDA graph's capture refuses); x - 0 leaves x as it was
+    world = state.position @ rot.T + trans
+    world = torch.cat([world[..., :2],
+                       world[..., 2:] - cfg.contact_point_radius], dim=-1)
     found, mean, stdev, color = map_lookup(world)
 
     zdiff = world[..., 2] - mean

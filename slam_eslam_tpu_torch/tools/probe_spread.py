@@ -9,7 +9,10 @@ of steps whose cloud fits a 128-cell x ``lim`` window.  The measurement
 update's lookup is the port's ``make_lookup``: the contact fold, kernel K1
 on the card (the tool prints which lookup ran and its launches).  The
 port's lookup reads the whole grid, so the fits lines describe the cloud,
-not a window the port would need.
+not a window the port would need.  The JAX script runs every step in one
+jitted ``lax.scan``; here the steps run as a ``utils.graphs.ScanRunner``
+on the card (one CUDA graph of the step, replayed), eagerly on the CPU
+(``graph=`` of ``spread_run`` and ``main``, ``utils.graphs.resolve``).
 
 Usage: python -m slam_eslam_tpu_torch.tools.probe_spread
            [--particles 100000] [--steps 150] [--cpu]
@@ -60,7 +63,7 @@ def query_extents(cs, q, particles):
     wy = (rot[:, 1, 0][None] * px + rot[:, 1, 1][None] * py
           + rot[:, 1, 2][None] * pz + trans[:, 1][None])
     act = (cstate.valid & ~(cstate.contact < cm.CONTACT_THRESHOLD))[:, None]
-    big = torch.tensor(1e9, device=wx.device)
+    big = torch.full((), 1e9, device=wx.device)
     sx = (torch.where(act, wx, -big).max() - torch.where(act, wx, big).min()
           ) / RES
     sy = (torch.where(act, wy, -big).max() - torch.where(act, wy, big).min()
@@ -68,36 +71,59 @@ def query_extents(cs, q, particles):
     return sx, sy
 
 
-def spread_run(cfg, lookup, state, css, qs, draws=None):
-    """Every step: odometry, ``project``, the query cloud's extents and the
-    measurement update.  ``draws``: None (the state's generator) or one
-    ``filter.step.StepDraws`` per step.  Nothing is read back until the
-    end.  Returns ``{"sx", "sy", "ess", "resampled"}`` NumPy arrays."""
+def spread_step(cfg, lookup):
+    """One step of the probe, ``step(state, (contacts, orientation, draws
+    or None)) -> (state, [sx, sy, ess, resampled])``: odometry,
+    ``project``, the query cloud's extents and the measurement update."""
     from slam_eslam_tpu_torch.filter import pose_estimator as pe
     from slam_eslam_tpu_torch.filter.step import cfg_odo
     from slam_eslam_tpu_torch.models import odometry as odom
-    from slam_eslam_tpu_torch.utils import tree
 
-    rows = []
-    for t in range(qs.shape[0]):
-        cs, q = tree.index(css, t), qs[t]
-        d = None if draws is None else draws[t]
+    def step(state, x):
+        cs, q, d = x
         state = dataclasses.replace(state, odometry=odom.update(
             state.odometry, cs, q, cfg_odo(cfg)))
         state = pe.project(state, q, cfg, None if d is None else d.project)
         sx, sy = query_extents(cs, q, state.particles)
         state, aux = pe.update(state, cs, q, lookup, cfg,
                                None if d is None else d.resample_u)
-        rows.append(torch.stack([sx, sy, aux["ess"],
-                                 aux["resampled"].to(sx.dtype)]))
-    out = torch.stack(rows).cpu().numpy()
+        return state, torch.stack([sx, sy, aux["ess"],
+                                   aux["resampled"].to(sx.dtype)])
+
+    return step
+
+
+def spread_run(cfg, lookup, state, css, qs, draws=None, graph=None):
+    """Every step (``spread_step``) over the trajectory.  ``draws``: None
+    (the state's generator, carried through the graph) or one
+    ``filter.step.StepDraws`` per step.  ``graph``: as the port's runners
+    take it (None: a CUDA graph of the step on the card, the eager loop
+    on the CPU).  Nothing is read back until the end.  Returns ``{"sx",
+    "sy", "ess", "resampled"}`` NumPy arrays and ``graphed``."""
+    from slam_eslam_tpu_torch.utils import graphs, tree
+
+    step = spread_step(cfg, lookup)
+    xs = [(tree.index(css, t), qs[t], None if draws is None else draws[t])
+          for t in range(qs.shape[0])]
+    capture = graphs.resolve(graph, qs.device, what="spread_run")
+    if capture is None:
+        rows = []
+        for x in xs:
+            state, row = step(state, x)
+            rows.append(row)
+        out = torch.stack(rows)
+    else:
+        _, (out,) = graphs.ScanRunner(step, capture, "spread_run").run(
+            state, xs)
+    out = out.cpu().numpy()
     return dict(sx=out[:, 0], sy=out[:, 1], ess=out[:, 2],
-                resampled=out[:, 3].astype(bool))
+                resampled=out[:, 3].astype(bool), graphed=capture is not None)
 
 
-def main(argv=None):
-    """Run the probe; returns the per-step arrays, the fits shares, the
-    lookup that ran and the kernel launches."""
+def main(argv=None, graph=None):
+    """Run the probe (``graph``: as ``spread_run`` takes it); returns the
+    per-step arrays, the fits shares, the lookup that ran, the kernel
+    launches and whether the steps ran graphed."""
     from slam_eslam_tpu_torch import bench, ops
     from slam_eslam_tpu_torch.filter import pose_estimator as pe
     from slam_eslam_tpu_torch.mapping.lookup import make_lookup
@@ -125,9 +151,11 @@ def main(argv=None):
     print(f"lookup: {lookup_name(cfg, lookup)}")
     before = ops.launch_counts()
     t0 = time.perf_counter()
-    res = spread_run(cfg, lookup, state, css, qs)
+    res = spread_run(cfg, lookup, state, css, qs, graph=graph)
     profiling.sync()
-    print(f"compile+run: {time.perf_counter() - t0:.1f}s")
+    print(f"compile+run: {time.perf_counter() - t0:.1f}s ("
+          + ("graphed: the first step eager, the second captured, the rest "
+             "replayed)" if res["graphed"] else "eager)"))
     launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
     print(f"launches: {launches['contact_fold']} contact_fold, "
           f"{launches['select_cells']} select_cells in {args.steps} "

@@ -16,7 +16,14 @@ It is the one caller that drives the single-grid write side
 (``mls_grid.merge_points``) with the contact model in a loop.  The loop
 is driven from the host, step by step, as the reference's is; the noise
 comes from one explicit ``numpy`` generator per run, seeded as in the JAX
-tool, so both draw the same numbers.
+tool, so both draw the same numbers.  The JAX tool jits the z evaluation
+(``eval_step``); here it is one CUDA graph on the card
+(``utils.graphs.CallGraphs``: eager at its first meeting, captured at its
+second, replayed after), eager on the CPU (``graph=`` of ``run_batch`` and
+``main``, ``utils.graphs.resolve``).  ``merge_points`` replaces the grid
+on every step, so the grid goes into the graph's static inputs at each
+call; the map building stays eager, and the host reads whether the
+evaluation was used after the call, as in the JAX tool.
 
 Modes (like the reference): ``batch`` (default) and ``contact``
 (empirical pdf/cdf histograms -> contact.dat/nocontact.dat/pdfcdf.dat).
@@ -37,11 +44,50 @@ from slam_eslam_tpu_torch.config import ContactModelConfig
 from slam_eslam_tpu_torch.mapping import mls_grid
 from slam_eslam_tpu_torch.models import asguard
 from slam_eslam_tpu_torch.models import contact_model as cm
-from slam_eslam_tpu_torch.utils import geometry, tree
+from slam_eslam_tpu_torch.utils import geometry, graphs, tree
 from slam_eslam_tpu_torch.utils.device import entry_device
 
 
-def run_batch(args):
+def make_eval_step(sigma_body, cfg, device, graph=None):
+    """The z evaluation ``eval_step(cstate, grid, z_pos, z_var) -> (z_pos,
+    z_var, used)`` (device tensors in and out, no host read), one CUDA
+    graph on the card (``graph``: as the port's runners take it; None:
+    graphed on the card, eager on the CPU).  Every tensor it reads goes in
+    as a static input, so a grid replaced between calls is read anew."""
+    f32 = dict(dtype=torch.float32, device=device)
+    consts = (torch.eye(3, **f32), torch.tensor([0.0, 0.0, 1.0], **f32))
+
+    def evaluate(x):
+        cstate, grid, z_pos, z_var, (rot, up) = x
+        lookup = lambda pts: mls_grid.get_patch(grid, pts, 1e9)
+        res = cm.evaluate_pose(cstate, rot, up * z_pos,
+                               sigma_body ** 2 + z_var, lookup, cfg)
+        _, new_z, new_var = cm.update_z_position_estimate(res, z_pos, z_var)
+        use = res.measurement_valid
+        return (torch.where(use, new_z, z_pos),
+                torch.where(use, new_var, z_var), use)
+
+    capture = graphs.resolve(graph, device, what="stat_map_test")
+    cg = (None if capture is None
+          else graphs.CallGraphs(capture, "stat_map_test"))
+
+    def eval_step(cstate, grid, z_pos, z_var):
+        x = (cstate, grid, z_pos, z_var, consts)
+        if cg is None:
+            return evaluate(x)
+        # the grid's resolution is baked into the graph
+        return cg(("eval_step", grid.resolution), evaluate, x)
+
+    eval_step.graphs = cg
+    return eval_step
+
+
+def run_batch(args, graph=None):
+    """The batch experiment; writes the result file (or the raw arrays,
+    ``--save-raw``) and returns the raw arrays and, under ``"graphs"``,
+    the evaluation's graph counts (``CallGraphs.counts``; None when
+    eager).  ``graph``: the evaluation's, as ``make_eval_step`` takes
+    it."""
     device = entry_device("cpu" if args.cpu else None)
     cfg = ContactModelConfig(
         min_contacts=args.min_contacts,
@@ -49,6 +95,7 @@ def run_batch(args):
         contact_point_radius=0.0,
     )
     f32 = dict(dtype=torch.float32, device=device)
+    eval_step = make_eval_step(args.sigma_body, cfg, device, graph)
 
     steps = args.steps
     height_err = np.zeros((args.runs, steps))
@@ -58,17 +105,6 @@ def run_batch(args):
     map_sd = np.full((args.runs, steps), np.nan)
 
     q = geometry.quat_identity(device=device)
-    rot = torch.eye(3, **f32)
-    up = torch.tensor([0.0, 0.0, 1.0], **f32)
-
-    def eval_step(cstate, grid, z_pos, z_var):
-        lookup = lambda pts: mls_grid.get_patch(grid, pts, 1e9)
-        res = cm.evaluate_pose(cstate, rot, up * z_pos,
-                               args.sigma_body ** 2 + z_var, lookup, cfg)
-        _, new_z, new_var = cm.update_z_position_estimate(res, z_pos, z_var)
-        use = res.measurement_valid
-        return (torch.where(use, new_z, z_pos),
-                torch.where(use, new_var, z_var), use)
 
     for run in range(args.runs):
         print(f"run {run}     ", end="\r", file=sys.stderr)
@@ -126,13 +162,16 @@ def run_batch(args):
                 map_z[run, i] = float(m[0])
                 map_sd[run, i] = float(s[0])
 
+    raw = dict(height_err=height_err, z_vars=z_vars, forward=forward,
+               map_z=map_z, map_sd=map_sd)
     if args.save_raw:
-        np.savez(args.save_raw, height_err=height_err, z_vars=z_vars,
-                 forward=forward, map_z=map_z, map_sd=map_sd)
+        np.savez(args.save_raw, **raw)
         print(f"\nwrote {args.save_raw}", file=sys.stderr)
-        return
-    _write_result(args.result_file, height_err, z_vars, forward,
-                  map_z, map_sd)
+    else:
+        _write_result(args.result_file, height_err, z_vars, forward,
+                      map_z, map_sd)
+    cg = eval_step.graphs
+    return dict(raw, graphs=None if cg is None else cg.counts())
 
 
 def _write_result(path, height_err, z_vars, forward, map_z, map_sd):
@@ -203,7 +242,9 @@ def run_contact(args):
     print("wrote contact.dat nocontact.dat pdfcdf.dat")
 
 
-def main(argv=None):
+def main(argv=None, graph=None):
+    """The command line; ``graph``: the evaluation's (``run_batch``).
+    Returns ``run_batch``'s raw arrays in batch mode, else None."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("mode", nargs="?", default="batch",
                     choices=["batch", "contact"])
@@ -237,7 +278,7 @@ def main(argv=None):
     if args.merge_raw:
         merge_raw(args)
     elif args.mode == "batch":
-        run_batch(args)
+        return run_batch(args, graph)
     else:
         run_contact(args)
 

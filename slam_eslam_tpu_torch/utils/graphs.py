@@ -65,8 +65,9 @@ takes its mode from ``resolve``.
 
 ``CallGraphs`` is the counterpart of a ``jax.jit`` with static
 arguments for a function that is not a step of a runner: the pose-graph
-solves and the keyframe alignment, one graph per key of its static
-arguments.
+solves and the keyframe alignment, the stages of ``tools.profile_step``,
+the step of ``examples.localize_demo`` and the evaluation of
+``tools.stat_map_test``, one graph per key of its static arguments.
 
 **Under a profiler** every capture and every replay of a ``StepGraphs``
 is a span named ``CAPTURE_SPAN`` / ``REPLAY_SPAN`` and the graph's number
@@ -246,6 +247,19 @@ def leaves(tree):
 
     visit(tree)
     return out
+
+
+def equal_bits(got, ref):
+    """Every tensor of ``got`` equal to ``ref``'s bit for bit, with the
+    same dtype and shape (NaNs by their bits, ``-0.0`` not ``+0.0``);
+    returns ``(all equal, tensors compared)``."""
+    a, b = leaves(got), leaves(ref)
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.contiguous().view(-1).view(torch.uint8),
+            y.contiguous().view(-1).view(torch.uint8))
+        for x, y in zip(a, b))
+    return same, len(a)
 
 
 def structure(tree):
@@ -522,11 +536,15 @@ class CallGraphs:
     is hashable and holds every static argument ``fn`` bakes in (the
     non-tensor fields of ``x`` too: ``x``'s signature holds only its
     tensors' shapes); ``fn`` is kept at the key's first meeting and reads
-    no tensor outside ``x``.  Returns ``fn``'s outputs as new tensors."""
+    no tensor outside ``x``.  Returns ``fn``'s outputs as new tensors.
+    ``generator``: the ``torch.Generator`` that the functions draw from
+    (the caller's own), registered with every graph, so that a replay
+    advances it exactly as an eager call does."""
 
-    def __init__(self, capture, what):
+    def __init__(self, capture, what, generator=None):
         self.fns = {}
-        self.steps = StepGraphs(self._body, (), capture, what=what)
+        self.steps = StepGraphs(self._body, (), capture, generator,
+                                what=what)
 
     def _body(self, carry, x, key):
         return carry, self.fns[key](x)

@@ -12,6 +12,8 @@ at all (only stderr progress lines, ``PoseEstimator.cpp:350-351``).  Here:
   before every launch), and ``torch.profiler``'s time of the kernel by
   its name.  Events around a Python loop of wrapper calls read the host
   wherever a call costs the host more than the kernel costs the card,
+* ``launch_calls`` -- the host's kernel-launch calls of one call of a
+  function,
 * ``timed``        -- wall-clock timing that ends in a device sync,
 * ``sync``         -- ``torch.cuda.synchronize`` where there is a GPU,
 * ``StepLogger``   -- the stderr progress line, rate-limited (the
@@ -78,11 +80,15 @@ DEVICE_TIME_REPS = 200
 L2_FILL_BYTES = 64 * 2 ** 20
 
 
-def _replay_seconds(body, reps, replays):
+def _replay_seconds(body, reps, replays, generator=None):
     """Seconds per repetition of ``body()`` on the card: ``reps``
     repetitions captured into one CUDA graph, the graph replayed once to
-    warm up and then ``replays`` times between two events."""
+    warm up and then ``replays`` times between two events.  ``generator``
+    (a ``torch.Generator`` that ``body`` draws from) is registered with
+    the graph."""
     graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
     with torch.cuda.graph(graph):
         for _ in range(reps):
             body()
@@ -97,21 +103,25 @@ def _replay_seconds(body, reps, replays):
     return start.elapsed_time(end) * 1e-3 / (reps * replays)
 
 
-def device_time(launch, reps=DEVICE_TIME_REPS, replays=5):
+def device_time(launch, reps=DEVICE_TIME_REPS, replays=5, generator=None):
     """Seconds one launch of a kernel takes on the card, back to back
     (what it last touched may still lie in L2).  ``launch()`` must put
     the kernel on PyTorch's current stream and nothing else: no
-    allocation, no read-back, no synchronise (a kernel module's
-    ``launch``).  It is called ``DEVICE_TIME_WARMUP`` times eagerly and
+    read-back, no synchronise (a kernel module's ``launch``, or a
+    function of PyTorch operations, whose tensors come from the graph's
+    own pool).  It is called ``DEVICE_TIME_WARMUP`` times eagerly and
     ``reps`` times under capture; the time between graph nodes (about a
-    microsecond) is part of the reading.  Needs a CUDA device."""
+    microsecond) is part of the reading, the graph's own launch is spread
+    over ``reps``.  ``generator``: the ``torch.Generator`` that
+    ``launch`` draws from, registered with the graph.  Needs a CUDA
+    device."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_time needs a CUDA device: a kernel's "
                            "device time cannot be read on the CPU")
     for _ in range(DEVICE_TIME_WARMUP):
         launch()
     torch.cuda.synchronize()
-    return _replay_seconds(launch, reps, replays)
+    return _replay_seconds(launch, reps, replays, generator)
 
 
 def device_time_cold(launch, reps=DEVICE_TIME_REPS, replays=3,
@@ -176,9 +186,7 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
         events = prof.key_averages()
         seen = {e.key: e.count for e in events
                 if e.device_type == DeviceType.CUDA}
-        launched = {e.key: e.count for e in events
-                    if e.device_type != DeviceType.CUDA
-                    and "LaunchKernel" in e.key}
+        launched = _launch_counts(events)
         said = (f"{sum(seen.values())} device records for "
                 f"{sum(launched.values())} kernel launches in {calls} calls "
                 f"(kernel *{kernel_name or ''}*)")
@@ -203,6 +211,32 @@ def profiler_kernel_time(launch, kernel_name=None, calls=20):
         print(f"profiler_kernel_time: torch.profiler kept {said}",
               file=sys.stderr)
     return total_us * 1e-6 / (calls if kernel_name is None else count)
+
+
+def _launch_counts(events):
+    """``{name: calls}`` of the host's kernel-launch records among
+    ``torch.profiler``'s ``key_averages()``."""
+    from torch.autograd import DeviceType
+
+    return {e.key: e.count for e in events
+            if e.device_type != DeviceType.CUDA and "LaunchKernel" in e.key}
+
+
+def launch_calls(fn):
+    """The host's kernel-launch calls in one call of ``fn()`` ending in a
+    device sync: ``torch.profiler``'s host records of the CUDA runtime
+    (the tracer keeps them where it may lose device records).  None
+    without a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_launch_counts(prof.key_averages()).values())
 
 
 @contextlib.contextmanager

@@ -13,7 +13,10 @@ restored after a solve.  The log runtime: a log read onto the
 card by ``frames_from_log`` equals the CPU read bit for bit, and
 ``chain_layers`` on a bfloat16 pool on the card equals the CPU's.  The
 application as CUDA graphs (``EmbodiedSlamFilter(graph=True)``) equals
-the eager filter bit for bit in both map modes.  The
+the eager filter bit for bit in both map modes, and so do the functions
+the JAX tools and demos jit themselves (``profile_step``'s stages,
+``localize_demo``'s step, ``probe_spread``'s scan, ``stat_map_test``'s
+evaluation) graphed by default.  The
 ordered scan S1 (``csrc/ordered_scan.cu``, one launch) equals its plain
 version bit for bit on the card and on the CPU, signed zeros included,
 call after call, 1,000 calls in a row and replay after replay of a CUDA
@@ -1057,12 +1060,7 @@ def test_scan_align_matches_cpu(dev, steps_xy):
 
 def same_bits(a, b):
     """Every tensor of ``a`` equal to ``b``'s bit for bit."""
-    la, lb = graphs.leaves(a), graphs.leaves(b)
-    return len(la) == len(lb) and all(
-        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
-            x.contiguous().view(-1).view(torch.uint8),
-            y.contiguous().view(-1).view(torch.uint8))
-        for x, y in zip(la, lb))
+    return graphs.equal_bits(a, b)[0]
 
 
 POSE_SOLVES = {
@@ -1668,3 +1666,80 @@ def test_segment_sums_repeat_on_the_card(dev):
         got = cm.evaluate_pose(state, rot, trans, 0.01, lookup, cfg)
         for a, b in zip(graphs.leaves(got), graphs.leaves(ref), strict=True):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lookup", ["gather", "window"])
+def test_graphed_profile_step_stages_equal_eager(dev, lookup):
+    """``tools.profile_step`` on the card runs each stage as a CUDA graph
+    (its default): every stage's graphed outputs equal an eager call on
+    the same inputs and generator state bit for bit, with a device time,
+    its kernels' sum, a host time and the eager call's launch calls; K1
+    (window) or K5 (gather) launched by the lookup stages."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.tools import profile_step
+
+    before = ops.launch_counts()
+    res = profile_step.main(["--particles", "4096", "--repeats", "2",
+                             "--lookup", lookup, "--contact-cap", "8"])
+    after = ops.launch_counts()
+    for name, r in res.items():
+        assert r["graphed"] and r["equal"] is True and r["finite"], name
+        assert r["ms"] > 0 and r["kernel_ms"] > 0, name
+        assert r["host_ms"] > 0 and r["launches"] > 0, name
+    kernel = "contact_fold" if lookup == "window" else "select_cells"
+    assert after[kernel] > before[kernel]
+
+
+def test_graphed_localize_demo_equals_eager(dev):
+    """``examples.localize_demo``'s step as a CUDA graph (the default on
+    the card) equals the eager loop bit for bit, K5 once a step in both."""
+    from slam_eslam_tpu_torch.examples import localize_demo
+
+    quiet = lambda *a, **k: None
+    got = localize_demo.localize(12, 96, dev, log=quiet)
+    ref = localize_demo.localize(12, 96, dev, log=quiet, graph=False)
+    assert got["graphed"] and not ref["graphed"]
+    assert got["launches"] == ref["launches"] == 12
+    assert np.array_equal(got["centroids"], ref["centroids"])
+    assert got["ess"] == ref["ess"]
+    assert got["resampled"] == ref["resampled"]
+    assert same_bits(got["state"], ref["state"])
+    assert torch.equal(got["state"].generator.get_state(),
+                       ref["state"].generator.get_state())
+
+
+def test_graphed_spread_run_equals_eager(dev):
+    """``tools.probe_spread``'s scan as CUDA graphs (the default on the
+    card) equals the eager loop bit for bit, the state's generator drawn
+    in the graph; K1 once a measurement update under replay."""
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.tools import probe_spread
+
+    before = ops.launch_counts()
+    got = probe_spread.main(["--particles", "4096", "--steps", "10"])
+    assert got["launches"]["contact_fold"] == 10
+    ref = probe_spread.main(["--particles", "4096", "--steps", "10"],
+                            graph=False)
+    assert ops.launch_counts()["contact_fold"] - before["contact_fold"] == 20
+    for key in ("sx", "sy", "ess", "resampled"):
+        assert np.array_equal(got[key], ref[key]), key
+
+
+def test_graphed_stat_map_test_equals_eager(dev, tmp_path):
+    """``tools.stat_map_test``'s evaluation as a CUDA graph (the default on
+    the card): the raw arrays equal the eager run's bit for bit and the
+    result files are identical."""
+    from slam_eslam_tpu_torch.tools import stat_map_test
+
+    runs = []
+    for name, graph in (("graphed", None), ("eager", False)):
+        path = tmp_path / f"{name}.dat"
+        raw = stat_map_test.main(["batch", "--steps", "30", "--runs", "2",
+                                  "--result-file", str(path)], graph=graph)
+        runs.append((raw, path.read_text()))
+    (got, got_file), (ref, ref_file) = runs
+    assert ref.pop("graphs") is None
+    assert got.pop("graphs")["replayed"] > 0
+    for key in ref:
+        assert np.array_equal(got[key], ref[key], equal_nan=True), key
+    assert got_file == ref_file

@@ -2,9 +2,13 @@
 ``slam_eslam_tpu`` (it keeps its own copy of the configuration): it has
 to run where neither is present."""
 
+import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -134,3 +138,61 @@ def test_matplotlib_is_imported_only_to_draw():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# JAX modules with no counterpart, and public names a counterpart lacks,
+# each by design (ROADMAP.md, Queue 1)
+NO_COUNTERPART = {
+    # Pallas kernels: their ports are ops/*.py with csrc/*.cu
+    "ops/pallas_gather.py", "ops/pallas_chain.py", "ops/pallas_merge.py",
+    # XLA's persistent compile cache: ops/_build.py keeps built kernels
+    "utils/cache.py",
+}
+NOT_PORTED = {
+    # a TPU gather workaround (one gather of ten bitcast lanes); the port
+    # takes ``take`` (tools/profile_resample.py keeps a copy)
+    ("core/filter.py", "take_packed"),
+    # the TPU matrix unit's utilisation; the port has fold_roofline
+    ("utils/kernel_eff.py", "fold_mfu"),
+    ("utils/kernel_eff.py", "fold_flops_per_particle"),
+}
+JAX_MODULES = sorted(
+    str(p.relative_to(REPO / "slam_eslam_tpu"))
+    for p in (REPO / "slam_eslam_tpu").rglob("*.py"))
+
+
+def public_names(path):
+    """The public names a module defines at its top level (functions,
+    classes, assignments), read from its source: nothing is imported."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            names.update(n.id for t in targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_public_name_has_its_counterpart(rel):
+    """Each public top-level name of a module of the JAX package resolves
+    on its counterpart under ``slam_eslam_tpu_torch`` (a re-export
+    counts); the exceptions are listed above with their reasons."""
+    if rel in NO_COUNTERPART:
+        assert not (REPO / "slam_eslam_tpu_torch" / rel).exists(), rel
+        return
+    parts = Path(rel).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    port = importlib.import_module(".".join(("slam_eslam_tpu_torch",)
+                                            + parts))
+    wanted = public_names(REPO / "slam_eslam_tpu" / rel)
+    missing = sorted(n for n in wanted if not hasattr(port, n)
+                     and (rel, n) not in NOT_PORTED)
+    assert not missing, f"{port.__name__} lacks {missing}"
+    stale = sorted(n for r, n in NOT_PORTED if r == rel and n not in wanted)
+    assert not stale, f"listed as not ported but gone from {rel}: {stale}"

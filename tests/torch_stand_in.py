@@ -55,13 +55,7 @@ class StandIn:
 
 def assert_bitwise(got, ref):
     """Every tensor of ``got`` equal to ``ref``'s bit for bit (NaNs by
-    their bits), with the same dtype and shape."""
-    a, b = graphs.leaves(got), graphs.leaves(ref)
-    assert len(a) == len(b) and a
-    for i, (x, y) in enumerate(zip(a, b)):
-        assert x.dtype == y.dtype and x.shape == y.shape, i
-        if x.dtype == torch.bool:
-            assert torch.equal(x, y), i
-        else:
-            assert torch.equal(x.contiguous().view(-1).view(torch.uint8),
-                               y.contiguous().view(-1).view(torch.uint8)), i
+    their bits), with the same dtype and shape
+    (``utils.graphs.equal_bits``)."""
+    same, n = graphs.equal_bits(got, ref)
+    assert same and n, f"{n} tensors compared, equal: {same}"
