@@ -1,0 +1,5 @@
+"""Share of the traced stretch of the localisation replay in which
+nothing ran on the card: one less the union of the device records'
+intervals over the stretch's length."""
+
+from benchmark.harness.readers import idle_share as read  # noqa: F401
