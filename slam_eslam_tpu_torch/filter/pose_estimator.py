@@ -35,7 +35,7 @@ from slam_eslam_tpu_torch.core import filter as pf
 from slam_eslam_tpu_torch.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu_torch.models import contact_model as cm
 from slam_eslam_tpu_torch.models import odometry as odom
-from slam_eslam_tpu_torch.utils import geometry, tree
+from slam_eslam_tpu_torch.utils import geometry, tracing, tree
 from slam_eslam_tpu_torch.utils.device import entry_device
 
 
@@ -150,55 +150,56 @@ def project(state: PoseEstimatorState, orientation, cfg: Config,
     when the max weight collapsed.  The draws of the spreading are taken
     either way.  On a mesh ``draws`` are the global ones (drawn globally
     when not given) and this rank takes its slice."""
-    p = state.particles
-    if draws is None:
-        draws = ProjectDraws.sample(global_count(p, mesh), state.generator,
-                                    p.x.device)
-    draws = draws.local(mesh)
+    with tracing.stage("project", state.particles.x.device):
+        p = state.particles
+        if draws is None:
+            draws = ProjectDraws.sample(global_count(p, mesh), state.generator,
+                                        p.x.device)
+        draws = draws.local(mesh)
 
-    yaw_meas = geometry.yaw_from_quat(orientation)
-    z_delta, z_var = odom.z_delta_and_var(state.odometry, orientation)
-    dxy, dyaw = odom.pose_delta_samples_2d(state.odometry, draws.delta_xy,
-                                           draws.delta_yaw)
-    # slip model (PoseEstimator.cpp:199-202): with probability
-    # slip_factor the longitudinal (y) component shrinks by U(0, 1)
-    slip = draws.slip < cfg.slip_factor
-    dx0 = dxy[:, 0]
-    dy0 = dxy[:, 1] * torch.where(slip, draws.shrink,
-                                  torch.ones_like(draws.shrink))
+        yaw_meas = geometry.yaw_from_quat(orientation)
+        z_delta, z_var = odom.z_delta_and_var(state.odometry, orientation)
+        dxy, dyaw = odom.pose_delta_samples_2d(state.odometry, draws.delta_xy,
+                                               draws.delta_yaw)
+        # slip model (PoseEstimator.cpp:199-202): with probability
+        # slip_factor the longitudinal (y) component shrinks by U(0, 1)
+        slip = draws.slip < cfg.slip_factor
+        dx0 = dxy[:, 0]
+        dy0 = dxy[:, 1] * torch.where(slip, draws.shrink,
+                                      torch.ones_like(draws.shrink))
 
-    c, s = torch.cos(p.yaw), torch.sin(p.yaw)
-    x = p.x + c * dx0 - s * dy0
-    y = p.y + s * dx0 + c * dy0
-    yaw = p.yaw + dyaw
+        c, s = torch.cos(p.yaw), torch.sin(p.yaw)
+        x = p.x + c * dx0 - s * dy0
+        y = p.y + s * dx0 + c * dy0
+        yaw = p.yaw + dyaw
 
-    weight = p.weight
-    if cfg.max_yaw_deviation > 0.0:
-        d = yaw - yaw_meas
-        dev = torch.atan2(torch.sin(d), torch.cos(d))
-        weight = torch.where(dev.abs() > cfg.max_yaw_deviation,
-                             weight * 0.7, weight)
+        weight = p.weight
+        if cfg.max_yaw_deviation > 0.0:
+            d = yaw - yaw_meas
+            dev = torch.atan2(torch.sin(d), torch.cos(d))
+            weight = torch.where(dev.abs() > cfg.max_yaw_deviation,
+                                 weight * 0.7, weight)
 
-    z = p.z + z_delta
-    z_sigma = torch.sqrt(p.z_sigma ** 2 + z_var)
+        z = p.z + z_delta
+        z_sigma = torch.sqrt(p.z_sigma ** 2 + z_var)
 
-    if not use_hash and cfg.spread_threshold > 0.0:
-        # recovery spreading (PoseEstimator.cpp:224-236), scaled by how
-        # far the max weight has collapsed
-        spread = weighting_function(state.max_weight, 0.0,
-                                    cfg.spread_threshold, 0.0)
-        trans_fac = cfg.spread_translation_factor * spread
-        rot_fac = cfg.spread_rotation_factor * spread
-        noise = draws.spread_xy * trans_fac
-        x = x + noise[:, 0]
-        y = y + noise[:, 1]
-        yaw = yaw + draws.spread_yaw * rot_fac
+        if not use_hash and cfg.spread_threshold > 0.0:
+            # recovery spreading (PoseEstimator.cpp:224-236), scaled by how
+            # far the max weight has collapsed
+            spread = weighting_function(state.max_weight, 0.0,
+                                        cfg.spread_threshold, 0.0)
+            trans_fac = cfg.spread_translation_factor * spread
+            rot_fac = cfg.spread_rotation_factor * spread
+            noise = draws.spread_xy * trans_fac
+            x = x + noise[:, 0]
+            y = y + noise[:, 1]
+            yaw = yaw + draws.spread_yaw * rot_fac
 
-    particles = dataclasses.replace(
-        p, x=x, y=y, yaw=yaw, z=z, z_sigma=z_sigma, weight=weight
-    )
-    return dataclasses.replace(state, particles=particles,
-                               step=state.step + 1)
+        particles = dataclasses.replace(
+            p, x=x, y=y, yaw=yaw, z=z, z_sigma=z_sigma, weight=weight
+        )
+        return dataclasses.replace(state, particles=particles,
+                                   step=state.step + 1)
 
 
 def bind_lookup(map_lookup, map_id):
@@ -255,40 +256,42 @@ def update_weights(state: PoseEstimatorState, contact_state: BodyContactState,
     ``cfg.log_debug`` asks for the debug contact points, which take the
     unfolded lookup.  Returns ``(new_state, ContactEvalResult)``.
     """
-    cstate = cm.set_contact_points(contact_state, orientation)
-    p = state.particles
-    rot, trans = p.pose_matrix()
-    meas_var = p.z_sigma ** 2 + cfg.measurement_error ** 2
-    res = cm.evaluate_pose_batch(
-        cstate, rot, trans, meas_var, bind_lookup(map_lookup, p.map_id),
-        cfg.contact_model, terrain_prob=terrain_prob,
-        with_debug_points=cfg.log_debug,
-    )
-    valid = res.measurement_valid
+    with tracing.stage("weights", state.particles.x.device):
+        cstate = cm.set_contact_points(contact_state, orientation)
+        p = state.particles
+        rot, trans = p.pose_matrix()
+        meas_var = p.z_sigma ** 2 + cfg.measurement_error ** 2
+        res = cm.evaluate_pose_batch(
+            cstate, rot, trans, meas_var, bind_lookup(map_lookup, p.map_id),
+            cfg.contact_model, terrain_prob=terrain_prob,
+            with_debug_points=cfg.log_debug,
+        )
+        valid = res.measurement_valid
 
-    # Kalman z update for particles with a valid measurement
-    # (PoseEstimator.cpp:293-296)
-    _, new_z, new_zvar = cm.update_z_position_estimate(res, p.z,
-                                                       p.z_sigma ** 2)
-    z = torch.where(valid, new_z, p.z)
-    z_sigma = torch.where(valid, torch.sqrt(new_zvar), p.z_sigma)
+        # Kalman z update for particles with a valid measurement
+        # (PoseEstimator.cpp:293-296)
+        _, new_z, new_zvar = cm.update_z_position_estimate(res, p.z,
+                                                           p.z_sigma ** 2)
+        z = torch.where(valid, new_z, p.z)
+        z_sigma = torch.where(valid, torch.sqrt(new_zvar), p.z_sigma)
 
-    weight = torch.where(valid, p.weight * res.weight, p.weight)
-    mprob = torch.where(valid, res.weight, torch.ones_like(res.weight))
+        weight = torch.where(valid, p.weight * res.weight, p.weight)
+        mprob = torch.where(valid, res.weight, torch.ones_like(res.weight))
 
-    factor, total_points, max_meas = discount_terms(
-        valid, res.weight, res.n_contacts, cfg.discount_factor, mesh)
-    weight = weight * factor
+        factor, total_points, max_meas = discount_terms(
+            valid, res.weight, res.n_contacts, cfg.discount_factor, mesh)
+        weight = weight * factor
 
-    max_weight = torch.where(total_points == 0,
-                             state.max_weight * cfg.discount_factor, max_meas)
+        max_weight = torch.where(total_points == 0,
+                                 state.max_weight * cfg.discount_factor,
+                                 max_meas)
 
-    particles = dataclasses.replace(
-        p, z=z, z_sigma=z_sigma, weight=weight, mprob=mprob,
-        floating=~valid, n_contacts=res.n_contacts,
-    )
-    return dataclasses.replace(state, particles=particles,
-                               max_weight=max_weight), res
+        particles = dataclasses.replace(
+            p, z=z, z_sigma=z_sigma, weight=weight, mprob=mprob,
+            floating=~valid, n_contacts=res.n_contacts,
+        )
+        return dataclasses.replace(state, particles=particles,
+                                   max_weight=max_weight), res
 
 
 def update(state: PoseEstimatorState, contact_state: BodyContactState,
@@ -313,31 +316,32 @@ def update(state: PoseEstimatorState, contact_state: BodyContactState,
     """
     state, res = update_weights(state, contact_state, orientation,
                                 map_lookup, cfg, terrain_prob, mesh=mesh)
-    p = state.particles
-    n = global_count(p, mesh)
-    weight_all, ess = pf.normalize_weights(
-        p.weight if mesh is None else mesh.all_gather(p.weight))
-    weight = weight_all if mesh is None else mesh.local(weight_all)
-    if resample_u is None:
-        resample_u = torch.rand((n,), generator=state.generator,
-                                device=weight.device)
-    do_resample = ess < cfg.min_effective
-    lo, hi = (0, n) if mesh is None else mesh.bounds(n)
-    ident = torch.arange(lo, hi, device=weight.device)
-    p_norm = dataclasses.replace(p, weight=weight)
-    if resampler is not None:
-        moved, idx_r = resampler(resample_u, weight, p_norm)
-        idx = torch.where(do_resample, idx_r.long(), ident)
-        particles = tree.where(do_resample, moved, p_norm)
-    else:
-        slots = None if mesh is None else (lo, hi)
-        idx = torch.where(
-            do_resample, pf.resample_stratified(weight_all, resample_u, slots),
-            ident)
-        particles = pf.take(p_norm, idx, mesh)
-    state = dataclasses.replace(state, particles=particles)
-    return state, {"eval": res, "ess": ess, "resampled": do_resample,
-                   "resample_idx": idx}
+    with tracing.stage("resample", state.particles.x.device):
+        p = state.particles
+        n = global_count(p, mesh)
+        weight_all, ess = pf.normalize_weights(
+            p.weight if mesh is None else mesh.all_gather(p.weight))
+        weight = weight_all if mesh is None else mesh.local(weight_all)
+        if resample_u is None:
+            resample_u = torch.rand((n,), generator=state.generator,
+                                    device=weight.device)
+        do_resample = ess < cfg.min_effective
+        lo, hi = (0, n) if mesh is None else mesh.bounds(n)
+        ident = torch.arange(lo, hi, device=weight.device)
+        p_norm = dataclasses.replace(p, weight=weight)
+        if resampler is not None:
+            moved, idx_r = resampler(resample_u, weight, p_norm)
+            idx = torch.where(do_resample, idx_r.long(), ident)
+            particles = tree.where(do_resample, moved, p_norm)
+        else:
+            slots = None if mesh is None else (lo, hi)
+            idx = torch.where(
+                do_resample,
+                pf.resample_stratified(weight_all, resample_u, slots), ident)
+            particles = pf.take(p_norm, idx, mesh)
+        state = dataclasses.replace(state, particles=particles)
+        return state, {"eval": res, "ess": ess, "resampled": do_resample,
+                       "resample_idx": idx}
 
 
 def centroid(particles: ParticleSet, orientation, wrap_safe=False,
@@ -350,21 +354,23 @@ def centroid(particles: ParticleSet, orientation, wrap_safe=False,
     mesh the weights are normalised over every rank and the weighted terms
     all-gathered and summed in the single process's order: every rank
     gets the single process's centroid, bit for bit."""
-    if mesh is None:
-        w, _ = pf.normalize_weights(particles.weight)
-    else:
-        w = mesh.local(pf.normalize_weights(
-            mesh.all_gather(particles.weight))[0])
-    terms = [particles.x * w, particles.y * w, particles.z * w]
-    if wrap_safe:
-        terms += [torch.sin(particles.yaw) * w, torch.cos(particles.yaw) * w]
-    else:
-        terms.append(particles.yaw * w)
-    if mesh is not None:
-        terms = mesh.all_gather(torch.stack(terms, dim=1)).T.contiguous()
-    sums = torch.stack([t.sum() for t in terms])
-    cx, cy, z = sums[0], sums[1], sums[2]
-    yaw = torch.atan2(sums[3], sums[4]) if wrap_safe else sums[3]
-    q = geometry.quat_mul(geometry.quat_from_yaw(yaw),
-                          geometry.remove_yaw(orientation))
-    return torch.stack([cx, cy, z]), q
+    with tracing.stage("centroid", particles.x.device):
+        if mesh is None:
+            w, _ = pf.normalize_weights(particles.weight)
+        else:
+            w = mesh.local(pf.normalize_weights(
+                mesh.all_gather(particles.weight))[0])
+        terms = [particles.x * w, particles.y * w, particles.z * w]
+        if wrap_safe:
+            terms += [torch.sin(particles.yaw) * w,
+                      torch.cos(particles.yaw) * w]
+        else:
+            terms.append(particles.yaw * w)
+        if mesh is not None:
+            terms = mesh.all_gather(torch.stack(terms, dim=1)).T.contiguous()
+        sums = torch.stack([t.sum() for t in terms])
+        cx, cy, z = sums[0], sums[1], sums[2]
+        yaw = torch.atan2(sums[3], sums[4]) if wrap_safe else sums[3]
+        q = geometry.quat_mul(geometry.quat_from_yaw(yaw),
+                              geometry.remove_yaw(orientation))
+        return torch.stack([cx, cy, z]), q

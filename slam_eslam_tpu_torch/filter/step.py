@@ -33,7 +33,7 @@ import torch
 from slam_eslam_tpu_torch.config import Config, OdometryConfig
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.models import odometry as odom
-from slam_eslam_tpu_torch.utils import graphs, tree
+from slam_eslam_tpu_torch.utils import graphs, tracing, tree
 
 
 @dataclasses.dataclass
@@ -127,18 +127,19 @@ def _filter_step(gated, capture):
     gates = {}
 
     def graphed(state, contact_state, orientation, gate_ref, draws=None):
-        device = state.step.device
-        gate = gates.get(device)
-        if gate is None:
-            gate = gates[device] = torch.zeros(2, device=device)
-        for i, v in enumerate(gate_ref):
-            if torch.is_tensor(v):
-                gate[i].copy_(v)
-            else:
-                gate[i].fill_(v)
-        state, (ess, updated) = runner.run(
-            state, [(contact_state, orientation, gate, draws)])
-        return state, {"ess": ess[0], "updated": updated[0]}
+        with tracing.call("make_filter_step", runner.traced()):
+            device = state.step.device
+            gate = gates.get(device)
+            if gate is None:
+                gate = gates[device] = torch.zeros(2, device=device)
+            for i, v in enumerate(gate_ref):
+                if torch.is_tensor(v):
+                    gate[i].copy_(v)
+                else:
+                    gate[i].fill_(v)
+            state, (ess, updated) = runner.run(
+                state, [(contact_state, orientation, gate, draws)])
+            return state, {"ess": ess[0], "updated": updated[0]}
 
     graphed.graphs = runner
     return graphed
@@ -186,11 +187,13 @@ def _scan_runner(step, capture):
                                    "make_scan_runner")
 
         def graphed(state, contact_states, orientations, draws=None):
-            xs = [(tree.index(contact_states, t), orientations[t],
-                   None if draws is None else draws[t])
-                  for t in range(orientations.shape[0])]
-            state, (cents,) = runner.run(state, xs)
-            return state, cents
+            with tracing.call("make_scan_runner", runner.traced()):
+                with tracing.span("scan inputs"):
+                    xs = [(tree.index(contact_states, t), orientations[t],
+                           None if draws is None else draws[t])
+                          for t in range(orientations.shape[0])]
+                state, (cents,) = runner.run(state, xs)
+                return state, cents
 
         graphed.graphs = runner
         return graphed

@@ -62,7 +62,7 @@ from slam_eslam_tpu_torch.mapping import map_pool as mp
 from slam_eslam_tpu_torch.mapping import projection
 from slam_eslam_tpu_torch.models import odometry as odom
 from slam_eslam_tpu_torch.parallel import sharding as shd
-from slam_eslam_tpu_torch.utils import graphs, tree
+from slam_eslam_tpu_torch.utils import graphs, tracing, tree
 from slam_eslam_tpu_torch.utils.device import entry_device, to_device_async
 
 f32 = np.float32
@@ -256,11 +256,12 @@ def own_heads(cfg: Config, pool, p, failed=None):
     (``EmbodiedSlamFilter.cpp:195-207``), in place: ``(pool, failed``
     plus the particles the pool had no block for``)``; ``failed`` None
     counts from nothing."""
-    pool, f1 = mp.ensure_unique_active(pool, shards=cfg.map_pool_shards)
-    pool, f2 = mp.rollover(pool, p.xy,
-                           cfg.grid_size / 2.0 * cfg.grid_threshold,
-                           shards=cfg.map_pool_shards)
-    return pool, (f1 if failed is None else failed + f1) + f2
+    with tracing.stage("own heads", p.x.device):
+        pool, f1 = mp.ensure_unique_active(pool, shards=cfg.map_pool_shards)
+        pool, f2 = mp.rollover(pool, p.xy,
+                               cfg.grid_size / 2.0 * cfg.grid_threshold,
+                               shards=cfg.map_pool_shards)
+        return pool, (f1 if failed is None else failed + f1) + f2
 
 
 def follow_chains(st, pool, idx, in_place, mesh=None):
@@ -285,11 +286,13 @@ def measure(cfg: Config, st, pool, contact, q, resample_u, in_place,
     K2; ``EmbodiedSlamFilter.cpp:353-369``) and the chains following the
     resampled particles.  Returns ``(state, pool, aux)`` (``aux`` of
     ``pose_estimator.update``)."""
-    lookup = mp.make_chain_lookup(pool, cfg.mls_z_window, mesh=mesh)
-    st, aux = pe.update(st, contact, q, lookup, cfg, resample_u,
-                        terrain_prob, mesh=mesh)
-    st, pool = follow_chains(st, pool, aux["resample_idx"], in_place, mesh)
-    return st, pool, aux
+    with tracing.stage("measure", st.particles.x.device):
+        lookup = mp.make_chain_lookup(pool, cfg.mls_z_window, mesh=mesh)
+        st, aux = pe.update(st, contact, q, lookup, cfg, resample_u,
+                            terrain_prob, mesh=mesh)
+        st, pool = follow_chains(st, pool, aux["resample_idx"], in_place,
+                                 mesh)
+        return st, pool, aux
 
 
 def weigh_by_match(st, score, mesh=None):
@@ -336,7 +339,8 @@ def map_cloud(cfg: Config, st, pool, p, cloud, update_idx, failed=None,
     if update:
         pool, failed = own_heads(cfg, pool, p, failed)
         if free is not None:
-            mp.apply_negative_cloud_all(pool, p.xy, p.yaw, p.z, *free)
+            with tracing.stage("merge", p.x.device):
+                mp.apply_negative_cloud_all(pool, p.xy, p.yaw, p.z, *free)
     if match:
         w = mp.match_cloud_all(pool, p.xy, p.yaw, p.z, p.z_sigma, cloud,
                                sampling=10, sigma=0.2,
@@ -345,10 +349,11 @@ def map_cloud(cfg: Config, st, pool, p, cloud, update_idx, failed=None,
             w = mesh.all_gather(w)
         st = weigh_by_match(st, w, mesh)
     if update:
-        mp.merge_cloud_all(pool, p.xy, p.yaw, p.z, p.z_sigma, cloud,
-                           update_idx,
-                           patch_thickness=cfg.grid_patch_thickness,
-                           gap_size=cfg.grid_gap_size)
+        with tracing.stage("merge", p.x.device):
+            mp.merge_cloud_all(pool, p.xy, p.yaw, p.z, p.z_sigma, cloud,
+                               update_idx,
+                               patch_thickness=cfg.grid_patch_thickness,
+                               gap_size=cfg.grid_gap_size)
         update_idx = update_idx + 1
     return st, pool, failed, update_idx
 
@@ -511,11 +516,13 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
         return host
 
     def propagate(st, contact, q, odo_state, draws):
-        st = dataclasses.replace(st, odometry=(
-            odo_state if external_odometry
-            else odom.update(st.odometry, contact, q, odo_cfg)))
-        return pe.project(st, q, cfg, None if draws is None else draws.project,
-                          use_hash=hash_ is not None, mesh=mesh)
+        with tracing.stage("propagate", q.device):
+            st = dataclasses.replace(st, odometry=(
+                odo_state if external_odometry
+                else odom.update(st.odometry, contact, q, odo_cfg)))
+            return pe.project(st, q, cfg,
+                              None if draws is None else draws.project,
+                              use_hash=hash_ is not None, mesh=mesh)
 
     def laser_map(st, pool, failed, update_idx, q, scan):
         """The laser mapping update (``EmbodiedSlamFilter.cpp:311-351``):
@@ -556,9 +563,10 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
                                   in_place, mesh)
         if do_hash:
             # on a mesh over every particle, from the global draws
-            st = shd.shard_state(hash_.reinject(
-                shd.gather_state(st, mesh), contact, q, cfg,
-                None if draws is None else draws.hash_u), mesh)
+            with tracing.stage("reinject", q.device):
+                st = shd.shard_state(hash_.reinject(
+                    shd.gather_state(st, mesh), contact, q, cfg,
+                    None if draws is None else draws.hash_u), mesh)
         if do_map:
             st, pool, failed, update_idx = laser_map(
                 st, pool, failed, update_idx, q,
@@ -568,7 +576,9 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
                 st, pool, failed, update_idx, q, dimg, timg)
         c_pos, _ = pe.centroid(st.particles, q,
                                wrap_safe=cfg.wrap_safe_centroid, mesh=mesh)
-        return st, pool, failed, update_idx, (c_pos, best(st.particles))
+        with tracing.stage("centroid", q.device):
+            best_pose = best(st.particles)
+        return st, pool, failed, update_idx, (c_pos, best_pose)
 
     def frame_inputs(frame: SlamFrames, odo_state, draws):
         """The device inputs of a frame: what ``device_step`` reads."""
@@ -655,13 +665,14 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
             """One graphed frame: the host gates, then the graph of their
             combination.  Returns the carry's new host fields, the static
             ``(centroid, best_pose)`` and the gates."""
-            key, laser_pos, cam_pos = gates(carry, q_h, pos_h, has_scan,
-                                            has_dimg)
-            y = sg.step(key, x)
-            host = host_fields(carry, key, q_h, pos_h, laser_pos, cam_pos)
-            host["update_idx"] = (carry.update_idx + int(key[1] and update)
-                                  + int(key[2]))
-            return host, y, key
+            with tracing.span("frame gates"):
+                key, laser_pos, cam_pos = gates(carry, q_h, pos_h, has_scan,
+                                                has_dimg)
+                host = host_fields(carry, key, q_h, pos_h, laser_pos,
+                                   cam_pos)
+                host["update_idx"] = (carry.update_idx
+                                      + int(key[1] and update) + int(key[2]))
+            return host, sg.step(key, x), key
 
         def result(sg, carry):
             """The carry after a graphed run (``carry``: the caller's, its
@@ -678,13 +689,16 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
 
         def graphed(carry: StreamingState, frame: SlamFrames,
                     odo_state=None, draws: StepDraws | None = None):
-            sg = bind(carry)
-            host, (c_pos, best_pose), key = frame_step(
-                sg, carry, frame_inputs(frame, odo_state, draws),
-                frame.host_q, frame.host_body_pos, frame.host_has_scan,
-                frame.host_has_dimg)
-            return result(sg, dataclasses.replace(carry, **host)), \
-                frame_aux(key, c_pos.clone(), best_pose.clone())
+            with tracing.call("make_slam_step", per_shape.traced()):
+                with tracing.span("frame bind"):
+                    sg = bind(carry)
+                host, (c_pos, best_pose), key = frame_step(
+                    sg, carry, frame_inputs(frame, odo_state, draws),
+                    frame.host_q, frame.host_body_pos, frame.host_has_scan,
+                    frame.host_has_dimg)
+                with tracing.span("frame result"):
+                    return result(sg, dataclasses.replace(carry, **host)), \
+                        frame_aux(key, c_pos.clone(), best_pose.clone())
 
         graphed.bind, graphed.frame_step = bind, frame_step
         graphed.result = result
@@ -775,6 +789,10 @@ def _slam_scan_runner(step, capture, flags, check, external_odometry):
     def graphed(carry: StreamingState, frames: SlamFrames, odos=None,
                 draws=None):
         check(odos)
+        with tracing.call("make_slam_scan_runner", step.per_shape.traced()):
+            return run_graphed(carry, frames, odos, draws)
+
+    def run_graphed(carry, frames, odos, draws):
         n = len(frames)
         sg = step.bind(carry)
         host_carry = carry

@@ -66,6 +66,7 @@ from slam_eslam_tpu_torch.mapping.mls_grid import (  # noqa: F401
     inverse_resolution, pack_meta)
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
+from slam_eslam_tpu_torch.utils import tracing
 
 _FIELDS = ("mean", "stdev", "height", "meta")
 
@@ -392,6 +393,7 @@ def ensure_unique_active(pool: MapPool, shards=1):
         new_block = pool.mesh.local(new_block)
     do = new_block >= 0
     _copy_blocks(pool, new_block, active, do)
+    _count_rows(do, "pool.heads_copied", n_failed)
     head = torch.where(do, new_block, active)
     if pool.mesh is None:
         pool.allocated.index_fill_(0, head.long(), True)
@@ -400,6 +402,18 @@ def ensure_unique_active(pool: MapPool, shards=1):
                     torch.ones_like(do), do)
     pool.chain[:, 0] = head
     return pool, n_failed
+
+
+def _count_rows(do, name, n_failed):
+    """The tracer's counters of one copy-on-write or rollover
+    (``utils.tracing.count``; nothing while no mark is taken): the head
+    rows it wrote, ``do.shape[0]`` (every particle's: a row whose ``do``
+    is off is written with its own content), the rows ``do`` marks as
+    ``name``, and the particles the pool had no block for.  Counted with
+    sums alone."""
+    tracing.count("pool.head_rows_moved", do.shape[0], do.device)
+    tracing.count(name, do)
+    tracing.count("pool.alloc_failed", n_failed)
 
 
 def _head_origins(pool: MapPool, active):
@@ -443,6 +457,7 @@ def rollover(pool: MapPool, xy, threshold, shards=1):
                                                + pool.meta.shape[1:]), do)
         _write_rows(pool.origin, d, new_origin, do)
         _write_rows(pool.allocated, d, torch.ones_like(do), do)
+    _count_rows(do, "pool.heads_started", n_failed)
     shifted = torch.cat([new_block[:, None], pool.chain[:, :-1]], dim=1)
     pool.chain.copy_(torch.where(do[:, None], shifted, pool.chain))
     return pool, n_failed

@@ -16,7 +16,7 @@ import torch
 
 from slam_eslam_tpu_torch.config import OdometryConfig
 from slam_eslam_tpu_torch.core.state import BodyContactState
-from slam_eslam_tpu_torch.utils import geometry
+from slam_eslam_tpu_torch.utils import geometry, tracing
 
 
 @dataclasses.dataclass
@@ -58,56 +58,59 @@ def update(odo: FootContactOdometry, state: BodyContactState, orientation,
            cfg: OdometryConfig):
     """Advance the odometry with a new contact state and IMU orientation
     (``FootContact::update``, call site ``EmbodiedSlamFilter.cpp:357``)."""
-    q = geometry.remove_yaw(orientation)
-    pts = geometry.quat_rotate(q[None, :], state.position)
-    contact = torch.nan_to_num(state.contact, nan=1.0)
+    with tracing.stage("odometry", state.position.device):
+        q = geometry.remove_yaw(orientation)
+        pts = geometry.quat_rotate(q[None, :], state.position)
+        contact = torch.nan_to_num(state.contact, nan=1.0)
 
-    both = (
-        odo.initialized
-        & odo.prev_valid
-        & state.valid
-        & (odo.prev_contact > cfg.contact_threshold)
-        & (contact > cfg.contact_threshold)
-    )
-    w = torch.where(both, torch.minimum(odo.prev_contact, contact),
-                    torch.zeros_like(contact))
-    wsum = w.sum()
+        both = (
+            odo.initialized
+            & odo.prev_valid
+            & state.valid
+            & (odo.prev_contact > cfg.contact_threshold)
+            & (contact > cfg.contact_threshold)
+        )
+        w = torch.where(both, torch.minimum(odo.prev_contact, contact),
+                        torch.zeros_like(contact))
+        wsum = w.sum()
 
-    yaw_prev = geometry.yaw_from_quat(odo.prev_orientation)
-    yaw_cur = geometry.yaw_from_quat(orientation)
-    d = yaw_cur - yaw_prev
-    dyaw = torch.where(odo.initialized, torch.atan2(torch.sin(d), torch.cos(d)),
-                       torch.zeros_like(d))
+        yaw_prev = geometry.yaw_from_quat(odo.prev_orientation)
+        yaw_cur = geometry.yaw_from_quat(orientation)
+        d = yaw_cur - yaw_prev
+        dyaw = torch.where(odo.initialized,
+                           torch.atan2(torch.sin(d), torch.cos(d)),
+                           torch.zeros_like(d))
 
-    # remove the yaw-delta rotation from the current points before
-    # differencing: t_delta = p_prev - R(dyaw) p_cur
-    c_d, s_d = torch.cos(dyaw), torch.sin(dyaw)
-    pts_rot = torch.stack(
-        [c_d * pts[:, 0] - s_d * pts[:, 1],
-         s_d * pts[:, 0] + c_d * pts[:, 1],
-         pts[:, 2]], dim=-1,
-    )
-    disp = odo.prev_points - pts_rot                           # [C, 3]
-    mean_disp = (disp * w[:, None]).sum(0) / wsum.clamp(min=1e-9)
-    mean_disp = torch.where(wsum > 0, mean_disp, torch.zeros_like(mean_disp))
+        # remove the yaw-delta rotation from the current points before
+        # differencing: t_delta = p_prev - R(dyaw) p_cur
+        c_d, s_d = torch.cos(dyaw), torch.sin(dyaw)
+        pts_rot = torch.stack(
+            [c_d * pts[:, 0] - s_d * pts[:, 1],
+             s_d * pts[:, 0] + c_d * pts[:, 1],
+             pts[:, 2]], dim=-1,
+        )
+        disp = odo.prev_points - pts_rot                           # [C, 3]
+        mean_disp = (disp * w[:, None]).sum(0) / wsum.clamp(min=1e-9)
+        mean_disp = torch.where(wsum > 0, mean_disp,
+                                torch.zeros_like(mean_disp))
 
-    dist = torch.linalg.vector_norm(mean_disp[:2])
-    sigma_xy = torch.full((2,), cfg.const_error_xy, dtype=pts.dtype,
-                          device=pts.device) + cfg.dist_error_xy * dist
-    return dataclasses.replace(
-        odo,
-        prev_points=pts,
-        prev_contact=contact,
-        prev_valid=state.valid,
-        prev_orientation=orientation,
-        initialized=torch.ones_like(odo.initialized),
-        delta_xy=mean_disp[:2],
-        delta_yaw=dyaw,
-        delta_z=mean_disp[2],
-        sigma_xy=sigma_xy,
-        sigma_yaw=cfg.const_error_yaw + cfg.dist_error_yaw * dist,
-        sigma_z=cfg.const_error_z + cfg.dist_error_z * dist,
-    )
+        dist = torch.linalg.vector_norm(mean_disp[:2])
+        sigma_xy = torch.full((2,), cfg.const_error_xy, dtype=pts.dtype,
+                              device=pts.device) + cfg.dist_error_xy * dist
+        return dataclasses.replace(
+            odo,
+            prev_points=pts,
+            prev_contact=contact,
+            prev_valid=state.valid,
+            prev_orientation=orientation,
+            initialized=torch.ones_like(odo.initialized),
+            delta_xy=mean_disp[:2],
+            delta_yaw=dyaw,
+            delta_z=mean_disp[2],
+            sigma_xy=sigma_xy,
+            sigma_yaw=cfg.const_error_yaw + cfg.dist_error_yaw * dist,
+            sigma_z=cfg.const_error_z + cfg.dist_error_z * dist,
+        )
 
 
 def pose_delta_samples_2d(odo: FootContactOdometry, normal_xy, normal_yaw):

@@ -69,24 +69,33 @@ solves and the keyframe alignment, the stages of ``tools.profile_step``,
 the step of ``examples.localize_demo`` and the evaluation of
 ``tools.stat_map_test``, one graph per key of its static arguments.
 
-**Under a profiler** every capture and every replay of a ``StepGraphs``
-is a span named ``CAPTURE_SPAN`` / ``REPLAY_SPAN`` and the graph's number
-(one number per graph of the process): ``tools.profile_slam`` reads from
-a capture's span the launches its graph holds, each with the operator
-that made it, and from a replay's span which graph a ``cudaGraphLaunch``
-ran.  Without a profiler no span is made.
+**Tracing** (``utils.tracing``): every capture and every replay of a
+``StepGraphs`` is a span named ``CAPTURE_SPAN`` / ``REPLAY_SPAN`` and the
+graph's number (one number per graph of the process), and a step's copy
+of its inputs is ``step inputs``: ``tools.profile_slam`` reads from a
+capture's span the launches its graph holds, each with the operator that
+made it, and from a replay's span which graph a ``cudaGraphLaunch`` ran.
+A graph captured while tracing is on carries the stage marks and counters
+of its step (``tracing.stage``, ``tracing.count``) and writes them at
+every replay; a graph captured with tracing off carries none, and is
+captured again, with them, at its first meeting while tracing is on.  A
+``ScanRunner.run`` is a runner call (``tracing.call``): ``scan bind``,
+each step's ``step inputs``, replay and ``step outputs``, and ``scan
+result``.  With tracing off and no traced graph no span is made and
+nothing is added to a graph.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import itertools
 
 import torch
 
 from slam_eslam_tpu_torch import ops
+from slam_eslam_tpu_torch.utils import tracing
+from slam_eslam_tpu_torch.utils.tracing import span
 
 
 class Capture:
@@ -127,14 +136,6 @@ class Capture:
 CAPTURE_SPAN = "graph capture "
 REPLAY_SPAN = "graph replay "
 _GRAPH_NUMBERS = itertools.count()
-
-
-def span(name):
-    """A ``torch.profiler`` span named ``name`` while a profiler runs,
-    else nothing (a replay's host time stays as it was)."""
-    if torch._C._autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 class StaleRead(RuntimeError):
@@ -357,6 +358,10 @@ class ShapeGraphs(dict):
         """Every step met so far replays (a warm-up run has captured)."""
         return all(sg.settled() for sg in self.values())
 
+    def traced(self):
+        """Some graph carries tracing marks (``StepGraphs.traced``)."""
+        return any(sg.traced() for sg in self.values())
+
     def counts(self):
         """Steps run eagerly, captured and replayed, over every shape."""
         total = collections.Counter()
@@ -390,13 +395,19 @@ class StepGraphs:
         self.inputs = {}    # signature and structure of x -> static x
         self.outputs = {}   # key -> static y
         self.graphs = {}    # key -> (graph, launches credited a replay,
-        #                           addresses of the reads, its number)
+        #                           addresses of the reads, its number,
+        #                           the tracing marks it writes or None)
         self.met = collections.Counter()
         self.counts = collections.Counter()
 
     def settled(self):
         """Every key met so far replays (none met only once, eagerly)."""
         return all(k in self.graphs for k in self.met)
+
+    def traced(self):
+        """Some graph was captured while tracing was on: its replays write
+        its marks, so the runner's calls record."""
+        return any(g[4] is not None for g in self.graphs.values())
 
     def _static_inputs(self, sig, x):
         if sig not in self.inputs:
@@ -419,7 +430,7 @@ class StepGraphs:
         return () if self.reads is None else addresses(self.reads(gate))
 
     def _replay(self, key):
-        graph, credit, read, number = self.graphs[key]
+        graph, credit, read, number, marks = self.graphs[key]
         now = self._addresses(key[0])
         if now != read:
             moved = sum(a != b for a, b in zip(now, read)) + abs(
@@ -430,7 +441,7 @@ class StepGraphs:
                 f"replaced since its capture (write into their storage "
                 f"instead)")
         before = ops.launch_counts()
-        with span(f"{REPLAY_SPAN}{number}"):
+        with span(f"{REPLAY_SPAN}{number}"), tracing.replaying(marks):
             self.capture.replay(graph)
         ops.set_launch_counts({k: v + credit.get(k, 0)
                                for k, v in before.items()})
@@ -442,10 +453,16 @@ class StepGraphs:
         replayed at the second, replayed after.  Returns the static
         outputs (valid until the next step of that key and signature)."""
         sig = (signature(x), structure(x))
-        x = self._static_inputs(sig, x)
+        with span("step inputs"):
+            x = self._static_inputs(sig, x)
         gate = key
         key = (gate, sig)
         self.met[key] += 1
+        if key in self.graphs and self.graphs[key][4] is None \
+                and tracing.on():
+            # captured with tracing off: captured again with its marks (its
+            # memory goes back to the runner's pool first)
+            del self.graphs[key]
         if key in self.graphs:
             self._replay(key)
         elif self.met[key] == 1:
@@ -455,8 +472,13 @@ class StepGraphs:
             graph = self.capture.new_graph()
             fn = self._region(gate, key, x)
             number = next(_GRAPH_NUMBERS)
+            traced = tracing.recording()
+            if traced:
+                for dev in {t.device for t in leaves((self.carry, x))}:
+                    tracing.prepare(dev)
             before = ops.launch_counts()
-            with span(f"{CAPTURE_SPAN}{number}"):
+            with span(f"{CAPTURE_SPAN}{number}"), \
+                    tracing.capturing(traced) as marks:
                 self.capture.capture(
                     graph, fn,
                     () if self.generator is None else (self.generator,),
@@ -468,7 +490,7 @@ class StepGraphs:
             ops.set_launch_counts(before)
             self.graphs[key] = (graph, {k: after[k] - before[k]
                                         for k in after},
-                                self._addresses(gate), number)
+                                self._addresses(gate), number, marks.marks())
             self.counts["captured"] += 1
             self._replay(key)
         return self.outputs[key]
@@ -488,8 +510,9 @@ class ScanRunner:
         self.capture, self.what = capture, what
         self.body = lambda carry, x, key: step(carry, x)
         self.per_shape = ShapeGraphs()
-        self.settled, self.counts = (self.per_shape.settled,
-                                     self.per_shape.counts)
+        self.settled, self.counts, self.traced = (
+            self.per_shape.settled, self.per_shape.counts,
+            self.per_shape.traced)
 
     def graphs(self, carry):
         """The ``StepGraphs`` of ``carry``'s shape, its static carry
@@ -508,21 +531,31 @@ class ScanRunner:
         return sg
 
     def run(self, carry, xs):
-        """Roll ``carry`` over ``xs``, one graph per input signature."""
+        """Roll ``carry`` over ``xs``, one graph per input signature: a
+        runner call ``scan steps`` (``tracing.call``; a span of the
+        caller's call where the caller opened one)."""
         if not xs:
             raise ValueError(f"{self.what}: no steps to run")
+        with tracing.call("scan steps", self.traced()):
+            return self._run(carry, xs)
+
+    def _run(self, carry, xs):
         self.capture.check(leaves(carry)[0].device, self.what)
-        sg = self.graphs(carry)
+        with span("scan bind"):
+            sg = self.graphs(carry)
         ys = None
         for t, x in enumerate(xs):
             y = sg.step(None, x)
-            if ys is None:
-                ys = [torch.empty((len(xs),) + tuple(v.shape), dtype=v.dtype,
-                                  device=v.device) for v in leaves(y)]
-            copy_into([row[t] for row in ys], leaves(y))
-        given = _generator(carry)
-        load_generator(given, sg.generator)
-        return _with_generator(clone(sg.carry), given), ys
+            with span("step outputs"):
+                if ys is None:
+                    ys = [torch.empty((len(xs),) + tuple(v.shape),
+                                      dtype=v.dtype, device=v.device)
+                          for v in leaves(y)]
+                copy_into([row[t] for row in ys], leaves(y))
+        with span("scan result"):
+            given = _generator(carry)
+            load_generator(given, sg.generator)
+            return _with_generator(clone(sg.carry), given), ys
 
 
 class CallGraphs:

@@ -14,13 +14,14 @@ at all (only stderr progress lines, ``PoseEstimator.cpp:350-351``).  Here:
   wherever a call costs the host more than the kernel costs the card,
 * ``launch_calls`` -- the host's kernel-launch calls of one call of a
   function,
-* ``timed``        -- wall-clock timing that ends in a device sync,
 * ``sync``         -- ``torch.cuda.synchronize`` where there is a GPU,
-* ``StepLogger``   -- the stderr progress line, rate-limited (the
-  ``iteration: N found: M`` analogue),
 * ``weighting_step_stats`` / ``speed_of_light_fraction`` -- bytes/flops
   accounting of the contact-weighting step, so that a measured step time
   converts to a fraction of the card's roofline.
+
+The port's spans, stage marks and counters are ``utils.tracing``.  The JAX
+module's ``timed`` and ``StepLogger`` have no counterpart here: nothing
+read them.
 """
 
 from __future__ import annotations
@@ -239,38 +240,11 @@ def launch_calls(fn):
     return sum(_launch_counts(prof.key_averages()).values())
 
 
-@contextlib.contextmanager
-def timed(label, out=None):
-    t0 = time.perf_counter()
-    yield
-    sync()
-    dt = time.perf_counter() - t0
-    msg = f"[timing] {label}: {dt * 1e3:.2f} ms"
-    if out is not None:
-        out[label] = dt
-    print(msg, file=sys.stderr)
-
-
 def sync():
     """Block until all device work is done (accurate timing boundaries);
     nothing to wait for without a GPU."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-
-
-class StepLogger:
-    """Rate-limited progress line: ``iteration: i  ess: .. found: ..``."""
-
-    def __init__(self, every=10, stream=sys.stderr):
-        self.every = every
-        self.stream = stream
-        self.i = 0
-
-    def log(self, **kv):
-        if self.every and self.i % self.every == 0:
-            parts = "\t".join(f"{k}: {v}" for k, v in kv.items())
-            print(f"iteration: {self.i}\t{parts}", file=self.stream)
-        self.i += 1
 
 
 def instruction_bound_seconds(thread_instructions):

@@ -77,6 +77,7 @@ MODULES = [
     "slam_eslam_tpu_torch.utils.kernel_eff",
     "slam_eslam_tpu_torch.utils.profiling",
     "slam_eslam_tpu_torch.utils.scatter",
+    "slam_eslam_tpu_torch.utils.tracing",
     "slam_eslam_tpu_torch.utils.tree",
     "slam_eslam_tpu_torch.viz.render",
     "slam_eslam_tpu_torch.viz.snapshots",
@@ -155,6 +156,10 @@ NOT_PORTED = {
     # the TPU matrix unit's utilisation; the port has fold_roofline
     ("utils/kernel_eff.py", "fold_mfu"),
     ("utils/kernel_eff.py", "fold_flops_per_particle"),
+    # the stderr progress line and a timing print that nothing read; the
+    # port's spans, stage marks and counters are utils/tracing.py
+    ("utils/profiling.py", "StepLogger"),
+    ("utils/profiling.py", "timed"),
 }
 JAX_MODULES = sorted(
     str(p.relative_to(REPO / "slam_eslam_tpu"))
