@@ -205,7 +205,15 @@ Phases (any failure raises and exits non-zero):
    on the card; the split SLAM pool equal to one process with
    ``map_pool_shards = 4``), printing its backend and transport; what
    NCCL does with two ranks on one card (a probe, reported either way);
-   and ``tools.bench_scaling --devices 1`` (graphed over NCCL).
+   and ``tools.bench_scaling --devices 1`` (graphed over NCCL);
+14. the row copy K8 (``csrc/row_copy.cu``, the map pool's copy-on-write
+   and rollover, two launches a mapping frame) bit for bit against its
+   plain version on the card, on the masks of a copy-on-write after a
+   resampling and of a rollover of every particle, at the SLAM path's
+   pool (4,096 particles, 40 x 40 cells) and the benchmark cell's (1,000
+   particles, 10.24 MB blocks), each timed as a kernel row; and at the
+   cell's pool 0, 1, 32 and 1,000 masked rows of a 1,000-row call against
+   their byte bound.
 
 Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
 launches (a kernel module's ``launch``: no check, no allocation) captured
@@ -301,7 +309,7 @@ APP_PROFILE_FRAMES = 20
 APP_HASH_PERIOD = 5      # steps between hash reinjections
 CP_OK_RTOL = 1e-3        # cp_ok counts per update, GPU vs CPU port
 KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
-           "block_copy", "ordered_scan")
+           "block_copy", "ordered_scan", "row_copy")
 # every wrapper that counts launches: block_merge's source has two
 WRAPPERS = KERNELS + ("block_merge_packed",)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -1293,14 +1301,16 @@ def check_slam_state(carry, aux, n_frames, label):
 
 
 def slam_gates_want(aux, cfg, runs=1):
-    """K2, K3 and S1 launches the gates of ``aux`` call for, in ``runs``
-    runs: one K2 and one S1 per measurement update (and one K2 per mapping
-    frame with the scan match), one K3 per mapping frame."""
+    """K2, K3, S1 and row-copy launches the gates of ``aux`` call for, in
+    ``runs`` runs: one K2 and one S1 per measurement update (and one K2
+    per mapping frame with the scan match), one K3 and two row copies
+    (copy-on-write, rollover) per mapping frame."""
     n_meas, n_map = int(aux["updated"].sum()), int(aux["mapped"].sum())
     return dict(dict.fromkeys(WRAPPERS, 0),
                 chain_lookup=runs * (n_meas + (
                     n_map if cfg.use_visual_update else 0)),
-                block_merge=runs * n_map, ordered_scan=runs * n_meas)
+                block_merge=runs * n_map, ordered_scan=runs * n_meas,
+                row_copy=2 * runs * n_map)
 
 
 def slam_equal(got, ref):
@@ -2842,7 +2852,7 @@ def map_pass(cfg, setup, dev, start, card, number, mode="eager",
                             for k in ("updated", "mapped", "cam_mapped"))
     want = dict.fromkeys(WRAPPERS, 0)
     want.update(chain_lookup=n_meas + n_map, block_merge=n_map + n_cam,
-                ordered_scan=n_meas)
+                ordered_scan=n_meas, row_copy=2 * (n_map + n_cam))
     labelled = sum(map_labels(i) is not None for i in range(n_frames))
     expect_launches(launches, want, "mapping path")
     if n_meas < labelled or n_map != SLAM_STEPS or not 1 < n_cam < n_map:
@@ -3218,6 +3228,7 @@ def camera_hash_slam(dev, card):
         n_cam = int(aux["cam_mapped"].sum())
         want = slam_gates_want(aux, cfg)
         want["block_merge"] += n_cam
+        want["row_copy"] += 2 * n_cam
         if launches != want or not n_cam:
             raise RuntimeError(f"SLAM camera+hash[{mode}]: launches "
                                f"{launches}, gates want {want}")
@@ -5245,6 +5256,8 @@ def one_rank_slam(mesh, counted, dev, card):
             want = {"chain_lookup": n_meas + (n_map if c.use_visual_update
                                               else 0),
                     "block_merge": n_map, "ordered_scan": n_meas}
+            if not split:   # a meshed pool writes its rows by exchange
+                want["row_copy"] = 2 * n_map
             pool = shd.gather_pool(got.pool, mesh)
             equal, _ = equal_bits(
                 ([getattr(pool, f) for f in fields], aux["centroid"],
@@ -5373,6 +5386,163 @@ def shared_card_nccl(card):
         msg = "fails: " + " | ".join((said or lines)[-3:])[:600]
     print(f"NCCL with two ranks on one card: {msg} [{card}]", flush=True)
     return msg
+
+
+# K8 at the benchmark cell's pool (slam_1k_f32: 1,000 particles, 400 x 400
+# cells x 4 slots at 0.05 m, float32, no colour; two blocks a particle, so
+# every particle can take a copy and then a new head), and the masked rows
+# of a 1,000-row call timed there
+ROW_CELL_POOL = dict(nx=400, ny=400, k=4, resolution=0.05, chain_len=3)
+ROW_CELL_N = 1000
+ROW_CELL_PARTS = 20
+ROW_SPREAD = (0, 1, 32, 1000)
+ROW_SPREAD_REPS = 20
+
+
+def recorded_row_copies(fn):
+    """``fn()`` with every ``ops.row_copy`` call the map pool makes
+    recorded instead of run: ``[(fields, dst, src, mask, fill)]``, the
+    ``[N]`` operands cloned (the pool's chains and flags still change)."""
+    from slam_eslam_tpu_torch.mapping import map_pool as mp
+
+    calls = []
+    keep = lambda t: None if t is None else t.clone()
+
+    def record(fields, dst, src, mask, fill=None):
+        calls.append((tuple(fields), dst.clone(), keep(src), mask.clone(),
+                      None if fill is None else tuple(map(keep, fill))))
+        return fields
+
+    real, mp.rc = mp.rc, SimpleNamespace(row_copy=record)
+    try:
+        fn()
+    finally:
+        mp.rc = real
+    return calls
+
+
+def own_heads_calls(pool, dev, seed):
+    """The map pool's two ``ops.row_copy`` calls of one mapping frame, on
+    ``pool`` (chain tails emptied): the copy-on-write after a resampling
+    of every particle (``profile_resample``'s weights and strata through
+    ``core.filter.resample_from_positions``), then the rollover with every
+    particle far off its grid.  Returns ``{"copy": call, "fill": call}``
+    as ``recorded_row_copies`` gives them."""
+    from slam_eslam_tpu_torch.core import filter as pf
+    from slam_eslam_tpu_torch.mapping import map_pool as mp
+    from slam_eslam_tpu_torch.tools import profile_resample
+
+    pool.chain[:, 1:] = -1
+    w, pos = profile_resample.weights_and_positions(pool.n, dev, seed)
+    pool.resample_(pf.resample_from_positions(w, pos))
+    far = torch.full((pool.n, 2), 1e4, device=dev)
+    copy, fill = recorded_row_copies(lambda: (
+        mp.ensure_unique_active(pool), mp.rollover(pool, far, 1.0)))
+    return {"copy": copy, "fill": fill}
+
+
+def row_copy_bytes(call):
+    """The bytes one ``ops.row_copy`` call must move: the mask, the
+    masked rows' ``dst`` (and ``src``), and per field the masked rows
+    written and the rows they come from read once (a source that several
+    rows copy, as after a resampling, once; a fill form's own rows; none
+    for zeros)."""
+    fields, dst, src, mask, fill = call
+    m = int(mask.sum())
+    fill = fill or (None,) * len(fields)
+    read = (int(torch.unique(src[mask]).numel()) if src is not None
+            else m)
+    moved = sum(f[0].numel() * f.element_size()
+                * (m + (read if src is not None or v is not None else 0))
+                for f, v in zip(fields, fill))
+    return mask.numel() + m * (8 if src is not None else 4) + moved
+
+
+def row_copy_case(label, call):
+    """One recorded call on the card: the kernel against its plain version
+    bit for bit from the same pool (raises on a mismatch), then every time
+    of a kernel row (``kernel_times``; the plain version reads the mask on
+    the host, so its time is the profiler's) with its byte bound."""
+    from slam_eslam_tpu_torch.ops import row_copy as rc
+
+    fields, dst, src, mask, fill = call
+    want = [f.clone() for f in fields]
+    rc.row_copy_reference(want, dst, src, mask, fill)
+    rc.row_copy(fields, dst, src, mask, fill)
+    same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(fields, want))
+    del want
+    gc_cuda()
+    m, n = int(mask.sum()), mask.numel()
+    sources = "" if src is None else (
+        f" from {int(torch.unique(src[mask]).numel())} sources")
+    print(f"row_copy[{label}]: {m} of {n} rows masked{sources}, "
+          f"{'copy' if src is not None else 'fill'} form, "
+          f"{len(fields)} fields; the kernel equal bit for bit to its plain "
+          f"version: {same}")
+    check(same, f"row_copy[{label}]", "the kernel differs from its plain "
+                                      "version")
+    launch_fill = fill or (None,) * len(fields)
+    times = kernel_times(
+        f"row_copy[{label}]", lambda: rc.row_copy(fields, dst, src, mask,
+                                                  fill),
+        lambda: rc.launch(fields, dst, src, mask, launch_fill),
+        "row_copy_kernel",
+        lambda: rc.row_copy_reference(fields, dst, src, mask, fill),
+        bound(row_copy_bytes(call)))
+    return dict(times, masked_rows=m, rows=n)
+
+
+def check_row_copy(dev, card):
+    """K8 (``csrc/row_copy.cu``): the copy-on-write after a resampling and
+    the rollover of one mapping frame (``own_heads_calls``), each against
+    its plain version bit for bit and timed (``row_copy_case``), at the
+    SLAM path's pool (SLAM_N particles, 40 x 40 cells) and at the benchmark
+    cell's (ROW_CELL_N particles, 10.24 MB blocks); at the cell's pool also
+    ROW_SPREAD masked rows of one call of ROW_CELL_N rows, the device time
+    beside the byte bound (0 rows: the fixed cost).  Returns the row's
+    times: the SLAM path's copy-on-write, the rest under suffixes."""
+    from slam_eslam_tpu_torch.models import sim
+    from slam_eslam_tpu_torch.ops import row_copy as rc
+    from slam_eslam_tpu_torch.utils import profiling
+
+    times = {}
+    pools = (("", SLAM_N, slam_config().map_pool_blocks, SLAM_POOL, 1),
+             ("_cell", ROW_CELL_N, 2 * ROW_CELL_N, ROW_CELL_POOL,
+              ROW_CELL_PARTS))
+    for tag, n, blocks, shape, parts in pools:
+        pool = sim.random_pool(n, blocks, **shape, seed=21, device=dev,
+                               parts=parts)
+        print(f"row_copy pool ({'the cell' if tag else 'the SLAM path'}): "
+              f"{n} particles, "
+              f"{blocks} blocks of {pool.nx}x{pool.ny}x{pool.k}, "
+              f"{pool.storage_bytes() / blocks / 1e6:.3f} MB a block")
+        calls = own_heads_calls(pool, dev, seed=22)
+        for form, call in calls.items():
+            row = row_copy_case(f"{n} {form}", call)
+            suffix = tag + ("" if form == "copy" else "_fill")
+            times.update({key + suffix: v for key, v in row.items()})
+        if tag:
+            fields = calls["copy"][0]
+            dst = torch.arange(n, 2 * n, dtype=torch.int32, device=dev)
+            src = torch.arange(n, dtype=torch.int32, device=dev)
+            for m in ROW_SPREAD:
+                mask = torch.zeros(n, dtype=torch.bool, device=dev)
+                mask[torch.linspace(0, n - 1, m, device=dev).long()] = True
+                ms = profiling.device_time(
+                    lambda: rc.launch(fields, dst, src, mask,
+                                      (None,) * len(fields)),
+                    ROW_SPREAD_REPS, replays=3) * 1e3
+                b_ms = bound(row_copy_bytes((fields, dst, src, mask,
+                                             None)))[0]
+                times.update({f"ms_masked_{m}": ms,
+                              f"bound_ms_masked_{m}": b_ms})
+                print(f"row_copy[{m} of {n} masked]: {ms:.5f} ms (graph of "
+                      f"{ROW_SPREAD_REPS} launches), bound {b_ms:.5f} ms "
+                      f"({b_ms / ms:.3f} of it) [{card}]")
+        del pool, calls
+        gc_cuda()
+    return times
 
 
 def phase13(dev, card):
@@ -5738,6 +5908,18 @@ def main():
           f"bit unmeshed; dryrun_multichip({DRYRUN_RANKS}) over "
           f"{p13['dryrun'][0]['backend']} ({p13['dryrun'][0]['transport']}); "
           f"phase 13 {p13['seconds']:.1f} s [{card}]")
+    gc_cuda()
+    t0 = time.perf_counter()
+    k8 = check_row_copy(dev, card)
+    print(f"row copy: K8 {k8['ms']:.5f} ms for the copy-on-write of "
+          f"{k8['masked_rows']} of {SLAM_N} heads after a resampling "
+          f"(bound {k8['bound_ms']:.5f} ms, plain {k8['plain_ms']:.5f} ms), "
+          f"{k8['ms_cell']:.5f} ms for {k8['masked_rows_cell']} of "
+          f"{ROW_CELL_N} heads at the benchmark cell's pool (bound "
+          f"{k8['bound_ms_cell']:.5f} ms, plain {k8['plain_ms_cell']:.5f} "
+          f"ms), its rollover {k8['ms_cell_fill']:.5f} ms; no row masked "
+          f"{k8['ms_masked_0']:.5f} ms; phase 14 "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
     # each tool's launches, those of its timing loops included
     tool_launches = lambda name, tools: {
         f"launches_{tool}": p12["launches"][tool][name] for tool in tools}
@@ -5864,6 +6046,21 @@ def main():
               w13["localize_graphed"]["launches"]["ordered_scan"],
           "launches_graphed_one_rank_slam":
               w13["slam"]["pool whole graphed"]["launches"]["ordered_scan"]}),
+        # no TPU kernel: the port's repair of the pool copies that the JAX
+        # package skips with lax.cond(any(mask)), a host read; two launches
+        # a mapping frame (copy-on-write, rollover)
+        ("row_copy", "slam_eslam_tpu/mapping/map_pool.py:264",
+         slam["launches"]["row_copy"], 0.0, k8, None,
+         {"launches_graphed": slam["launches_graphed"]["row_copy"],
+          "launches_graphed_mapping": gm["launches"]["row_copy"],
+          "launches_graphed_camera_hash": ch["launches_graphed"]["row_copy"],
+          **{f"launches_{key}": w13["slam"][f"pool whole {mode}"][
+              "launches"].get("row_copy", 0)
+             for key, mode in (("one_rank_slam", "eager"),
+                               ("graphed_one_rank_slam", "graphed"))},
+          **tool_launches("row_copy", (f"profile_slam_{SLAM_N}",
+                                       f"profile_slam_{TOOLS_BIG_N}",
+                                       "ab_pool_dtype"))}),
     )
     # block_merge_packed is the second entry point of block_merge's source
     source = lambda name: name.removesuffix("_packed")

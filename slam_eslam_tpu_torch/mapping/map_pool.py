@@ -16,10 +16,12 @@ Differences from the JAX package, all for the GPU:
   the pool for the JAX call shape); the pool is the one large object of
   per-particle SLAM (1.68 GB at 4096 particles), so it is never copied.
 * Nothing reads device data back to the host.  Where the JAX package
-  skips a pool-wide copy with ``lax.cond(any(mask))``, the port copies
-  predicated on the device: rows whose mask is off rewrite their own
-  source block with its own content, so the cost is O(N) blocks, not
-  O(B), and there is no host sync.
+  skips a pool-wide copy with ``lax.cond(any(mask))``, the port reads
+  the mask on the device: kernel ``ops.row_copy`` (CUDA tensors) moves
+  the masked rows alone, every field and the origins in one launch of a
+  fixed shape, so a copy-on-write or rollover costs the blocks that need
+  it and a CUDA graph replays it whatever the mask holds.  CPU tensors
+  take its plain version (the masked rows picked on the host).
 * The chain lookup and the merge run kernels K2 (``ops.chain_lookup``)
   and K3 (``ops.block_merge``) on CUDA tensors, their plain versions on
   CPU tensors.  The float fields are stored as float32 or bfloat16
@@ -66,6 +68,7 @@ from slam_eslam_tpu_torch.mapping.mls_grid import (  # noqa: F401
     inverse_resolution, pack_meta)
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
+from slam_eslam_tpu_torch.ops import row_copy as rc
 from slam_eslam_tpu_torch.utils import tracing
 
 _FIELDS = ("mean", "stdev", "height", "meta")
@@ -266,22 +269,20 @@ class MapPool:
 
 
 def _copy_blocks(pool: MapPool, dst, src, mask):
-    """``pool[dst[i]] <- pool[src[i]]`` where ``mask[i]``, in place (unique
-    masked ``dst``, none of them a ``src``).  Rows with ``mask`` off copy
-    their source onto itself.  On a mesh ``dst`` lies in this rank's range
-    and ``src`` anywhere (``fetch_rows``)."""
+    """``pool[dst[i]] <- pool[src[i]]`` where ``mask[i]``, every field and
+    the origin, in place (unique masked ``dst``, none of them a ``src``).
+    Rows with ``mask`` off are not touched: one ``ops.row_copy`` launch
+    moves the masked rows alone (its plain version on CPU tensors).  On a
+    mesh ``dst`` lies in this rank's range and ``src`` anywhere
+    (``fetch_rows``), written at a fixed shape (``_write_rows``)."""
     if pool.mesh is not None:
         rows = fetch_rows(pool, torch.where(mask, src, -1),
                           pool.data_fields() + ("origin",), "block copy")
         for f, r in rows.items():
             _write_rows(getattr(pool, f), dst - pool.block_offset, r, mask)
         return
-    d = torch.where(mask, dst, src).long()
-    s = src.long()
-    for f in pool.data_fields():
-        a = getattr(pool, f)
-        a.index_copy_(0, d, a.index_select(0, s))
-    pool.origin.index_copy_(0, d, pool.origin.index_select(0, s))
+    rc.row_copy([getattr(pool, f) for f in pool.data_fields() + ("origin",)],
+                dst, src.contiguous(), mask)
 
 
 def fetch_rows(pool: MapPool, ids, names, what):
@@ -407,11 +408,12 @@ def ensure_unique_active(pool: MapPool, shards=1):
 def _count_rows(do, name, n_failed):
     """The tracer's counters of one copy-on-write or rollover
     (``utils.tracing.count``; nothing while no mark is taken): the head
-    rows it wrote, ``do.shape[0]`` (every particle's: a row whose ``do``
-    is off is written with its own content), the rows ``do`` marks as
-    ``name``, and the particles the pool had no block for.  Counted with
-    sums alone."""
-    tracing.count("pool.head_rows_moved", do.shape[0], do.device)
+    rows it wrote, the rows ``do`` marks (``ops.row_copy`` writes every
+    masked row or traps, and no other), the same rows as ``name``, and the
+    particles the pool had no block for.  Counted with sums alone, so
+    ``pool.head_rows_moved`` equals ``pool.heads_copied`` plus
+    ``pool.heads_started`` by construction."""
+    tracing.count("pool.head_rows_moved", do)
     tracing.count(name, do)
     tracing.count("pool.alloc_failed", n_failed)
 
@@ -441,12 +443,10 @@ def rollover(pool: MapPool, xy, threshold, shards=1):
     do = new_block >= 0
     new_origin = torch.stack([xy[:, 0] - hx, xy[:, 1] - hy], dim=-1)
     if pool.mesh is None:
+        # the new heads' meta zeroed and origins set, their rows alone
+        rc.row_copy((pool.meta, pool.origin), new_block, None, do,
+                    fill=(None, new_origin))
         d = torch.where(do, new_block, active).long()
-        keep = ~do[:, None, None]
-        pool.meta.index_copy_(0, d, torch.where(
-            keep, pool.meta.index_select(0, d), 0))
-        pool.origin.index_copy_(0, d, torch.where(
-            do[:, None], new_origin, pool.origin.index_select(0, d)))
         pool.allocated.index_copy_(0, d,
                                    do | pool.allocated.index_select(0, d))
     else:

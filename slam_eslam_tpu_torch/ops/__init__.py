@@ -1,6 +1,6 @@
 """The port's CUDA kernels, one wrapper module each (``contact_fold``,
 ``chain_lookup``, ``block_merge``, ``select_cells``, ``block_copy``,
-``ordered_scan``),
+``ordered_scan``, ``row_copy``),
 built and bound by ``_build``.  Every wrapper counts its kernel launches
 in ``<wrapper>.launches``; ``launch_counts`` reads them all
 (``block_merge_packed``, the second wrapper of ``block_merge``'s source,

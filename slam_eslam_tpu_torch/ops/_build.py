@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # every kernel of the port, one ``csrc/<name>.cu`` each
 KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
-           "block_copy", "ordered_scan")
+           "block_copy", "ordered_scan", "row_copy")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (

@@ -19,10 +19,10 @@ launch counts the launches its capture recorded), and a trace with no
 device record raises.  The chain lookup and the merge show as
 ``chain_lookup_kernel`` (K2) and ``block_merge_kernel`` (K3).  The last
 line gives the share of the device time spent in the block copies (the
-kernels that ``index_select`` and ``index_copy_`` launch: the
-copy-on-write and rollover of ``mapping.map_pool``); a replayed kernel
-takes the operator of the launch its capture recorded in its place
-(``attribute``).
+copy-on-write and rollover of ``mapping.map_pool``: the row-copy kernel
+of ``ops.row_copy``, and the kernels that ``index_select`` and
+``index_copy_`` launch); a replayed kernel takes the operator of the
+launch its capture recorded in its place (``attribute``).
 
 The runner updates the carry's map pool in place, so every run starts
 from a new filter (the same seeded start) whose pool is that one pool,
@@ -58,6 +58,8 @@ HOST_CATEGORIES = ("cpu_op",)
 RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
 # the operators whose kernels are the map pool's block copies
 COPY_OPS = ("aten::index_select", "aten::index_copy_")
+# and the kernels that are block copies by themselves (``ops.row_copy``)
+COPY_KERNELS = ("row_copy_kernel",)
 N_RAYS = 64
 
 
@@ -339,10 +341,11 @@ def device_records(trace_dir, captures=()):
     return len(records), launched
 
 
-def op_share(trace_dir, ops=COPY_OPS, captures=()):
+def op_share(trace_dir, ops=COPY_OPS, captures=(), kernels=COPY_KERNELS):
     """``(ms, share)``: the device time of the kernels, copies and memsets
-    launched inside the host operators ``ops``, and its share of all
-    device time in the newest trace under ``trace_dir``.  An eager device
+    launched inside the host operators ``ops`` or named by one of
+    ``kernels``, and its share of all device time in the newest trace
+    under ``trace_dir``.  An eager device
     event carries the ``External id`` of the innermost operator that
     launched it; it counts when one of ``ops`` encloses that operator on
     its thread.  A replayed one counts when the launch its capture
@@ -354,7 +357,7 @@ def op_share(trace_dir, ops=COPY_OPS, captures=()):
     for ev, inside in records:
         dur = ev.get("dur", 0) / 1e3
         total += dur
-        if inside:
+        if inside or any(k in ev.get("name", "") for k in kernels):
             part += dur
     return part, (part / total if total else 0.0)
 
@@ -546,7 +549,8 @@ def main(argv=None):
     print_table(rows_all[:args.top], total, path, kind, records)
     copy_ms, copy_share = op_share(args.trace_dir, captures=captures)
     if kind == "device":
-        print(f"block copies (index_select / index_copy_ kernels): "
+        print(f"block copies (row_copy, index_select and index_copy_ "
+              f"kernels): "
               f"{copy_ms:.3f} ms = {copy_share:.2%} of the device time"
               + (" (replayed kernels attributed through their captures)"
                  if graphed else ""))

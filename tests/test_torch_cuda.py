@@ -1,8 +1,11 @@
 """CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``),
 K3 (``csrc/block_merge.cu``, and through its second entry point the merge
-on a packed block image, P4), K5 (``csrc/select_cells.cu``) and K7
-(``csrc/block_copy.cu``) against their plain PyTorch versions on the
-card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
+on a packed block image, P4), K5 (``csrc/select_cells.cu``), K7
+(``csrc/block_copy.cu``) and the map pool's row copy K8
+(``csrc/row_copy.cu``: bit for bit, a mask off touches no byte, replayed
+in a CUDA graph with a changing mask, past 2^31 elements, and
+copy-on-write with rollover against the CPU) against their plain PyTorch
+versions on the card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
 of the application API's contact update.  The backend: every pose-graph
 solver and ``scan_align`` on the card against the CPU port, the solvers
 under a global TF32 flag, no host sync in the dense and PCG solves, and
@@ -37,7 +40,7 @@ import pytest
 import torch
 
 from slam_eslam_tpu_torch import Config, ContactModelConfig, SurfaceHashConfig
-from slam_eslam_tpu_torch.core.state import BodyContactState
+from slam_eslam_tpu_torch.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu_torch.filter import pose_estimator as pe
 from slam_eslam_tpu_torch.filter import step as steplib
 from slam_eslam_tpu_torch.filter import streaming
@@ -54,6 +57,7 @@ from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
 from slam_eslam_tpu_torch.ops import contact_fold as cf
 from slam_eslam_tpu_torch.ops import ordered_scan as osc
+from slam_eslam_tpu_torch.ops import row_copy as rc
 from slam_eslam_tpu_torch.ops import select_cells as sc
 from slam_eslam_tpu_torch.utils import graphs, tree
 
@@ -444,6 +448,231 @@ def test_block_copy_packed_and_no_points(dev):
     want[blk.long()] = packed[blk.long()]
     torch.cuda.synchronize()
     assert torch.equal(got[0], want)
+
+
+# ------------------------------------------------- row copy (copy-on-write)
+
+ROW_MASKS = ("none", "one", "some", "all")
+
+
+def row_fields(dev, dtype, with_color, b, nx=20, nyk=44, seed=0):
+    """A pool's fields as ``ops.row_copy`` takes them: mean, stdev, height
+    (``dtype``), meta (int32), colour (``dtype``) where asked, origin
+    ``[B, 2]`` float32; seeded."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    f = lambda *s: torch.randn(s, generator=gen, device=dev).to(dtype)
+    fields = [f(b, nx, nyk), f(b, nx, nyk), f(b, nx, nyk),
+              torch.randint(-2 ** 30, 2 ** 30, (b, nx, nyk), generator=gen,
+                            device=dev, dtype=torch.int32)]
+    if with_color:
+        fields.append(f(b, nx, nyk * 3))
+    fields.append(torch.randn((b, 2), generator=gen, device=dev))
+    return fields
+
+
+def row_case(dev, n, b, pattern, form, seed=0):
+    """``(dst, src, mask)``: unique ``dst`` in the pool's upper half,
+    ``src`` in its lower half (pairs of rows sharing one with ``shared``,
+    None for the fill form), ``mask`` as ``pattern`` says."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    dst = (b // 2 + torch.randperm(b - b // 2, generator=gen, device=dev)[:n]
+           ).to(torch.int32)
+    src = torch.randint(0, b // 2, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if form == "shared":
+        src = src.div(2, rounding_mode="floor") * 2
+        src[1::2] = src[0::2][:n // 2]
+    if form == "fill":
+        src = None
+    mask = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
+            "one": torch.arange(n, device=dev) == n // 3,
+            "some": torch.rand(n, generator=gen, device=dev) < 0.3,
+            "all": torch.ones(n, dtype=torch.bool, device=dev)}[pattern]
+    return dst, src, mask
+
+
+def as_bytes(fields):
+    return [f.view(torch.uint8) for f in fields]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_color", [False, True])
+@pytest.mark.parametrize("pattern", ROW_MASKS)
+@pytest.mark.parametrize("form", ["copy", "shared", "fill", "fill_values"])
+def test_row_copy_matches_plain(dev, dtype, with_color, pattern, form):
+    """The kernel against its plain version, bit for bit: copies (sources
+    shared by several rows too) and fills (zeros, or given rows), with
+    masks that select none, one, some and every row."""
+    n, b = 300, 700
+    fields = row_fields(dev, dtype, with_color, b, seed=n)
+    dst, src, mask = row_case(dev, n, b, pattern,
+                              "fill" if form == "fill_values" else form)
+    fill = None
+    if form == "fill_values":
+        fill = [None] * (len(fields) - 1) + [
+            torch.randn((n, 2), device=dev)]
+        fill[0] = torch.randn((n,) + fields[0].shape[1:],
+                              device=dev).to(dtype)
+    want = rc.row_copy_reference([f.clone() for f in fields], dst, src,
+                                 mask, fill)
+    before = rc.row_copy.launches
+    got = rc.row_copy(fields, dst, src, mask, fill=fill)
+    assert rc.row_copy.launches == before + 1
+    torch.cuda.synchronize()
+    for g, w_ in zip(as_bytes(got), as_bytes(want)):
+        assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("nyk", [7, 44])
+def test_row_copy_touches_no_unmasked_block(dev, nyk):
+    """Canary bytes in every block: with no row masked the pool is
+    unchanged byte for byte; with some, every block outside the masked
+    ``dst`` is, in the copy and the fill form.  ``nyk = 7`` gives bfloat16
+    rows of 280 bytes, moved in 8-byte units, and more rows than one
+    window of the kernel."""
+    n, b = 5000, 10_001
+    fields = row_fields(dev, torch.bfloat16, True, b, nx=20, nyk=nyk)
+    for f in fields:
+        f.view(torch.uint8).fill_(0x5A)
+    for pattern, form in (("none", "copy"), ("none", "fill"),
+                          ("some", "copy"), ("some", "fill")):
+        dst, src, mask = row_case(dev, n, b, pattern, form, seed=1)
+        start = [f.clone() for f in fields]
+        for f in fields:          # sources differ from the canaries
+            f[:b // 2].view(torch.uint8).fill_(0x33)
+        rc.row_copy(fields, dst, src, mask)
+        torch.cuda.synchronize()
+        written = torch.zeros(b, dtype=torch.bool, device=dev)
+        written[dst[mask].long()] = True
+        for f, s in zip(fields, start):
+            keep = ~written
+            keep[:b // 2] = False
+            assert torch.equal(f[keep].view(torch.uint8),
+                               s[keep].view(torch.uint8))
+        if pattern == "none":
+            assert not written.any()
+        else:
+            assert written.sum() > 1000
+            for f in fields:
+                assert (f[written].view(torch.uint8)
+                        == (0 if form == "fill" else 0x33)).all()
+            for f in fields:      # the next round's canaries
+                f[b // 2:].view(torch.uint8).fill_(0x5A)
+
+
+def test_row_copy_replays_in_a_cuda_graph(dev):
+    """Captured once, replayed with a mask that changes between replays:
+    each replay moves the rows its mask selects, as the plain version
+    does."""
+    n, b = 1000, 2100
+    fields = row_fields(dev, torch.float32, False, b, nx=40, nyk=64, seed=3)
+    dst, src, mask = row_case(dev, n, b, "none", "copy", seed=3)
+    static = mask.clone()
+    rc.row_copy(fields, dst, src, static)               # built, warmed
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        rc.row_copy(fields, dst, src, static)
+    gen = torch.Generator(dev).manual_seed(4)
+    for share in (0.0, 0.001, 0.03, 1.0, 0.3):
+        want = rc.row_copy_reference(
+            [f.clone() for f in fields], dst, src,
+            torch.rand(n, generator=gen.manual_seed(int(share * 1e4)),
+                       device=dev) < share)
+        static.copy_(torch.rand(n, generator=gen.manual_seed(
+            int(share * 1e4)), device=dev) < share)
+        g.replay()
+        torch.cuda.synchronize()
+        for f, w_ in zip(fields, want):
+            assert torch.equal(f.view(torch.uint8), w_.view(torch.uint8))
+
+
+def test_row_copy_past_2_31_elements(dev):
+    """The 100,000-particle pool's shape (``chip_smoke.check_big_kernels``):
+    400,000 blocks of 40 x 40 x 4 slots, an int32 meta image of 2.56e9
+    elements and a bfloat16 field, so element offsets pass 2^31 from block
+    335,545 on and byte offsets 2^32 sooner.  Masked rows copy from and
+    into blocks on both sides of that line, then others are filled; every
+    block is then checked against what it must hold, 25,000 at a time."""
+    b, n, per = 400_000, 100_000, 40 * 160
+    far = 2 ** 31 // per + 1
+    meta = torch.empty((b, 40, 160), dtype=torch.int32, device=dev)
+    mean = torch.empty((b, 40, 160), dtype=torch.bfloat16, device=dev)
+    origin = torch.empty((b, 2), dtype=torch.float32, device=dev)
+    e = torch.arange(per, device=dev).reshape(40, 160)
+
+    def content(ids):
+        """Each block's pattern from its id (-1: zeros)."""
+        i = ids.long()[:, None, None]
+        m = torch.where(i >= 0, i * 4096 + e % 4096, 0).to(torch.int32)
+        f = torch.where(i >= 0, (i % 200 + e % 50).float(), 0.0)
+        o = torch.where(ids[:, None] >= 0, ids.float()[:, None]
+                        * torch.tensor([1.0, -1.0], device=dev), 0.0)
+        return m, f.to(torch.bfloat16), o
+
+    step = 25_000
+    for lo in range(0, b, step):
+        ids = torch.arange(lo, lo + step, device=dev)
+        meta[lo:lo + step], mean[lo:lo + step], origin[lo:lo + step] = (
+            content(ids))
+    gen = torch.Generator(dev).manual_seed(5)
+    # the pool's last blocks written, from both sides of the line
+    last = torch.arange(b - 4, b, device=dev)
+    firsts = torch.tensor([far + 11, 3, b - 100], device=dev)
+    perm = torch.randperm(b, generator=gen, device=dev)
+    perm = perm[~torch.isin(perm, torch.cat([last, firsts]))]
+    dst = torch.cat([last, perm[:n - 4]]).to(torch.int32)
+    src = perm[n - 4:2 * n - 4].to(torch.int32)
+    src[1:4] = firsts.to(torch.int32)
+    mask = torch.rand(n, generator=gen, device=dev) < 0.05
+    mask[:8] = True
+    fills = mask & (torch.arange(n, device=dev) % 7 == 0)
+    copies = mask & ~fills
+    moved = dst[mask]
+    assert int((moved >= far).sum()) > 100
+    assert int((src[copies] >= far).sum()) > 100
+    rc.row_copy((meta, mean, origin), dst, src, copies)
+    rc.row_copy((meta, mean, origin), dst, None, fills)
+    want_id = torch.arange(b, device=dev)
+    want_id[dst[copies].long()] = src[copies].long()
+    want_id[dst[fills].long()] = -1
+    torch.cuda.synchronize()
+    for lo in range(0, b, step):
+        m, f, o = content(want_id[lo:lo + step])
+        assert torch.equal(meta[lo:lo + step], m)
+        assert torch.equal(mean[lo:lo + step].view(torch.int16),
+                           f.view(torch.int16))
+        assert torch.equal(origin[lo:lo + step], o)
+
+
+@pytest.mark.parametrize("with_color", [False, True])
+def test_own_heads_equals_cpu(dev, with_color):
+    """``streaming.own_heads`` (copy-on-write, then rollover) on a pool
+    on the card against the same call on a CPU clone of it, bit for bit:
+    a resampling shares heads and some particles leave their grid."""
+    n, b = 64, 256
+    pool = sim.random_pool(n, b, nx=8, ny=8, k=4, resolution=0.25, seed=9)
+    if with_color:
+        pool = dataclasses.replace(pool, color=torch.rand(
+            (b, 8, 8 * 4 * 3), generator=torch.Generator().manual_seed(9)))
+    gen = torch.Generator().manual_seed(10)
+    pool.resample_(torch.sort(torch.randint(0, n, (n,), generator=gen))
+                   .values)
+    xy = sim.poses_on_heads(pool, 1.0, seed=11)[0]
+    p = ParticleSet.zeros(n).with_xy(xy)
+    cfg = dataclasses.replace(Config(), grid_size=2.0, grid_resolution=0.25)
+    on_card = tree.to(pool, dev)
+    heads = pool.active().clone()
+    want, want_failed = streaming.own_heads(cfg, pool, p)
+    before = rc.row_copy.launches
+    got, failed = streaming.own_heads(cfg, on_card, tree.to(p, dev))
+    assert rc.row_copy.launches == before + 2
+    torch.cuda.synchronize()
+    assert int((want.active() != heads).sum()) > 10
+    for f in pool.data_fields() + ("origin", "allocated", "chain"):
+        assert torch.equal(getattr(got, f).cpu().view(torch.uint8),
+                           getattr(want, f).view(torch.uint8)), f
+    assert int(failed) == int(want_failed) == 0
 
 
 def test_kernels_reject_bad_operands(dev):
@@ -1497,9 +1726,9 @@ def test_graphed_slam_runner_equals_eager(dev, with_draws):
     """The SLAM runner as CUDA graphs at 4,096 particles over 40 frames
     equals the eager loop bit for bit: gates, centroids, best poses, the
     filter, every pool field (``meta`` with its update indices), the
-    chains and ``alloc_failed``; K2, K3 and S1 launches equal the gates
-    in the replayed run, which runs under ``set_sync_debug_mode
-    ("error")``."""
+    chains and ``alloc_failed``; K2, K3, S1 and row-copy launches (two a
+    mapping frame) equal the gates in the replayed run, which runs under
+    ``set_sync_debug_mode("error")``."""
     from slam_eslam_tpu_torch import ops
 
     n = 4096
@@ -1533,7 +1762,7 @@ def test_graphed_slam_runner_equals_eager(dev, with_draws):
     assert n_meas and n_map
     assert {k: after[k] - before[k] for k in after} == dict(
         dict.fromkeys(after, 0), chain_lookup=n_meas, block_merge=n_map,
-        ordered_scan=n_meas)
+        ordered_scan=n_meas, row_copy=2 * n_map)
     for name in ("updated", "mapped"):
         assert (ga[name] == ra[name]).all()
     assert bitwise(ga["centroid"], ra["centroid"])

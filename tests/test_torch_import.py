@@ -49,6 +49,7 @@ MODULES = [
     "slam_eslam_tpu_torch.ops.block_merge",
     "slam_eslam_tpu_torch.ops.chain_lookup",
     "slam_eslam_tpu_torch.ops.contact_fold",
+    "slam_eslam_tpu_torch.ops.row_copy",
     "slam_eslam_tpu_torch.ops.select_cells",
     "slam_eslam_tpu_torch.tools.ab_pool_dtype",
     "slam_eslam_tpu_torch.tools.bench_kernels",

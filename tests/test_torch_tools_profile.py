@@ -118,6 +118,21 @@ def test_op_share_counts_kernels_inside_the_copy_operators(tmp_path):
     assert ms == pytest.approx(0.04) and share == pytest.approx(0.4)
 
 
+def test_op_share_counts_the_row_copy_kernel(tmp_path):
+    """The map pool's row-copy kernel (``ops.row_copy``, launched outside
+    any operator) counts as a block copy by its name."""
+    kern = lambda name, ts, dur: {"ph": "X", "cat": "kernel", "name": name,
+                                  "ts": ts, "dur": dur, "tid": 7, "pid": 1,
+                                  "args": {}}
+    ev = [kern("(anonymous namespace)::row_copy_kernel((anonymous "
+               "namespace)::Fields, int const*)", 0, 30),
+          kern("block_merge_kernel", 40, 70)]
+    tmp_path.mkdir(exist_ok=True)
+    (tmp_path / "trace.json").write_text(json.dumps({"traceEvents": ev}))
+    ms, share = profile_slam.op_share(tmp_path)
+    assert ms == pytest.approx(0.03) and share == pytest.approx(0.3)
+
+
 # a body of three launches, as the card traces it: a gather inside an
 # ``index_select``, an ``index_copy_`` and an ``add``; (operator,
 # enclosing operator or None, kernel, device us)
