@@ -213,7 +213,22 @@ Phases (any failure raises and exits non-zero):
    pool (4,096 particles, 40 x 40 cells) and the benchmark cell's (1,000
    particles, 10.24 MB blocks), each timed as a kernel row; and at the
    cell's pool 0, 1, 32 and 1,000 masked rows of a 1,000-row call against
-   their byte bound.
+   their byte bound;
+15. the cloud merge CM (``csrc/cloud_merge.cu``, the merge of a cloud past
+   K3's 16,384 points) at the camera benchmark cell's shape: a 640 x 480
+   textured distance image of flat ground, through the camera projection,
+   under 1,000 poses into a float32 colour pool of 4,000 blocks of 400 x
+   400 cells x 4 slots (71.68 GB, heads spread from block 0 to the last),
+   one launch counted from a reset, held against the plain version from
+   the same start: on the CPU, whose sums go in point order as the
+   kernel's, at 40 heads from the first block to the last (mean, height,
+   meta and colour bit for bit, stdev within one float32 step), and on the
+   card at every head (meta bit for bit, floats to rounding: its sums go
+   in ``index_put_``'s order; the placement and cell counters equal), a
+   block no head names untouched; timed as a
+   kernel row against its bound from ``benchmark/roofline/merge_cloud.py``'s
+   counts; and at the laser cell's shape (1,081 points, no colour) CM in
+   turns with K3 alone and K3 with its operands.
 
 Every kernel's time is the card's own (``ms`` = ``device_ms``): 200 raw
 launches (a kernel module's ``launch``: no check, no allocation) captured
@@ -309,7 +324,7 @@ APP_PROFILE_FRAMES = 20
 APP_HASH_PERIOD = 5      # steps between hash reinjections
 CP_OK_RTOL = 1e-3        # cp_ok counts per update, GPU vs CPU port
 KERNELS = ("contact_fold", "chain_lookup", "block_merge", "select_cells",
-           "block_copy", "ordered_scan", "row_copy")
+           "block_copy", "ordered_scan", "row_copy", "cloud_merge")
 # every wrapper that counts launches: block_merge's source has two
 WRAPPERS = KERNELS + ("block_merge_packed",)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
@@ -5545,6 +5560,358 @@ def check_row_copy(dev, card):
     return times
 
 
+# phase 15: the cloud merge CM at the camera cell's shape (slam_cam_1k_f32:
+# 1,000 particles, a float32 colour pool of 4,000 blocks of 400 x 400
+# cells x 4 slots at 0.05 m, 71.68 GB; a 640 x 480 textured distance
+# image), and beside K3 at the laser cell's (1,081 rays, no colour)
+CM_N, CM_BLOCKS = 1000, 4000
+CM_GRID = dict(nx=400, ny=400, k=4, resolution=0.05)
+CM_IMAGE = (480, 640)            # rows, columns
+CM_FOV_X = np.radians(60.0)
+CM_PITCH = np.radians(38.0)      # down from the direction of travel
+CM_MOUNT = (0.0, 0.3, 0.25)      # m: camera to body, body +y ahead
+CM_CAMERA_HEIGHT = 0.45          # m above the flat ground
+CM_INVALID = 0.03                # share of pixels with no distance
+CM_TEMPLATES = 8                 # distinct head contents (random blocks)
+CM_GROUP = 25                    # heads the plain version merges at once
+CM_CPU_HEADS = 40                # heads held against the CPU's plain version
+# the card's plain version adds a cell's points in index_put_'s order, not
+# in point order, so its floats (metres, colour in [0, 1]) agree with the
+# kernel's to the rounding of sums of hundreds of terms (3.4e-6 read)
+CM_CARD_ATOL = 1e-4
+CM_REPS = 20                     # launches a graph at the cell's shape
+CM_UPDATE = 9
+CM_LASER_RAYS = 1081             # slam_1k_f32's Hokuyo UTM-30LX: 270 deg
+CM_LASER_REPS = 100
+
+
+def camera_frame_cloud(dev, seed):
+    """The camera cell's cloud: a distance image of flat ground
+    CM_CAMERA_HEIGHT below the camera (``drive_camera``'s mount and
+    intrinsics), CM_INVALID of its pixels without a distance, a random
+    texture, through ``streaming.camera_cloud`` at an upright pose."""
+    from slam_eslam_tpu_torch import Config
+    from slam_eslam_tpu_torch.filter import streaming
+    from slam_eslam_tpu_torch.mapping import projection
+
+    h, w = CM_IMAGE
+    s = float(np.tan(CM_FOV_X / 2) / (w / 2))
+    cx, cy = -s * (w - 1) / 2, -s * (h - 1) / 2
+    a = -CM_PITCH
+    pitch = torch.tensor([[1.0, 0.0, 0.0], [0.0, np.cos(a), -np.sin(a)],
+                          [0.0, np.sin(a), np.cos(a)]], dtype=torch.float64)
+    axes = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, -1.0, 0.0]],
+                        dtype=torch.float64)
+    rot = pitch @ axes                                   # camera to body
+    u = torch.arange(w, dtype=torch.float64).repeat(h) * s + cx
+    v = torch.arange(h, dtype=torch.float64).repeat_interleave(w) * s + cy
+    down = -(torch.stack([u, v, torch.ones_like(u)], -1) @ rot.T)[:, 2]
+    depth = torch.where(down > 0, CM_CAMERA_HEIGHT / down,
+                        torch.full_like(down, float("inf")))
+    gen = torch.Generator().manual_seed(seed)
+    depth[torch.rand(h * w, generator=gen) < CM_INVALID] = float("nan")
+    f32 = dict(dtype=torch.float32, device=dev)
+    img = projection.DistanceImage(
+        depth.reshape(h, w).to(**f32), *(torch.tensor(c, **f32)
+                                        for c in (s, s, cx, cy)))
+    texture = torch.rand(h, w, 3, generator=gen).to(dev)
+    return streaming.camera_cloud(
+        Config(max_sensor_range=3.0), img,
+        torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev), rot.to(**f32),
+        torch.tensor(CM_MOUNT, **f32), texture)
+
+
+def laser_cloud(dev):
+    """A scan of CM_LASER_RAYS rays over 270 degrees at 1.5-2.5 m,
+    projected with an identity mount and orientation."""
+    from slam_eslam_tpu_torch.mapping import projection
+
+    a = torch.arange(CM_LASER_RAYS, device=dev, dtype=torch.float32)
+    scan = projection.LaserScan(
+        2.0 + 0.5 * torch.sin(a / 37.0),
+        torch.tensor(-0.75 * np.pi, dtype=torch.float32, device=dev),
+        torch.tensor(1.5 * np.pi / (CM_LASER_RAYS - 1), dtype=torch.float32,
+                     device=dev))
+    pts, valid = projection.scan_to_points(scan, 3.0)
+    return projection.project_points(
+        pts, valid, torch.eye(3, device=dev), torch.zeros(3, device=dev),
+        torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev))
+
+
+def float_steps(a, b):
+    """Per-element distance, in float32 steps, of two float32 tensors of
+    one sign per element."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def cloud_merge_pool(dev):
+    """The camera cell's pool (CM_BLOCKS blocks, colour; fields left
+    uninitialised but for the heads and block 1) with CM_N heads spread
+    over it from block 0 to the last, head ``i`` a copy of template ``i %
+    CM_TEMPLATES`` (a ``sim.random_pool`` block with random colour).
+    Returns ``(pool, templates, template index of
+    each head)``; block 1, no head, holds template 0.  Every block's
+    origin puts (0, 0) at its centre."""
+    from slam_eslam_tpu_torch.mapping.map_pool import MapPool
+    from slam_eslam_tpu_torch.models import sim
+
+    nx, k = CM_GRID["nx"], CM_GRID["k"]
+    shape = (CM_BLOCKS, nx, CM_GRID["ny"] * k)
+    new = lambda dtype, s=shape: torch.empty(s, dtype=dtype, device=dev)
+    heads = torch.linspace(0, CM_BLOCKS - 1, CM_N, device=dev).round().int()
+    pool = MapPool(
+        mean=new(torch.float32), stdev=new(torch.float32),
+        height=new(torch.float32), meta=new(torch.int32),
+        color=new(torch.float32, shape[:2] + (shape[2] * 3,)),
+        origin=torch.full((CM_BLOCKS, 2), -nx * CM_GRID["resolution"] / 2,
+                          device=dev),
+        allocated=torch.zeros(CM_BLOCKS, dtype=torch.bool, device=dev),
+        chain=torch.full((CM_N, 3), -1, dtype=torch.int32, device=dev),
+        resolution=CM_GRID["resolution"], nx=nx, ny=CM_GRID["ny"], k=k)
+    pool.chain[:, 0] = heads
+    pool.allocated[heads.long()] = True
+    tmpl = sim.random_pool(CM_TEMPLATES, CM_TEMPLATES, nx, CM_GRID["ny"],
+                           k=k, resolution=CM_GRID["resolution"], seed=41,
+                           device=dev)
+    gen = torch.Generator(dev).manual_seed(42)
+    tmpl.color = torch.rand(tmpl.mean.shape[:2] + (shape[2] * 3,),
+                            generator=gen, device=dev)
+    which = torch.arange(CM_N, device=dev) % CM_TEMPLATES
+    for name in ("mean", "stdev", "height", "meta", "color"):
+        field, src = getattr(pool, name), getattr(tmpl, name)
+        for lo in range(0, CM_N, 100):
+            field.index_copy_(0, heads[lo:lo + 100].long(),
+                              src.index_select(0, which[lo:lo + 100]))
+        field[1] = src[0]
+    return pool, tmpl, which
+
+
+def cloud_merge_operands(pool, cloud, seed):
+    """``cm.cloud_merge``'s operands after the fields, as
+    ``map_pool.merge_cloud_all`` hands them over: the CM_N poses within
+    5 cm and 2 degrees of (0, 0), lifted to put the ground near the
+    templates' slot means (0.3 m)."""
+    dev = pool.mean.device
+    gen = torch.Generator(dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    xy = 0.05 * randn(CM_N, 2)
+    yaw = 0.3 + 0.035 * randn(CM_N)
+    z = CM_CAMERA_HEIGHT - CM_MOUNT[2] + 0.3 + 0.02 * randn(CM_N)
+    zs = 0.05 * torch.rand(CM_N, generator=gen, device=dev)
+    return (pool.origin, pool.chain[:, 0].contiguous(),
+            xy[:, 0].contiguous(), xy[:, 1].contiguous(), torch.cos(yaw),
+            torch.sin(yaw), z, zs, cloud.xy.contiguous(),
+            cloud.z.contiguous(), cloud.stdev.contiguous(),
+            cloud.valid.contiguous(),
+            None if cloud.color is None else cloud.color.contiguous()), yaw
+
+
+def plain_heads(pool, tmpl, which, args, idx, device, counts=None):
+    """The plain version (``cm.cloud_merge_reference``) on ``device`` for
+    the particles ``idx``, CM_GROUP at a time, each head started from its
+    template, with ``args`` (``cloud_merge_operands``), held against the
+    kernel's heads in ``pool``: ``{"differ": {field: elements not equal
+    bit for bit}, "stdev_steps": the most float32 steps a stdev differs,
+    "max_err": the largest absolute difference of a float field}``;
+    ``counts`` adds up the plain version's counters."""
+    from slam_eslam_tpu_torch.mapping.map_pool import MapPool
+    from slam_eslam_tpu_torch.ops import cloud_merge as cm
+
+    names = ("mean", "stdev", "height", "meta", "color")
+    heads = args[1].long()
+    to = lambda t: t if t is None else t.to(device)
+    cloud = [to(a) for a in args[8:]]
+    out = dict(differ=dict.fromkeys(names, 0), stdev_steps=0, max_err=0.0)
+    for lo in range(0, len(idx), CM_GROUP):
+        sel = idx[lo:lo + CM_GROUP].to(pool.mean.device)
+        g = len(sel)
+        part = MapPool(**{name: to(getattr(tmpl, name).index_select(
+                              0, which[sel])) for name in names},
+                       origin=to(pool.origin.index_select(0, heads[sel])),
+                       allocated=torch.ones(g, dtype=torch.bool,
+                                            device=device),
+                       chain=torch.arange(g, dtype=torch.int32,
+                                          device=device)[:, None],
+                       resolution=pool.resolution, nx=pool.nx, ny=pool.ny,
+                       k=pool.k)
+        cm.cloud_merge_reference(
+            *(getattr(part, name) for name in names), part.origin,
+            part.chain[:, 0].contiguous(),
+            *(to(a.index_select(0, sel)) for a in args[2:8]), *cloud,
+            CM_UPDATE, counts, k=pool.k, resolution=pool.resolution)
+        for name in names:
+            got = to(getattr(pool, name).index_select(0, heads[sel]))
+            want = getattr(part, name)
+            bad = got.view(torch.int32) != want.view(torch.int32)
+            out["differ"][name] += int(bad.sum())
+            if name == "stdev" and bad.any():
+                out["stdev_steps"] = max(out["stdev_steps"],
+                                         int(float_steps(got, want).max()))
+            if name != "meta":
+                out["max_err"] = max(out["max_err"],
+                                     float((got - want).abs().max()))
+        del part, got, want
+    return out
+
+
+def check_cloud_merge(dev, card):
+    """CM (``csrc/cloud_merge.cu``) at the camera cell's shape: one call
+    of ``cm.cloud_merge`` on the pool of ``cloud_merge_pool`` (its last
+    block a head: colour offsets past 2^32), launches counted from a reset
+    just before; held against the plain version
+    ``cm.cloud_merge_reference`` from the heads' templates with the same
+    operands (``plain_heads``): on the CPU, which adds in point order as
+    the kernel does, at CM_CPU_HEADS heads from the first to the last
+    (mean, height, meta and colour bit for bit, stdev within one float32
+    step), and on the card at every head (meta bit for bit, floats within
+    CM_CARD_ATOL, the counters equal); block 1, no head, untouched; timed
+    as a kernel row with its
+    bound from ``benchmark/roofline/merge_cloud.py``'s counts.  Then at
+    the laser cell's shape, the merge of CM_LASER_RAYS points under
+    CM_N poses into the same heads without colour, in turns: K3 alone, K3
+    with its operands (``map_pool.merge_operands``) and CM with its
+    bounds, each as ``merge_cloud_all`` runs it."""
+    from benchmark.roofline import merge_cloud as roof
+    from slam_eslam_tpu_torch import ops
+    from slam_eslam_tpu_torch.mapping import map_pool as mp
+    from slam_eslam_tpu_torch.ops import block_merge as bm
+    from slam_eslam_tpu_torch.ops import cloud_merge as cm
+    from slam_eslam_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    pool, tmpl, which = cloud_merge_pool(dev)
+    cloud = camera_frame_cloud(dev, seed=43)
+    args, yaw = cloud_merge_operands(pool, cloud, seed=44)
+    heads = args[1]
+    names = ("mean", "stdev", "height", "meta", "color")
+    fields = [getattr(pool, name) for name in names]
+    kw = dict(k=pool.k, resolution=pool.resolution)
+    spare = [f[1].clone() for f in fields]
+    valid = int(cloud.valid.sum())
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    print(f"cloud_merge: pool of {CM_BLOCKS} blocks "
+          f"({pool.storage_bytes() / 1e9:.2f} GB with colour), {CM_N} heads "
+          f"from block {int(heads[0])} to {int(heads[-1])}, a "
+          f"{CM_IMAGE[1]}x{CM_IMAGE[0]} image: {valid} valid pixels of "
+          f"{cloud.p}; set up in {time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    cm.cloud_merge(*fields, *args, CM_UPDATE, counters, **kw)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = dict(dict.fromkeys(WRAPPERS, 0), cloud_merge=1)
+    check(launches == want, "cloud_merge", f"launches {launches}, want "
+                                           f"{want}")
+    check(all(torch.equal(a, b) for a, b in zip(spare, (f[1] for f in
+                                                       fields))),
+          "cloud_merge", "block 1, no particle's head, changed")
+    del spare
+
+    # the plain version from the heads' templates: on the CPU, whose sums
+    # go in point order as the kernel's, for CM_CPU_HEADS heads; on the
+    # card for every head
+    t1 = time.perf_counter()
+    some = torch.linspace(0, CM_N - 1, CM_CPU_HEADS).round().long()
+    cpu_diff = plain_heads(pool, tmpl, which, args, some, "cpu")
+    t2 = time.perf_counter()
+    ref_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    card_diff = plain_heads(pool, tmpl, which, args,
+                            torch.arange(CM_N, device=dev), dev, ref_counts)
+    gc_cuda()
+    same_counts = torch.equal(counters, ref_counts)
+    placed, cells = (int(c) for c in counters.cpu())
+    print(f"cloud_merge: the kernel against its plain version on the CPU "
+          f"over {CM_CPU_HEADS} heads, blocks {int(heads[some[0]])} to "
+          f"{int(heads[some[-1]])} ({t2 - t1:.1f} s): elements that differ "
+          f"{cpu_diff['differ']} (stdev at most {cpu_diff['stdev_steps']} "
+          f"float32 steps), max abs difference {cpu_diff['max_err']:.3e}; "
+          f"on the card over {CM_N} heads ({time.perf_counter() - t2:.1f} "
+          f"s): {card_diff['differ']}, max abs difference "
+          f"{card_diff['max_err']:.3e} (the card's plain version adds a "
+          f"cell's points in index_put_'s order); counters {placed} "
+          f"placements, {cells} cells written, equal to the plain "
+          f"version's: {same_counts}")
+    check(all(n == 0 for name, n in cpu_diff["differ"].items()
+              if name != "stdev") and cpu_diff["stdev_steps"] <= 1,
+          "cloud_merge", "the kernel differs from its plain version on the "
+                         "CPU")
+    check(card_diff["differ"]["meta"] == 0
+          and card_diff["max_err"] <= CM_CARD_ATOL and same_counts,
+          "cloud_merge", "the kernel differs from its plain version on the "
+                         "card beyond rounding")
+    max_err = cpu_diff["max_err"]
+
+    # the bound, from the roofline module's own counts of the cell's work
+    origin = pool.origin.index_select(0, heads.long())
+    r_placed, r_cells = roof.placements(
+        args[2], args[3], yaw, origin, cloud.xy, cloud.valid,
+        pool.resolution, pool.nx, pool.ny)
+    nbytes = roof.needed_bytes(CM_N, cloud.p, r_cells, pool.k, 4, True)
+    flops = roof.needed_ops(r_placed, True)
+    bnd = bound(nbytes, flops)
+    print(f"cloud_merge: roofline counts {r_placed} placements, {r_cells} "
+          f"cells ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G operations): "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]})")
+    upd = device_index(CM_UPDATE, dev)
+    bounds = cm.cloud_bounds(cloud.xy, cloud.valid)
+    ops.reset_launch_counts()
+    times = kernel_times(
+        "cloud_merge[camera cell]",
+        lambda: cm.cloud_merge(*fields, *args, upd, **kw),
+        lambda: cm.launch(*fields, *args, bounds, upd, **kw),
+        "cloud_merge_kernel",
+        lambda: cm.cloud_merge_reference(*fields, *args, CM_UPDATE, **kw),
+        bnd, n_call=10, n_plain=1, reps=CM_REPS)
+    timed = ops.launch_counts()["cloud_merge"]
+
+    # the laser cell's shape: K3 against CM, no colour
+    laser = laser_cloud(dev)
+    largs, lyaw = cloud_merge_operands(pool, laser, seed=45)
+    largs = largs[:-1] + (None,)
+    f4 = fields[:4]
+    lpool = dataclasses.replace(pool, color=None)
+    xy = torch.stack([largs[2], largs[3]], -1)
+    k3_ops = mp.merge_operands(lpool, xy, lyaw, largs[6], largs[7], laser)
+    fns = {
+        "k3": lambda: bm.launch(*f4, None, *k3_ops, upd, None, k=pool.k),
+        "k3_operands": lambda: bm.launch(
+            *f4, None, *mp.merge_operands(lpool, xy, lyaw, largs[6],
+                                          largs[7], laser), upd, None,
+            k=pool.k),
+        "cm": lambda: cm.launch(*f4, None, *largs,
+                                cm.cloud_bounds(largs[8], largs[11]), upd,
+                                **kw)}
+    order = list(fns) + list(reversed(fns))
+    runs = [(name, profiling.device_time(fns[name], CM_LASER_REPS) * 1e3)
+            for name in order]
+    laser_ms = {name: sum(ms for n, ms in runs if n == name) / 2
+                for name in fns}
+    l_placed, l_cells = roof.placements(
+        largs[2], largs[3], lyaw, origin, laser.xy, laser.valid,
+        pool.resolution, pool.nx, pool.ny)
+    l_bnd = bound(roof.needed_bytes(CM_N, laser.p, l_cells, pool.k, 4,
+                                    False), roof.needed_ops(l_placed, False))
+    print(f"cloud_merge vs K3 at the laser cell's shape ({CM_LASER_RAYS} "
+          f"points x {CM_N} particles, float32, no colour; graphs of "
+          f"{CM_LASER_REPS}, in turns {[(n, round(ms, 5)) for n, ms in runs]}"
+          f"): K3 {laser_ms['k3']:.5f} ms alone, "
+          f"{laser_ms['k3_operands']:.5f} ms with its operands; CM "
+          f"{laser_ms['cm']:.5f} ms with its bounds; bound "
+          f"{l_bnd[0]:.5f} ms ({l_bnd[1]}) [{card}]")
+    del pool, tmpl, fields, args, k3_ops, lpool, fns
+    gc_cuda()
+    return dict(times, valid_pixels=valid, points=cloud.p,
+                placements=placed, cells_written=cells,
+                roofline_placements=r_placed, roofline_cells=r_cells,
+                elements_differ=cpu_diff["differ"],
+                stdev_steps=cpu_diff["stdev_steps"],
+                elements_differ_card=card_diff["differ"],
+                max_abs_err_card=card_diff["max_err"], max_abs_err=max_err, launches_check=launches["cloud_merge"],
+                launches_timed=timed,
+                **{f"laser_ms_{name}": ms for name, ms in laser_ms.items()},
+                laser_bound_ms=l_bnd[0], laser_placements=l_placed)
+
+
 def phase13(dev, card):
     """The ordered scan S1 and the multi-rank path (``parallel/``): (a)
     S1; (b) a world of one NCCL rank; (c) ``dryrun_multichip`` over
@@ -5920,6 +6287,17 @@ def main():
           f"ms), its rollover {k8['ms_cell_fill']:.5f} ms; no row masked "
           f"{k8['ms_masked_0']:.5f} ms; phase 14 "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
+    gc_cuda()
+    t0 = time.perf_counter()
+    cmr = check_cloud_merge(dev, card)
+    print(f"cloud merge: CM {cmr['ms']:.5f} ms for {cmr['valid_pixels']} "
+          f"valid pixels of {cmr['points']} under {CM_N} poses into the "
+          f"camera cell's {CM_BLOCKS}-block colour pool (bound "
+          f"{cmr['bound_ms']:.5f} ms, {cmr['bound_ms'] / cmr['ms']:.2%} of "
+          f"it; plain {cmr['plain_ms']:.5f} ms); at the laser cell's shape "
+          f"CM {cmr['laser_ms_cm']:.5f} ms against K3's "
+          f"{cmr['laser_ms_k3_operands']:.5f} ms with its operands; phase 15 "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
     # each tool's launches, those of its timing loops included
     tool_launches = lambda name, tools: {
         f"launches_{tool}": p12["launches"][tool][name] for tool in tools}
@@ -6061,6 +6439,16 @@ def main():
           **tool_launches("row_copy", (f"profile_slam_{SLAM_N}",
                                        f"profile_slam_{TOOLS_BIG_N}",
                                        "ab_pool_dtype"))}),
+        # no TPU kernel: the JAX package merges a cloud with K3 on [N, P]
+        # operands it builds first; the phase's own launches (no path
+        # above merges a cloud past K3's 16,384 points)
+        ("cloud_merge", "slam_eslam_tpu/mapping/map_pool.py:496",
+         cmr["launches_check"], cmr["max_abs_err"],
+         {key: v for key, v in cmr.items() if key != "max_abs_err"}, None,
+         {"launches_graphed": slam["launches_graphed"]["cloud_merge"],
+          "launches_graphed_mapping": gm["launches"]["cloud_merge"],
+          "launches_graphed_camera_hash":
+              ch["launches_graphed"]["cloud_merge"]}),
     )
     # block_merge_packed is the second entry point of block_merge's source
     source = lambda name: name.removesuffix("_packed")

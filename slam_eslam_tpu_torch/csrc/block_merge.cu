@@ -36,7 +36,8 @@
 // of (cell << 32 | point) keys in shared memory (cell_sort.cuh): O(P
 // log^2 P) work, so a camera cloud of thousands of points stays cheap; P
 // is bounded by the shared memory of one CTA (kMaxPoints keys of 8 bytes;
-// the launcher refuses more, and a caller chunks the cloud).  The first
+// the launcher refuses more; a larger cloud shared by every particle takes
+// cloud_merge.cu).  The first
 // entry of each run of equal cells then owns that cell: it sums the run's
 // points in point-index order (deterministic, no atomics on values, the
 // order of the plain version's stable sort), reads the cell's K slots,

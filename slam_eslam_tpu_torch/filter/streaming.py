@@ -543,9 +543,10 @@ def make_slam_step(cfg: Config, laser2body=None, hash_=None, match=None,
         true)``, ``:301``)."""
         consts = constants(q.device)
         c_rot, c_trans = consts["camera"]
-        cloud = camera_cloud(
-            cfg, projection.DistanceImage(dimg, *consts["intrinsics"]), q,
-            c_rot, c_trans, timg if camera_texture else None)
+        with tracing.stage("camera cloud", q.device):
+            cloud = camera_cloud(
+                cfg, projection.DistanceImage(dimg, *consts["intrinsics"]),
+                q, c_rot, c_trans, timg if camera_texture else None)
         view, gp, back = pool_view(pool, st.particles)
         st, view, failed, update_idx = map_cloud(cfg, st, view, gp, cloud,
                                                  update_idx, failed)

@@ -23,8 +23,9 @@ Differences from the JAX package, all for the GPU:
   it and a CUDA graph replays it whatever the mask holds.  CPU tensors
   take its plain version (the masked rows picked on the host).
 * The chain lookup and the merge run kernels K2 (``ops.chain_lookup``)
-  and K3 (``ops.block_merge``) on CUDA tensors, their plain versions on
-  CPU tensors.  The float fields are stored as float32 or bfloat16
+  and K3 (``ops.block_merge``; a cloud beyond K3's 16,384 points,
+  ``ops.cloud_merge``) on CUDA tensors, their plain versions on CPU
+  tensors.  The float fields are stored as float32 or bfloat16
   (``Config.map_pool_dtype``): every read upcasts (exactly), arithmetic
   is float32, a written slot rounds once, lookups return float32.
   The lookup of a colourless pool is SoA; a colour-carrying pool's
@@ -68,6 +69,7 @@ from slam_eslam_tpu_torch.mapping.mls_grid import (  # noqa: F401
     inverse_resolution, pack_meta)
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
+from slam_eslam_tpu_torch.ops import cloud_merge as cm
 from slam_eslam_tpu_torch.ops import row_copy as rc
 from slam_eslam_tpu_torch.utils import tracing
 
@@ -650,21 +652,31 @@ def _active_cells(pool: MapPool, wx, wy):
     return active, ix, iy, inb
 
 
+def _merge_heads(pool: MapPool):
+    """Each particle's head as a row of this rank's fields, -1 where it
+    lies on another rank (one that pool exhaustion left un-homed): the
+    rank cannot write it, as the JAX package's shard-local merge cannot."""
+    active = pool.active()
+    if pool.mesh is None:
+        return active
+    active = active - pool.block_offset
+    return torch.where((active >= 0) & (active < pool.bl), active, -1)
+
+
 def merge_operands(pool: MapPool, xy, yaw, z_offset, offset_stdev,
                    cloud: PatchCloud):
     """The block-merge operands of one scan cloud under every particle's
     pose (``map_pool.py:523-553`` of the JAX package): ``(blk [N],
     lx [N, P], ly, w, wz)`` with the cloud placed by each pose, lifted by
     ``z_offset`` and widened by ``offset_stdev``; masked-out points get
-    ``lx = nx``, ``ly = ny`` and ``w = 0``."""
-    wx, wy = _world_points(cloud.xy, xy, yaw)
-    wz = cloud.z[None, :] + z_offset[:, None]
-    var = (cloud.stdev ** 2)[None, :] + (offset_stdev ** 2)[:, None]
-    active, ix, iy, inb = _active_cells(pool, wx, wy)
-    mask = inb & cloud.valid[None, :]
-    w = torch.where(mask, 1.0 / var.clamp(min=1e-12), torch.zeros_like(var))
-    return (active.contiguous(), torch.where(mask, ix, pool.nx),
-            torch.where(mask, iy, pool.ny), w, w * wz)
+    ``lx = nx``, ``ly = ny`` and ``w = 0`` (``ops.cloud_merge.operands``,
+    which the cloud merge places inside its kernel)."""
+    heads = _merge_heads(pool)
+    ops = cm.operands(pool.origin, heads, xy[:, 0], xy[:, 1], torch.cos(yaw),
+                      torch.sin(yaw), z_offset, offset_stdev, cloud.xy,
+                      cloud.z, cloud.stdev, cloud.valid, pool.nx, pool.ny,
+                      inverse_resolution(pool.resolution))
+    return (heads.clamp(min=0).contiguous(), *ops)
 
 
 def merge_cloud_all(pool: MapPool, xy, yaw, z_offset, offset_stdev,
@@ -682,12 +694,38 @@ def merge_cloud_all(pool: MapPool, xy, yaw, z_offset, offset_stdev,
     merges each rank's particles into its own blocks, K3 run shard-locally
     with ``blk = active - rank * B/P`` (JAX ``map_pool.py:581-593``);
     ``mesh`` is accepted for the JAX call shape and the pool's own is
-    used."""
-    bm.block_merge(
+    used.
+
+    A cloud of more than ``block_merge.MAX_POINTS`` points takes kernel
+    ``ops.cloud_merge`` instead (its plain version on the CPU): the same
+    merge, its operands placed inside the kernel from the cloud ``[P]`` and
+    the poses ``[N]``, with no ``[N, P]`` tensor.  While the tracer takes
+    marks, that merge counts ``merge.points`` (the valid placements in a
+    block) and ``merge.cells`` (the cells written) on the device."""
+    if cloud.p <= bm.MAX_POINTS:
+        bm.block_merge(
+            pool.mean, pool.stdev, pool.height, pool.meta, pool.color,
+            *merge_operands(pool, xy, yaw, z_offset, offset_stdev, cloud),
+            update_idx,
+            None if pool.color is None else cloud.color.contiguous(),
+            k=pool.k, patch_thickness=patch_thickness, gap_size=gap_size)
+        return pool
+    heads = _merge_heads(pool)
+    counters = (torch.zeros(2, dtype=torch.int64, device=heads.device)
+                if tracing.marking() else None)
+    cm.cloud_merge(
         pool.mean, pool.stdev, pool.height, pool.meta, pool.color,
-        *merge_operands(pool, xy, yaw, z_offset, offset_stdev, cloud),
-        update_idx, None if pool.color is None else cloud.color.contiguous(),
-        k=pool.k, patch_thickness=patch_thickness, gap_size=gap_size)
+        pool.origin, heads.contiguous(), xy[:, 0].contiguous(),
+        xy[:, 1].contiguous(), torch.cos(yaw), torch.sin(yaw),
+        z_offset.contiguous(), offset_stdev.contiguous(),
+        cloud.xy.contiguous(), cloud.z.contiguous(),
+        cloud.stdev.contiguous(), cloud.valid.contiguous(),
+        None if pool.color is None else cloud.color.contiguous(),
+        update_idx, counters, k=pool.k, resolution=pool.resolution,
+        patch_thickness=patch_thickness, gap_size=gap_size)
+    if counters is not None:
+        tracing.count("merge.points", counters[0])
+        tracing.count("merge.cells", counters[1])
     return pool
 
 

@@ -237,7 +237,8 @@ def pack_meta(valid, horizontal, update_idx):
 def run_sums_rows(lin, w, wz, color=None):
     """Per row: sort the entries by cell id ``lin [N, P]`` (stable, so
     equal cells keep point order) and sum ``w``, ``wz`` (and ``w *
-    color``) over each run of equal cells, adding in point order.
+    color``) over each run of equal cells, adding in point order on the
+    CPU and in ``utils.scatter.add_at``'s fixed order on the card.
 
     Returns ``(lin_s, order, first, wsum, wzsum, csum)``: the sorted ids,
     the permutation, a mark on the first entry of each run, and the run
@@ -249,7 +250,7 @@ def run_sums_rows(lin, w, wz, color=None):
     first[:, 1:] = lin_s[:, 1:] != lin_s[:, :-1]
     seg = torch.cumsum(first.to(torch.int64), dim=1) - 1          # [N, P]
     # each run's element of the flat [N * P] sums; add_at adds a run's
-    # entries in turn, in point order, the same on every call and device
+    # entries in one fixed order, point order on the CPU (utils.scatter)
     run = (torch.arange(n, device=lin.device)[:, None] * p + seg).reshape(-1)
 
     def run_sum(v, trail=()):

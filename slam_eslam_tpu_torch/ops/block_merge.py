@@ -170,7 +170,9 @@ def block_merge(mean, stdev, height, meta, color, blk, lx, ly, w, wz,
     n, p = lx.shape
     if p > MAX_POINTS:
         raise ValueError(f"block_merge takes at most {MAX_POINTS} points "
-                         f"per particle, got {p}: merge the cloud in chunks")
+                         f"per particle, got {p}: a larger cloud shared by "
+                         f"every particle takes ops.cloud_merge "
+                         f"(map_pool.merge_cloud_all picks it)")
     if nyk % k:
         raise ValueError(f"pool lane extent {nyk} is not a multiple of "
                          f"k={k}")

@@ -43,9 +43,11 @@ million.
 The marks are taken where the work happens, in the shared step
 functions: the localisation stages ``odometry``, ``project``,
 ``weights``, ``resample`` and ``centroid``; the SLAM frame's
-``propagate``, ``measure``, ``reinject``, ``own heads``, ``merge`` and
-``centroid``; and the map pool's counters ``pool.head_rows_moved``,
-``pool.heads_copied``, ``pool.heads_started`` and ``pool.alloc_failed``.
+``propagate``, ``measure``, ``reinject``, ``own heads``, ``camera cloud``,
+``merge`` and ``centroid``; the map pool's counters
+``pool.head_rows_moved``, ``pool.heads_copied``, ``pool.heads_started``
+and ``pool.alloc_failed``; and the cloud merge's ``merge.points`` and
+``merge.cells`` (``map_pool.merge_cloud_all`` beyond K3's points).
 ``write(path)`` exports the records as a Chrome trace, to open beside a
 profiler's.
 """
@@ -551,6 +553,14 @@ def recording():
     """Whether spans and marks are recorded here (tracing on, or inside a
     call of a runner that holds a traced graph)."""
     return TRACER.recording()
+
+
+def marking():
+    """Whether a mark taken here would be recorded (``count`` and
+    ``stage`` do something): inside a traced capture or replay, under
+    ``enable()``, or in the call of a runner that records.  Work that
+    feeds a counter is made only then."""
+    return TRACER._live()
 
 
 def span(name):

@@ -1,10 +1,14 @@
 """CUDA kernels K1 (``csrc/contact_fold.cu``), K2 (``csrc/chain_lookup.cu``),
 K3 (``csrc/block_merge.cu``, and through its second entry point the merge
 on a packed block image, P4), K5 (``csrc/select_cells.cu``), K7
-(``csrc/block_copy.cu``) and the map pool's row copy K8
+(``csrc/block_copy.cu``), the map pool's row copy K8
 (``csrc/row_copy.cu``: bit for bit, a mask off touches no byte, replayed
 in a CUDA graph with a changing mask, past 2^31 elements, and
-copy-on-write with rollover against the CPU) against their plain PyTorch
+copy-on-write with rollover against the CPU) and the cloud merge
+(``csrc/cloud_merge.cu``: K3's result bit for bit on clouds K3 takes, a
+307,200-point cloud against the CPU and bit for bit from run to run and
+in a CUDA graph, and at the 4,000-block colour pool's shape, whose
+offsets pass 2^32) against their plain PyTorch
 versions on the card, and short GPU-vs-CPU runs of the localisation and SLAM paths and
 of the application API's contact update.  The backend: every pose-graph
 solver and ``scan_align`` on the card against the CPU port, the solvers
@@ -55,6 +59,7 @@ from slam_eslam_tpu_torch.models.asguard import AsguardSim
 from slam_eslam_tpu_torch.ops import block_copy as bc
 from slam_eslam_tpu_torch.ops import block_merge as bm
 from slam_eslam_tpu_torch.ops import chain_lookup as cl
+from slam_eslam_tpu_torch.ops import cloud_merge as cm
 from slam_eslam_tpu_torch.ops import contact_fold as cf
 from slam_eslam_tpu_torch.ops import ordered_scan as osc
 from slam_eslam_tpu_torch.ops import row_copy as rc
@@ -1972,3 +1977,190 @@ def test_graphed_stat_map_test_equals_eager(dev, tmp_path):
     for key in ref:
         assert np.array_equal(got[key], ref[key], equal_nan=True), key
     assert got_file == ref_file
+
+
+# ---- the cloud merge (csrc/cloud_merge.cu): K3's merge with the operands
+# placed inside the kernel, for clouds of any size
+
+def camera_cloud(p, seed, dev, spread=1.0):
+    """A cloud of ``p`` points as a camera gives it: rows of a dense image
+    over ~1.6 x 1.4 m ahead (hundreds of points a 5 cm cell near the
+    camera), heights near 0.3 m, colour, a few points invalid."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    w = 640
+    h = p // w
+    v = torch.arange(h, device=dev).repeat_interleave(w).float() / h
+    u = torch.arange(w, device=dev).repeat(h).float() / w - 0.5
+    depth = 0.3 + spread * 1.4 * v ** 2
+    xy = torch.stack([u * (0.4 + spread * depth), depth], -1)
+    return PatchCloud.create(
+        xy=xy, z=0.3 + 0.02 * torch.randn(h * w, generator=gen, device=dev),
+        stdev=0.01 + 0.04 * torch.rand(h * w, generator=gen, device=dev),
+        valid=torch.rand(h * w, generator=gen, device=dev) < 0.97,
+        color=torch.rand(h * w, 3, generator=gen, device=dev))
+
+
+def cloud_args(pool, xy, yaw, z, zs, cloud, blk=None):
+    """``cm.cloud_merge``'s operands as ``map_pool.merge_cloud_all`` hands
+    them over."""
+    blk = pool.active() if blk is None else blk
+    return (pool.origin, blk.contiguous(), xy[:, 0].contiguous(),
+            xy[:, 1].contiguous(), torch.cos(yaw), torch.sin(yaw),
+            z.contiguous(), zs.contiguous(), cloud.xy.contiguous(),
+            cloud.z.contiguous(), cloud.stdev.contiguous(),
+            cloud.valid.contiguous(),
+            None if pool.color is None else cloud.color.contiguous())
+
+
+def with_colour(pool, seed):
+    gen = torch.Generator(pool.mean.device).manual_seed(seed)
+    pool.color = torch.rand(pool.mean.shape[:2] + (pool.mean.shape[2] * 3,),
+                            generator=gen,
+                            device=pool.mean.device).to(pool.mean.dtype)
+    return pool
+
+
+def fields_of(pool, color=True):
+    out = [pool.mean, pool.stdev, pool.height, pool.meta]
+    return out + ([pool.color] if color and pool.color is not None else [])
+
+
+@pytest.mark.parametrize("p", [1, 33, 5000, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("color", [False, True])
+def test_cloud_merge_equals_k3(dev, p, dtype, color):
+    """On a cloud K3 takes, the cloud merge writes what K3 writes on
+    ``merge_operands``' rows, bit for bit, colour included."""
+    pool = sim.random_pool(256, 1024, 40, 40, seed=p, device=dev,
+                           dtype=dtype)
+    if color:
+        with_colour(pool, p)
+    cloud = camera_cloud(-(-p // 640) * 640, p, dev)
+    cloud = PatchCloud(xy=cloud.xy[:p], z=cloud.z[:p],
+                       stdev=cloud.stdev[:p], valid=cloud.valid[:p],
+                       color=cloud.color[:p])
+    xy, yaw, z, zs = sim.poses_on_heads(pool, 1.0, p)
+    k3 = [f.clone() for f in fields_of(pool)]
+    cl_ = [f.clone() for f in fields_of(pool)]
+    ops = mp.merge_operands(pool, xy, yaw, z, zs, cloud)
+    bm.block_merge(*k3[:4], k3[4] if color else None, *ops, 7,
+                   cloud.color if color else None, k=pool.k)
+    before = cm.cloud_merge.launches
+    cm.cloud_merge(*cl_[:4], cl_[4] if color else None,
+                   *cloud_args(pool, xy, yaw, z, zs, cloud), 7,
+                   k=pool.k, resolution=pool.resolution)
+    assert cm.cloud_merge.launches == before + 1
+    torch.cuda.synchronize()
+    assert int((k3[3] != pool.meta).sum()) > 0
+    for a, b in zip(k3, cl_):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cloud_merge_camera_cloud_matches_cpu_and_repeats(dev, dtype):
+    """A 640 x 480 cloud (307,200 points) into 32 particles' heads of the
+    cell's 400 x 400 grids at 0.05 m, colour pool: against the plain
+    version on the CPU (given the card's cos and sin): mean, height, meta
+    and colour bit for bit, stdev within one step; the tracer's counters
+    as the plain version counts them; and bit for bit from run to run
+    and replayed in a CUDA graph."""
+    n = 32
+    pool = sim.random_pool(n, 4 * n, 400, 400, resolution=0.05, seed=21,
+                           device=dev, dtype=dtype)
+    with_colour(pool, 21)
+    cloud = camera_cloud(640 * 480, 22, dev)
+    xy, yaw, z, zs = sim.poses_on_heads(pool, 2.0, 23)
+    args = cloud_args(pool, xy, yaw, z, zs, cloud)
+    kw = dict(k=pool.k, resolution=pool.resolution)
+    runs = []
+    for _ in range(2):
+        f = [t.clone() for t in fields_of(pool)]
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        cm.cloud_merge(*f[:4], f[4], *args, 11, counts, **kw)
+        runs.append((f, counts))
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    # a CUDA graph's replay, from a fresh copy each time
+    f = [t.clone() for t in fields_of(pool)]
+    upd = torch.full((), 11, dtype=torch.int32, device=dev)
+    bounds = cm.cloud_bounds(args[8], args[11])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cm.launch(*f[:4], f[4], *args, bounds, upd, **kw)
+    for _ in range(2):
+        for t, t0 in zip(f, fields_of(pool)):
+            t.copy_(t0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(f, runs[0][0]):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    cpu = [t.cpu() for t in fields_of(pool)]
+    cpu_counts = torch.zeros(2, dtype=torch.int64)
+    cm.cloud_merge_reference(*cpu[:4], cpu[4], *(a.cpu() for a in args), 11,
+                             cpu_counts, **kw)
+    kern, counts = runs[0]
+    assert int((kern[3] != pool.meta).sum()) > 500 * n
+    assert torch.equal(counts.cpu(), cpu_counts)
+    for name, a, b in zip(("mean", "stdev", "height", "meta", "color"),
+                          kern, cpu):
+        assert steps(a, b) <= (1 if name == "stdev" else 0), name
+
+
+def test_cloud_merge_at_the_colour_pool_shape(dev):
+    """The camera cell's pool: 4,000 blocks of 400 x 400 cells x 4 slots,
+    float32 fields and colour (71.68 GB; the colour field holds 7.68e9
+    elements, so its offsets pass 2^32 from block 2,237 on).  Heads in the
+    last block, near the middle and at the start take a 307,200-point
+    cloud; each written block equals the plain version's on the CPU, and
+    a block no head names is untouched."""
+    b, nx, k = 4000, 400, 4
+    shape = (b, nx, nx * k)
+    new = lambda dt, *s: torch.empty(s or shape, dtype=dt, device=dev)
+    pool = mp.MapPool(
+        mean=new(torch.float32), stdev=new(torch.float32),
+        height=new(torch.float32), meta=new(torch.int32),
+        color=new(torch.float32, b, nx, nx * k * 3),
+        origin=torch.zeros((b, 2), device=dev),
+        allocated=torch.zeros(b, dtype=torch.bool, device=dev),
+        chain=torch.full((3, 3), -1, dtype=torch.int32, device=dev),
+        resolution=0.05, nx=nx, ny=nx, k=k)
+    heads = torch.tensor([b - 1, 2001, 0], dtype=torch.int32, device=dev)
+    spare = 1000
+    small = sim.random_pool(3, 4, nx, nx, resolution=0.05, seed=31,
+                            device=dev)
+    with_colour(small, 31)
+    for i, blk in enumerate(heads.tolist() + [spare]):
+        for name in ("mean", "stdev", "height", "meta", "color"):
+            getattr(pool, name)[blk] = getattr(small, name)[i]
+        pool.origin[blk] = torch.tensor([-10.0 + i, -10.0 - i], device=dev)
+    pool.chain[:, 0] = heads
+    xy = pool.origin[heads.long()] + 10.0
+    yaw = torch.tensor([0.3, -2.0, 1.2], device=dev)
+    z = torch.zeros(3, device=dev)
+    zs = torch.full((3,), 0.02, device=dev)
+    cloud = camera_cloud(640 * 480, 32, dev)
+    args = cloud_args(pool, xy, yaw, z, zs, cloud)
+    kw = dict(k=k, resolution=0.05)
+    spare_meta = pool.meta[spare].clone()
+    cm.cloud_merge(*fields_of(pool)[:4], pool.color, *args, 4, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pool.meta[spare], spare_meta)
+    # the plain version on a pool of the three heads alone
+    cpu = mp.MapPool(
+        mean=small.mean[:3].cpu(), stdev=small.stdev[:3].cpu(),
+        height=small.height[:3].cpu(), meta=small.meta[:3].cpu(),
+        color=small.color[:3].cpu(),
+        origin=pool.origin[heads.long()].cpu(),
+        allocated=torch.ones(3, dtype=torch.bool),
+        chain=torch.arange(3, dtype=torch.int32)[:, None].expand(3, 3)
+        .contiguous(), resolution=0.05, nx=nx, ny=nx, k=k)
+    cargs = (cpu.origin, torch.arange(3, dtype=torch.int32)) + tuple(
+        a.cpu() for a in args[2:])
+    cm.cloud_merge_reference(*fields_of(cpu)[:4], cpu.color, *cargs, 4, **kw)
+    for i, blk in enumerate(heads.tolist()):
+        for name in ("mean", "stdev", "height", "meta", "color"):
+            got, want = getattr(pool, name)[blk], getattr(cpu, name)[i]
+            assert steps(got, want) <= (1 if name == "stdev" else 0), (
+                blk, name)
+        assert int((pool.meta[blk].cpu() != small.meta[i].cpu()).sum()) > 100
